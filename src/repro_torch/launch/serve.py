@@ -1,0 +1,119 @@
+"""Serving CLI of the port — a thin shell over serving.engine.ServeEngine.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        --dbpim-mode joint
+
+Runs on the CUDA card by default (``--device cpu`` runs the plain
+versions on the CPU). ``--dbpim-mode joint`` packs every layer's
+projections into the uniform-MAXB joint-sparse stacked layout once at
+startup, on the device, and serves both decode steps and prefill chunks
+through the ``joint_sparse_matmul`` kernel ((1 - value_sparsity) * 0.5 of
+dense bf16 weight bytes). ``--dbpim-mode value`` serves the bf16-payload
+variant of the same layout. Params are random, from ``--seed``.
+
+Load is a deterministic trace (serving.workload): Poisson arrivals at
+``--arrival-rate`` requests/tick, prompt lengths from ``--prompt-len LO
+HI`` under ``--dist``, fixed ``--seed``.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.configs import get_config
+from repro_torch.device import resolve_device
+from repro_torch.models import init_params
+from repro_torch.serving import ServeEngine, WorkloadSpec, make_trace
+from repro_torch.sparsity.sparse_linear import (build_stacked_tables,
+                                                strip_packed_projections)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--dbpim-mode", default=None,
+                    choices=["dense", "value", "bit", "joint"],
+                    help="serve through the joint-sparse kernel path "
+                         "(joint = value x bit sparse)")
+    ap.add_argument("--value-sparsity", type=float, default=None,
+                    help="tile-granular value sparsity for joint/value "
+                         "(default: cfg.dbpim_value_sparsity)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="engine slots (static decode batch)")
+    ap.add_argument("--max-len", type=int, default=64)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, nargs=2, default=[4, 24],
+                    metavar=("LO", "HI"))
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--prefill-chunk", type=int, default=16,
+                    help="prompt tokens per chunked-prefill device call")
+    ap.add_argument("--arrival-rate", type=float, default=0.5,
+                    help="Poisson arrivals per engine tick (0 = all at t0)")
+    ap.add_argument("--dist", default="uniform",
+                    choices=["uniform", "bimodal", "fixed", "lognormal",
+                             "zipf"],
+                    help="prompt-length distribution")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; raises without a card)")
+    return ap
+
+
+def build_engine_and_trace(args, cfg):
+    """Engine + trace from parsed args (shared by the CLI and
+    chip_smoke.py). Returns (engine, trace, stacked_tables)."""
+    dev = resolve_device(args.device)
+    params = init_params(cfg, seed=args.seed, device=dev)
+    tables = None
+    if cfg.dbpim and cfg.dbpim_mode != "dense":
+        tables = build_stacked_tables(params, cfg,
+                                      value_sparsity=args.value_sparsity)
+        # the packed tables now serve these matmuls: drop the dense copies
+        params = strip_packed_projections(params, cfg)
+        nbytes = sum(a.numel() * a.element_size()
+                     for t in tables.arrays.values() for a in t.values())
+        print(f"[serve] dbpim_mode={cfg.dbpim_mode}: "
+              f"{len(tables.arrays)} projection families packed, "
+              f"{nbytes / 1e6:.2f} MB stacked tables (dense copies stripped)")
+    engine = ServeEngine(cfg, params, n_slots=args.batch,
+                         max_len=args.max_len,
+                         prefill_chunk=args.prefill_chunk,
+                         stacked_tables=tables, device=dev)
+    spec = WorkloadSpec(n_requests=args.requests,
+                        arrival_rate=args.arrival_rate,
+                        prompt_len=tuple(args.prompt_len),
+                        gen_len=(args.gen_len, args.gen_len),
+                        dist=args.dist, seed=args.seed)
+    return engine, make_trace(spec, cfg.vocab_size), tables
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    cfg = get_config(args.arch, reduced=args.reduced,
+                     dbpim_mode=args.dbpim_mode)
+    engine, trace, _ = build_engine_and_trace(args, cfg)
+    outputs = engine.run(trace)
+    s = engine.metrics.summary()
+    print(f"[serve] {s['n_completed']}/{s['n_requests']} requests, "
+          f"{s['generated_tokens']} tokens in {s['engine_ticks']} ticks / "
+          f"{s['device_calls']} device calls "
+          f"({s['decode_calls']} decode + {s['prefill_calls']} prefill)")
+    if s["ttft_ticks_mean"] is not None:
+        print(f"[serve] tokens/step={s['tokens_per_step']:.3f}  ttft_ticks "
+              f"mean={s['ttft_ticks_mean']:.1f} p95={s['ttft_ticks_p95']}")
+    if s["tokens_per_sec"]:
+        print(f"[serve] wall {s['wall_s']:.2f}s  "
+              f"{s['tokens_per_sec']:.1f} tok/s  "
+              f"{s['per_token_latency_ms']:.2f} ms/token")
+    for kind, h in s["call_latency_ms"].items():
+        print(f"[serve] latency {kind}: p50={h['p50_ms']:.2f} "
+              f"p95={h['p95_ms']:.2f} p99={h['p99_ms']:.2f} ms "
+              f"({h['count']} calls)")
+    for rid in sorted(outputs):
+        print(f"  req{rid}: {outputs[rid][:8]}...")
+    return outputs
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,151 @@
+"""Attention for the serving path: GQA with RoPE and qk-norm against a
+contiguous static-shape KV cache.
+
+Port of the contiguous branches of ``repro.models.attention``. Attention
+is plain tensor math in the reference, so it stays plain ``einsum`` here
+(no fused attention operator), with the same -1e30 masking and the fp32
+softmax cast back to the activation dtype.
+
+Shapes: x (B, S, D); q (B, S, Hq, hd); k/v (B, S, Hkv, hd). Cache:
+{"k", "v"} (B, A, Hkv, hd) per layer, A = allocated length.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .config import ModelConfig
+from .layers import (_normal, apply_rope, dtype_of, rms_head_norm,
+                     rope_frequencies)
+
+
+def init_attention(cfg: ModelConfig, gen, device, lead=()):
+    dt = dtype_of(cfg)
+    d = cfg.d_model
+    s = d ** -0.5
+    p = {"wq": (_normal(gen, lead + (d, cfg.q_dim), device) * s).to(dt),
+         "wk": (_normal(gen, lead + (d, cfg.kv_dim), device) * s).to(dt),
+         "wv": (_normal(gen, lead + (d, cfg.kv_dim), device) * s).to(dt),
+         "wo": (_normal(gen, lead + (cfg.q_dim, d), device)
+                * cfg.q_dim ** -0.5).to(dt)}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(lead + (cfg.hd,), dtype=torch.float32,
+                                 device=device)
+        p["k_norm"] = torch.ones(lead + (cfg.hd,), dtype=torch.float32,
+                                 device=device)
+    return p
+
+
+def _split_heads(x, n, hd):
+    return x.reshape(x.shape[:-1] + (n, hd))
+
+
+def _repeat_kv(k, n_rep):
+    if n_rep == 1:
+        return k
+    return torch.repeat_interleave(k, n_rep, dim=2)
+
+
+def _sdpa(q, k, v, mask, dtype):
+    """q (B,Sq,H,hd), k/v (B,Skv,H,hd), mask broadcast (B,1,Sq,Skv). The
+    probs @ v contraction is a plain batched matmul on pre-transposed v,
+    the row-stable form the reference chose so a 1-token decode and a
+    C-token chunk agree bit for bit."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    logits = torch.where(mask, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.transpose(1, 2))
+    return out.transpose(1, 2)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
+               device):
+    """Stacked KV cache for a layer stack (full causal attention: the
+    sliding-window ring buffer is not ported yet)."""
+    dt = dtype_of(cfg)
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _per_slot_pos(pos, B: int, device=None):
+    """A cache position, scalar (lock-step batch) or (B,) (per-slot
+    depths), as a (B,) int32 vector: both shapes flow through the same
+    math."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=device)
+    return torch.atleast_1d(pos).expand(B)
+
+
+def _project_qkv(p, x, positions, cfg: ModelConfig, mm):
+    q = _split_heads(mm(p["wq"], x, "wq"), cfg.n_heads, cfg.hd)
+    k = _split_heads(mm(p["wk"], x, "wk"), cfg.n_kv_heads, cfg.hd)
+    v = _split_heads(mm(p["wv"], x, "wv"), cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = rms_head_norm(p["q_norm"], q)
+        k = rms_head_norm(p["k_norm"], k)
+    if cfg.rope_pct > 0:
+        cos, sin = rope_frequencies(cfg, positions)
+        q = apply_rope(q, cos, sin, cfg)
+        k = apply_rope(k, cos, sin, cfg)
+    return q, k, v
+
+
+def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
+                     dense_fn=None):
+    """Single-token decode against one layer's cache slice. x (B, 1, D);
+    cache_k/v (B, A, Hkv, hd); pos = tokens already in the cache, scalar
+    or (B,). Returns (out, new_k, new_v)."""
+    mm = dense_fn or (lambda w, v, name: v @ w)
+    B = x.shape[0]
+    posv = _per_slot_pos(pos, B, x.device)                         # (B,)
+    q, k, v = _project_qkv(p, x, posv[:, None], cfg, mm)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    A = cache_k.shape[1]
+    slot = torch.clamp(posv, max=A - 1).long()
+    rows = torch.arange(B, device=x.device)
+    new_k = cache_k.clone()
+    new_v = cache_v.clone()
+    new_k[rows, slot] = k[:, 0]
+    new_v[rows, slot] = v[:, 0]
+    kpos = torch.arange(A, device=x.device)[None, :]               # (1, A)
+    mask = (kpos <= posv[:, None])[:, None, None, :]               # (B,1,1,A)
+    out = _sdpa(q, _repeat_kv(new_k, rep), _repeat_kv(new_v, rep), mask,
+                x.dtype)
+    return mm(p["wo"], out.reshape(B, 1, cfg.q_dim), "wo"), new_k, new_v
+
+
+def prefill_attention(p, x, cache_k, cache_v, pos, n_valid,
+                      cfg: ModelConfig, dense_fn=None):
+    """Chunked cache-filling attention: C prompt tokens in one step.
+
+    x (B, C, D); pos (B,) tokens already cached per slot; n_valid (B,) in
+    [0, C] real tokens in this chunk. Writes the valid tokens' k/v at
+    pos..pos+n_valid-1 and leaves every other cache row untouched (slots
+    with n_valid = 0 keep their slice as it was), then attends each query
+    to every cached position <= its own. Returns (out, new_k, new_v)."""
+    mm = dense_fn or (lambda w, v, name: v @ w)
+    B, C, _ = x.shape
+    A = cache_k.shape[1]
+    posv = _per_slot_pos(pos, B, x.device)                         # (B,)
+    qpos = posv[:, None] + torch.arange(C, device=x.device)[None, :]  # (B,C)
+    q, k, v = _project_qkv(p, x, qpos, cfg, mm)
+    # masked write: valid chunk tokens land on their rows, invalid ones on
+    # a scratch row A that is dropped (the reference's mode="drop" scatter)
+    tok_valid = torch.arange(C, device=x.device)[None, :] < n_valid[:, None]
+    write_rows = torch.where(tok_valid, torch.clamp(qpos, max=A - 1),
+                             A).long()
+    b_idx = torch.arange(B, device=x.device)[:, None].expand(B, C)
+    pad = cache_k.new_zeros((B, 1) + cache_k.shape[2:])
+    new_k = torch.cat([cache_k, pad], dim=1)
+    new_v = torch.cat([cache_v, pad], dim=1)
+    new_k[b_idx, write_rows] = k
+    new_v[b_idx, write_rows] = v
+    new_k, new_v = new_k[:, :A], new_v[:, :A]
+    rep = cfg.n_heads // cfg.n_kv_heads
+    kpos = torch.arange(A, device=x.device)[None, None, :]         # (1,1,A)
+    mask = kpos <= qpos[:, :, None]                                # (B,C,A)
+    out = _sdpa(q, _repeat_kv(new_k, rep), _repeat_kv(new_v, rep),
+                mask[:, None], x.dtype)
+    return mm(p["wo"], out.reshape(B, C, cfg.q_dim), "wo"), new_k, new_v

@@ -1,0 +1,148 @@
+"""Serving path: cache init, single-token decode, chunked prefill and
+per-slot cache surgery, for attention segments on a contiguous cache.
+
+Port of ``repro.models.decode``. The decoder is the segment list of
+``models.segments``; where JAX scans each segment's stacked params, cache
+slices and table slices, the port walks the layers in a Python loop and
+slices layer ``l`` of each. Caches keep the JAX layout: attention segments
+hold stacked (L_seg, B, A, Hkv, hd) k/v, and "pos" is a scalar or a (B,)
+vector of per-slot depths. Functions return new caches, as in JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.device import resolve_device
+from . import attention as attn_mod
+from .config import ModelConfig
+from .layers import apply_norm, embed_tokens, logits_from_hidden
+from .transformer import (_block_tail, _check_supported, layer_slice,
+                          segment_tables)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device="cuda") -> Dict:
+    """Per-segment caches: {"pos": scalar, seg.cache: {"k", "v" (L_seg, B,
+    A, Hkv, hd), "pos"}}; multi-segment stacks track one global "pos"."""
+    dev = resolve_device(device)
+    cache: Dict = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    for seg in _check_supported(cfg):
+        c = attn_mod.init_cache(cfg, batch, max_len, seg.length, dev)
+        if seg.cache != "attn":
+            c.pop("pos")
+        cache[seg.cache] = c
+    return cache
+
+
+def _run_segments(params, cache, x, cfg, tables, layer_fn, new_pos):
+    """Walk every segment's layers: ``layer_fn(seg, p, h, ck, cv, mm)``
+    returns (h, ck, cv) for one layer. Returns (h, new cache) with every
+    position advanced to ``new_pos``."""
+    segs = _check_supported(cfg)
+    seg_tables = segment_tables(tables, segs, cfg)
+    new_cache = dict(cache)
+    for seg in segs:
+        st = seg_tables.get(seg.name)
+        c = cache[seg.cache]
+        ks, vs = [], []
+        for l in range(seg.length):
+            p = layer_slice(params[seg.name], l)
+            mm = (st.dense_fn(layer_slice(st.arrays, l))
+                  if st is not None else None)
+            x, ck, cv = layer_fn(seg, p, x, c["k"][l], c["v"][l], mm)
+            ks.append(ck)
+            vs.append(cv)
+        new_cache[seg.cache] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        if "pos" in c:
+            new_cache[seg.cache]["pos"] = new_pos
+    new_cache["pos"] = new_pos
+    return x, new_cache
+
+
+def decode_step(params, cache, token, cfg: ModelConfig, tables=None):
+    """token (B, 1) int -> (logits (B, 1, V), new cache).
+
+    ``tables`` (sparsity.sparse_linear.SegmentedKernelTables) routes every
+    projection of every layer through the joint kernel; None keeps plain
+    matmuls."""
+    pos = cache["pos"]
+    x = embed_tokens(params["embed"], token, cfg)
+
+    def layer(seg, p, h, ck, cv, mm):
+        hn = apply_norm(p["norm1"], h, cfg)
+        y, ck, cv = attn_mod.decode_attention(p["attn"], hn, ck, cv, pos,
+                                              cfg, dense_fn=mm)
+        return _block_tail(seg, p, h + y, cfg, mm), ck, cv
+
+    x, new_cache = _run_segments(params, cache, x, cfg, tables, layer,
+                                 pos + 1)
+    x = apply_norm(params["final_norm"], x, cfg)
+    return logits_from_hidden(params["embed"], x, cfg), new_cache
+
+
+def decode_chunk(params, cache, tokens, n_valid, cfg: ModelConfig,
+                 tables=None):
+    """Chunked cache-filling prefill: C prompt tokens per slot in one step.
+
+    tokens (B, C) int; n_valid (B,) int in [0, C] real tokens per slot
+    (ragged tails and idle slots pass fewer or 0; their cache slices are
+    left untouched). Returns (logits (B, 1, V) of each slot's last valid
+    token, cache advanced by n_valid per slot). Per token, the math is
+    that of running decode_step n_valid times."""
+    B, C = tokens.shape
+    pos = attn_mod._per_slot_pos(cache["pos"], B, tokens.device)
+    n_valid = torch.as_tensor(n_valid, dtype=torch.int32,
+                              device=tokens.device)
+    x = embed_tokens(params["embed"], tokens, cfg)
+
+    def layer(seg, p, h, ck, cv, mm):
+        hn = apply_norm(p["norm1"], h, cfg)
+        y, ck, cv = attn_mod.prefill_attention(p["attn"], hn, ck, cv, pos,
+                                               n_valid, cfg, dense_fn=mm)
+        return _block_tail(seg, p, h + y, cfg, mm), ck, cv
+
+    x, new_cache = _run_segments(params, cache, x, cfg, tables, layer,
+                                 pos + n_valid)
+    x = apply_norm(params["final_norm"], x, cfg)
+    last = torch.clamp(n_valid - 1, 0, C - 1).long()
+    x_last = x[torch.arange(B, device=x.device), last][:, None]   # (B, 1, D)
+    return logits_from_hidden(params["embed"], x_last, cfg), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Per-slot cache surgery (the serving engine's slot scheduler)
+# ---------------------------------------------------------------------------
+
+def merge_slots(new_cache, old_cache, keep_mask, cfg: ModelConfig):
+    """Per-slot cache select: slots where keep_mask (B,) is True take the
+    updated cache, the rest keep their previous contents and position.
+    Every k/v leaf carries the batch on axis 1; "pos" leaves come out as
+    (B,) vectors whatever shape they came in."""
+    B = keep_mask.shape[0]
+
+    def visit(key, new, old):
+        if isinstance(new, dict):
+            return {k: visit(k, new[k], old[k]) for k in new}
+        if key == "pos":
+            return torch.where(keep_mask,
+                               attn_mod._per_slot_pos(new, B, new.device),
+                               attn_mod._per_slot_pos(old, B, old.device))
+        shape = [1] * new.ndim
+        shape[1] = B
+        return torch.where(keep_mask.reshape(shape), new, old)
+
+    return visit(None, new_cache, old_cache)
+
+
+def reset_slots(cache, slot_mask, cfg: ModelConfig):
+    """Zero the KV cache slices and position of the slots where slot_mask
+    (B,) is True: the admission step before a freed slot takes a new
+    request."""
+    def zeros(tree):
+        if isinstance(tree, dict):
+            return {k: zeros(v) for k, v in tree.items()}
+        return torch.zeros_like(tree)
+    return merge_slots(cache, zeros(cache), ~slot_mask, cfg)

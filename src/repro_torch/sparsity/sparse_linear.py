@@ -1,0 +1,211 @@
+"""Stacked serving tables: ALL L layers of every projection family packed
+with one shared MAXB, sliced per layer by the decode loop.
+
+Port of the serving half of ``repro.sparsity.sparse_linear``. JAX passes
+the stacked arrays to ``lax.scan`` as xs; here the Python layer loop
+slices layer ``l`` of every table and rebuilds the ``dense_fn(w, x,
+name)`` hook from the slices, so the joint kernel serves every projection
+of every layer.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.segments import (decoder_layout,
+                                         packable_projections,
+                                         projection_param_path)
+
+#: Kernel dispatch modes for compressed projections ("joint" fuses value
+#: and bit sparsity in one kernel, the paper's headline configuration).
+KERNEL_MODES = ("dense", "value", "bit", "joint")
+
+
+def _map_with_path(fn, tree, prefix=""):
+    """Apply ``fn(path, leaf)`` to every leaf of a nested dict, with the
+    '/'-joined key path the JAX package's tree_map_with_path gives."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, f"{prefix}{k}/")
+                for k, v in tree.items()}
+    return fn(prefix[:-1], tree)
+
+
+@dataclass
+class StackedKernelTables:
+    """Joint-sparse weights for a whole layer stack. ``arrays`` maps hook
+    name -> {"w_blocks", "idx", "scales", "nblocks"} stacked tensors
+    (leading axis = layer); ``static`` the per-projection (k, n, k_pad)."""
+    arrays: Dict[str, Dict[str, torch.Tensor]]
+    static: Dict[str, Tuple[int, int, int]]
+
+    def dense_fn(self, slices):
+        """The dense_fn(w, x, name) hook from one layer's slices
+        (``models.transformer.layer_slice`` of ``arrays``): packed
+        projections run ``ops.joint_dense``, the rest stay plain matmuls.
+        (The grouped ``expert`` hook waits for MoE.)"""
+        from repro_torch.kernels import ops
+
+        def mm(w, x, name):
+            t = None if slices is None else slices.get(name)
+            if t is None:
+                return x @ w
+            k, n, k_pad = self.static[name]
+            packed = ops.JointPacked(t["w_blocks"], t["idx"], t["scales"],
+                                     t["nblocks"], k, n, k_pad)
+            return ops.joint_dense(x, packed).to(x.dtype)
+
+        return mm
+
+
+@dataclass
+class SegmentedKernelTables:
+    """Per-segment stacked packs for a whole decoder (models.segments
+    layout). ``arrays`` / ``static`` give the flat view: a single "blocks"
+    segment passes through unprefixed, multi-segment stacks prefix keys
+    with the segment name."""
+    segments: Dict[str, StackedKernelTables]
+
+    @property
+    def arrays(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        if set(self.segments) == {"blocks"}:
+            return self.segments["blocks"].arrays
+        return {f"{s}/{name}": t for s, seg in self.segments.items()
+                for name, t in seg.arrays.items()}
+
+    @property
+    def static(self) -> Dict[str, Tuple[int, int, int]]:
+        if set(self.segments) == {"blocks"}:
+            return self.segments["blocks"].static
+        return {f"{s}/{name}": t for s, seg in self.segments.items()
+                for name, t in seg.static.items()}
+
+
+def _proj_subpath(seg, name: str) -> str:
+    """Param subpath of a hook name within one segment's block tree."""
+    return projection_param_path(seg, name)[len(seg.name) + 1:]
+
+
+def _stacked_projections(params, cfg: ModelConfig):
+    """segment name -> {hook name -> stacked (L, K, N) weight}; None when
+    the param tree does not carry the stacked segment subtrees."""
+    out = {}
+    for seg in decoder_layout(cfg):
+        blk = params.get(seg.name)
+        if blk is None:
+            return None
+        projs = {}
+        for name in packable_projections(seg, cfg):
+            node = blk
+            for part in _proj_subpath(seg, name).split("/"):
+                node = node.get(part) if isinstance(node, dict) else None
+                if node is None:
+                    break
+            if node is None:
+                continue        # e.g. a gelu MLP has no w_gate
+            projs[name] = node
+        out[seg.name] = projs
+    return out
+
+
+def build_stacked_tables(params, cfg: ModelConfig,
+                         mode: Optional[str] = None,
+                         value_sparsity: Optional[float] = None,
+                         bk: Optional[int] = None, bn: Optional[int] = None,
+                         ) -> Optional[SegmentedKernelTables]:
+    """Pack every stacked projection of ``params`` for serving, per decoder
+    segment, on the device the params lie on. "joint" packs at
+    cfg.dbpim_value_sparsity (INT8/FTA payload); "bit" the same layout at
+    zero value sparsity; "value" the bf16-payload layout; "dense" returns
+    None. bk/bn default to the kernel tile, clamped down to the projection
+    dims rounded up to a multiple of 8, so reduced configs (d_model < 128)
+    do not pack pure padding."""
+    from repro_torch.kernels import ops
+
+    mode = mode or (cfg.dbpim_mode if cfg.dbpim else "dense")
+    if mode not in KERNEL_MODES:
+        raise ValueError(f"mode {mode!r} not in {KERNEL_MODES}")
+    if mode == "dense":
+        return None
+    if mode == "bit":
+        vs = 0.0
+    else:
+        vs = value_sparsity if value_sparsity is not None else \
+            cfg.dbpim_value_sparsity
+    payload = "bf16" if mode == "value" else "int8"
+    by_segment = _stacked_projections(params, cfg)
+    if by_segment is None:
+        return None
+
+    def round8(d):
+        return max(8, 8 * (-(-d // 8)))
+
+    segments: Dict[str, StackedKernelTables] = {}
+    for seg_name, projections in by_segment.items():
+        arrays, static = {}, {}
+        for name, w in projections.items():
+            if w.ndim != 3:
+                raise NotImplementedError(
+                    f"{seg_name}/{name}: grouped (MoE expert) packs are not "
+                    f"ported yet")
+            bk_eff = bk if bk is not None else min(ops.BK, round8(w.shape[-2]))
+            bn_eff = bn if bn is not None else min(ops.BN, round8(w.shape[-1]))
+            packed = ops.pack_joint_sparse_stacked(
+                w, value_sparsity=vs or None, bk=bk_eff, bn=bn_eff,
+                payload=payload)
+            arrays[name] = {"w_blocks": packed.w_blocks, "idx": packed.idx,
+                            "scales": packed.scales,
+                            "nblocks": packed.nblocks}
+            static[name] = (packed.k, packed.n, packed.k_pad)
+        segments[seg_name] = StackedKernelTables(arrays=arrays, static=static)
+    return SegmentedKernelTables(segments=segments)
+
+
+def _packed_param_paths(cfg: ModelConfig):
+    """Exact '/'-joined param paths of every packable projection."""
+    return {projection_param_path(seg, name)
+            for seg in decoder_layout(cfg)
+            for name in packable_projections(seg, cfg)}
+
+
+def strip_packed_projections(params, cfg: ModelConfig):
+    """Replace every stacked-packed projection with a (L, 1, 1) zero
+    placeholder: the tables serve those matmuls, so the dense copies need
+    not stay on the device. The dense_fn hook never reads the weight it
+    intercepts."""
+    if _stacked_projections(params, cfg) is None:
+        return params
+    paths = _packed_param_paths(cfg)
+
+    def visit(path, leaf):
+        if path in paths:
+            return torch.zeros((leaf.shape[0], 1, 1), dtype=leaf.dtype,
+                               device=leaf.device)
+        return leaf
+    return _map_with_path(visit, params)
+
+
+def reconstruct_stacked_params(params, tables: SegmentedKernelTables, cfg):
+    """Dense FTA reference weights: each packed projection in ``params``
+    replaced by its unpacked (pruned + dequantized) stack, so the plain
+    matmul path reproduces what the joint kernels compute."""
+    from repro_torch.kernels import ops
+
+    segs = {s.name: s for s in decoder_layout(cfg)}
+    recon = {}
+    for seg_name, seg_tables in tables.segments.items():
+        for name, t in seg_tables.arrays.items():
+            k, n, k_pad = seg_tables.static[name]
+            packed = ops.JointPackedStacked(t["w_blocks"], t["idx"],
+                                            t["scales"], t["nblocks"],
+                                            k, n, k_pad)
+            recon[projection_param_path(segs[seg_name], name)] = \
+                ops.unpack_joint_sparse_stacked(packed)
+
+    def visit(path, leaf):
+        dense = recon.get(path)
+        return leaf if dense is None else dense.to(leaf.dtype)
+    return _map_with_path(visit, params)

@@ -1,0 +1,37 @@
+"""Weight bridge: a JAX param tree, as numpy arrays, to the port's params.
+
+``np.asarray`` of the JAX ``init_params`` tree is a nested dict of numpy
+arrays, with bf16 leaves as ``ml_dtypes.bfloat16``, a dtype torch cannot
+read. Those cross through a 16-bit integer view, bit for bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+
+
+def _leaf_to_torch(a, device, dtype):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+    if dtype is not None and t.is_floating_point() and t.ndim >= 2:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_numpy(tree, device="cuda", dtype=None):
+    """Nested dict of numpy arrays -> the same nested dict of tensors on
+    ``device``. Every leaf keeps its dtype (bf16 bit for bit) unless
+    ``dtype`` is given, which recasts the floating weight leaves (rank >=
+    2: projections and embeddings); rank-1 norm scales stay float32, as
+    the JAX params keep them."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, dev, dtype) for k, v in tree.items()}
+    return _leaf_to_torch(tree, dev, dtype)

@@ -1,0 +1,77 @@
+"""The port imports no JAX and nothing of the JAX package, and its entry
+points refuse to run on the CPU unless the caller asks for it."""
+
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.port
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, pkgutil, runpy, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+runpy.run_path(sys.argv[1], run_name="chip_smoke_import_probe")
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.") or m == "repro"
+                or m.startswith("repro."))
+print(len(names), leaked)
+assert not leaked, leaked
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    res = subprocess.run([sys.executable, "-c", _PROBE,
+                          str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, env=env, cwd=ROOT,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    n_modules = int(res.stdout.split()[0])
+    assert n_modules >= 20
+
+
+def test_entry_points_raise_without_a_card():
+    """Default device is CUDA: with no card they raise, never run on the
+    CPU silently; device="cpu" is the explicit opt-in."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.serving import ServeEngine
+    from repro_torch.weights import params_from_numpy
+    cfg = get_config("tinyllama-1.1b", reduced=True)
+    for call in (lambda: init_params(cfg),
+                 lambda: init_cache(cfg, 2, 8),
+                 lambda: ServeEngine(cfg, {}),
+                 lambda: params_from_numpy({"w": torch.zeros(2).numpy()}),
+                 lambda: serve.main(["--arch", "tinyllama-1.1b",
+                                     "--reduced"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    params = init_params(cfg, device="cpu")
+    assert params["blocks"]["attn"]["wq"].device.type == "cpu"
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """chip_smoke.py exits non-zero, printing no result, without a card
+    and in a directory that holds it alone."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"), (tmp_path, lone)):
+        res = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             capture_output=True, text=True, timeout=120,
+                             env={"PATH": "/usr/bin:/bin"})
+        assert res.returncode != 0
+        assert '"ok": true' not in res.stdout
