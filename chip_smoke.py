@@ -5,39 +5,74 @@
 Phases, each printed on its own line; any failure raises and exits
 non-zero (no phase catches its own failure):
 
-  1. build  — nvcc builds the joint_sparse_matmul kernel from
-              src/repro_torch/kernels/csrc on first use; TF32 is switched
-              off for float32 matmuls and convolutions.
+  1. build  — nvcc builds the six kernels (joint_sparse_matmul,
+              block_sparse_matmul, fta_int8_matmul, dbmu_matmul, and the
+              row-stable row_attention and row_norm) from
+              src/repro_torch/kernels/csrc on first use, one nvcc each, all
+              started together; TF32 is switched off for float32 matmuls and
+              convolutions.
   2. pack   — for one full-width tinyllama-1.1b projection of each shape,
-              the pack made on the card is byte-identical to the CPU pack.
-  3. kernel — the kernel against its plain PyTorch version at every
-              projection shape of the serving path, M in {4, 256}, bf16 and
-              f32 activations: f32 output within 1e-5 * max|ref|, bf16
-              output within one bf16 ulp of max|ref|, the fp32 accumulators
-              within 1e-5 * max|ref|; rows of an M=4 call bitwise equal to
-              the same rows of an M=256 call; the bf16 (value-only)
-              payload at the widest shape.
+              the joint pack made on the card is byte-identical to the CPU
+              pack.
+  3. kernel — each kernel against its plain PyTorch version at every
+              projection shape of the path, M in {4, 256}: f32 output within
+              1e-5 * max|ref|, bf16 output within one bf16 ulp of max|ref|,
+              DBMU bitwise equal. The joint kernel also in f32 and bf16
+              activations with its fp32 accumulators, rows of an M=4 call
+              bitwise equal to the same rows of an M=256 call, and the bf16
+              (value-only) payload; the block-sparse pack made on the card
+              equals the CPU pack byte for byte. row_attention at the serving
+              shapes (batch 4, 512-slot cache, a 64-query chunk) within
+              1e-5 * max|ref| (f32) or 2^-6 * max|ref| (bf16) of its plain
+              version, and row_norm at 4 and 256 rows within 1e-5 * max|ref|
+              or one bf16 ulp; a query (row) alone bitwise equal to the same
+              query (row) in the chunk.
   4. serve  — tinyllama-1.1b at full width in joint mode, bf16, random
               weights from a seed, through repro_torch.launch.serve's
               engine: 8 requests, batch 4, max-len 512, prompts 32..256,
               32 generated tokens, prefill chunks of 64. Every request
-              completes, the kernel launches 154 times per device call
-              (22 layers x 7 projections), and the first-token logits of
-              two requests agree with the same model run through the
-              plain versions. Printed, not checked: how far a chunked
-              prefill is from stepwise decode at model level.
-  5. profile — device busy and idle share over a window of decode calls,
+              completes; per device call the joint kernel launches 154 times
+              (22 layers x 7 projections), row_attention 22 times and
+              row_norm 45 times (2 per layer and the final norm), and no
+              other kernel launches; the first-token logits ((1, V) rows in
+              bf16) of two requests agree with the same model run through
+              the plain versions; a chunked prefill equals stepwise decode
+              bit for bit at model level (batch 1), and op by op through
+              every layer.
+  5. modes  — one full-width tinyllama-1.1b decoder layer (norms, chunked
+              attention, MLP) with random weights, its projections packed by
+              build_kernel_tables in mode "value" (vs = 0.6) and in mode
+              "bit" and served through make_matmul at 4 x 64 = 256 rows:
+              7 launches of the mode's kernel per layer call (with one of
+              row_attention and two of row_norm), the output within
+              2^-6 * max|ref| of the same layer through the plain versions; the launches of a 4-row decode call are printed (0
+              by the reference's rule: rows % 128 != 0).
+  6. dbmu   — the DB-PIM compilation pipeline (block pruning at 0.6, alpha 8
+              -> per-tensor INT8 -> FTA -> dyadic term packing) on the card
+              for every projection shape: masks and packs byte-identical to
+              the CPU's, dbmu_matmul at M=256 exactly equal to the integer
+              matmul oracle; then repro_torch.quickstart on the card.
+  7. profile — device busy and idle share over a window of decode calls,
               and the kernels the device time goes to (torch.profiler).
-  6. times  — kernel, plain version and torch.matmul on the dense bf16
-              weight (the library yardstick, used nowhere in the port) at
-              the decode shapes, with CUDA events after warm-up, beside the
-              bound: the larger of bytes over 3.35 TB/s and operations over
-              989 TFLOP/s (bf16), the H100 SXM data sheet's rates.
+  8. times  — each kernel, its plain version and one PyTorch call computing
+              the same function (the library yardstick, used nowhere in the
+              port) with CUDA events after warm-up, beside the bound: the
+              larger of bytes over 3.35 TB/s and operations over the peak of
+              their type (989 TFLOP/s bf16, 1,979 TOP/s int8, 67 TFLOP/s
+              fp32 outside the tensor cores), the H100 SXM data sheet's
+              rates. Work units: the joint kernel one decode step (154
+              launches, M=4); block-sparse and FTA/INT8 one full-width layer
+              at M=256 (7 launches); DBMU the four projection shapes at
+              M=256; row_attention and row_norm one decode call and one
+              prefill-chunk call (22 and 45 launches each).
 
-The line before the last holds the kernels' JSON record, the one before it
-the card's name and power limit; the last line is the device record.
-Exits non-zero, printing no result, without a CUDA card or outside a
-checkout of the repository.
+The launch counts of the JSON record come from the main paths: phase 4
+for the joint, row_attention and row_norm kernels, phase 5 for block-sparse and FTA/INT8, phase 6 for
+DBMU, each counted from zero just before the path runs. The line before
+the last holds the kernels' JSON record, the one before it the card's
+name and power limit; the last line is the device record. Exits
+non-zero, printing no result, without a CUDA card or outside a checkout
+of the repository.
 """
 
 from __future__ import annotations
@@ -54,7 +89,19 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
+INT8_OPS = 1979e12                 # H100 SXM dense int8 tensor-core peak
+FP32_FLOPS = 67e12                 # H100 SXM fp32 peak outside tensor cores
 F32_TOL = 1e-5                     # f32 outputs and fp32 accumulators
+#: one full-width layer, kernel path vs plain path: bf16 projections whose
+#: fp32 sums run in another order may round one bf16 ulp apart, and the
+#: layer's later ops carry that on; 2^-6 of the peak is a few bf16 ulps
+LAYER_REL_TOL = 2.0 ** -6
+#: bf16 attention, kernel vs plain: a logit whose fp32 sum lands on the
+#: other side of a bf16 rounding boundary moves by one bf16 ulp of the
+#: logit, and its probability with it; 2^-6 of the peak is a few bf16 ulps
+ATTN_REL_TOL = 2.0 ** -6
+KERNELS = ("joint_sparse_matmul", "block_sparse_matmul", "fta_int8_matmul",
+           "dbmu_matmul", "row_attention", "row_norm")
 SERVE_ARGS = ["--arch", "tinyllama-1.1b", "--dbpim-mode", "joint",
               "--batch", "4", "--max-len", "512", "--requests", "8",
               "--prompt-len", "32", "256", "--gen-len", "32",
@@ -95,19 +142,41 @@ def _tiles(K, N):
     return dict(bk=min(128, 8 * -(-K // 8)), bn=min(128, 8 * -(-N // 8)))
 
 
+def _kernel_modules():
+    """name -> the wrapper module holding the kernel's LAUNCHES count."""
+    from repro_torch.kernels import (block_sparse_matmul, dbmu_sim,
+                                     fta_int8_matmul, joint_sparse_matmul,
+                                     row_attention, row_norm)
+    return {"joint_sparse_matmul": joint_sparse_matmul,
+            "block_sparse_matmul": block_sparse_matmul,
+            "fta_int8_matmul": fta_int8_matmul, "dbmu_matmul": dbmu_sim,
+            "row_attention": row_attention, "row_norm": row_norm}
+
+
+def reset_launches():
+    for mod in _kernel_modules().values():
+        mod.LAUNCHES = 0
+
+
+def read_launches():
+    return {name: mod.LAUNCHES for name, mod in _kernel_modules().items()}
+
+
 def phase_build():
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.monotonic()
-    build.load("joint_sparse_matmul")
-    regs = [ln.strip() for ln in
-            build.PTXAS_LOG.get("joint_sparse_matmul", "").splitlines()
-            if "registers" in ln]
-    log(f"[build] joint_sparse_matmul built in "
-        f"{build.BUILD_SECONDS['joint_sparse_matmul']:.2f} s "
-        f"(load {time.monotonic() - t0:.2f} s); ptxas: "
-        f"{len(regs)} instantiations, e.g. {regs[0] if regs else 'n/a'}")
+    build.build_all(KERNELS)
+    for name in KERNELS:
+        build.load(name)
+        regs = [ln.strip() for ln in build.PTXAS_LOG.get(name, "").splitlines()
+                if "registers" in ln]
+        log(f"[build] {name} built in {build.BUILD_SECONDS[name]:.2f} s; "
+            f"ptxas: {len(regs)} instantiations, e.g. "
+            f"{regs[0] if regs else 'n/a'}")
+    log(f"[build] all {len(KERNELS)} kernels built and loaded in "
+        f"{time.monotonic() - t0:.2f} s (one nvcc each, in parallel)")
 
 
 def phase_pack(cfg, dev):
@@ -198,18 +267,181 @@ def phase_kernel(cfg, packs, dev):
     return worst_bf16
 
 
+def _err_tol(y, ref):
+    """(max abs error, tolerance): 1e-5 of the peak for f32 outputs, one
+    bf16 ulp of the peak for bf16 outputs."""
+    peak = ref.float().abs().max().item()
+    err = (y.float() - ref.float()).abs().max().item()
+    tol = F32_TOL * peak if y.dtype == torch.float32 else _bf16_ulp(peak)
+    return err, tol
+
+
+def phase_kernel_value_bit_dbmu(cfg, dev):
+    """The block-sparse, FTA/INT8 and DBMU kernels against their plain
+    versions at every projection shape, M in {4, 256}, on weights packed as
+    the per-layer hook and the pipeline pack them (block-sparse and FTA
+    packs made on the card equal the CPU's). Returns the worst abs error
+    of the bf16 outputs per kernel (DBMU: 0, or the run fails)."""
+    from repro_torch.core import dyadic
+    from repro_torch.kernels import block_sparse_matmul as bsk
+    from repro_torch.kernels import dbmu_sim
+    from repro_torch.kernels import fta_int8_matmul as ftk
+    from repro_torch.kernels import ops
+    gen = torch.Generator().manual_seed(5)
+    worst = {"block_sparse_matmul": 0.0, "fta_int8_matmul": 0.0,
+             "dbmu_matmul": 0.0}
+    for name, K, N in _distinct(_path_shapes(cfg)):
+        w = torch.randn((K, N), generator=gen) * K ** -0.5
+        mask = ops.tile_prune_mask(w, cfg.dbpim_value_sparsity)
+        wb_cpu, idx_cpu = ops.pack_block_sparse(w * mask, torch.ones_like(mask))
+        wd = w.to(dev)
+        md = ops.tile_prune_mask(wd, cfg.dbpim_value_sparsity)
+        wb, idx = ops.pack_block_sparse(wd * md, torch.ones_like(md))
+        assert torch.equal(md.cpu(), mask) and torch.equal(wb.cpu(), wb_cpu) \
+            and torch.equal(idx.cpu(), idx_cpu), (name, "block-sparse pack")
+        ones = torch.ones((K, N), dtype=torch.int32)
+        q, sc = ops.quantize_int8_fta(wd, ones.to(dev))
+        q_cpu, sc_cpu = ops.quantize_int8_fta(w, ones)
+        assert torch.equal(q.cpu(), q_cpu) and torch.equal(sc.cpu(), sc_cpu)
+        q = q.to(torch.int8)
+        packed = dyadic.pack_terms(q)
+        errs = {k: [] for k in worst}
+        for M in (4, 256):
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn((M, K), generator=gen).to(dt).to(dev)
+                y = bsk.block_sparse_matmul(x, wb.to(dt), idx)
+                torch.cuda.synchronize()
+                err, tol = _err_tol(y, bsk.block_sparse_matmul_plain(
+                    x, wb.to(dt), idx))
+                assert err <= tol, (name, "block_sparse", dt, M, err, tol)
+                errs["block_sparse_matmul"].append((err, tol, y.dtype))
+                for od in (torch.bfloat16, torch.float32):
+                    y = ftk.fta_int8_matmul(x, q, sc, od)
+                    torch.cuda.synchronize()
+                    err, tol = _err_tol(y, ftk.fta_int8_matmul_plain(
+                        x, q, sc, od))
+                    assert err <= tol, (name, "fta", dt, od, M, err, tol)
+                    errs["fta_int8_matmul"].append((err, tol, od))
+            xi = torch.randint(-128, 128, (M, K), generator=gen,
+                               dtype=torch.int32).to(dev)
+            y = dbmu_sim.dbmu_matmul(xi, packed)
+            torch.cuda.synchronize()
+            assert torch.equal(y, dbmu_sim.dbmu_matmul_plain(xi, packed)), \
+                (name, "dbmu", M)
+        for kname, rows in errs.items():
+            if not rows:
+                continue
+            bf = [e for e, _, od in rows if od == torch.bfloat16]
+            worst[kname] = max(worst[kname], max(bf))
+            log(f"[kernel] {kname} {name} {K}x{N} M in (4, 256), f32 and "
+                f"bf16 x: max|d|/tol = "
+                f"{max(e / t if t else float(e > 0) for e, t, _ in rows):.3f}"
+                f" (bf16 out max|d|={max(bf):.3e})")
+        log(f"[kernel] dbmu_matmul {name} {K}x{N} M in (4, 256): bitwise "
+            f"equal to its plain version; block-sparse pack (NT={wb.shape[0]}"
+            f", MAXB={wb.shape[1]}) and FTA INT8 weights card == cpu byte "
+            f"for byte")
+    return worst
+
+
+def _serve_attention_inputs(cfg, dev, dtype, gen, B=4, A=512, C=64):
+    """Queries and a random cache at the serving path's attention shapes:
+    a decode call (one query per slot) and a prefill-chunk call (C queries
+    per slot), at positions inside the serve phase's range."""
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    k = torch.randn((B, A, Hkv, hd), generator=gen).to(dtype).to(dev)
+    v = torch.randn((B, A, Hkv, hd), generator=gen).to(dtype).to(dev)
+    qd = torch.randn((B, 1, H, hd), generator=gen).to(dtype).to(dev)
+    qc = torch.randn((B, C, H, hd), generator=gen).to(dtype).to(dev)
+    pos_d = torch.tensor([[40], [120], [200], [280]], dtype=torch.int32)
+    pos_c = (torch.tensor([0, 64, 128, 192], dtype=torch.int32)[:, None]
+             + torch.arange(C, dtype=torch.int32)[None])
+    return dict(k=k, v=v, decode=(qd, pos_d[:B].to(dev)),
+                chunk=(qc, pos_c[:B].to(dev)))
+
+
+def phase_kernel_rows(cfg, dev):
+    """row_attention and row_norm against their plain versions at the
+    serving shapes, and their row stability: a query (row) alone comes out
+    bitwise equal to the same query (row) in a chunk call. Returns the
+    worst abs error of the bf16 outputs per kernel."""
+    from repro_torch.kernels import row_attention as rak
+    from repro_torch.kernels import row_norm as rnk
+    gen = torch.Generator().manual_seed(8)
+    worst = {"row_attention": 0.0, "row_norm": 0.0}
+    for dt in (torch.bfloat16, torch.float32):
+        a = _serve_attention_inputs(cfg, dev, dt, gen)
+        for what in ("decode", "chunk"):
+            q, pos = a[what]
+            y = rak.row_attention(q, a["k"], a["v"], pos)
+            torch.cuda.synchronize()
+            ref = rak.row_attention_plain(q, a["k"], a["v"], pos)
+            peak = ref.float().abs().max().item()
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = (F32_TOL if dt == torch.float32 else ATTN_REL_TOL) * peak
+            assert torch.isfinite(y).all() and err <= tol, \
+                ("row_attention", what, dt, err, tol)
+            if dt == torch.bfloat16:
+                worst["row_attention"] = max(worst["row_attention"], err)
+            log(f"[kernel] row_attention {what} {tuple(q.shape)} x cache "
+                f"{tuple(a['k'].shape)} {str(dt)[6:]}: max|d|={err:.3e} "
+                f"(tol {tol:.3e})")
+        q, pos = a["chunk"]
+        y = rak.row_attention(q, a["k"], a["v"], pos)
+        for t in (0, 31, q.shape[1] - 1):
+            one = rak.row_attention(q[:, t:t + 1].contiguous(), a["k"], a["v"],
+                                    pos[:, t:t + 1].contiguous())
+            assert torch.equal(one, y[:, t:t + 1]), ("row_attention rows", t)
+        log(f"[kernel] row_attention {str(dt)[6:]}: queries 0, 31, 63 of "
+            f"the chunk call bitwise equal to one-query calls")
+        D = cfg.d_model
+        x256 = torch.randn((256, D), generator=gen).to(dt).to(dev)
+        scale = (1 + 0.1 * torch.randn((D,), generator=gen)).to(dev)
+        bias = (0.1 * torch.randn((D,), generator=gen)).to(dev)
+        for b, kind in ((None, "rms"), (bias, "layernorm")):
+            for R in (4, 256):
+                x = x256[:R].contiguous()
+                y = rnk.row_norm(x, scale, b)
+                torch.cuda.synchronize()
+                err, tol = _err_tol(y, rnk.row_norm_plain(x, scale, b))
+                assert err <= tol, ("row_norm", kind, dt, R, err, tol)
+                if dt == torch.bfloat16:
+                    worst["row_norm"] = max(worst["row_norm"], err)
+                if R == 4:
+                    head = y
+                else:
+                    assert torch.equal(head, y[:4]), ("row_norm rows", kind)
+                log(f"[kernel] row_norm {kind} ({R}, {D}) {str(dt)[6:]}: "
+                    f"max|d|={err:.3e} (tol {tol:.3e})")
+        log(f"[kernel] row_norm {str(dt)[6:]}: rows of R=4 bitwise equal "
+            f"rows of R=256")
+    return worst
+
+
 @contextlib.contextmanager
-def plain_joint_matmuls():
-    """The same model with every joint matmul swapped for its plain
-    version (for the reference logits of phase 4)."""
+def plain_versions():
+    """The same model with every kernel of the serving path and the
+    per-layer hook swapped for its plain version (the references of phases
+    4 and 5)."""
+    from repro_torch.kernels import block_sparse_matmul as bsk
+    from repro_torch.kernels import fta_int8_matmul as ftk
     from repro_torch.kernels import joint_sparse_matmul as jsm
     from repro_torch.kernels import ops
-    saved = ops.joint_sparse_matmul
-    ops.joint_sparse_matmul = jsm.joint_sparse_matmul_plain
+    from repro_torch.kernels import row_attention as rak
+    from repro_torch.kernels import row_norm as rnk
+    swaps = [(ops, "joint_sparse_matmul", jsm.joint_sparse_matmul_plain),
+             (ops, "block_sparse_matmul", bsk.block_sparse_matmul_plain),
+             (ops, "fta_int8_matmul", ftk.fta_int8_matmul_plain),
+             (rak, "row_attention", rak.row_attention_plain),
+             (rnk, "row_norm", rnk.row_norm_plain)]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
+    for mod, attr, plain in swaps:
+        setattr(mod, attr, plain)
     try:
         yield
     finally:
-        ops.joint_sparse_matmul = saved
+        for mod, attr, kernel in saved:
+            setattr(mod, attr, kernel)
 
 
 def _first_token_logits(engine, tables, prompt, chunk):
@@ -231,7 +463,6 @@ def _first_token_logits(engine, tables, prompt, chunk):
 
 def phase_serve(dev):
     from repro_torch.configs import get_config
-    from repro_torch.kernels import joint_sparse_matmul as jsm
     from repro_torch.launch import serve
     args = serve.build_parser().parse_args(SERVE_ARGS)
     cfg = get_config(args.arch, reduced=args.reduced,
@@ -242,48 +473,180 @@ def phase_serve(dev):
     log(f"[serve] params + stacked tables on the card in "
         f"{time.monotonic() - t0:.2f} s ({cfg.name}, {cfg.n_layers} layers, "
         f"d={cfg.d_model}, d_ff={cfg.d_ff}, dtype={cfg.dtype})")
-    jsm.LAUNCHES = 0
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
     outputs = engine.run(trace)
     torch.cuda.synchronize()
-    launches = jsm.LAUNCHES
+    counts = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     s = engine.metrics.summary()
     assert s["n_completed"] == len(trace) == 8, s["n_completed"]
     assert all(len(outputs[r.rid]) == r.gen_len for r in trace)
-    per_call = cfg.n_layers * len(_path_shapes(cfg))     # 22 x 7 = 154
-    assert launches == per_call * s["device_calls"], \
-        (launches, s["device_calls"])
+    per_call = {"joint_sparse_matmul":                   # 22 x 7 = 154
+                cfg.n_layers * len(_path_shapes(cfg)),
+                "row_attention": cfg.n_layers,
+                "row_norm": 2 * cfg.n_layers + 1}
+    launches = {name: counts[name] for name in per_call}
+    for name, n in per_call.items():
+        assert launches[name] == n * s["device_calls"], \
+            (name, launches[name], s["device_calls"])
+    assert sum(counts.values()) == sum(launches.values()), counts
     lat = s["call_latency_ms"]
     log(f"[serve] {s['n_completed']}/{s['n_requests']} requests, "
         f"{s['generated_tokens']} tokens, {s['engine_ticks']} ticks, "
-        f"{s['decode_calls']} decode + {s['prefill_calls']} prefill calls, "
-        f"kernel launches {launches} == {per_call} x "
-        f"{s['device_calls']}")
+        f"{s['decode_calls']} decode + {s['prefill_calls']} prefill calls; "
+        f"kernel launches " + ", ".join(
+            f"{name} {launches[name]} == {n} x {s['device_calls']}"
+            for name, n in per_call.items()) + " (other kernels: 0)")
     log(f"[serve] {s['tokens_per_sec']:.1f} tokens/s over {s['wall_s']:.2f} "
         f"s; decode ms/step p50={lat['decode']['p50_ms']:.2f} "
         f"mean={lat['decode']['mean_ms']:.2f}; prefill_chunk_exact "
-        f"p50={lat['prefill_chunk_exact']['p50_ms']:.2f} ms")
+        f"p50={lat['prefill_chunk_exact']['p50_ms']:.2f} ms; peak device "
+        f"memory {peak_gib:.2f} GiB")
     for rid in (0, 1):
         prompt = list(trace[rid].prompt)
-        with plain_joint_matmuls():
+        with plain_versions():
             ref = _first_token_logits(engine, tables, prompt,
                                       engine.prefill_chunk)
-        got = torch.from_numpy(engine.first_logits[rid])
+        row = engine.first_logits[rid]
+        assert row.shape == (1, cfg.vocab_size), row.shape
+        assert row.dtype == torch.bfloat16 and row.device.type == "cpu"
+        got = row[0].float()
         d = (got - ref).abs().max().item()
         peak = ref.abs().max().item()
-        assert torch.isfinite(got).all() and got.shape == (cfg.vocab_size,)
+        assert torch.isfinite(got).all()
         assert d <= LOGIT_REL_TOL * peak, (rid, d, peak)
         log(f"[serve] request {rid} (prompt {len(prompt)}): first-token "
-            f"logits kernel vs plain max|d|={d:.3e} (max|ref|={peak:.3f}, "
-            f"tol {LOGIT_REL_TOL} x max|ref|); argmax {int(got.argmax())} vs "
-            f"{int(ref.argmax())}")
-    # informational: the model-level chunk == stepwise invariant on the card
-    prompt = list(trace[0].prompt)
-    chunked = _first_token_logits(engine, tables, prompt, engine.prefill_chunk)
+            f"logits (1, V) bf16 row, kernel vs plain max|d|={d:.3e} "
+            f"(max|ref|={peak:.3f}, tol {LOGIT_REL_TOL} x max|ref|); argmax "
+            f"{int(got.argmax())} vs {int(ref.argmax())}")
+    check_chunk_equals_stepwise(engine, tables, list(trace[0].prompt))
+    return launches, engine
+
+
+class OpTrace:
+    """Records the output of every op of the decode path (embedding,
+    norms, projections, RoPE, attention, MLP, logits), labelled with its
+    layer, one list per decode_step / decode_chunk call."""
+
+    def __init__(self, n_layers: int):
+        self.n_layers = n_layers
+        self.calls = []
+        self._layer = -1
+
+    def _record(self, name, out):
+        self.calls[-1].append((name, out))
+        return out
+
+    @contextlib.contextmanager
+    def recording(self):
+        from repro_torch.models import attention, decode, transformer
+        from repro_torch.sparsity import sparse_linear
+        patches = []
+
+        def patch(mod, attr, wrapper):
+            patches.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, wrapper(getattr(mod, attr)))
+
+        def at_layer(name):
+            def wrapper(fn):
+                def f(*a, **kw):
+                    return self._record(f"L{self._layer} {name}", fn(*a, **kw))
+                return f
+            return wrapper
+
+        def embed(fn):
+            def f(*a, **kw):
+                self.calls.append([])
+                self._layer = -1
+                return self._record("embed", fn(*a, **kw))
+            return f
+
+        def norm1(fn):
+            def f(*a, **kw):
+                self._layer += 1
+                name = ("final_norm" if self._layer == self.n_layers
+                        else f"L{self._layer} norm1")
+                return self._record(name, fn(*a, **kw))
+            return f
+
+        def dense_fn(method):
+            def f(tables_self, slices):
+                mm = method(tables_self, slices)
+
+                def rec(w, x, name):
+                    return self._record(f"L{self._layer} {name}", mm(w, x, name))
+                return rec
+            return f
+
+        patch(decode, "embed_tokens", embed)
+        patch(decode, "apply_norm", norm1)
+        patch(decode, "logits_from_hidden", at_layer("logits"))
+        patch(transformer, "apply_norm", at_layer("norm2"))
+        patch(transformer, "apply_mlp", at_layer("mlp"))
+        patch(attention, "apply_rope", at_layer("rope"))
+        patch(attention, "_sdpa", at_layer("sdpa"))
+        patch(sparse_linear.StackedKernelTables, "dense_fn", dense_fn)
+        try:
+            yield self
+        finally:
+            for mod, attr, orig in reversed(patches):
+                setattr(mod, attr, orig)
+
+
+def _first_parting(chunk_call, step_calls):
+    """Ops (label, max|d|) where a one-chunk prefill and stepwise decode
+    of the same tokens differ, in the order the model runs them. Token t of
+    the chunk's output (dim 1) is compared with step t's; the logits, which
+    the chunk gives for its last token only, with the last step's."""
+    labels = [lab for lab, _ in chunk_call]
+    for call in step_calls:
+        assert [lab for lab, _ in call] == labels
+    parted = []
+    for j, (label, tc) in enumerate(chunk_call):
+        if label.endswith("logits"):
+            pairs = [(tc[:, 0], step_calls[-1][j][1][:, 0])]
+        else:
+            pairs = [(tc[:, t], step[j][1][:, 0])
+                     for t, step in enumerate(step_calls)]
+        if not all(torch.equal(a, b) for a, b in pairs):
+            d = max((a.float() - b.float()).abs().max().item()
+                    for a, b in pairs)
+            parted.append((label, d))
+    return parted
+
+
+def check_chunk_equals_stepwise(engine, tables, prompt):
+    """Chunked prefill == stepwise decode at model level on the card
+    (kernel path, batch 1): op by op through every layer over one
+    chunk, then the first-token logits of the whole prompt. Fails naming
+    the first op where the two paths part."""
+    C = engine.prefill_chunk
+    part = prompt[:C]
+    trace = OpTrace(engine.cfg.n_layers)
+    with trace.recording():
+        _first_token_logits(engine, tables, part, C)
+        _stepwise_logits(engine, tables, part)
+    assert len(trace.calls) == 1 + len(part)
+    parted = _first_parting(trace.calls[0], trace.calls[1:])
+    n_ops = len(trace.calls[0])
+    if parted:
+        worst = max(parted, key=lambda p: p[1])
+        log(f"[serve] chunked prefill vs stepwise decode ({len(part)} "
+            f"tokens, batch 1): {len(parted)} of {n_ops} ops differ; first "
+            f"{parted[0][0]} max|d|={parted[0][1]:.3e}; largest {worst[0]} "
+            f"max|d|={worst[1]:.3e}")
+    assert not parted, parted[:3]
+    log(f"[serve] chunked prefill vs stepwise decode ({len(part)} tokens, "
+        f"batch 1): all {n_ops} ops bitwise equal, token by token, through "
+        f"all {engine.cfg.n_layers} layers")
+    chunked = _first_token_logits(engine, tables, prompt, C)
     stepwise = _stepwise_logits(engine, tables, prompt)
-    log(f"[serve] request 0: chunked prefill vs stepwise decode, kernel "
-        f"path, batch 1: max|d|={(chunked - stepwise).abs().max().item():.3e}"
-        f", bitwise {torch.equal(chunked, stepwise)}")
-    return s, launches, engine
+    assert torch.equal(chunked, stepwise), \
+        (chunked - stepwise).abs().max().item()
+    log(f"[serve] request 0 (prompt {len(prompt)}, "
+        f"{-(-len(prompt) // C)} chunks): chunked prefill first-token logits "
+        f"bitwise equal to stepwise decode's")
 
 
 def _stepwise_logits(engine, tables, prompt):
@@ -296,6 +659,138 @@ def _stepwise_logits(engine, tables, prompt):
             torch.tensor([[tok]], dtype=torch.int32, device=engine.device),
             engine.cfg, tables=tables)
     return lg[0, 0].float().cpu()
+
+
+def _full_width_layer(cfg, dev):
+    """One tinyllama-1.1b decoder layer's params at full width, random
+    from a seeded generator on the card."""
+    from repro_torch.models.attention import init_attention
+    from repro_torch.models.layers import init_mlp, init_norm
+    gen = torch.Generator(device=dev).manual_seed(4)
+    return {"norm1": init_norm(cfg, cfg.d_model, dev),
+            "attn": init_attention(cfg, gen, dev),
+            "norm2": init_norm(cfg, cfg.d_model, dev),
+            "mlp": init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, dev)}
+
+
+def _run_layer(cfg, p, x, mm):
+    """x (B, S, D) through norm -> chunked attention into an empty cache
+    -> residual -> norm -> MLP -> residual, the projections through mm."""
+    from repro_torch.models.attention import prefill_attention
+    from repro_torch.models.layers import apply_mlp, apply_norm
+    B, S, _ = x.shape
+    kv = torch.zeros((B, S, cfg.n_kv_heads, cfg.hd), dtype=x.dtype,
+                     device=x.device)
+    y, _, _ = prefill_attention(
+        p["attn"], apply_norm(p["norm1"], x, cfg), kv, kv.clone(),
+        torch.zeros((B,), dtype=torch.int32, device=x.device),
+        torch.full((B,), S, dtype=torch.int32, device=x.device), cfg,
+        dense_fn=mm)
+    h = x + y
+    return h + apply_mlp(p["mlp"], apply_norm(p["norm2"], h, cfg), cfg,
+                         dense_fn=mm)
+
+
+def phase_modes(dev):
+    """One full-width layer through the per-layer kernel-mode hook in modes
+    value and bit. Returns (launches per kernel over the path, the packed
+    named tables per mode)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import make_matmul
+    from repro_torch.sparsity.sparse_linear import build_kernel_tables
+    kernel_of = {"value": "block_sparse_matmul", "bit": "fta_int8_matmul"}
+    base = get_config("tinyllama-1.1b")
+    p = _full_width_layer(base, dev)
+    named = {**{k: p["attn"][k] for k in ("wq", "wk", "wv", "wo")},
+             **p["mlp"]}
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((4, 64, base.d_model), generator=gen)
+    x = x.to(torch.bfloat16).to(dev)
+    x1 = x[:, :1].contiguous()
+    counts, tables_by_mode = {}, {}
+    for mode, kname in kernel_of.items():
+        cfg = base.scaled(dbpim=True, dbpim_mode=mode,
+                          dbpim_value_sparsity=0.6)
+        tables = build_kernel_tables(named, cfg)
+        assert {t["kind"] for t in tables.values()} == {mode}, mode
+        tables_by_mode[mode] = tables
+        mm = make_matmul(cfg, tables)
+        torch.cuda.synchronize()
+        reset_launches()
+        y = _run_layer(cfg, p, x, mm)
+        torch.cuda.synchronize()
+        per_call = read_launches()
+        assert per_call == {**{k: 0 for k in per_call}, kname: 7,
+                            "row_attention": 1, "row_norm": 2}, \
+            (mode, per_call)
+        counts[kname] = per_call[kname]
+        with plain_versions():
+            ref = _run_layer(cfg, p, x, mm)
+        peak = ref.float().abs().max().item()
+        err = (y.float() - ref.float()).abs().max().item()
+        assert torch.isfinite(y).all() and err <= LAYER_REL_TOL * peak, \
+            (mode, err, peak)
+        reset_launches()
+        _run_layer(cfg, p, x1, mm)
+        torch.cuda.synchronize()
+        decode_launches = read_launches()[kname]
+        log(f"[modes] {mode}: one full-width layer at 4 x 64 = 256 rows, "
+            f"{per_call[kname]} {kname} launches; vs plain versions "
+            f"max|d|={err:.3e} (max|ref|={peak:.3f}, tol {LAYER_REL_TOL} x "
+            f"max|ref|); a 4-row decode call launches it "
+            f"{decode_launches} times (rows % 128 != 0: the reference's "
+            f"plain math)")
+    return counts, tables_by_mode
+
+
+def phase_dbmu(cfg, dev):
+    """The quickstart pipeline at every projection shape on the card, then
+    the quickstart itself. Returns the dbmu_matmul launches of the path."""
+    from repro_torch import quickstart
+    from repro_torch.core import pruning
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator().manual_seed(7)
+    data = []
+    for name, K, N in _distinct(_path_shapes(cfg)):
+        w = torch.randn((K, N), generator=gen) * K ** -0.5
+        x = torch.randint(-128, 128, (256, K), generator=gen,
+                          dtype=torch.int32)
+        data.append((name, K, N, w, x))
+    torch.cuda.synchronize()
+    reset_launches()
+    for name, K, N, w, x in data:
+        t0 = time.monotonic()
+        mask = pruning.block_prune_mask(w.to(dev), 0.6, alpha=8)
+        q, scale, packed, phi = ops.fta_pack(w.to(dev), mask)
+        y = ops.dbmu_reference_check(x.to(dev), packed)
+        want = ref.dbmu_matmul_ref(x.to(dev), packed)
+        torch.cuda.synchronize()
+        t_card = time.monotonic() - t0
+        assert torch.equal(y.long(), want), (name, "dbmu")
+        mask_cpu = pruning.block_prune_mask(w, 0.6, alpha=8)
+        q_cpu, scale_cpu, packed_cpu, phi_cpu = ops.fta_pack(w, mask_cpu)
+        for a, b, what in ((mask, mask_cpu, "mask"), (q, q_cpu, "q"),
+                           (packed, packed_cpu, "packed"),
+                           (phi, phi_cpu, "phi")):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b), \
+                (name, what)
+        assert float(scale) == float(scale_cpu)
+        log(f"[dbmu] {name} {K}x{N}: value sparsity "
+            f"{pruning.value_sparsity(mask):.3f}, phi_th histogram "
+            f"{torch.bincount(phi.long(), minlength=3).tolist()}; card "
+            f"mask/INT8/terms == cpu byte for byte; dbmu_matmul M=256 == "
+            f"integer matmul exactly ({t_card:.2f} s on the card)")
+    res = quickstart.run("cuda")
+    torch.cuda.synchronize()
+    counts = read_launches()
+    assert res["pack_exact"] and res["dbmu_exact"] and \
+        res["joint_err"] < 1e-5, res
+    assert counts["dbmu_matmul"] == len(data) + 1, counts
+    log(f"[dbmu] quickstart on the card: pack/unpack exact, DBMU bit-true, "
+        f"speedup {res['speedup']:.2f}x, joint kernel max|d| "
+        f"{res['joint_err']:.2e}; dbmu_matmul launches on the path "
+        f"{counts['dbmu_matmul']}")
+    return counts["dbmu_matmul"]
 
 
 def phase_profile(engine, n_steps=8):
@@ -358,51 +853,201 @@ def _time(fn, iters=200, warmup=20):
     return start.elapsed_time(end) / iters
 
 
-def phase_times(cfg, packs, dev, n_slots):
-    """Per-launch times at the decode shapes (M = n_slots, bf16), and the
-    same summed over one decode step's 154 launches."""
+def _time_auto(fn, budget_s=0.2):
+    """Mean ms per call with CUDA events after warm-up, over as many calls
+    as fit in about ``budget_s`` (at least 3, at most 200)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fn()
+    torch.cuda.synchronize()
+    once = max(time.monotonic() - t0, 1e-6)
+    iters = int(min(200, max(3, budget_s / once)))
+    return _time(fn, iters=iters, warmup=min(iters, 5))
+
+
+def _bound(nbytes, ops, peak_ops):
+    """(bound ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _time_cases(cfg, packs, tables_by_mode, dev, n_slots=4, M=256):
+    """Per kernel, one case per launch of its work unit: the kernel, its
+    plain version and the library call as closures, with the bytes and
+    operations the launch needs. The joint kernel at the decode shapes
+    (M = n_slots), the block-sparse and FTA/INT8 kernels over phase 5's
+    layer tables and the DBMU kernel over the four projection shapes (M
+    rows)."""
+    from repro_torch.core import dyadic, pruning
+    from repro_torch.kernels import block_sparse_matmul as bsk
+    from repro_torch.kernels import dbmu_sim
+    from repro_torch.kernels import fta_int8_matmul as ftk
     from repro_torch.kernels import joint_sparse_matmul as jsm
     from repro_torch.kernels import ops
     gen = torch.Generator().manual_seed(3)
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-               bytes=0, flops=0)
-    rows = []
+    bf16 = torch.bfloat16
+    cases = {name: [] for name in KERNELS}
     for name, K, N in _path_shapes(cfg):
         p = packs[(K, N)]
-        x = torch.randn((n_slots, K), generator=gen).to(torch.bfloat16).to(dev)
-        w_dense = ops.unpack_joint_sparse(p).to(torch.bfloat16)
-        ms = _time(lambda: jsm.joint_sparse_matmul(x, p.w_blocks, p.idx,
-                                                   p.scales))
-        plain = _time(lambda: jsm.joint_sparse_matmul_plain(
-            x, p.w_blocks, p.idx, p.scales))
-        lib = _time(lambda: torch.matmul(x, w_dense))
-        nt, maxb, bk, bn = p.w_blocks.shape
-        stored = nt * maxb * bk * bn
-        nbytes = (x.numel() * 2 + stored * p.w_blocks.element_size()
-                  + p.idx.numel() * 4 + p.scales.numel() * 4
-                  + n_slots * nt * bn * 2)
-        flops = 2 * n_slots * stored
-        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS)
-        by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS \
-            else "operations"
-        rows.append(dict(name=name, K=K, N=N, NT=nt, MAXB=maxb, ms=ms,
-                         plain_ms=plain, library_ms=lib, bound_ms=bound,
-                         bound_by=by, bytes=nbytes))
-        log(f"[times] {name} {K}x{N} M={n_slots} bf16: kernel {ms * 1e3:.1f} "
-            f"us, plain {plain * 1e3:.1f} us, torch.matmul dense "
-            f"{lib * 1e3:.1f} us, bound {bound * 1e3:.2f} us ({by}, "
-            f"{nbytes / 1e6:.3f} MB)")
-        L = cfg.n_layers
-        for key, val in (("ms", ms), ("plain_ms", plain),
-                         ("library_ms", lib), ("bound_ms", bound)):
-            tot[key] += L * val
-        tot["bytes"] += L * nbytes
-        tot["flops"] += L * flops
-    log(f"[times] one decode step (22 x 7 = 154 launches, M={n_slots}): "
-        f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
-        f"torch.matmul dense {tot['library_ms']:.3f} ms, bound "
-        f"{tot['bound_ms']:.3f} ms ({tot['bytes'] / 1e6:.1f} MB)")
-    return rows, tot
+        x = torch.randn((n_slots, K), generator=gen).to(bf16).to(dev)
+        w_dense = ops.unpack_joint_sparse(p).to(bf16)
+        stored = p.w_blocks.numel()
+        nt, maxb, _, bn = p.w_blocks.shape
+        cases["joint_sparse_matmul"].append(dict(
+            name=name, K=K, N=N, NT=nt, MAXB=maxb,
+            kernel=lambda x=x, p=p: jsm.joint_sparse_matmul(
+                x, p.w_blocks, p.idx, p.scales),
+            plain=lambda x=x, p=p: jsm.joint_sparse_matmul_plain(
+                x, p.w_blocks, p.idx, p.scales),
+            library=lambda x=x, w=w_dense: torch.matmul(x, w),
+            bytes=(x.numel() * 2 + stored + p.idx.numel() * 4
+                   + p.scales.numel() * 4 + n_slots * nt * bn * 2),
+            ops=2 * n_slots * stored, peak=BF16_FLOPS, repeat=cfg.n_layers))
+        x = torch.randn((M, K), generator=gen).to(bf16).to(dev)
+        t = tables_by_mode["value"][name]
+        wb, idx, w_dense = t["w_blocks"].to(bf16), t["idx"], t["w"].to(bf16)
+        stored = wb.numel()
+        cases["block_sparse_matmul"].append(dict(
+            name=name, K=K, N=N, NT=wb.shape[0], MAXB=wb.shape[1],
+            kernel=lambda x=x, wb=wb, idx=idx: bsk.block_sparse_matmul(
+                x, wb, idx),
+            plain=lambda x=x, wb=wb, idx=idx: bsk.block_sparse_matmul_plain(
+                x, wb, idx),
+            library=lambda x=x, w=w_dense: torch.matmul(x, w),
+            bytes=x.numel() * 2 + stored * 2 + idx.numel() * 4 + M * N * 2,
+            ops=2 * M * stored, peak=BF16_FLOPS))
+        t = tables_by_mode["bit"][name]
+        q, sc = t["q"], t["scales"]
+        w_deq = (q.float() * sc).to(bf16)
+        cases["fta_int8_matmul"].append(dict(
+            name=name, K=K, N=N,
+            kernel=lambda x=x, q=q, sc=sc: ftk.fta_int8_matmul(x, q, sc),
+            plain=lambda x=x, q=q, sc=sc: ftk.fta_int8_matmul_plain(x, q, sc),
+            library=lambda x=x, w=w_deq: torch.matmul(x, w),
+            bytes=x.numel() * 2 + K * N + N * 4 + M * N * 2,
+            ops=2 * M * K * N, peak=BF16_FLOPS))
+    for name, K, N in _distinct(_path_shapes(cfg)):
+        w = (torch.randn((K, N), generator=gen) * K ** -0.5).to(dev)
+        _, _, packed, _ = ops.fta_pack(
+            w, pruning.block_prune_mask(w, 0.6, alpha=8))
+        x = torch.randint(-128, 128, (M, K), generator=gen,
+                          dtype=torch.int32).to(dev)
+        x8 = x.to(torch.int8)
+        w8 = dyadic.unpack_terms(packed).to(torch.int8)
+        cases["dbmu_matmul"].append(dict(
+            name=name, K=K, N=N,
+            kernel=lambda x=x, p=packed: dbmu_sim.dbmu_matmul(x, p),
+            plain=lambda x=x, p=packed: dbmu_sim.dbmu_matmul_plain(x, p),
+            library=lambda a=x8, b=w8: torch._int_mm(a, b),
+            bytes=x.numel() * 4 + K * N * 2 + M * N * 4,
+            ops=2 * M * K * N, peak=INT8_OPS))
+    cases["row_attention"] = _row_attention_cases(cfg, dev, gen)
+    cases["row_norm"] = _row_norm_cases(cfg, dev, gen)
+    return cases
+
+
+def _row_attention_cases(cfg, dev, gen):
+    """A decode call and a prefill-chunk call of one layer's attention at
+    the serving shapes, each repeated over the layers. Bytes: the queries,
+    positions and outputs once, and the live cache rows of each slot once;
+    operations: 4 * hd per live key and query head."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import row_attention as rak
+    a = _serve_attention_inputs(cfg, dev, torch.bfloat16, gen)
+    k, v = a["k"], a["v"]
+    B, A, Hkv, hd = k.shape
+    rep = cfg.n_heads // Hkv
+    kh = torch.repeat_interleave(k, rep, dim=2).transpose(1, 2)
+    vh = torch.repeat_interleave(v, rep, dim=2).transpose(1, 2)
+    cases = []
+    for what in ("decode", "chunk"):
+        q, pos = a[what]
+        live = torch.clamp(pos.long(), max=A - 1) + 1               # (B, Sq)
+        mask = (torch.arange(A, device=dev)[None, None] <
+                live[:, :, None])[:, None]                          # (B,1,Sq,A)
+        qh = q.transpose(1, 2)
+        cases.append(dict(
+            name=what, K=tuple(q.shape), N=tuple(k.shape),
+            kernel=lambda q=q, pos=pos: rak.row_attention(q, k, v, pos),
+            plain=lambda q=q, pos=pos: rak.row_attention_plain(q, k, v, pos),
+            library=lambda qh=qh, mask=mask: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask),
+            bytes=(2 * q.numel() * 2 + pos.numel() * 4
+                   + 2 * int(live.max(dim=1).values.sum()) * Hkv * hd * 2),
+            ops=4 * hd * cfg.n_heads * int(live.sum()), peak=BF16_FLOPS,
+            repeat=cfg.n_layers))
+    return cases
+
+
+def _row_norm_cases(cfg, dev, gen):
+    """The norms of a decode call (4 rows) and of a prefill-chunk call (256
+    rows), 2 per layer and the final one. Bytes: x and out once, the scale
+    once; operations: 4 fp32 flops per element."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import row_norm as rnk
+    D = cfg.d_model
+    scale = (1 + 0.1 * torch.randn((D,), generator=gen)).to(dev)
+    scale_bf16 = scale.to(torch.bfloat16)
+    cases = []
+    for R in (4, 256):
+        x = torch.randn((R, D), generator=gen).to(torch.bfloat16).to(dev)
+        library = None
+        if hasattr(F, "rms_norm"):
+            library = (lambda x=x: F.rms_norm(x, (D,), scale_bf16, 1e-6))
+        cases.append(dict(
+            name=f"{R} rows", K=R, N=D,
+            kernel=lambda x=x: rnk.row_norm(x, scale),
+            plain=lambda x=x: rnk.row_norm_plain(x, scale),
+            library=library,
+            bytes=2 * R * D * 2 + D * 4, ops=4 * R * D, peak=FP32_FLOPS,
+            repeat=2 * cfg.n_layers + 1))
+    return cases
+
+
+def phase_times(cfg, packs, tables_by_mode, dev):
+    """Each kernel, its plain version and its library yardstick, launch by
+    launch over its work unit, beside the bound; the joint kernel's
+    decode-step totals count each projection once per layer. Returns
+    {kernel: totals and per-launch rows for the JSON line}."""
+    out = {}
+    for kname, rows in _time_cases(cfg, packs, tables_by_mode, dev).items():
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0)
+        per_shape = []
+        n_launches = 0
+        for c in rows:
+            repeat = c.get("repeat", 1)
+            n_launches += repeat
+            ms, plain = _time_auto(c["kernel"]), _time_auto(c["plain"])
+            lib = _time_auto(c["library"]) if c["library"] else None
+            bound, by = _bound(c["bytes"], c["ops"], c["peak"])
+            per_shape.append(dict(
+                {k: v for k, v in c.items()
+                 if k not in ("kernel", "plain", "library", "peak")},
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+                bound_by=by))
+            for key, val in (("ms", ms), ("plain_ms", plain),
+                             ("library_ms", lib), ("bytes", c["bytes"]),
+                             ("ops", c["ops"])):
+                tot[key] = None if val is None or tot[key] is None \
+                    else tot[key] + repeat * val
+            log(f"[times] {kname} {c['name']} {c['K']}x{c['N']}: kernel "
+                f"{ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, library "
+                f"{'n/a' if lib is None else f'{lib * 1e3:.1f} us'}, bound "
+                f"{bound * 1e3:.2f} us ({by}, {c['bytes'] / 1e6:.3f} MB)")
+        tot["bound_ms"], tot["bound_by"] = _bound(tot["bytes"], tot["ops"],
+                                                  rows[0]["peak"])
+        tot["per_shape"] = per_shape
+        out[kname] = tot
+        lib = tot["library_ms"]
+        log(f"[times] {kname}, {n_launches} launches: kernel "
+            f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, library "
+            f"{'n/a' if lib is None else f'{lib:.3f} ms'}, bound "
+            f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}, "
+            f"{tot['bytes'] / 1e6:.1f} MB)")
+    return out
 
 
 def main() -> int:
@@ -417,24 +1062,46 @@ def main() -> int:
     phase_build()
     cfg = get_config("tinyllama-1.1b", dbpim_mode="joint")
     packs = phase_pack(cfg, dev)
-    worst = phase_kernel(cfg, packs, dev)
-    _, launches, engine = phase_serve(dev)
+    worst = {"joint_sparse_matmul": phase_kernel(cfg, packs, dev),
+             **phase_kernel_value_bit_dbmu(cfg, dev)}
+    worst.update(phase_kernel_rows(cfg, dev))
+    serve_launches, engine = phase_serve(dev)
+    mode_launches, tables_by_mode = phase_modes(dev)
+    launches = {**serve_launches, **mode_launches,
+                "dbmu_matmul": phase_dbmu(cfg, dev)}
     phase_profile(engine)
-    rows, tot = phase_times(cfg, packs, dev, n_slots=4)
+    times = phase_times(cfg, packs, tables_by_mode, dev)
 
-    kernels = [{
-        "name": "joint_sparse_matmul", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/joint_sparse_matmul.cu",
-        "replaces": "src/repro/kernels/joint_sparse_matmul.py:129",
-        "launches": launches, "max_abs_err": worst,
-        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-        "bound_ms": tot["bound_ms"],
-        "bound_by": ("bytes" if tot["bytes"] / HBM_BYTES_PER_S
-                     >= tot["flops"] / BF16_FLOPS else "operations"),
-        "library_ms": tot["library_ms"],
-        "work": "one decode step: 22 layers x 7 projections, M=4, bf16",
-        "per_shape": rows,
-    }]
+    kernels = []
+    for name, replaces, work in (
+            ("joint_sparse_matmul", "kernels/joint_sparse_matmul.py:129",
+             "one decode step: 22 layers x 7 projections, M=4, bf16"),
+            ("block_sparse_matmul", "kernels/block_sparse_matmul.py:73",
+             "one full-width layer: 7 projections, M=256, bf16, vs=0.6"),
+            ("fta_int8_matmul", "kernels/fta_int8_matmul.py:68",
+             "one full-width layer: 7 projections, M=256, bf16 x, int8 W"),
+            ("dbmu_matmul", "kernels/dbmu_sim.py:74",
+             "the four projection shapes, M=256, int8-range x"),
+            ("row_attention", "models/attention.py:48",
+             "one decode call and one 64-token prefill-chunk call: 22 "
+             "launches each, batch 4, 512-slot cache, bf16 (replaces plain "
+             "jnp einsums, no TPU kernel)"),
+            ("row_norm", "models/layers.py:33",
+             "one decode call (4 rows) and one prefill-chunk call (256 "
+             "rows): 45 launches each, d=2048, bf16 (replaces plain jnp, no "
+             "TPU kernel)")):
+        t = times[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": f"src/repro/{replaces}",
+            "launches": launches[name], "max_abs_err": worst[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "work": work,
+            "per_shape": t["per_shape"]})
+    assert all(k["launches"] > 0 for k in kernels), \
+        [(k["name"], k["launches"]) for k in kernels]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

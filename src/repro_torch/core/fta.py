@@ -80,3 +80,16 @@ def fta_quantize(q: torch.Tensor, mask: torch.Tensor):
     """Full Alg. 1: thresholds + projection. Returns (w_fta, phi_th)."""
     th = compute_thresholds(q, mask)
     return project(q, mask, th), th
+
+
+def achieved_bit_sparsity(w_fta: torch.Tensor, mask=None) -> float:
+    """Fraction of zero CSD digits among stored (unmasked) weights: the
+    paper's bit-level sparsity (>= 75 % when phi_th <= 2)."""
+    w = torch.as_tensor(w_fta).to(torch.int64)
+    phi = torch.as_tensor(PHI_TABLE, device=w.device).to(torch.int64)[
+        w - INT8_MIN]
+    if mask is not None:
+        phi = phi[torch.as_tensor(mask, device=w.device) == 1]
+    if phi.numel() == 0:
+        return 1.0
+    return float(1.0 - int(phi.sum()) / (8.0 * phi.numel()))

@@ -49,25 +49,53 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source and
-    flags exists. Returns the library path."""
+def _start(name: str):
+    """Start nvcc on ``csrc/<name>.cu`` unless its library exists. Returns
+    (library, temporary output, process, start time), or None."""
     out = library_path(name)
     if out.exists():
         BUILD_SECONDS.setdefault(name, 0.0)
-        return out
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.monotonic()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{res.stdout}\n"
-                           f"{res.stderr}")
-    os.replace(tmp, out)
-    BUILD_SECONDS[name] = time.monotonic() - t0
-    PTXAS_LOG[name] = res.stderr
-    return out
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return out, tmp, proc, time.monotonic()
+
+
+def build_all(names) -> dict:
+    """Compile every ``csrc/<name>.cu`` in ``names`` that has no library of
+    the same source and flags yet: one nvcc each, all started together.
+    Returns {name: library path}; raises if any build fails, after every
+    nvcc it started has ended."""
+    jobs = {}
+    try:
+        for name in names:
+            jobs[name] = _start(name)
+        for name, job in jobs.items():
+            if job is None:
+                continue
+            out, tmp, proc, t0 = job
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}:\n{stdout}\n"
+                                   f"{stderr}")
+            os.replace(tmp, out)
+            BUILD_SECONDS[name] = time.monotonic() - t0
+            PTXAS_LOG[name] = stderr
+    finally:
+        for job in jobs.values():
+            if job is not None and job[2].poll() is None:
+                job[2].kill()
+                job[2].wait()
+    return {name: library_path(name) for name in names}
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library of the same source and
+    flags exists. Returns the library path."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,6 +1,10 @@
-"""Packing utilities and the public ``joint_dense`` op, on torch tensors.
+"""Packing utilities and the public ops over the port's kernels, on torch
+tensors.
 
-Port of the joint-sparse half of ``repro.kernels.ops``. The pack runs on
+Port of ``repro.kernels.ops``: the block-sparse pack and ``sparse_dense``
+(value level), ``fta_pack`` and ``fta_dense`` (bit level), the joint pack
+and ``joint_dense`` (value x bit), and ``dbmu_reference_check`` (the
+bit-true DB-PIM datapath). The joint pack runs on
 whatever device its weights lie on, so a full-width model packs on the
 card in seconds instead of spending minutes of host time in numpy. It is
 byte-identical to the JAX package's numpy pack:
@@ -22,11 +26,100 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import fta
+from repro_torch.core import dyadic, fta, qat
+from .block_sparse_matmul import block_sparse_matmul
+from .dbmu_sim import dbmu_matmul
+from .fta_int8_matmul import fta_int8_matmul
 from .joint_sparse_matmul import joint_sparse_matmul
 
 #: the TPU kernel's tiles; reduced configs pack smaller (sparse_linear)
 BM, BK, BN = 128, 128, 128
+
+
+def _compact_order(alive, maxb: int):
+    """Per N tile, its surviving K-blocks first in ascending K order:
+    (order (nt, maxb) int64 source block per slot, real (nt, maxb) bool)."""
+    kt = alive.shape[0]
+    nblocks = alive.sum(dim=0)                                   # (nt,)
+    k_ar = torch.arange(kt, device=alive.device)
+    key = (~alive).T.to(torch.int64) * kt + k_ar[None, :]        # (nt, kt)
+    order = torch.argsort(key, dim=1)[:, :maxb]
+    real = (torch.arange(maxb, device=alive.device)[None, :]
+            < nblocks[:, None])
+    return order, real
+
+
+def pack_block_sparse(w_dense, mask, bk: int = BK, bn: int = BN):
+    """Compact a masked (K, N) weight into the surviving K-blocks of each N
+    tile: (w_blocks (NT, MAXB, bk, bn) in w's dtype, idx (NT, MAXB) int32),
+    on w's device. A K-block survives for an N tile iff its (bk, bn) tile
+    of ``w * mask`` holds a non-zero weight; MAXB is the most survivors of
+    any tile (at least 1), shorter tiles pad with zero blocks at index 0.
+    K and N must be multiples of bk and bn."""
+    w_dense = torch.as_tensor(w_dense)
+    w = w_dense * torch.as_tensor(mask, device=w_dense.device).to(
+        w_dense.dtype)
+    K, N = w.shape
+    if K % bk or N % bn:
+        raise ValueError(f"({K}, {N}) is not a multiple of ({bk}, {bn})")
+    kt, nt = K // bk, N // bn
+    tiles = w.reshape(kt, bk, nt, bn)
+    alive = (tiles != 0).any(dim=3).any(dim=1)                   # (kt, nt)
+    maxb = max(int(alive.sum(dim=0).max()), 1)
+    order, real = _compact_order(alive, maxb)
+    w_blocks = torch.gather(
+        tiles.permute(2, 0, 1, 3), 1,
+        order[:, :, None, None].expand(nt, maxb, bk, bn))
+    w_blocks = w_blocks * real[:, :, None, None].to(w.dtype)
+    idx = torch.where(real, order, torch.zeros_like(order)).to(torch.int32)
+    return w_blocks.contiguous(), idx
+
+
+def sparse_dense(x, w_blocks, idx):
+    """Block-sparse y = x @ W for (..., K) activations, in x's dtype."""
+    shape = x.shape
+    y = block_sparse_matmul(x.reshape(-1, shape[-1]).contiguous(), w_blocks,
+                            idx)
+    return y.reshape(shape[:-1] + (y.shape[-1],))
+
+
+def fta_pack(w, mask):
+    """The DB-PIM weight compilation of one matrix: per-tensor INT8 scale
+    (max|w| / 127, in w's dtype) -> FTA projection under ``mask`` ->
+    dyadic term bytes. Returns (q_fta int8, scale, packed (K, N, 2) uint8,
+    phi_th (N,) int32), on w's device."""
+    w = torch.as_tensor(w)
+    scale = w.abs().max() / 127.0
+    q = qat.quantize_int8(w, scale)
+    q_fta, phi = fta.fta_quantize(q, torch.as_tensor(mask, device=w.device))
+    return q_fta.to(torch.int8), scale, dyadic.pack_terms(q_fta), phi
+
+
+def fta_dense(x, w_q, scales):
+    """y = x @ (int8 FTA weights x per-filter scales) for (..., K)
+    activations; bf16 out, as the kernel's default."""
+    shape = x.shape
+    y = fta_int8_matmul(x.reshape(-1, shape[-1]).contiguous(), w_q, scales)
+    return y.reshape(shape[:-1] + (y.shape[-1],))
+
+
+def random_tile_mask(gen: torch.Generator, K: int, N: int, sparsity: float,
+                     tile: int = 128, device=None):
+    """Whole-(tile x tile) random survival mask (ceil + crop, so ragged
+    shapes work): int32 (K, N) on ``device``; at least one tile survives.
+    The draw comes from ``gen`` (its device must be ``device``'s)."""
+    kt, nt = -(-K // tile), -(-N // tile)
+    alive = torch.rand((kt, nt), generator=gen, device=device) >= sparsity
+    if not alive.any():
+        alive[0, 0] = True
+    return _expand_tiles(alive, tile, tile, K, N)
+
+
+def dbmu_reference_check(x_int8, packed):
+    """Run the bit-true DBMU datapath: x (M, K) int8-range ints, packed
+    (K, N, 2) uint8 term bytes -> (M, N) int32."""
+    x = torch.as_tensor(x_int8).to(torch.int32).contiguous()
+    return dbmu_matmul(x, torch.as_tensor(packed).contiguous())
 
 
 def _tile_norms(w, bk: int, bn: int):
@@ -151,12 +244,7 @@ def _quantize_and_compact(w, m, bk, bn, fta_project, maxb=None,
     nblocks = alive.sum(dim=0).to(torch.int32)                  # (nt,)
     if maxb is None:
         maxb = max(int(nblocks.max()), 1)
-    # per column: surviving K-blocks first, in ascending K order
-    k_ar = torch.arange(kt, device=w.device)
-    key = (~alive).T.to(torch.int64) * kt + k_ar[None, :]        # (nt, kt)
-    order = torch.argsort(key, dim=1)[:, :maxb]                  # (nt, maxb)
-    real = (torch.arange(maxb, device=w.device)[None, :]
-            < nblocks[:, None])                                  # (nt, maxb)
+    order, real = _compact_order(alive, maxb)
     idx = torch.where(real, order, torch.zeros_like(order)).to(torch.int32)
     tiles = q.reshape(kt, bk, nt, bn).permute(2, 0, 1, 3)        # (nt,kt,bk,bn)
     w_blocks = torch.gather(

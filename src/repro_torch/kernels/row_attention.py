@@ -1,0 +1,134 @@
+"""Row-stable masked GQA attention against a contiguous KV cache.
+
+The reference computes attention with plain jnp einsums
+(``repro.models.attention._sdpa``); no Pallas kernel replaces them. The
+port runs it in a hand-written kernel so that a query's output does not
+depend on how many queries share the call: a 1-token decode and a C-token
+prefill chunk then agree bit for bit, the invariant chunked prefill rests
+on. A batched matmul and torch's softmax pick their summation order from
+the whole shape, so the plain version does not keep it on the card.
+
+  q    : (B, Sq, Hq, hd)   queries, f32 or bf16
+  k, v : (B, A, Hkv, hd)   the cache, in q's dtype; Hq % Hkv == 0
+  qpos : (B, Sq) int       each query's position: keys 0..qpos are live
+
+Three things live here:
+
+  * ``row_attention`` — the wrapper. A CPU tensor takes the plain version;
+    a CUDA tensor launches the hand-written kernel
+    (``csrc/row_attention.cu``, built by ``nvcc`` for sm_90a on first use,
+    loaded with ctypes) or raises. There is no fallback.
+  * ``row_attention_plain`` — the reference's math in plain PyTorch: KV
+    heads repeated, einsum logits in the activations' dtype, -1e30 mask,
+    fp32 softmax cast back, einsum with v.
+  * ``LAUNCHES`` — the number of kernel launches so far, raised by one at
+    each launch and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+#: kernel launches so far in this process (the wrapper's CUDA branch only)
+LAUNCHES = 0
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_LIB = None
+
+
+def row_attention_plain(q, k, v, qpos):
+    """(B, Sq, Hq, hd) attention output in q's dtype, in plain PyTorch."""
+    rep = q.shape[2] // k.shape[2]
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    A = k.shape[1]
+    kpos = torch.arange(A, device=q.device)
+    mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None]     # (B,1,Sq,A)
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    logits = torch.where(mask, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.transpose(1, 2))
+    return out.transpose(1, 2)
+
+
+def _library():
+    global _LIB
+    if _LIB is None:
+        lib = build.load("row_attention")
+        fn = lib.row_attention_launch
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_int,
+                                                    ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _cache_view(t):
+    """t itself when each batch row of (B, A, Hkv, hd) is contiguous (the
+    kernel takes any batch stride), else a contiguous copy."""
+    B, A, H, hd = t.shape
+    return t if t.stride()[1:] == (H * hd, hd, 1) else t.contiguous()
+
+
+def _check(q, k, v, qpos):
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"want q (B, Sq, Hq, hd), k and v (B, A, Hkv, hd); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Sq, Hq, hd = q.shape
+    if k.shape[0] != B or k.shape[3] != hd or Hq % k.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} and cache {tuple(k.shape)} do "
+                         f"not match (batch, head dim, Hq % Hkv == 0)")
+    if hd > 256:
+        raise ValueError(f"head dim {hd} > 256: the kernel holds at most 8 "
+                         f"head dims per lane")
+    if tuple(qpos.shape) != (B, Sq):
+        raise ValueError(f"qpos must be {(B, Sq)}, got {tuple(qpos.shape)}")
+    for name, t in (("k", k), ("v", v), ("qpos", qpos)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"q dtype {q.dtype} not in (float32, bfloat16)")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"cache dtypes {k.dtype}, {v.dtype} != q dtype "
+                        f"{q.dtype}")
+
+
+def row_attention(q, k, v, qpos):
+    """Masked GQA attention, (B, Sq, Hq, hd) in q's dtype. CPU tensors run
+    the plain version; CUDA tensors launch the kernel on the current
+    stream or raise."""
+    global LAUNCHES
+    if q.device.type == "cpu":
+        return row_attention_plain(q, k, v, qpos)
+    if q.device.type != "cuda":
+        raise ValueError(f"row_attention runs on cuda or cpu, not {q.device}")
+    _check(q, k, v, qpos)
+    B, Sq, Hq, hd = q.shape
+    A, Hkv = k.shape[1], k.shape[2]
+    q = q.contiguous()
+    k, v = _cache_view(k), _cache_view(v)
+    qpos = qpos.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.row_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
+            out.data_ptr(), B, Sq, Hq, Hkv, A, hd, k.stride(0), v.stride(0),
+            hd ** -0.5, _DTYPE_CODE[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"row_attention launch failed: CUDA error {rc} "
+                           f"(B={B}, Sq={Sq}, Hq={Hq}, Hkv={Hkv}, A={A}, "
+                           f"hd={hd})")
+    LAUNCHES += 1
+    return out

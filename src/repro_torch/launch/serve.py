@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import argparse
 
+import torch
+
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
@@ -110,6 +112,10 @@ def main(argv=None):
         print(f"[serve] latency {kind}: p50={h['p50_ms']:.2f} "
               f"p95={h['p95_ms']:.2f} p99={h['p99_ms']:.2f} ms "
               f"({h['count']} calls)")
+    if engine.device.type == "cuda":
+        print(f"[serve] peak device memory "
+              f"{torch.cuda.max_memory_allocated(engine.device) / 2**30:.2f}"
+              f" GiB")
     for rid in sorted(outputs):
         print(f"  req{rid}: {outputs[rid][:8]}...")
     return outputs

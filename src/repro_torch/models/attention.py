@@ -1,10 +1,11 @@
 """Attention for the serving path: GQA with RoPE and qk-norm against a
 contiguous static-shape KV cache.
 
-Port of the contiguous branches of ``repro.models.attention``. Attention
-is plain tensor math in the reference, so it stays plain ``einsum`` here
-(no fused attention operator), with the same -1e30 masking and the fp32
-softmax cast back to the activation dtype.
+Port of the contiguous branches of ``repro.models.attention``, with the
+same -1e30 masking and the fp32 softmax cast back to the activation dtype.
+The reference's plain einsums run in one hand-written kernel
+(``kernels.row_attention``), whose queries come out bitwise the same
+however many share a call: chunked prefill reproduces stepwise decode.
 
 Shapes: x (B, S, D); q (B, S, Hq, hd); k/v (B, S, Hkv, hd). Cache:
 {"k", "v"} (B, A, Hkv, hd) per layer, A = allocated length.
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import row_attention
 from .config import ModelConfig
 from .layers import (_normal, apply_rope, dtype_of, rms_head_norm,
                      rope_frequencies)
@@ -40,23 +42,10 @@ def _split_heads(x, n, hd):
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
-def _repeat_kv(k, n_rep):
-    if n_rep == 1:
-        return k
-    return torch.repeat_interleave(k, n_rep, dim=2)
-
-
-def _sdpa(q, k, v, mask, dtype):
-    """q (B,Sq,H,hd), k/v (B,Skv,H,hd), mask broadcast (B,1,Sq,Skv). The
-    probs @ v contraction is a plain batched matmul on pre-transposed v,
-    the row-stable form the reference chose so a 1-token decode and a
-    C-token chunk agree bit for bit."""
-    scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
-    logits = torch.where(mask, logits, -1e30)
-    probs = torch.softmax(logits, dim=-1).to(dtype)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.transpose(1, 2))
-    return out.transpose(1, 2)
+def _sdpa(q, k, v, qpos):
+    """q (B,Sq,Hq,hd), k/v (B,A,Hkv,hd) the cache, qpos (B,Sq) each
+    query's position: it attends to cache rows 0..qpos."""
+    return row_attention.row_attention(q, k, v, qpos)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
@@ -101,7 +90,6 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
     B = x.shape[0]
     posv = _per_slot_pos(pos, B, x.device)                         # (B,)
     q, k, v = _project_qkv(p, x, posv[:, None], cfg, mm)
-    rep = cfg.n_heads // cfg.n_kv_heads
     A = cache_k.shape[1]
     slot = torch.clamp(posv, max=A - 1).long()
     rows = torch.arange(B, device=x.device)
@@ -109,10 +97,7 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
     new_v = cache_v.clone()
     new_k[rows, slot] = k[:, 0]
     new_v[rows, slot] = v[:, 0]
-    kpos = torch.arange(A, device=x.device)[None, :]               # (1, A)
-    mask = (kpos <= posv[:, None])[:, None, None, :]               # (B,1,1,A)
-    out = _sdpa(q, _repeat_kv(new_k, rep), _repeat_kv(new_v, rep), mask,
-                x.dtype)
+    out = _sdpa(q, new_k, new_v, posv[:, None])
     return mm(p["wo"], out.reshape(B, 1, cfg.q_dim), "wo"), new_k, new_v
 
 
@@ -129,7 +114,8 @@ def prefill_attention(p, x, cache_k, cache_v, pos, n_valid,
     B, C, _ = x.shape
     A = cache_k.shape[1]
     posv = _per_slot_pos(pos, B, x.device)                         # (B,)
-    qpos = posv[:, None] + torch.arange(C, device=x.device)[None, :]  # (B,C)
+    qpos = posv[:, None] + torch.arange(C, dtype=torch.int32,
+                                        device=x.device)[None, :]    # (B,C)
     q, k, v = _project_qkv(p, x, qpos, cfg, mm)
     # masked write: valid chunk tokens land on their rows, invalid ones on
     # a scratch row A that is dropped (the reference's mode="drop" scatter)
@@ -143,9 +129,5 @@ def prefill_attention(p, x, cache_k, cache_v, pos, n_valid,
     new_k[b_idx, write_rows] = k
     new_v[b_idx, write_rows] = v
     new_k, new_v = new_k[:, :A], new_v[:, :A]
-    rep = cfg.n_heads // cfg.n_kv_heads
-    kpos = torch.arange(A, device=x.device)[None, None, :]         # (1,1,A)
-    mask = kpos <= qpos[:, :, None]                                # (B,C,A)
-    out = _sdpa(q, _repeat_kv(new_k, rep), _repeat_kv(new_v, rep),
-                mask[:, None], x.dtype)
+    out = _sdpa(q, new_k, new_v, qpos)
     return mm(p["wo"], out.reshape(B, C, cfg.q_dim), "wo"), new_k, new_v

@@ -2,6 +2,9 @@
 
 Port of ``repro.models.layers``: plain functions over nested-dict params
 with the JAX package's keys and layouts (weights (K, N), y = x @ W).
+
+The norms run in a hand-written row-stable kernel (``kernels.row_norm``):
+a row comes out bitwise the same however many rows share the call.
 """
 
 from __future__ import annotations
@@ -9,6 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..kernels import row_norm
 from .config import ModelConfig
 
 
@@ -33,23 +37,15 @@ def init_norm(cfg: ModelConfig, d: int, device, lead=()):
 
 
 def apply_norm(p, x, cfg: ModelConfig, eps: float = 1e-6):
-    xf = x.float()
     if cfg.norm_type == "layernorm":
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
-        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
-    else:
-        var = (xf * xf).mean(dim=-1, keepdim=True)
-        scale = (1.0 + p["scale"]) if cfg.norm_plus_one else p["scale"]
-        out = xf * torch.rsqrt(var + eps) * scale
-    return out.to(x.dtype)
+        return row_norm.row_norm(x, p["scale"], p["bias"], eps)
+    return row_norm.row_norm(x, p["scale"], eps=eps,
+                             plus_one=cfg.norm_plus_one)
 
 
 def rms_head_norm(scale, x, eps: float = 1e-6):
     """Per-head qk-norm (qwen3): x (..., head_dim)."""
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+    return row_norm.row_norm(x, scale, eps=eps)
 
 
 # -------------------------------------------------------------- RoPE -------
@@ -84,6 +80,19 @@ def init_mlp(cfg: ModelConfig, gen, d: int, f: int, device, lead=()):
     return {"w_gate": (_normal(gen, lead + (d, f), device) * s_in).to(dt),
             "w_up": (_normal(gen, lead + (d, f), device) * s_in).to(dt),
             "w_down": (_normal(gen, lead + (f, d), device) * s_out).to(dt)}
+
+
+def make_matmul(cfg: ModelConfig, tables=None):
+    """dense_fn factory for apply_mlp / attention: with ``cfg.dbpim`` set
+    and per-layer kernel tables (``sparsity.sparse_linear
+    .build_kernel_tables``), the packed projections run on the kernel of
+    ``cfg.dbpim_mode``; otherwise None (plain matmuls), so call sites can
+    pass the result straight through. The stacked serving path threads
+    ``StackedKernelTables`` instead."""
+    if not getattr(cfg, "dbpim", False) or not tables:
+        return None
+    from repro_torch.sparsity.sparse_linear import kernel_dense_fn
+    return kernel_dense_fn(tables)
 
 
 def apply_mlp(p, x, cfg: ModelConfig, dense_fn=None):

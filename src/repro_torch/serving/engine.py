@@ -125,7 +125,10 @@ class ServeEngine:
         self.slots = [_Slot() for _ in range(n_slots)]
         self.tick_count = 0
         self.outputs: Dict[int, List[int]] = {}
-        self.first_logits: Dict[int, np.ndarray] = {}
+        #: rid -> the (1, V) logits row of its first token, a CPU tensor in
+        #: the model's logits dtype (the reference keeps np.asarray of the
+        #: same row; numpy has no bf16)
+        self.first_logits: Dict[int, torch.Tensor] = {}
         self.rejected: Dict[int, str] = {}
         self.slot_log: List[SlotInterval] = []
         self._open_interval: Dict[int, SlotInterval] = {}
@@ -250,7 +253,8 @@ class ServeEngine:
             if slot.cursor >= len(slot.prompt):
                 # the chunk holding the last prompt token yields the first
                 # generated token: TTFT lands here
-                self._finish_prefill(s, int(nxt[s]), lg[s], tick)
+                self._finish_prefill(s, int(nxt[s]),
+                                    logits[s].to("cpu", copy=True), tick)
         return 1
 
     def _decode_phase(self, tick: int) -> int:
@@ -286,7 +290,7 @@ class ServeEngine:
 
     # ------------------------------------------------------------- helpers
 
-    def _finish_prefill(self, s: int, token: int, logits: np.ndarray,
+    def _finish_prefill(self, s: int, token: int, logits: torch.Tensor,
                         tick: int):
         slot = self.slots[s]
         slot.state = SlotState.DECODING

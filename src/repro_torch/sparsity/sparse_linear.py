@@ -1,11 +1,18 @@
-"""Stacked serving tables: ALL L layers of every projection family packed
-with one shared MAXB, sliced per layer by the decode loop.
+"""DB-PIM sparsity on the model's projections: per-layer kernel tables
+and stacked serving tables.
 
-Port of the serving half of ``repro.sparsity.sparse_linear``. JAX passes
-the stacked arrays to ``lax.scan`` as xs; here the Python layer loop
-slices layer ``l`` of every table and rebuilds the ``dense_fn(w, x,
-name)`` hook from the slices, so the joint kernel serves every projection
-of every layer.
+Port of the kernel-mode half of ``repro.sparsity.sparse_linear``:
+
+  * per layer: ``pack_projection`` / ``build_kernel_tables`` compile named
+    2D projections for one kernel mode, and ``kernel_dense_fn`` is the
+    ``dense_fn(w, x, name)`` hook that serves them through the value
+    (``block_sparse_matmul``), bit (``fta_int8_matmul``) or joint
+    (``joint_sparse_matmul``) kernel, with the reference's dispatch rules;
+  * stacked: ALL L layers of every projection family packed with one
+    shared MAXB. JAX passes the stacked arrays to ``lax.scan`` as xs; here
+    the Python layer loop slices layer ``l`` of every table and rebuilds
+    the hook from the slices, so the joint kernel serves every projection
+    of every layer.
 """
 
 from __future__ import annotations
@@ -20,9 +27,96 @@ from repro_torch.models.segments import (decoder_layout,
                                          packable_projections,
                                          projection_param_path)
 
-#: Kernel dispatch modes for compressed projections ("joint" fuses value
-#: and bit sparsity in one kernel, the paper's headline configuration).
+#: Kernel dispatch modes for compressed projections. "value" skips pruned
+#: weight blocks (block_sparse_matmul), "bit" serves FTA/INT8 weights
+#: (fta_int8_matmul), "joint" fuses both in one kernel
+#: (joint_sparse_matmul), the paper's headline configuration.
 KERNEL_MODES = ("dense", "value", "bit", "joint")
+
+
+# ---------------------------------------------------------------------------
+# Per-layer kernel-mode dispatch: pack projections once, then intercept the
+# model's matmuls (the dense_fn hook of apply_mlp / attention) with the
+# kernel of the mode.
+# ---------------------------------------------------------------------------
+
+def pack_projection(w2, mode: str, value_sparsity: float = 0.6) -> dict:
+    """Compile one (K, N) projection into the artifact for ``mode``, on its
+    device. Value pruning is tile-granular (``ops.tile_prune_mask``), the
+    unit the kernels skip. The artifact kind is the reference's: "value"
+    and "bit" when the shape divides the kernel's tiles, else "value_ref"
+    and "bit_ref" (same math, plain torch); "joint" pads internally."""
+    from repro_torch.kernels import block_sparse_matmul as bsk
+    from repro_torch.kernels import fta_int8_matmul as ftk
+    from repro_torch.kernels import ops
+    if mode not in KERNEL_MODES:
+        raise ValueError(f"mode {mode!r} not in {KERNEL_MODES}")
+    w = torch.as_tensor(w2).float()
+    K, N = w.shape
+    if mode == "dense":
+        return {"kind": "dense"}
+    if mode == "joint":
+        return {"kind": "joint",
+                "packed": ops.pack_joint_sparse(
+                    w, value_sparsity=value_sparsity)}
+    if mode == "value":
+        mask = ops.tile_prune_mask(w, value_sparsity, bsk.BK, bsk.BN)
+        art = {"kind": "value_ref", "w": w * mask}
+        if K % bsk.BK == 0 and N % bsk.BN == 0:
+            w_blocks, idx = ops.pack_block_sparse(w * mask,
+                                                  torch.ones_like(mask))
+            art.update(kind="value", w_blocks=w_blocks, idx=idx)
+        return art
+    # "bit": per-filter INT8 scale + FTA projection, dense layout (no value
+    # pruning; the quantization step of the joint pack)
+    q, scales = ops.quantize_int8_fta(w, torch.ones_like(w, dtype=torch.int32))
+    kind = "bit" if (K % ftk.BK == 0 and N % ftk.BN == 0) else "bit_ref"
+    return {"kind": kind, "q": q.to(torch.int8), "scales": scales}
+
+
+def build_kernel_tables(named_weights: Dict[str, torch.Tensor],
+                        cfg: Optional[ModelConfig] = None,
+                        mode: Optional[str] = None,
+                        value_sparsity: Optional[float] = None,
+                        ) -> Dict[str, dict]:
+    """Pack every named 2D projection for the configured kernel mode."""
+    mode = mode or (cfg.dbpim_mode if cfg is not None else "joint")
+    vs = value_sparsity if value_sparsity is not None else \
+        (cfg.dbpim_value_sparsity if cfg is not None else 0.6)
+    return {name: pack_projection(w, mode, vs)
+            for name, w in named_weights.items()}
+
+
+def kernel_dense_fn(tables: Dict[str, dict]):
+    """The dense_fn(w, x, name) hook for apply_mlp / attention.
+
+    Projections found in ``tables`` run on their artifact; anything else
+    stays a plain matmul. As in the reference, the value and bit kernels
+    serve only activation batches whose rows are a multiple of the TPU
+    kernels' 128-row tile, and other batches take the reference's plain
+    math (which for "bit" does not round x to bf16)."""
+    from repro_torch.kernels import block_sparse_matmul as bsk
+    from repro_torch.kernels import fta_int8_matmul as ftk
+    from repro_torch.kernels import ops
+
+    def mm(w, x, name):
+        t = tables.get(name)
+        if t is None or t["kind"] == "dense":
+            return x @ w
+        rows = x.numel() // x.shape[-1]
+        if t["kind"] == "joint":
+            return ops.joint_dense(x, t["packed"]).to(x.dtype)
+        if t["kind"] == "value" and rows % bsk.BM == 0:
+            return ops.sparse_dense(x, t["w_blocks"].to(x.dtype), t["idx"])
+        if t["kind"] in ("value", "value_ref"):
+            return x @ t["w"].to(x.dtype)
+        if t["kind"] == "bit" and rows % ftk.BM == 0:
+            return ops.fta_dense(x, t["q"], t["scales"]).to(x.dtype)
+        # bit_ref / ragged-row bit: the same INT8 x scale math, plain
+        wd = t["q"].float() * t["scales"]
+        return (x.float() @ wd).to(x.dtype)
+
+    return mm
 
 
 def _map_with_path(fn, tree, prefix=""):

@@ -9,6 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.models import decode_step as jax_decode_step
@@ -125,6 +126,35 @@ def test_scheduler_invariants(served):
     assert s["generated_tokens"] == sum(r.gen_len for r in trace)
     assert s["device_calls"] == s["decode_calls"] + s["prefill_calls"]
     assert set(s["calls_by_kind"]) == {"decode", "prefill_chunk_exact"}
+
+
+def test_first_logits_keep_the_reference_row(served):
+    """first_logits holds what the reference keeps: the (1, V) logits row
+    of each request's first token in the model's logits dtype (float32
+    here), whose argmax is the first generated token."""
+    engine, trace, outputs, _, _ = served
+    assert set(engine.first_logits) == {r.rid for r in trace}
+    for r in trace:
+        row = engine.first_logits[r.rid]
+        assert isinstance(row, torch.Tensor) and row.device.type == "cpu"
+        assert row.shape == (1, engine.cfg.vocab_size)
+        assert row.dtype == torch.float32
+        assert int(row[0].argmax()) == outputs[r.rid][0]
+
+
+def test_first_logits_of_a_bf16_model_stay_bf16():
+    from repro_torch.models import init_params
+    from repro_torch.serving import Request
+    cfg = get_config("tinyllama-1.1b", reduced=True)
+    assert cfg.dtype == "bfloat16"
+    engine = ServeEngine(cfg, init_params(cfg, device="cpu"), n_slots=2,
+                         max_len=16, prefill_chunk=4, device="cpu")
+    out = engine.run([Request(0, (1, 2, 3, 4, 5), 2), Request(1, (7, 8), 3)])
+    for rid in (0, 1):
+        row = engine.first_logits[rid]
+        assert row.shape == (1, cfg.vocab_size) and row.dtype == torch.bfloat16
+        assert torch.isfinite(row).all()
+        assert int(row[0].float().argmax()) == out[rid][0]
 
 
 def test_no_kernel_launches_on_cpu(served):

@@ -23,9 +23,20 @@ runpy.run_path(sys.argv[1], run_name="chip_smoke_import_probe")
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "repro"
                 or m.startswith("repro."))
-print(len(names), leaked)
+print(len(names), leaked, " ".join(names))
 assert not leaked, leaked
 """
+
+#: modules of the per-layer kernel-mode and DB-PIM pipeline slice and the
+#: row-stable kernels; the probe imports every module of the package,
+#: these among them
+SLICE_MODULES = {
+    "repro_torch.core.dyadic", "repro_torch.core.pim_model",
+    "repro_torch.core.pruning", "repro_torch.core.qat",
+    "repro_torch.kernels.block_sparse_matmul",
+    "repro_torch.kernels.dbmu_sim", "repro_torch.kernels.fta_int8_matmul",
+    "repro_torch.kernels.row_attention", "repro_torch.kernels.row_norm",
+    "repro_torch.quickstart"}
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -36,7 +47,8 @@ def test_port_and_chip_smoke_import_no_jax():
                          timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 20
+    assert n_modules >= 28
+    assert SLICE_MODULES <= set(res.stdout.split()[2:])
 
 
 def test_entry_points_raise_without_a_card():
@@ -46,6 +58,7 @@ def test_entry_points_raise_without_a_card():
         pytest.skip("a CUDA card is present: the default device is valid")
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
+    from repro_torch import quickstart
     from repro_torch.models import init_cache, init_params
     from repro_torch.serving import ServeEngine
     from repro_torch.weights import params_from_numpy
@@ -55,7 +68,8 @@ def test_entry_points_raise_without_a_card():
                  lambda: ServeEngine(cfg, {}),
                  lambda: params_from_numpy({"w": torch.zeros(2).numpy()}),
                  lambda: serve.main(["--arch", "tinyllama-1.1b",
-                                     "--reduced"])):
+                                     "--reduced"]),
+                 lambda: quickstart.main([])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     params = init_params(cfg, device="cpu")
