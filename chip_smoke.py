@@ -9,15 +9,17 @@ non-zero (no phase catches its own failure):
               block_sparse_matmul, fta_int8_matmul, dbmu_matmul, and the
               row-stable row_attention and row_norm) from
               src/repro_torch/kernels/csrc on first use, one nvcc each, all
-              started together; TF32 is switched off for float32 matmuls and
-              convolutions.
+              started together; ptxas reports no register spills; TF32 is
+              switched off for float32 matmuls and convolutions.
   2. pack   — for one full-width tinyllama-1.1b projection of each shape,
               the joint pack made on the card is byte-identical to the CPU
               pack.
   3. kernel — each kernel against its plain PyTorch version at every
               projection shape of the path, M in {4, 256}: f32 output within
               1e-5 * max|ref|, bf16 output within one bf16 ulp of max|ref|,
-              DBMU bitwise equal. The joint kernel also in f32 and bf16
+              DBMU bitwise equal (x with -128 and 127 in it), FTA/INT8
+              rows of an M=4 call bitwise equal to the same rows of an
+              M=256 call. The joint kernel also in f32 and bf16
               activations with its fp32 accumulators, rows of an M=4 call
               bitwise equal to the same rows of an M=256 call, and the bf16
               (value-only) payload; the block-sparse pack made on the card
@@ -56,7 +58,10 @@ non-zero (no phase catches its own failure):
               and the kernels the device time goes to (torch.profiler).
   8. times  — each kernel, its plain version and one PyTorch call computing
               the same function (the library yardstick, used nowhere in the
-              port) with CUDA events after warm-up, beside the bound: the
+              port) with CUDA events after warm-up; the kernel and the
+              library call also in device time from torch.profiler's
+              device-side records (at these sizes the event time of a lone
+              launch is mostly the caller's host time); beside the bound: the
               larger of bytes over 3.35 TB/s and operations over the peak of
               their type (989 TFLOP/s bf16, 1,979 TOP/s int8, 67 TFLOP/s
               fp32 outside the tensor cores), the H100 SXM data sheet's
@@ -80,6 +85,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -170,10 +176,14 @@ def phase_build():
     build.build_all(KERNELS)
     for name in KERNELS:
         build.load(name)
-        regs = [ln.strip() for ln in build.PTXAS_LOG.get(name, "").splitlines()
-                if "registers" in ln]
+        ptxas = build.PTXAS_LOG.get(name, "")
+        regs = [ln.strip() for ln in ptxas.splitlines()
+                if "Used" in ln and "registers" in ln]
+        spills = [int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                              ptxas)]
+        assert not any(spills), (name, "spills", ptxas)
         log(f"[build] {name} built in {build.BUILD_SECONDS[name]:.2f} s; "
-            f"ptxas: {len(regs)} instantiations, e.g. "
+            f"ptxas: {len(regs)} instantiations, no spills, e.g. "
             f"{regs[0] if regs else 'n/a'}")
     log(f"[build] all {len(KERNELS)} kernels built and loaded in "
         f"{time.monotonic() - t0:.2f} s (one nvcc each, in parallel)")
@@ -267,6 +277,16 @@ def phase_kernel(cfg, packs, dev):
     return worst_bf16
 
 
+def _int8_extremes(x):
+    """x (M, K) int32 with the ends of the int8 range in it: columns 0 and
+    1 of every row at -128 and 127, and (for M >= 4) rows 2 and 3 all -128
+    and all 127, the largest sums the datapath adds."""
+    x[:, 0], x[:, 1] = -128, 127
+    if x.shape[0] >= 4:
+        x[2], x[3] = -128, 127
+    return x
+
+
 def _err_tol(y, ref):
     """(max abs error, tolerance): 1e-5 of the peak for f32 outputs, one
     bf16 ulp of the peak for bf16 outputs."""
@@ -306,9 +326,11 @@ def phase_kernel_value_bit_dbmu(cfg, dev):
         q = q.to(torch.int8)
         packed = dyadic.pack_terms(q)
         errs = {k: [] for k in worst}
-        for M in (4, 256):
-            for dt in (torch.float32, torch.bfloat16):
-                x = torch.randn((M, K), generator=gen).to(dt).to(dev)
+        heads = {}
+        for dt in (torch.float32, torch.bfloat16):
+            x256 = torch.randn((256, K), generator=gen).to(dt).to(dev)
+            for M in (4, 256):
+                x = x256[:M].contiguous()
                 y = bsk.block_sparse_matmul(x, wb.to(dt), idx)
                 torch.cuda.synchronize()
                 err, tol = _err_tol(y, bsk.block_sparse_matmul_plain(
@@ -322,8 +344,15 @@ def phase_kernel_value_bit_dbmu(cfg, dev):
                         x, q, sc, od))
                     assert err <= tol, (name, "fta", dt, od, M, err, tol)
                     errs["fta_int8_matmul"].append((err, tol, od))
-            xi = torch.randint(-128, 128, (M, K), generator=gen,
-                               dtype=torch.int32).to(dev)
+                    if M == 4:
+                        heads[(dt, od)] = y
+                    else:
+                        assert torch.equal(heads[(dt, od)], y[:4]), \
+                            (name, "fta rows", dt, od)
+        xi256 = _int8_extremes(torch.randint(-128, 128, (256, K), generator=gen,
+                                             dtype=torch.int32)).to(dev)
+        for M in (4, 256):
+            xi = xi256[:M].contiguous()
             y = dbmu_sim.dbmu_matmul(xi, packed)
             torch.cuda.synchronize()
             assert torch.equal(y, dbmu_sim.dbmu_matmul_plain(xi, packed)), \
@@ -337,10 +366,12 @@ def phase_kernel_value_bit_dbmu(cfg, dev):
                 f"bf16 x: max|d|/tol = "
                 f"{max(e / t if t else float(e > 0) for e, t, _ in rows):.3f}"
                 f" (bf16 out max|d|={max(bf):.3e})")
-        log(f"[kernel] dbmu_matmul {name} {K}x{N} M in (4, 256): bitwise "
-            f"equal to its plain version; block-sparse pack (NT={wb.shape[0]}"
-            f", MAXB={wb.shape[1]}) and FTA INT8 weights card == cpu byte "
-            f"for byte")
+        log(f"[kernel] fta_int8_matmul {name} {K}x{N}: rows of M=4 bitwise "
+            f"equal rows of M=256 (f32 and bf16 x and out)")
+        log(f"[kernel] dbmu_matmul {name} {K}x{N} M in (4, 256), x with "
+            f"-128 and 127: bitwise equal to its plain version; block-sparse "
+            f"pack (NT={wb.shape[0]}, MAXB={wb.shape[1]}) and FTA INT8 "
+            f"weights card == cpu byte for byte")
     return worst
 
 
@@ -753,8 +784,8 @@ def phase_dbmu(cfg, dev):
     data = []
     for name, K, N in _distinct(_path_shapes(cfg)):
         w = torch.randn((K, N), generator=gen) * K ** -0.5
-        x = torch.randint(-128, 128, (256, K), generator=gen,
-                          dtype=torch.int32)
+        x = _int8_extremes(torch.randint(-128, 128, (256, K), generator=gen,
+                                         dtype=torch.int32))
         data.append((name, K, N, w, x))
     torch.cuda.synchronize()
     reset_launches()
@@ -864,6 +895,30 @@ def _time_auto(fn, budget_s=0.2):
     once = max(time.monotonic() - t0, 1e-6)
     iters = int(min(200, max(3, budget_s / once)))
     return _time(fn, iters=iters, warmup=min(iters, 5))
+
+
+def _device_ms(fn, iters=10, attempts=3):
+    """Mean device time per call (ms) from torch.profiler's device-side
+    records (kernels, copies) over ``iters`` calls after a warm-up call:
+    what the card spent, without the wrappers' host time. A profiling
+    window now and then comes back with no device records; it is taken
+    again, up to ``attempts`` times in all, and None is returned if none
+    recorded device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    return None
 
 
 def _bound(nbytes, ops, peak_ops):
@@ -1012,39 +1067,52 @@ def phase_times(cfg, packs, tables_by_mode, dev):
     launch over its work unit, beside the bound; the joint kernel's
     decode-step totals count each projection once per layer. Returns
     {kernel: totals and per-launch rows for the JSON line}."""
+    def us(v):
+        return "not measured" if v is None else f"{v * 1e3:.1f} us"
+
+    def ms_(v):
+        return "n/a" if v is None else f"{v:.4f} ms"
+
     out = {}
     for kname, rows in _time_cases(cfg, packs, tables_by_mode, dev).items():
-        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0)
+        tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                   library_device_ms=0.0, bytes=0, ops=0)
         per_shape = []
         n_launches = 0
         for c in rows:
             repeat = c.get("repeat", 1)
             n_launches += repeat
             ms, plain = _time_auto(c["kernel"]), _time_auto(c["plain"])
-            lib = _time_auto(c["library"]) if c["library"] else None
+            dev_ms = _device_ms(c["kernel"])
+            lib = lib_dev = None
+            if c["library"]:
+                lib, lib_dev = (_time_auto(c["library"]),
+                                _device_ms(c["library"]))
             bound, by = _bound(c["bytes"], c["ops"], c["peak"])
             per_shape.append(dict(
                 {k: v for k, v in c.items()
                  if k not in ("kernel", "plain", "library", "peak")},
-                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-                bound_by=by))
-            for key, val in (("ms", ms), ("plain_ms", plain),
-                             ("library_ms", lib), ("bytes", c["bytes"]),
-                             ("ops", c["ops"])):
+                ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
+                library_device_ms=lib_dev, bound_ms=bound, bound_by=by))
+            for key, val in (("ms", ms), ("device_ms", dev_ms),
+                             ("plain_ms", plain), ("library_ms", lib),
+                             ("library_device_ms", lib_dev),
+                             ("bytes", c["bytes"]), ("ops", c["ops"])):
                 tot[key] = None if val is None or tot[key] is None \
                     else tot[key] + repeat * val
             log(f"[times] {kname} {c['name']} {c['K']}x{c['N']}: kernel "
-                f"{ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, library "
-                f"{'n/a' if lib is None else f'{lib * 1e3:.1f} us'}, bound "
+                f"{us(ms)} (device {us(dev_ms)}), plain {us(plain)}, library "
+                f"{'n/a' if c['library'] is None else us(lib)} (device "
+                f"{'n/a' if c['library'] is None else us(lib_dev)}), bound "
                 f"{bound * 1e3:.2f} us ({by}, {c['bytes'] / 1e6:.3f} MB)")
         tot["bound_ms"], tot["bound_by"] = _bound(tot["bytes"], tot["ops"],
                                                   rows[0]["peak"])
         tot["per_shape"] = per_shape
         out[kname] = tot
-        lib = tot["library_ms"]
         log(f"[times] {kname}, {n_launches} launches: kernel "
-            f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, library "
-            f"{'n/a' if lib is None else f'{lib:.3f} ms'}, bound "
+            f"{ms_(tot['ms'])} (device {ms_(tot['device_ms'])}), plain "
+            f"{ms_(tot['plain_ms'])}, library {ms_(tot['library_ms'])} "
+            f"(device {ms_(tot['library_device_ms'])}), bound "
             f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}, "
             f"{tot['bytes'] / 1e6:.1f} MB)")
     return out
@@ -1098,7 +1166,8 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": worst[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "work": work,
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "library_device_ms": t["library_device_ms"], "work": work,
             "per_shape": t["per_shape"]})
     assert all(k["launches"] > 0 for k in kernels), \
         [(k["name"], k["launches"]) for k in kernels]

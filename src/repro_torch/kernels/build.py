@@ -3,8 +3,8 @@ with a plain C interface, loaded with ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles on first use into
 ``build/repro_torch/<name>-<hash>.so`` at the root of the checkout (a
-directory ``.gitignore`` lists), where ``<hash>`` covers the source and the
-flags: an edited source rebuilds, an unchanged one loads the library
+directory ``.gitignore`` lists), where ``<hash>`` covers the source, the
+shared headers ``csrc/*.cuh`` and the flags: an edited source rebuilds, an unchanged one loads the library
 already built. Nothing here runs at import time: ``nvcc`` is needed only
 when a kernel is first launched.
 """
@@ -28,7 +28,8 @@ _LOADED: dict = {}
 #: seconds each library took to build in this process (0.0 when loaded
 #: from an earlier build); read by chip_smoke.py's build phase
 BUILD_SECONDS: dict = {}
-#: nvcc's -Xptxas -v report per library built in this process
+#: nvcc's -Xptxas -v report per library, from its build (kept beside the
+#: library as ``<name>-<hash>.ptxas``)
 PTXAS_LOG: dict = {}
 
 
@@ -46,6 +47,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):       # shared by the sources
+        h.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -55,6 +58,9 @@ def _start(name: str):
     out = library_path(name)
     if out.exists():
         BUILD_SECONDS.setdefault(name, 0.0)
+        log = out.with_suffix(".ptxas")
+        if log.exists():
+            PTXAS_LOG.setdefault(name, log.read_text())
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -81,6 +87,7 @@ def build_all(names) -> dict:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name}:\n{stdout}\n"
                                    f"{stderr}")
+            out.with_suffix(".ptxas").write_text(stderr)
             os.replace(tmp, out)
             BUILD_SECONDS[name] = time.monotonic() - t0
             PTXAS_LOG[name] = stderr

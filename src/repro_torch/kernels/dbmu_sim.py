@@ -13,15 +13,24 @@ bit1 hi/lo, bits 2-3 block, bit4 valid). The result must equal the integer
 matmul ``x_int8 @ unpack_terms(packed)`` exactly: this is the
 hardware-equivalence oracle for the whole compression pipeline.
 
-Three things live here:
+x holds int8-range values, [-128, 127], in int32: the kernel stages x as
+int8.
+
+What lives here:
 
   * ``dbmu_matmul`` — the wrapper. A CPU tensor takes the plain version; a
     CUDA tensor launches the hand-written kernel (``csrc/dbmu_matmul.cu``,
-    integer arithmetic, built by ``nvcc`` for sm_90a on first use, loaded
+    int8 tensor cores, built by ``nvcc`` for sm_90a on first use, loaded
     with ctypes) or raises. There is no fallback.
   * ``dbmu_matmul_plain`` — the same datapath in plain PyTorch, one
     float64 product per (term, input bit plane): every sum is an integer
     below 2^53, so each is exact.
+  * ``term_table``, ``pair_table``, ``block_operands`` and
+    ``dbmu_matmul_blocks`` — the kernel's exact evaluation in plain
+    PyTorch. The input planes fold back into x; the weight splits by DB
+    block position b into int8 operands S_b in [-4, 4] (``pair_table``
+    maps a pair of term bytes to its four S_b from two ``term_table``
+    words, as the kernel's decode does), and y = sum_b (x @ S_b) << 2b.
   * ``LAUNCHES`` — the number of kernel launches so far, raised by one at
     each launch and nowhere else.
 """
@@ -37,7 +46,11 @@ from . import build
 
 INPUT_BITS = 8
 MAX_TERMS = 2
-#: the kernel's int32 accumulators hold 128 * 192 * K for K up to this
+#: DB block positions of an 8-digit CSD word
+NBLOCKS = 4
+#: the longest K the kernel takes: y of pack_terms' packs (|y| <= 128 *
+#: 192 * K) fits int32, and each block product (|x @ S_b| <= 512 * K)
+#: stays far inside it; longer sums would wrap
 MAX_K = 87000
 
 #: kernel launches so far in this process (the wrapper's CUDA branch only)
@@ -60,6 +73,55 @@ def dbmu_matmul_plain(x_int8, packed):
             in_bit = ((mag >> bit) & 1) * sign_x             # (M, K) plane
             partial = in_bit.double() @ term
             acc += partial.to(torch.int64) << bit
+    return acc.to(torch.int32)
+
+
+def term_table() -> torch.Tensor:
+    """(32,) int64 words, the kernel's per-term table: byte b of word t is
+    4 + (blk_t == b ? valid_t * sign_t * 2^(hi_t) : 0), for the low five
+    bits t of a term byte (bits 5-7 carry nothing)."""
+    t = torch.arange(32, dtype=torch.int64)
+    value = ((t >> 4) & 1) * (1 - 2 * (t & 1)) * (1 << ((t >> 1) & 1))
+    b = torch.arange(NBLOCKS)
+    byte = torch.where(((t >> 2) & 3)[:, None] == b[None], value[:, None], 0) + 4
+    return (byte << (8 * b)[None]).sum(dim=1)
+
+
+def pair_table() -> torch.Tensor:
+    """(1024, 4) int8: row t0 | t1 << 5 holds S_0..S_3 of a weight whose
+    term bytes have low five bits t0 and t1,
+
+        S_b = sum_t valid_t * sign_t * 2^(hi_t) * [blk_t == b],
+
+    each in [-4, 4], formed as the kernel forms it: the two term words
+    added (every byte in [4, 12], so no carries), then
+    (sum + 0x78787878) ^ 0x80808080, which takes 8 off each byte as an
+    int8."""
+    tw = term_table()
+    words = ((tw[None, :] + tw[:, None]) + 0x78787878) ^ 0x80808080   # [t1, t0]
+    shifts = 8 * torch.arange(NBLOCKS)
+    return ((words.reshape(1024, 1) >> shifts) & 0xFF).to(torch.uint8) \
+        .view(torch.int8)
+
+
+def block_operands(packed) -> torch.Tensor:
+    """packed (K, N, 2) uint8 -> (4, K, N) int8, the block operands S_b
+    of each weight: unpack_terms(packed) == sum_b S_b * 4^b."""
+    p = packed.to(torch.int64) & 31
+    idx = p[..., 0] | (p[..., 1] << 5)
+    return pair_table().to(packed.device)[idx].permute(2, 0, 1)
+
+
+def dbmu_matmul_blocks(x_int8, packed):
+    """The kernel's arithmetic in plain PyTorch: y = sum_b (x @ S_b) << 2b,
+    each product in float64 (integers below 2^53, exact), the sum modulo
+    2^32 as int32 (the kernel's uint32 shift-add)."""
+    s = block_operands(packed).double()
+    x = x_int8.double()
+    acc = torch.zeros((x.shape[0], packed.shape[1]), dtype=torch.int64,
+                      device=x.device)
+    for b in range(NBLOCKS):
+        acc += (x @ s[b]).to(torch.int64) << (2 * b)
     return acc.to(torch.int32)
 
 
@@ -93,9 +155,11 @@ def _check(x, packed):
 
 
 def dbmu_matmul(x_int8, packed):
-    """x (M, K) int32 in int8 range; packed (K, N, 2) uint8 -> (M, N)
-    int32. CPU tensors run the plain version; CUDA tensors launch the
-    kernel on the current stream (any M, K <= MAX_K, any N) or raise."""
+    """x (M, K) int32 holding int8 values, [-128, 127]; packed (K, N, 2)
+    uint8 -> (M, N) int32. CPU tensors run the plain version; CUDA tensors
+    launch the kernel on the current stream (any M, K <= MAX_K, any N) or
+    raise. The kernel stages x as int8: a value outside [-128, 127] is cut
+    to its low byte there."""
     global LAUNCHES
     if x_int8.device.type == "cpu":
         return dbmu_matmul_plain(x_int8, packed)

@@ -15,8 +15,9 @@ Three things live here:
 
   * ``fta_int8_matmul`` — the wrapper. A CPU tensor takes the plain
     version; a CUDA tensor launches the hand-written kernel
-    (``csrc/fta_int8_matmul.cu``, built by ``nvcc`` for sm_90a on first
-    use, loaded with ctypes) or raises. There is no fallback.
+    (``csrc/fta_int8_matmul.cu``, bf16 tensor cores fed by TMA, built by
+    ``nvcc`` for sm_90a on first use, loaded with ctypes) or raises. There
+    is no fallback.
   * ``fta_int8_matmul_plain`` — the same function in plain PyTorch.
   * ``LAUNCHES`` — the number of kernel launches so far, raised by one at
     each launch and nowhere else.

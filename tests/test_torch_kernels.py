@@ -246,6 +246,89 @@ def test_dbmu_plain_exact_random_sweep(seed):
         got.numpy(), x.astype(np.int64) @ q_fta.numpy().astype(np.int64))
 
 
+def _all_pair_packs(rng, n_cols):
+    """(1024, n_cols, 2) uint8: every column holds each of the 32 x 32 pairs
+    of low five bits once, in its own order, with random bits 5-7 (which
+    carry nothing)."""
+    pairs = np.stack(np.meshgrid(np.arange(32), np.arange(32),
+                                 indexing="ij"), -1).reshape(1024, 2)
+    cols = [pairs[rng.permutation(1024)] for _ in range(n_cols)]
+    low = np.stack(cols, axis=1)                                 # (1024, N, 2)
+    return (low | (rng.integers(0, 8, low.shape) << 5)).astype(np.uint8)
+
+
+def test_dbmu_block_operands_over_all_term_pairs(jax_kernels):
+    """The kernel's exact evaluation, sum_b (x @ S_b) << 2b with the
+    pair-table operands S_b in [-4, 4], equals the plain datapath and the
+    JAX kernel (interpret mode) over all 32 x 32 pairs of term bytes and
+    every x in [-128, 127]."""
+    jops = jax_kernels["ops"]
+    rng = np.random.default_rng(13)
+    packed = torch.from_numpy(_all_pair_packs(rng, 128))
+    x = np.stack([rng.permutation(np.arange(-128, 128))
+                  for _ in range(1024)], axis=1).astype(np.int32)  # (256, 1024)
+    table = dbmu_sim.pair_table()
+    assert table.shape == (1024, 4) and table.dtype == torch.int8
+    assert int(table.min()) == -4 and int(table.max()) == 4
+    s = dbmu_sim.block_operands(packed)
+    assert s.shape == (4, 1024, 128) and s.dtype == torch.int8
+    weights = sum(s[b].to(torch.int32) << (2 * b) for b in range(4))
+    assert torch.equal(weights, dyadic.unpack_terms(packed))
+    xt = torch.from_numpy(x)
+    got = dbmu_sim.dbmu_matmul_blocks(xt, packed)
+    assert torch.equal(got, dbmu_sim.dbmu_matmul_plain(xt, packed))
+    jgot = np.asarray(jops.dbmu_reference_check(x, packed.numpy(),
+                                                interpret=True))
+    np.testing.assert_array_equal(got.numpy(), jgot)
+
+
+def test_dbmu_term_table_sums_carry_free():
+    """The kernel's decode: two per-term words add bytewise without
+    carries (every byte in [4, 12]) and the bias step gives each S_b as
+    the direct formula does, for all 32 x 32 pairs of low five bits."""
+    tw = dbmu_sim.term_table()
+    assert tw.shape == (32,)
+    byte = (tw[:, None] >> (8 * torch.arange(4))[None]) & 0xFF
+    assert int(byte.min()) >= 2 and int(byte.max()) <= 6
+    sums = tw[None, :] + tw[:, None]
+    sum_bytes = (sums[..., None] >> (8 * torch.arange(4))) & 0xFF
+    assert int(sum_bytes.min()) >= 4 and int(sum_bytes.max()) <= 12
+    assert int(sums.max()) < 2 ** 32
+    t = np.arange(32)
+    value = ((t >> 4) & 1) * (1 - 2 * (t & 1)) * (1 << ((t >> 1) & 1))
+    direct = np.zeros((32, 32, 4), np.int64)              # [t1, t0, b]
+    for b in range(4):
+        term = np.where(((t >> 2) & 3) == b, value, 0)
+        direct[..., b] = term[None, :] + term[:, None]
+    np.testing.assert_array_equal(dbmu_sim.pair_table().numpy(),
+                                  direct.reshape(1024, 4))
+
+
+def test_dbmu_block_operands_of_csd_packs_lie_in_two():
+    """pack_terms puts a weight's two CSD digits in different blocks, so
+    its operands S_b lie in [-2, 2] and rebuild every int8 value."""
+    q = torch.arange(-128, 128, dtype=torch.int32)[:, None]
+    s = dbmu_sim.block_operands(dyadic.pack_terms(q))
+    assert int(s.abs().max()) == 2
+    rebuilt = sum(s[b].to(torch.int32) << (2 * b) for b in range(4))
+    assert torch.equal(rebuilt, dyadic.unpack_terms(dyadic.pack_terms(q)))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_dbmu_blocks_exact_on_random_bytes(seed):
+    """Random shapes, any term bytes, x over the full int8 range: the block
+    evaluation equals the plain datapath and the integer matmul."""
+    rng = np.random.default_rng(100 + seed)
+    M, K, N = (int(v) for v in rng.integers(1, 130, 3))
+    packed = torch.from_numpy(rng.integers(0, 256, (K, N, 2), dtype=np.uint8))
+    x = torch.from_numpy(rng.integers(-128, 128, (M, K), dtype=np.int32))
+    x[0, 0], x[-1, -1] = -128, 127
+    got = dbmu_sim.dbmu_matmul_blocks(x, packed)
+    assert torch.equal(got, dbmu_sim.dbmu_matmul_plain(x, packed))
+    w = dyadic.unpack_terms(packed).to(torch.int64)
+    assert torch.equal(got.to(torch.int64), x.to(torch.int64) @ w)
+
+
 # -------------------------------------------------------- on the card ------
 
 @pytest.mark.parametrize("M", [4, 37, 256])
@@ -313,3 +396,72 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):           # x must be int32
         dbmu_sim.dbmu_matmul(x, torch.zeros((256, 8, 2), device=cuda,
                                             dtype=torch.uint8))
+
+
+#: ragged shapes around the kernels' 64 x 64 x 64 tiles, with rows whose
+#: bytes are not 16-byte aligned (the element-wise load path)
+RAGGED = [(1, 1, 1), (63, 65, 65), (65, 127, 63), (130, 64, 17),
+          (64, 192, 200), (4, 2048, 256)]
+
+
+@pytest.mark.parametrize("M,K,N", RAGGED)
+def test_dbmu_kernel_ragged_any_bytes_on_card(cuda, M, K, N):
+    """Any term bytes (not only pack_terms'), x at -128 and 127: bitwise
+    equal to the plain datapath and to the block evaluation."""
+    rng = np.random.default_rng(M * 7 + K + N)
+    packed = torch.from_numpy(rng.integers(0, 256, (K, N, 2), dtype=np.uint8))
+    x = torch.from_numpy(rng.integers(-128, 128, (M, K), dtype=np.int32))
+    x[0, 0], x[-1, -1] = -128, 127
+    x, packed = x.to(cuda), packed.to(cuda)
+    got = dbmu_sim.dbmu_matmul(x, packed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dbmu_sim.dbmu_matmul_plain(x, packed))
+    assert torch.equal(got, dbmu_sim.dbmu_matmul_blocks(x, packed))
+
+
+def test_dbmu_kernel_rows_stable_on_card(cuda):
+    rng = np.random.default_rng(21)
+    _, packed = _fta_packed(rng, 2048, 320)
+    x = torch.from_numpy(rng.integers(-128, 128, (256, 2048), dtype=np.int32))
+    x[:, :8] = torch.tensor([-128, 127] * 4, dtype=torch.int32)
+    x, packed = x.to(cuda), packed.to(cuda)
+    full = dbmu_sim.dbmu_matmul(x, packed)
+    head = dbmu_sim.dbmu_matmul(x[:4].contiguous(), packed)
+    torch.cuda.synchronize()
+    assert torch.equal(head, full[:4])
+    assert torch.equal(full, dbmu_sim.dbmu_matmul_plain(x, packed))
+
+
+@pytest.mark.parametrize("M,K,N", RAGGED)
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_fta_int8_kernel_ragged_on_card(cuda, M, K, N, xdt):
+    rng = np.random.default_rng(M * 5 + K + N)
+    x = torch.from_numpy(rng.normal(0, 1, (M, K)).astype(np.float32))
+    x = x.to(xdt).to(cuda)
+    w_q = torch.from_numpy(rng.integers(-128, 128, (K, N)).astype(np.int8))
+    sc = torch.from_numpy(rng.uniform(0.005, 0.02, (1, N)).astype(np.float32))
+    w_q, sc = w_q.to(cuda), sc.to(cuda)
+    for out in (torch.float32, torch.bfloat16):
+        got = ftk.fta_int8_matmul(x, w_q, sc, out_dtype=out)
+        torch.cuda.synchronize()
+        want = ftk.fta_int8_matmul_plain(x, w_q, sc, out_dtype=out)
+        _assert_close(got.cpu(), want.float().cpu().numpy(),
+                      out == torch.bfloat16)
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_fta_int8_kernel_rows_stable_on_card(cuda, xdt):
+    """Rows 0-3 of an M = 256 call bitwise equal an M = 4 call of the same
+    rows: the K order of each output is fixed by K and the tiling alone."""
+    rng = np.random.default_rng(22)
+    K, N = 2048, 5632
+    x = torch.from_numpy(rng.normal(0, 1, (256, K)).astype(np.float32))
+    x = x.to(xdt).to(cuda)
+    w_q = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8))
+    sc = torch.from_numpy(rng.uniform(0.005, 0.02, (1, N)).astype(np.float32))
+    w_q, sc = w_q.to(cuda), sc.to(cuda)
+    for out in (torch.float32, torch.bfloat16):
+        full = ftk.fta_int8_matmul(x, w_q, sc, out_dtype=out)
+        head = ftk.fta_int8_matmul(x[:4].contiguous(), w_q, sc, out_dtype=out)
+        torch.cuda.synchronize()
+        assert torch.equal(head, full[:4])
