@@ -54,8 +54,10 @@ non-zero (no phase catches its own failure):
               for every projection shape: masks and packs byte-identical to
               the CPU's, dbmu_matmul at M=256 exactly equal to the integer
               matmul oracle; then repro_torch.quickstart on the card.
-  7. profile — device busy and idle share over a window of decode calls,
-              and the kernels the device time goes to (torch.profiler).
+  7. profile — device busy and idle share over a window of decode calls
+              and over a window of prefill-chunk calls (batch 4 x 64
+              tokens), the joint kernel's share of the busy time, and the
+              kernels the device time goes to (torch.profiler).
   8. times  — each kernel, its plain version and one PyTorch call computing
               the same function (the library yardstick, used nowhere in the
               port) with CUDA events after warm-up; the kernel and the
@@ -65,11 +67,17 @@ non-zero (no phase catches its own failure):
               larger of bytes over 3.35 TB/s and operations over the peak of
               their type (989 TFLOP/s bf16, 1,979 TOP/s int8, 67 TFLOP/s
               fp32 outside the tensor cores), the H100 SXM data sheet's
-              rates. Work units: the joint kernel one decode step (154
-              launches, M=4); block-sparse and FTA/INT8 one full-width layer
-              at M=256 (7 launches); DBMU the four projection shapes at
-              M=256; row_attention and row_norm one decode call and one
-              prefill-chunk call (22 and 45 launches each).
+              rates; and the host µs per call, the time to issue
+              back-to-back calls before the device has finished them (the
+              fastest of several windows). Work
+              units: the joint kernel one decode step (154 launches, M=4),
+              and as units of their own one call's 154 launches at M=64 (a
+              64-token chunk of one slot) and at M=256 (the serve phase's
+              prefill-chunk call, 4 slots x 64 tokens); block-sparse and
+              FTA/INT8 one full-width layer at M=256 (7 launches); DBMU the
+              four projection shapes at M=256; row_attention and row_norm
+              one decode call and one prefill-chunk call (22 and 45
+              launches each).
 
 The launch counts of the JSON record come from the main paths: phase 4
 for the joint, row_attention and row_norm kernels, phase 5 for block-sparse and FTA/INT8, phase 6 for
@@ -116,6 +124,15 @@ SERVE_ARGS = ["--arch", "tinyllama-1.1b", "--dbpim-mode", "joint",
 #: projections round to bf16 after fp32 sums taken in another order, over
 #: 22 layers; the gap stays a small fraction of the logit range
 LOGIT_REL_TOL = 5e-2
+#: the joint kernel's prefill work units: rows per launch (a 64-token chunk
+#: of one slot; the serve phase's chunk call of 4 slots x 64 tokens)
+JOINT_PREFILL_M = (64, 256)
+#: symbols of the joint kernel's CUDA kernels in the profiler's records
+#: (the gathered-K kernels of gather_matmul.cuh; on the serving path no
+#: other kernel uses them)
+JOINT_SYMBOLS = ("gathered_tc_kernel", "gathered_fp32_kernel")
+#: the times phase's name of the joint kernel's prefill units
+JOINT_UNIT = "joint_sparse_matmul prefill"
 
 
 def log(msg: str):
@@ -824,29 +841,18 @@ def phase_dbmu(cfg, dev):
     return counts["dbmu_matmul"]
 
 
-def phase_profile(engine, n_steps=8):
-    """Device busy and idle share over a window of decode calls of the
-    served engine (all slots active), and where the device time goes.
-    Wall time comes from a run without the profiler, busy time from
-    torch.profiler's device-side records of a second, identical run."""
+def _profile_window(window, n_calls):
+    """(wall ms, busy ms, device ops, joint ms, device-side records) per
+    call of ``window``: wall time from a run without the profiler, the rest
+    from torch.profiler's device-side records of a second, identical run;
+    busy None when the profiler recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    dev = engine.device
-    tok = torch.ones((engine.n_slots, 1), dtype=torch.int32, device=dev)
-    active = torch.ones((engine.n_slots,), dtype=torch.bool, device=dev)
-    state = {"cache": engine.cache}
-
-    def window():
-        for _ in range(n_steps):
-            lg, state["cache"] = engine._decode(engine.params, state["cache"],
-                                                tok, active)
-            lg.float().cpu()                   # the engine's per-tick sync
-
     window()                                   # warm-up
     torch.cuda.synchronize()
     t0 = time.monotonic()
     window()
-    wall_ms = 1e3 * (time.monotonic() - t0) / n_steps
+    wall_ms = 1e3 * (time.monotonic() - t0) / n_calls
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         window()
@@ -855,19 +861,63 @@ def phase_profile(engine, n_steps=8):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n_steps
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n_calls
     if busy_ms == 0:
-        log("[profile] device busy share: not measured (the profiler "
-            "recorded no device time)")
-        return
-    launches = sum(e.count for e in kernels) / n_steps
-    log(f"[profile] decode call (batch {engine.n_slots}, {n_steps} calls): "
-        f"{wall_ms:.2f} ms wall, device busy {busy_ms:.2f} ms, idle share "
-        f"{1 - busy_ms / wall_ms:.3f}; {launches:.0f} device ops per call")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        ms = e.self_device_time_total / 1e3 / n_steps
-        log(f"[profile]   {ms:.3f} ms/call ({ms / busy_ms:.1%} of busy), "
-            f"{e.count / n_steps:.0f}/call: {e.key[:100]}")
+        return wall_ms, None, 0, 0.0, []
+    joint_ms = sum(e.self_device_time_total for e in kernels
+                   if any(sym in e.key for sym in JOINT_SYMBOLS)) / 1e3 / n_calls
+    ops = sum(e.count for e in kernels) / n_calls
+    return wall_ms, busy_ms, ops, joint_ms, kernels
+
+
+def phase_profile(engine, n_steps=8, n_chunks=4):
+    """Device busy and idle share over a window of decode calls of the
+    served engine (all slots active) and over a window of prefill-chunk
+    calls (every slot a full chunk, from an empty cache), the joint
+    kernel's share of the busy time, and where the device time goes."""
+    from repro_torch.models import init_cache
+    dev = engine.device
+    tok = torch.ones((engine.n_slots, 1), dtype=torch.int32, device=dev)
+    active = torch.ones((engine.n_slots,), dtype=torch.bool, device=dev)
+    state = {"cache": engine.cache}
+
+    def decode_window():
+        for _ in range(n_steps):
+            lg, state["cache"] = engine._decode(engine.params, state["cache"],
+                                                tok, active)
+            lg.float().cpu()                   # the engine's per-tick sync
+
+    C = engine.prefill_chunk
+    chunk = torch.ones((engine.n_slots, C), dtype=torch.int32, device=dev)
+    n_valid = torch.full((engine.n_slots,), C, dtype=torch.int32, device=dev)
+
+    def prefill_window():
+        cache = init_cache(engine.cfg, engine.n_slots, engine.max_len,
+                           device=dev)
+        cache["pos"] = torch.zeros((engine.n_slots,), dtype=torch.int32,
+                                   device=dev)
+        for _ in range(n_chunks):
+            lg, cache = engine._prefill(engine.params, cache, chunk, n_valid)
+            lg[:, 0].float().cpu()             # the engine's per-call sync
+
+    for what, window, n, rows in (
+            ("decode call", decode_window, n_steps, engine.n_slots),
+            ("prefill-chunk call", prefill_window, n_chunks,
+             engine.n_slots * C)):
+        wall_ms, busy_ms, ops, joint_ms, kernels = _profile_window(window, n)
+        if busy_ms is None:
+            log(f"[profile] {what}: device busy share not measured (the "
+                f"profiler recorded no device time)")
+            continue
+        log(f"[profile] {what} (batch {engine.n_slots}, {rows} rows per "
+            f"projection, {n} calls): {wall_ms:.2f} ms wall, device busy "
+            f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}; "
+            f"{ops:.0f} device ops per call; joint kernel {joint_ms:.3f} "
+            f"ms/call, {joint_ms / busy_ms:.1%} of busy")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+            ms = e.self_device_time_total / 1e3 / n
+            log(f"[profile]   {ms:.3f} ms/call ({ms / busy_ms:.1%} of busy), "
+                f"{e.count / n:.0f}/call: {e.key[:100]}")
 
 
 def _time(fn, iters=200, warmup=20):
@@ -895,6 +945,23 @@ def _time_auto(fn, budget_s=0.2):
     once = max(time.monotonic() - t0, 1e-6)
     iters = int(min(200, max(3, budget_s / once)))
     return _time(fn, iters=iters, warmup=min(iters, 5))
+
+
+def _host_us(fn, iters=20, windows=7):
+    """Host µs per call: the time to issue ``iters`` back-to-back calls,
+    read before the device has finished them (the launch queue holds them
+    all), so the wrapper's and the launch's host work alone; the fastest of
+    ``windows`` windows, since the host's other work only ever adds."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return 1e6 * best / iters
 
 
 def _device_ms(fn, iters=10, attempts=3):
@@ -930,12 +997,12 @@ def _bound(nbytes, ops, peak_ops):
 
 
 def _time_cases(cfg, packs, tables_by_mode, dev, n_slots=4, M=256):
-    """Per kernel, one case per launch of its work unit: the kernel, its
-    plain version and the library call as closures, with the bytes and
-    operations the launch needs. The joint kernel at the decode shapes
-    (M = n_slots), the block-sparse and FTA/INT8 kernels over phase 5's
-    layer tables and the DBMU kernel over the four projection shapes (M
-    rows)."""
+    """Per work unit, one case per launch: the kernel, its plain version
+    and the library call as closures, with the bytes and operations the
+    launch needs. The joint kernel at the decode shapes (M = n_slots) and,
+    as units of their own, at the JOINT_PREFILL_M rows; the block-sparse
+    and FTA/INT8 kernels over phase 5's layer tables and the DBMU kernel
+    over the four projection shapes (M rows)."""
     from repro_torch.core import dyadic, pruning
     from repro_torch.kernels import block_sparse_matmul as bsk
     from repro_torch.kernels import dbmu_sim
@@ -945,22 +1012,26 @@ def _time_cases(cfg, packs, tables_by_mode, dev, n_slots=4, M=256):
     gen = torch.Generator().manual_seed(3)
     bf16 = torch.bfloat16
     cases = {name: [] for name in KERNELS}
+    joint_units = {"joint_sparse_matmul": n_slots,
+                   **{f"{JOINT_UNIT} M={m}": m for m in JOINT_PREFILL_M}}
+    cases.update({unit: [] for unit in joint_units})
     for name, K, N in _path_shapes(cfg):
         p = packs[(K, N)]
-        x = torch.randn((n_slots, K), generator=gen).to(bf16).to(dev)
         w_dense = ops.unpack_joint_sparse(p).to(bf16)
         stored = p.w_blocks.numel()
         nt, maxb, _, bn = p.w_blocks.shape
-        cases["joint_sparse_matmul"].append(dict(
-            name=name, K=K, N=N, NT=nt, MAXB=maxb,
-            kernel=lambda x=x, p=p: jsm.joint_sparse_matmul(
-                x, p.w_blocks, p.idx, p.scales),
-            plain=lambda x=x, p=p: jsm.joint_sparse_matmul_plain(
-                x, p.w_blocks, p.idx, p.scales),
-            library=lambda x=x, w=w_dense: torch.matmul(x, w),
-            bytes=(x.numel() * 2 + stored + p.idx.numel() * 4
-                   + p.scales.numel() * 4 + n_slots * nt * bn * 2),
-            ops=2 * n_slots * stored, peak=BF16_FLOPS, repeat=cfg.n_layers))
+        for unit, rows in joint_units.items():
+            x = torch.randn((rows, K), generator=gen).to(bf16).to(dev)
+            cases[unit].append(dict(
+                name=name, K=K, N=N, NT=nt, MAXB=maxb,
+                kernel=lambda x=x, p=p: jsm.joint_sparse_matmul(
+                    x, p.w_blocks, p.idx, p.scales),
+                plain=lambda x=x, p=p: jsm.joint_sparse_matmul_plain(
+                    x, p.w_blocks, p.idx, p.scales),
+                library=lambda x=x, w=w_dense: torch.matmul(x, w),
+                bytes=(x.numel() * 2 + stored + p.idx.numel() * 4
+                       + p.scales.numel() * 4 + rows * nt * bn * 2),
+                ops=2 * rows * stored, peak=BF16_FLOPS, repeat=cfg.n_layers))
         x = torch.randn((M, K), generator=gen).to(bf16).to(dev)
         t = tables_by_mode["value"][name]
         wb, idx, w_dense = t["w_blocks"].to(bf16), t["idx"], t["w"].to(bf16)
@@ -1076,14 +1147,14 @@ def phase_times(cfg, packs, tables_by_mode, dev):
     out = {}
     for kname, rows in _time_cases(cfg, packs, tables_by_mode, dev).items():
         tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
-                   library_device_ms=0.0, bytes=0, ops=0)
+                   library_device_ms=0.0, bytes=0, ops=0, host_us=0.0)
         per_shape = []
         n_launches = 0
         for c in rows:
             repeat = c.get("repeat", 1)
             n_launches += repeat
             ms, plain = _time_auto(c["kernel"]), _time_auto(c["plain"])
-            dev_ms = _device_ms(c["kernel"])
+            dev_ms, host = _device_ms(c["kernel"]), _host_us(c["kernel"])
             lib = lib_dev = None
             if c["library"]:
                 lib, lib_dev = (_time_auto(c["library"]),
@@ -1093,20 +1164,24 @@ def phase_times(cfg, packs, tables_by_mode, dev):
                 {k: v for k, v in c.items()
                  if k not in ("kernel", "plain", "library", "peak")},
                 ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
-                library_device_ms=lib_dev, bound_ms=bound, bound_by=by))
+                library_device_ms=lib_dev, bound_ms=bound, bound_by=by,
+                host_us=host))
             for key, val in (("ms", ms), ("device_ms", dev_ms),
                              ("plain_ms", plain), ("library_ms", lib),
                              ("library_device_ms", lib_dev),
-                             ("bytes", c["bytes"]), ("ops", c["ops"])):
+                             ("bytes", c["bytes"]), ("ops", c["ops"]),
+                             ("host_us", host)):
                 tot[key] = None if val is None or tot[key] is None \
                     else tot[key] + repeat * val
             log(f"[times] {kname} {c['name']} {c['K']}x{c['N']}: kernel "
-                f"{us(ms)} (device {us(dev_ms)}), plain {us(plain)}, library "
+                f"{us(ms)} (device {us(dev_ms)}, host {host:.1f} us), plain "
+                f"{us(plain)}, library "
                 f"{'n/a' if c['library'] is None else us(lib)} (device "
                 f"{'n/a' if c['library'] is None else us(lib_dev)}), bound "
                 f"{bound * 1e3:.2f} us ({by}, {c['bytes'] / 1e6:.3f} MB)")
         tot["bound_ms"], tot["bound_by"] = _bound(tot["bytes"], tot["ops"],
                                                   rows[0]["peak"])
+        tot["host_us"] /= n_launches             # per launch
         tot["per_shape"] = per_shape
         out[kname] = tot
         log(f"[times] {kname}, {n_launches} launches: kernel "
@@ -1114,7 +1189,8 @@ def phase_times(cfg, packs, tables_by_mode, dev):
             f"{ms_(tot['plain_ms'])}, library {ms_(tot['library_ms'])} "
             f"(device {ms_(tot['library_device_ms'])}), bound "
             f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}, "
-            f"{tot['bytes'] / 1e6:.1f} MB)")
+            f"{tot['bytes'] / 1e6:.1f} MB); host {tot['host_us']:.1f} us per "
+            f"launch")
     return out
 
 
@@ -1167,8 +1243,15 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
-            "library_device_ms": t["library_device_ms"], "work": work,
+            "library_device_ms": t["library_device_ms"],
+            "host_us": t["host_us"], "work": work,
             "per_shape": t["per_shape"]})
+        if name == "joint_sparse_matmul":
+            kernels[-1]["units"] = [
+                {"work": f"one prefill call: 22 layers x 7 projections, "
+                         f"M={m}, bf16",
+                 **{k: v for k, v in times[f"{JOINT_UNIT} M={m}"].items()
+                    if k != "per_shape"}} for m in JOINT_PREFILL_M]
     assert all(k["launches"] > 0 for k in kernels), \
         [(k["name"], k["launches"]) for k in kernels]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -12,8 +12,11 @@ Three things live here:
 
   * ``block_sparse_matmul`` — the wrapper. A CPU tensor takes the plain
     version; a CUDA tensor launches the hand-written kernel
-    (``csrc/block_sparse_matmul.cu``, built by ``nvcc`` for sm_90a on first
-    use, loaded with ctypes) or raises. There is no fallback.
+    (``csrc/block_sparse_matmul.cu``, the gathered-K kernels of
+    ``csrc/gather_matmul.cuh`` that the joint kernel runs: bf16 on the
+    tensor cores, f32 in fp32 on the CUDA cores; built by ``nvcc`` for
+    sm_90a on first use, loaded with ctypes) or raises. There is no
+    fallback.
   * ``block_sparse_matmul_plain`` — the same function in plain PyTorch:
     gather, fp32 batched matmul, cast.
   * ``LAUNCHES`` — the number of kernel launches so far, raised by one at

@@ -112,61 +112,6 @@ __device__ __forceinline__ void round_x(const uint8_t* raw, uint8_t* sx, int tid
   }
 }
 
-// Byte I of u (= int8 v ^ 0x80, i.e. v + 128) as the f32 2^23 + v + 128;
-// minus 2^23 + 128 it is v exactly, and v's f32 bits >> 16 are its bf16
-// bits exactly (|v| <= 128 has at most 8 significant bits). Full-rate
-// integer and fp32 operations only, no conversion instructions.
-template <int I>
-__device__ __forceinline__ uint32_t s8_f32_bits(uint32_t u) {
-  const float f = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + I));
-  return __float_as_uint(__fsub_rn(f, 8388736.0f));
-}
-
-// The A fragments of one K tile (weight rows W_LD bytes apart). ldmatrix
-// .trans of the int8 tile (as b16 pairs of columns) gives lane (g, t4) the
-// bytes w[2 t4][2 g], w[2 t4][2 g + 1], w[2 t4 + 1][2 g], w[2 t4 + 1][2 g + 1]
-// of an 8 x 16 block; fragment row g takes column 2 g, row g + 8 column
-// 2 g + 1. So A row r of warp w is weight column 16 w + (r < 8 ? 2 r : 2 (r -
-// 8) + 1).
-template <int W_LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[BK / 16][4], const uint8_t* w_tile,
-                                       int lane, int warp) {
-#pragma unroll
-  for (int h = 0; h < BK / 32; ++h) {   // two K steps per ldmatrix.x4
-    uint32_t q[4];
-    tc::ldmatrix_x4_trans(q, w_tile + (32 * h + lane) * W_LD + 16 * warp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {       // matrix i: K rows 32 h + 8 i .. + 7
-      const uint32_t u = q[i] ^ 0x80808080u;
-      const uint32_t f0 = s8_f32_bits<0>(u), f1 = s8_f32_bits<1>(u);
-      const uint32_t f2 = s8_f32_bits<2>(u), f3 = s8_f32_bits<3>(u);
-      uint32_t(&frag)[4] = a[2 * h + i / 2];
-      frag[2 * (i & 1)] = __byte_perm(f0, f2, 0x7632);       // row g: column 2 g
-      frag[2 * (i & 1) + 1] = __byte_perm(f1, f3, 0x7632);   // row g + 8: column 2 g + 1
-    }
-  }
-}
-
-// two outputs of one row at columns n, n + 1; one store when N is even
-__device__ __forceinline__ void store2(float* y, size_t at, bool pair, bool second, float v0,
-                                       float v1) {
-  if (pair) {
-    *reinterpret_cast<float2*>(y + at) = make_float2(v0, v1);
-  } else {
-    y[at] = v0;
-    if (second) y[at + 1] = v1;
-  }
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* y, size_t at, bool pair, bool second,
-                                       float v0, float v1) {
-  if (pair) {
-    *reinterpret_cast<__nv_bfloat162*>(y + at) = __floats2bfloat162_rn(v0, v1);
-  } else {
-    y[at] = __float2bfloat16_rn(v0);
-    if (second) y[at + 1] = __float2bfloat16_rn(v1);
-  }
-}
-
 template <typename XT, typename OT, bool TMA>
 __global__ void __launch_bounds__(BLOCK)
 fta_int8_matmul_kernel(const __grid_constant__ CUtensorMap map_x,
@@ -268,13 +213,13 @@ fta_int8_matmul_kernel(const __grid_constant__ CUtensorMap map_x,
         tc::fence_proxy_async();
         tc::named_sync(1, NTHREADS);
       }
-      load_a<L::W_LD>(a, raw_w + (j % STAGES) * L::W_SLOT, lane, warp);
+      tc::load_a_s8<L::W_LD>(a, raw_w + (j % STAGES) * L::W_SLOT, lane, warp);
       tc::wgmma_wait<0>();                // tile j - 1's products are done
       tc::fence_regs(acc);
 #pragma unroll
       for (int s = 0; s < BK / 16; ++s) tc::fence_regs(prev[s]);
       // tile j - 1's ring slot is free: its x was read by those products,
-      // its weight by every warp's load_a before they were issued
+      // its weight by every warp's load_a_s8 before they were issued
       if constexpr (TMA) {
         if (j > 0 && tid == 0) tc::mbar_arrive(&empty[(j - 1) % STAGES]);
       } else {
@@ -318,7 +263,7 @@ fta_int8_matmul_kernel(const __grid_constant__ CUtensorMap map_x,
     const int m = m0 + 8 * (p >> 1) + 2 * (lane & 3) + (p & 1);
     if (m >= M || n >= N) return;
     const bool second = n + 1 < N;
-    store2(y, static_cast<size_t>(m) * N + n, second && N % 2 == 0, second, v0 * scales[n],
+    tc::store2(y, static_cast<size_t>(m) * N + n, second && N % 2 == 0, second, v0 * scales[n],
            second ? v1 * scales[n + 1] : 0.f);
   };
   auto pair = [](int p) { return 4 * (p >> 1) + (p & 1); };   // acc index of (p, h = 0)

@@ -1,9 +1,10 @@
 // Shared pieces of the port's tensor-core matmuls for Hopper (sm_90a):
-// `dbmu_matmul.cu` (int8 x int8 -> int32) and `fta_int8_matmul.cu`
-// (bf16 x bf16 -> fp32): warpgroup MMA (`wgmma`) with its shared-memory
-// operand layouts and descriptors, TMA tensor copies with mbarriers,
-// `cp.async` tile copies for arrays TMA cannot take, and split K over a
-// thread-block cluster with a fixed-order combine.
+// `dbmu_matmul.cu` (int8 x int8 -> int32), `fta_int8_matmul.cu` and the
+// gathered-K kernel of `gather_matmul.cuh` (bf16 x bf16 -> fp32): warpgroup
+// MMA (`wgmma`) with its shared-memory operand layouts and descriptors, an
+// int8 weight widened to bf16 in registers, TMA tensor copies with
+// mbarriers, `cp.async` tile copies for arrays TMA cannot take, and split K
+// over a thread-block cluster with a fixed-order combine.
 //
 // Ragged edges. TMA fills a box's part outside the array with zeros. The
 // cp.async loader copies a 16-byte chunk that lies wholly inside a
@@ -17,6 +18,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -180,6 +182,24 @@ __host__ inline bool tensor_map(CUtensorMap* map, const void* base, CUtensorMapD
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The map of an array of `rank` dims (dims[0] innermost; strides[i] the
+// bytes between neighbours along dim i + 1), read in boxes of box[]. False
+// when TMA cannot take the array (base or a stride not a multiple of 16
+// bytes). A box may reach past the array's edge; TMA fills that part with
+// zeros.
+__host__ inline bool tensor_map_nd(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                                   int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                                   const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode || reinterpret_cast<uintptr_t>(base) % 16) return false;
+  for (int i = 0; i + 1 < rank; ++i)
+    if (strides[i] % 16) return false;
+  const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
+  return encode(map, type, rank, const_cast<void*>(base), dims, strides, box, estr,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
 }
@@ -212,6 +232,26 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
       : "memory");
 }
 
+// box at coordinates (c0 innermost, c1, c2) of a 3D map -> dst
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+// box at coordinates (c0 innermost, c1, c2, c3) of a 4D map -> dst
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
 // Barrier `id` (1..15) over the first `threads` threads of the block.
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
@@ -227,6 +267,62 @@ __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
 __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p) {
   return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// Byte I of u (= int8 v ^ 0x80, i.e. v + 128) as the f32 2^23 + v + 128;
+// minus 2^23 + 128 it is v exactly, and v's f32 bits >> 16 are its bf16
+// bits exactly (|v| <= 128 has at most 8 significant bits). Full-rate
+// integer and fp32 operations only, no conversion instructions.
+template <int I>
+__device__ __forceinline__ uint32_t s8_f32_bits(uint32_t u) {
+  const float f = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + I));
+  return __float_as_uint(__fsub_rn(f, 8388736.0f));
+}
+
+// The bf16 A fragments (four K steps) of a 64-deep int8 weight tile whose
+// rows (K) are W_LD bytes apart, widened in registers. ldmatrix .trans of
+// the int8 tile (as b16 pairs of columns) gives lane (g, t4) the bytes
+// w[2 t4][2 g], w[2 t4][2 g + 1], w[2 t4 + 1][2 g], w[2 t4 + 1][2 g + 1] of
+// an 8 x 16 block; fragment row g takes column 2 g, row g + 8 column 2 g + 1.
+// So A row r of warp w is weight column 16 w + (r < 8 ? 2 r : 2 (r - 8) + 1).
+template <int W_LD>
+__device__ __forceinline__ void load_a_s8(uint32_t (&a)[4][4], const uint8_t* w_tile, int lane,
+                                          int warp) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {         // two K steps per ldmatrix.x4
+    uint32_t q[4];
+    ldmatrix_x4_trans(q, w_tile + (32 * h + lane) * W_LD + 16 * warp);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {       // matrix i: K rows 32 h + 8 i .. + 7
+      const uint32_t u = q[i] ^ 0x80808080u;
+      const uint32_t f0 = s8_f32_bits<0>(u), f1 = s8_f32_bits<1>(u);
+      const uint32_t f2 = s8_f32_bits<2>(u), f3 = s8_f32_bits<3>(u);
+      uint32_t(&frag)[4] = a[2 * h + i / 2];
+      frag[2 * (i & 1)] = __byte_perm(f0, f2, 0x7632);       // row g: column 2 g
+      frag[2 * (i & 1) + 1] = __byte_perm(f1, f3, 0x7632);   // row g + 8: column 2 g + 1
+    }
+  }
+}
+
+// two outputs of one row at columns n, n + 1; one store when `pair` (the
+// pair 8-byte (f32) or 4-byte (bf16) aligned)
+__device__ __forceinline__ void store2(float* y, size_t at, bool pair, bool second, float v0,
+                                       float v1) {
+  if (pair) {
+    *reinterpret_cast<float2*>(y + at) = make_float2(v0, v1);
+  } else {
+    y[at] = v0;
+    if (second) y[at + 1] = v1;
+  }
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* y, size_t at, bool pair, bool second,
+                                       float v0, float v1) {
+  if (pair) {
+    *reinterpret_cast<__nv_bfloat162*>(y + at) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    y[at] = __float2bfloat16_rn(v0);
+    if (second) y[at + 1] = __float2bfloat16_rn(v1);
+  }
 }
 
 // A contiguous row-major global array seen as bytes: `rows` rows of
@@ -282,7 +378,8 @@ __host__ __forceinline__ int k_splits(int k_tiles, int col_tiles, int min_blocks
 }
 
 // Launch `kernel` on a (grid.x, grid.y, splits) grid in clusters of
-// (1, 1, splits) blocks.
+// (1, 1, splits) blocks (no cluster attribute for one split: a block is its
+// own cluster of one either way).
 template <typename... Params, typename... Args>
 __host__ cudaError_t launch_split(void (*kernel)(Params...), dim3 grid, int splits, int threads,
                                   int smem_bytes, cudaStream_t stream, Args... args) {
@@ -297,7 +394,7 @@ __host__ cudaError_t launch_split(void (*kernel)(Params...), dim3 grid, int spli
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = splits;
   cfg.attrs = &attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 

@@ -14,8 +14,11 @@ Three things live here:
 
   * ``joint_sparse_matmul`` — the wrapper. A CPU tensor takes the plain
     version; a CUDA tensor launches the hand-written kernel
-    (``csrc/joint_sparse_matmul.cu``, built by ``nvcc`` for sm_90a on first
-    use, loaded with ctypes) or raises. There is no fallback.
+    (``csrc/joint_sparse_matmul.cu`` with ``csrc/gather_matmul.cuh``: bf16
+    x on the tensor cores, ``wgmma`` fed by TMA, split K over a cluster;
+    f32 x in fp32 on the CUDA cores; built by ``nvcc`` for sm_90a on first
+    use, loaded with ctypes) or raises. There is no fallback. Every row
+    comes out bitwise the same whatever M is.
   * ``joint_sparse_matmul_plain`` — the same function in plain PyTorch:
     gather, dequantize to the activation dtype, fp32 matmul, scale, cast.
   * ``LAUNCHES`` — the number of kernel launches so far, raised by one at

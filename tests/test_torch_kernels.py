@@ -17,6 +17,7 @@ from repro_torch.core import dyadic, fta
 from repro_torch.kernels import block_sparse_matmul as bsk
 from repro_torch.kernels import dbmu_sim
 from repro_torch.kernels import fta_int8_matmul as ftk
+from repro_torch.kernels import joint_sparse_matmul as jsm
 from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.port
@@ -465,3 +466,133 @@ def test_fta_int8_kernel_rows_stable_on_card(cuda, xdt):
         head = ftk.fta_int8_matmul(x[:4].contiguous(), w_q, sc, out_dtype=out)
         torch.cuda.synchronize()
         assert torch.equal(head, full[:4])
+
+
+# ---------------------------------- gathered-K kernels on the card ------
+
+#: packed layouts of the gathered-K kernels (joint and block-sparse): (K, bk,
+#: bn, survivors per N tile). MAXB is the most survivors; shorter tiles pad
+#: with zero-payload slots at block 0.
+#:   split:   tinyllama's tiles (bk = bn = 128), 4 column tiles x 14 K tiles,
+#:            which the split rule runs as 4 splits of a cluster
+#:   partial: bk = 64, bn = 96 (a second 64-column chunk half full), a tile
+#:            with no survivor at all, 2 splits
+#:   reduced: bk = bn = 40 (a reduced config's tile: neither a multiple of
+#:            16 nor, for an int8 payload, 16-byte aligned rows), 2 splits
+#:   wide:    72 column tiles, no split: blocks of 2 row tiles at M = 65 and
+#:            of 4 at M = 256 (one row tile below)
+GATHER_LAYOUTS = {"split": (2048, 128, 128, [7, 5]),
+                  "partial": (512, 64, 96, [6, 3, 0]),
+                  "reduced": (400, 40, 40, [6, 2, 4]),
+                  "wide": (256, 64, 64, [4, 3, 2, 1] * 18)}
+GATHER_M = [1, 4, 63, 64, 65, 256]
+
+
+def _gathered_pack(layout, payload, rng):
+    """(w_blocks, idx, scales) of a random packed weight: each N tile's
+    survivors at distinct ascending K-blocks, padded slots zero at block 0."""
+    K, bk, bn, counts = GATHER_LAYOUTS[layout]
+    nt, maxb = len(counts), max(counts)
+    idx = np.zeros((nt, maxb), np.int32)
+    if payload == "int8":
+        w = rng.integers(-127, 128, (nt, maxb, bk, bn)).astype(np.int8)
+    else:
+        w = rng.normal(0, 1, (nt, maxb, bk, bn)).astype(np.float32)
+    for n, c in enumerate(counts):
+        idx[n, :c] = np.sort(rng.choice(K // bk, c, replace=False))
+        w[n, c:] = 0
+    w = torch.from_numpy(w)
+    if payload != "int8":
+        w = w.to(torch.bfloat16 if payload == "bf16" else torch.float32)
+    sc = rng.uniform(0.005, 0.02, (1, nt * bn)).astype(np.float32)
+    return w, torch.from_numpy(idx), torch.from_numpy(sc)
+
+
+@pytest.mark.parametrize("layout", list(GATHER_LAYOUTS))
+@pytest.mark.parametrize("payload", ["int8", "bf16"])
+def test_joint_plain_matches_jax_on_gathered_layouts(jax_kernels, payload,
+                                                     layout):
+    """The joint kernel's plain version against the JAX kernel (interpret
+    mode) on the packs the card tests use: padded slots, a tile with no
+    survivor, bk = bn = 40; f32 x, within 1e-5 of the peak."""
+    from repro.kernels.joint_sparse_matmul import joint_sparse_matmul
+    rng = np.random.default_rng([len(layout), len(payload)])
+    w, idx, sc = _gathered_pack(layout, payload, rng)
+    K = GATHER_LAYOUTS[layout][0]
+    x = rng.normal(0, 1, (16, K)).astype(np.float32)
+    jnp = jax_kernels["jnp"]
+    wj = (jnp.asarray(w.numpy()) if payload == "int8" else
+          jnp.asarray(w.float().numpy()).astype(jnp.bfloat16))
+    want = joint_sparse_matmul(jnp.asarray(x), wj, jnp.asarray(idx.numpy()),
+                               jnp.asarray(sc.numpy()), bm=8,
+                               interpret=True)
+    got = jsm.joint_sparse_matmul_plain(torch.from_numpy(x), w, idx, sc)
+    _assert_close(got, np.asarray(want), False)
+
+
+def test_block_sparse_plain_matches_jax_with_padded_slots(jax_kernels):
+    """The block-sparse plain version against the JAX kernel (interpret
+    mode) on the card tests' 128-tile pack, padded slots included."""
+    rng = np.random.default_rng(14)
+    w, idx, _ = _gathered_pack("split", "f32", rng)
+    x = rng.normal(0, 1, (128, GATHER_LAYOUTS["split"][0])).astype(np.float32)
+    jnp = jax_kernels["jnp"]
+    want = jax_kernels["bs"](jnp.asarray(x), jnp.asarray(w.numpy()),
+                             jnp.asarray(idx.numpy()), interpret=True)
+    got = bsk.block_sparse_matmul_plain(torch.from_numpy(x), w, idx)
+    _assert_close(got, np.asarray(want), False)
+
+
+@pytest.mark.parametrize("M", GATHER_M)
+@pytest.mark.parametrize("layout", list(GATHER_LAYOUTS))
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("payload", ["int8", "bf16"])
+def test_joint_kernel_layouts_on_card(cuda, payload, xdt, layout, M):
+    """The joint kernel (int8 payload, and the value-only bf16 payload)
+    against its plain version at ragged M, tinyllama's, partial and reduced
+    tiles, padded slots and split K: out in x's dtype within 1e-5 * max|ref|
+    (f32) or one bf16 ulp (bf16), the fp32 accumulators within 1e-5 *
+    max|ref|; rows bitwise equal to the same rows of an M = 256 call."""
+    rng = np.random.default_rng([M, len(layout), xdt.itemsize])
+    w, idx, sc = (t.to(cuda) for t in _gathered_pack(layout, payload, rng))
+    K = GATHER_LAYOUTS[layout][0]
+    x256 = torch.from_numpy(rng.normal(0, 1, (256, K)).astype(np.float32))
+    x256 = x256.to(xdt).to(cuda)
+    x = x256[:M].contiguous()
+    before = jsm.LAUNCHES
+    got = jsm.joint_sparse_matmul(x, w, idx, sc)
+    acc = jsm.joint_sparse_matmul(x, w, idx, sc, out_dtype=torch.float32)
+    full = jsm.joint_sparse_matmul(x256, w, idx, sc)
+    full_acc = jsm.joint_sparse_matmul(x256, w, idx, sc,
+                                       out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert jsm.LAUNCHES == before + 4
+    want = jsm.joint_sparse_matmul_plain(x, w, idx, sc)
+    want_acc = jsm.joint_sparse_matmul_plain(x, w, idx, sc, torch.float32)
+    _assert_close(got.cpu(), want.float().cpu().numpy(), xdt == torch.bfloat16)
+    _assert_close(acc.cpu(), want_acc.cpu().numpy(), False)
+    assert torch.equal(got, full[:M]) and torch.equal(acc, full_acc[:M])
+
+
+@pytest.mark.parametrize("M", GATHER_M)
+@pytest.mark.parametrize("layout", list(GATHER_LAYOUTS))
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_block_sparse_kernel_layouts_on_card(cuda, xdt, layout, M):
+    """The block-sparse kernel against its plain version on the same
+    layouts: within 1e-5 * max|ref| (f32) or one bf16 ulp (bf16); rows
+    bitwise equal to the same rows of an M = 256 call."""
+    rng = np.random.default_rng([M, len(layout), 7])
+    payload = "bf16" if xdt == torch.bfloat16 else "f32"
+    w, idx, _ = (t.to(cuda) for t in _gathered_pack(layout, payload, rng))
+    K = GATHER_LAYOUTS[layout][0]
+    x256 = torch.from_numpy(rng.normal(0, 1, (256, K)).astype(np.float32))
+    x256 = x256.to(xdt).to(cuda)
+    x = x256[:M].contiguous()
+    before = bsk.LAUNCHES
+    got = bsk.block_sparse_matmul(x, w, idx)
+    full = bsk.block_sparse_matmul(x256, w, idx)
+    torch.cuda.synchronize()
+    assert bsk.LAUNCHES == before + 2
+    want = bsk.block_sparse_matmul_plain(x, w, idx)
+    _assert_close(got.cpu(), want.float().cpu().numpy(), xdt == torch.bfloat16)
+    assert torch.equal(got, full[:M])

@@ -4,27 +4,42 @@
 
 ``--other`` is another checkout of this repository (for example the parent
 commit unpacked with ``git archive`` into ``build/``, which git ignores).
-For ``dbmu_matmul`` and ``fta_int8_matmul``, both trees'
-``src/repro_torch/kernels/csrc/<name>.cu`` are compiled by
-nvcc with the port's flags into ``build/kernel_ab/``, all builds at once,
-and both versions are called through their C entry points, which have the
-same signature in both trees, on the same inputs: the work units of
-``chip_smoke.py``'s times phase.
+For ``dbmu_matmul``, ``fta_int8_matmul``, ``joint_sparse_matmul`` and
+``block_sparse_matmul``, both trees' ``src/repro_torch/kernels/csrc/<name>.cu``
+are compiled by nvcc with the port's flags into ``build/kernel_ab/``, all
+builds at once, and both versions are called through their C entry points,
+which have the same signature in both trees, on the same inputs. The work
+units (tinyllama-1.1b's projections at full width, random weights from a
+seed):
 
-  * dbmu_matmul: the four tinyllama-1.1b projection shapes at M = 256,
-    weights through the DB-PIM pipeline (block pruning at 0.6, alpha 8,
-    FTA, dyadic terms), x uniform over the int8 range.
-  * fta_int8_matmul: one full-width layer's seven projections at M = 256,
-    bf16 x, bf16 out, INT8/FTA weights with per-filter scales.
+  * dbmu_matmul: the four projection shapes at M = 256, weights through
+    the DB-PIM pipeline (block pruning at 0.6, alpha 8, FTA, dyadic terms),
+    x uniform over the int8 range.
+  * fta_int8_matmul: one layer's seven projections at M = 256, bf16 x,
+    bf16 out, INT8/FTA weights with per-filter scales.
+  * joint_sparse_matmul: one decode step (the seven projections at M = 4,
+    each counted once per layer: 154 launches), and one layer at M = 64 and
+    at M = 256; bf16 x and out, the joint pack at vs = 0.6 (bk = bn = 128);
+    and one layer at M = 4 with f32 x (the CUDA-core path).
+  * block_sparse_matmul: one layer at M = 256, the value pack at vs = 0.6
+    (global tile pruning), bf16 x and payload; and the same with f32 x.
 
 Each version's outputs are first held against the plain version (DBMU bit
-for bit; FTA/INT8 within one bf16 ulp of the peak); a version that
-disagrees fails the run. Then, in the turns other, this, this, other,
-each shape is timed with CUDA events over back-to-back launches and in
-device time from torch.profiler's device-side records, with the clocks of
-``chip_smoke.py``'s times phase. The card's name and power limit are
-printed first, then a line per kernel and turn, then the whole result as
-one JSON object on the last line. Needs a CUDA card and nvcc.
+for bit; bf16 out within one bf16 ulp of the peak, f32 out within 1e-5 of
+it); a version that disagrees fails the run. Then, in the turns other,
+this, this, other, each shape is timed with CUDA events over back-to-back
+launches, in device time from torch.profiler's device-side records (the
+clocks of ``chip_smoke.py``'s times phase), and in host µs per launch: the
+time to issue back-to-back calls, before the device has finished them (the
+fastest of several windows).
+For the joint and block-sparse units the host time is that of the port's
+Python wrapper, whose library is swapped for each tree's (the wrappers are
+the same in both trees); for the others, that of the C entry point; and
+for every unit also that of the C entry point alone, where the two trees'
+code differs. The
+card's name and power limit are printed first, then a line per unit and
+turn, then the whole result as one JSON object on the last line. Needs a
+CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -42,17 +57,38 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
-from chip_smoke import _device_ms, _time  # noqa: E402
+from chip_smoke import _device_ms, _host_us, _time  # noqa: E402
 
-SHAPES = {"dbmu_matmul": [("wq", 2048, 2048), ("wk", 2048, 256),
-                          ("w_gate", 2048, 5632), ("w_down", 5632, 2048)],
-          "fta_int8_matmul": [("wq", 2048, 2048), ("wk", 2048, 256),
-                              ("wv", 2048, 256), ("wo", 2048, 2048),
-                              ("w_gate", 2048, 5632), ("w_up", 2048, 5632),
-                              ("w_down", 5632, 2048)]}
-M = 256
+LAYER = [("wq", 2048, 2048), ("wk", 2048, 256), ("wv", 2048, 256),
+         ("wo", 2048, 2048), ("w_gate", 2048, 5632), ("w_up", 2048, 5632),
+         ("w_down", 5632, 2048)]
+DBMU_SHAPES = [("wq", 2048, 2048), ("wk", 2048, 256), ("w_gate", 2048, 5632),
+               ("w_down", 5632, 2048)]
+N_LAYERS = 22
+#: (kernel, unit label, M, shapes, launches of each shape per unit, x dtype)
+UNITS = [
+    ("dbmu_matmul", "four shapes, M=256", 256, DBMU_SHAPES, 1, torch.int32),
+    ("fta_int8_matmul", "one layer, M=256", 256, LAYER, 1, torch.bfloat16),
+    ("joint_sparse_matmul", "decode step, M=4", 4, LAYER, N_LAYERS,
+     torch.bfloat16),
+    ("joint_sparse_matmul", "one layer, M=64", 64, LAYER, 1, torch.bfloat16),
+    ("joint_sparse_matmul", "one layer, M=256", 256, LAYER, 1,
+     torch.bfloat16),
+    ("joint_sparse_matmul", "one layer, M=4, f32 x", 4, LAYER, 1,
+     torch.float32),
+    ("block_sparse_matmul", "one layer, M=256", 256, LAYER, 1,
+     torch.bfloat16),
+    ("block_sparse_matmul", "one layer, M=256, f32 x", 256, LAYER, 1,
+     torch.float32),
+]
+#: pointer and int arguments of each C entry point (then the stream)
+SIGNATURE = {"dbmu_matmul": (3, 3), "fta_int8_matmul": (4, 5),
+             "joint_sparse_matmul": (5, 9), "block_sparse_matmul": (4, 7)}
 ORDER = ("other", "this", "this", "other")
 ITERS = 20
+#: host-time windows per shape; the fastest counts (chip_smoke._host_us)
+HOST_WINDOWS = 15
+VS = 0.6
 
 
 def _build(trees, names):
@@ -80,43 +116,68 @@ def _build(trees, names):
 
 def _entry(lib, name):
     fn = getattr(lib, f"{name}_launch")
-    n_ptr = 3 if name == "dbmu_matmul" else 4
-    n_int = 3 if name == "dbmu_matmul" else 5
+    n_ptr, n_int = SIGNATURE[name]
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _cases(name, dev, gen):
-    """Per shape: (label, K, N, inputs, output, the launch arguments after
-    the pointers, the plain version's output)."""
+def _wrappers():
+    """kernel -> its wrapper module (holding ``_LIB``), where the unit's
+    host time is the wrapper's."""
+    from repro_torch.kernels import block_sparse_matmul as bsk
+    from repro_torch.kernels import joint_sparse_matmul as jsm
+    return {"joint_sparse_matmul": jsm, "block_sparse_matmul": bsk}
+
+
+def _case(name, K, N, M, xdt, dev, gen):
+    """One launch of a unit: inputs, output, the launch arguments after the
+    pointers, the plain version's output and the wrapper call (or None)."""
     from repro_torch.core import pruning
+    from repro_torch.kernels import block_sparse_matmul as bsk
     from repro_torch.kernels import dbmu_sim, ops
     from repro_torch.kernels import fta_int8_matmul as ftk
-    cases = []
-    for label, K, N in SHAPES[name]:
-        w = torch.randn((K, N), generator=gen) * K ** -0.5
-        if name == "dbmu_matmul":
-            _, _, packed, _ = ops.fta_pack(
-                w, pruning.block_prune_mask(w, 0.6, alpha=8))
-            x = torch.randint(-128, 128, (M, K), generator=gen,
-                              dtype=torch.int32)
-            x, packed = x.to(dev), packed.to(dev)
-            y = torch.empty((M, N), dtype=torch.int32, device=dev)
-            cases.append(dict(label=label, K=K, N=N, ptrs=(x, packed, y),
-                              ints=(M, K, N), y=y,
-                              want=dbmu_sim.dbmu_matmul_plain(x, packed)))
-        else:
-            q, sc = ops.quantize_int8_fta(w, torch.ones((K, N),
-                                                        dtype=torch.int32))
-            q, sc = q.to(torch.int8).to(dev), sc.to(dev)
-            x = torch.randn((M, K), generator=gen).to(torch.bfloat16).to(dev)
-            y = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
-            cases.append(dict(label=label, K=K, N=N, ptrs=(x, q, sc, y),
-                              ints=(M, K, N, 1, 1), y=y,
-                              want=ftk.fta_int8_matmul_plain(x, q, sc)))
-    return cases
+    from repro_torch.kernels import joint_sparse_matmul as jsm
+    w = torch.randn((K, N), generator=gen) * K ** -0.5
+    if name == "dbmu_matmul":
+        _, _, packed, _ = ops.fta_pack(w, pruning.block_prune_mask(
+            w, VS, alpha=8))
+        x = torch.randint(-128, 128, (M, K), generator=gen,
+                          dtype=torch.int32).to(dev)
+        packed = packed.to(dev)
+        y = torch.empty((M, N), dtype=torch.int32, device=dev)
+        return dict(ptrs=(x, packed, y), ints=(M, K, N), y=y,
+                    want=dbmu_sim.dbmu_matmul_plain(x, packed), wrapper=None)
+    x = torch.randn((M, K), generator=gen).to(xdt).to(dev)
+    code = {torch.float32: 0, torch.bfloat16: 1}[xdt]
+    if name == "fta_int8_matmul":
+        q, sc = ops.quantize_int8_fta(w, torch.ones((K, N), dtype=torch.int32))
+        q, sc = q.to(torch.int8).to(dev), sc.to(dev)
+        y = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+        return dict(ptrs=(x, q, sc, y), ints=(M, K, N, code, 1), y=y,
+                    want=ftk.fta_int8_matmul_plain(x, q, sc), wrapper=None)
+    if name == "joint_sparse_matmul":
+        p = ops.slice_joint_stacked(ops.pack_joint_sparse_stacked(
+            w.to(torch.bfloat16)[None].to(dev), value_sparsity=VS, bk=128,
+            bn=128), 0)
+        nt, maxb, bk, bn = p.w_blocks.shape
+        y = torch.empty((M, nt * bn), dtype=xdt, device=dev)
+        return dict(ptrs=(x, p.w_blocks, p.idx, p.scales, y),
+                    ints=(M, K, nt, maxb, bk, bn, code, 2, code), y=y,
+                    want=jsm.joint_sparse_matmul_plain(x, p.w_blocks, p.idx,
+                                                       p.scales),
+                    wrapper=lambda: jsm.joint_sparse_matmul(
+                        x, p.w_blocks, p.idx, p.scales))
+    mask = ops.tile_prune_mask(w, VS)
+    wb, idx = ops.pack_block_sparse((w * mask).to(dev),
+                                    torch.ones_like(mask).to(dev))
+    wb = wb.to(xdt)
+    nt, maxb, bk, bn = wb.shape
+    y = torch.empty((M, nt * bn), dtype=xdt, device=dev)
+    return dict(ptrs=(x, wb, idx, y), ints=(M, K, nt, maxb, bk, bn, code),
+                y=y, want=bsk.block_sparse_matmul_plain(x, wb, idx),
+                wrapper=lambda: bsk.block_sparse_matmul(x, wb, idx))
 
 
 def _launcher(fn, case):
@@ -129,7 +190,7 @@ def _launcher(fn, case):
     return run
 
 
-def _check(name, version, case, run):
+def _check(name, version, label, case, run):
     run()
     torch.cuda.synchronize()
     got, want = case["y"], case["want"]
@@ -138,14 +199,33 @@ def _check(name, version, case, run):
     else:
         peak = want.float().abs().max().item()
         err = (got.float() - want.float()).abs().max().item()
-        ok = err <= 2.0 ** (math.floor(math.log2(peak)) - 7)
+        tol = 1e-5 * peak if got.dtype == torch.float32 else \
+            2.0 ** (math.floor(math.log2(peak)) - 7)
+        ok = err <= tol
     if not ok:
-        raise AssertionError(f"{version} {name} {case['label']} disagrees "
-                             f"with the plain version")
+        raise AssertionError(f"{version} {name} {label} disagrees with the "
+                             f"plain version")
 
 
 def _us(ms):
     return "n/a" if ms is None else f"{ms * 1e3:.1f}"
+
+
+def _time_turn(name, runs, lib, wrappers):
+    """Rows (event ms, device ms, host µs) of one version's launches
+    ((case, launcher) pairs)."""
+    mod = wrappers.get(name)
+    if mod is not None:
+        mod._LIB = lib
+    rows = []
+    for c, run in runs:
+        call = c["wrapper"] if mod is not None else run
+        rows.append(dict(shape=c["label"], K=c["K"], N=c["N"],
+                         event_ms=_time(run, iters=ITERS, warmup=3),
+                         device_ms=_device_ms(run, iters=ITERS),
+                         host_us=_host_us(call, windows=HOST_WINDOWS),
+                         entry_us=_host_us(run, windows=HOST_WINDOWS)))
+    return rows
 
 
 def main(argv=None) -> int:
@@ -162,38 +242,52 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     trees = {"this": ROOT, "other": args.other.resolve()}
+    names = list(dict.fromkeys(u[0] for u in UNITS))
     t0 = time.monotonic()
-    libs = _build(trees, list(SHAPES))
+    libs = _build(trees, names)
     print(f"built {len(libs)} libraries in {time.monotonic() - t0:.2f} s",
           flush=True)
     dev = torch.device("cuda")
-    result = {"card": smi, "order": ORDER, "M": M, "kernels": {}}
-    for name in SHAPES:
-        cases = _cases(name, dev, torch.Generator().manual_seed(11))
-        runs = {v: [_launcher(_entry(libs[(v, name)], name), c) for c in cases]
-                for v in trees}
-        for v in trees:
-            for c, run in zip(cases, runs[v]):
-                _check(name, v, c, run)
-        turns = []
-        for v in ORDER:
-            rows = [dict(shape=c["label"], K=c["K"], N=c["N"],
-                         event_ms=_time(run, iters=ITERS, warmup=3),
-                         device_ms=_device_ms(run, iters=ITERS))
-                    for c, run in zip(cases, runs[v])]
-            dev_tot = None if any(r["device_ms"] is None for r in rows) \
-                else sum(r["device_ms"] for r in rows)
-            turns.append(dict(version=v, rows=rows,
-                              event_ms=sum(r["event_ms"] for r in rows),
-                              device_ms=dev_tot))
-            cells = ", ".join(
-                f"{r['shape']} {_us(r['event_ms'])}/{_us(r['device_ms'])}"
-                for r in rows)
-            print(f"[ab] {name} {v}: {cells} us (event/device); total event "
-                  f"{turns[-1]['event_ms']:.4f} ms, device "
-                  f"{'n/a' if dev_tot is None else f'{dev_tot:.4f} ms'}",
-                  flush=True)
-        result["kernels"][name] = turns
+    wrappers = _wrappers()
+    saved = {name: mod._LIB for name, mod in wrappers.items()}
+    result = {"card": smi, "order": ORDER, "units": []}
+    try:
+        for name, label, M, shapes, repeat, xdt in UNITS:
+            gen = torch.Generator().manual_seed(11)
+            cases = [dict(_case(name, K, N, M, xdt, dev, gen),
+                          label=s, K=K, N=N) for s, K, N in shapes]
+            fns = {v: _entry(libs[(v, name)], name) for v in trees}
+            runs = {v: [(c, _launcher(fns[v], c)) for c in cases]
+                    for v in trees}
+            for v in trees:
+                for c, run in runs[v]:
+                    _check(name, v, f"{label} {c['label']}", c, run)
+            turns = []
+            for v in ORDER:
+                rows = _time_turn(name, runs[v], libs[(v, name)], wrappers)
+                dev_tot = None if any(r["device_ms"] is None for r in rows) \
+                    else repeat * sum(r["device_ms"] for r in rows)
+                turns.append(dict(
+                    version=v, rows=rows,
+                    event_ms=repeat * sum(r["event_ms"] for r in rows),
+                    device_ms=dev_tot,
+                    host_us=sum(r["host_us"] for r in rows) / len(rows),
+                    entry_us=sum(r["entry_us"] for r in rows) / len(rows)))
+                cells = ", ".join(
+                    f"{r['shape']} {_us(r['event_ms'])}/{_us(r['device_ms'])}"
+                    f"/{r['host_us']:.1f}" for r in rows)
+                print(f"[ab] {name} ({label}) {v}: {cells} us (event/device/"
+                      f"host); x{repeat} total event "
+                      f"{turns[-1]['event_ms']:.4f} ms, device "
+                      f"{'n/a' if dev_tot is None else f'{dev_tot:.4f} ms'}, "
+                      f"host {turns[-1]['host_us']:.2f} us per launch (C entry "
+                      f"alone {turns[-1]['entry_us']:.2f} us)",
+                      flush=True)
+            result["units"].append(dict(kernel=name, unit=label, M=M,
+                                        repeat=repeat, turns=turns))
+    finally:
+        for name, mod in wrappers.items():
+            mod._LIB = saved[name]
     print(json.dumps(result), flush=True)
     return 0
 
