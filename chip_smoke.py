@@ -26,9 +26,11 @@ non-zero (no phase catches its own failure):
               equals the CPU pack byte for byte. row_attention at the serving
               shapes (batch 4, 512-slot cache, a 64-query chunk) within
               1e-5 * max|ref| (f32) or 2^-6 * max|ref| (bf16) of its plain
-              version, and row_norm at 4 and 256 rows within 1e-5 * max|ref|
-              or one bf16 ulp; a query (row) alone bitwise equal to the same
-              query (row) in the chunk.
+              version, and at the long-context serve cell's shape (batch 16,
+              2048-slot cache, 256-query chunks starting at 256 * (b mod
+              6)), and row_norm at 4, 256 and 4096 rows within 1e-5 *
+              max|ref| or one bf16 ulp; a query (row) alone bitwise equal
+              to the same query (row) in the chunk.
   4. serve  — tinyllama-1.1b at full width in joint mode, bf16, random
               weights from a seed, through repro_torch.launch.serve's
               engine: 8 requests, batch 4, max-len 512, prompts 32..256,
@@ -77,7 +79,9 @@ non-zero (no phase catches its own failure):
               FTA/INT8 one full-width layer at M=256 (7 launches); DBMU the
               four projection shapes at M=256; row_attention and row_norm
               one decode call and one prefill-chunk call (22 and 45
-              launches each).
+              launches each), and as units of their own one long-context
+              prefill call (batch 16 x 256 queries against a 2048-slot
+              cache; 4096 rows of norms).
 
 The launch counts of the JSON record come from the main paths: phase 4
 for the joint, row_attention and row_norm kernels, phase 5 for block-sparse and FTA/INT8, phase 6 for
@@ -133,6 +137,12 @@ JOINT_PREFILL_M = (64, 256)
 JOINT_SYMBOLS = ("gathered_tc_kernel", "gathered_fp32_kernel")
 #: the times phase's name of the joint kernel's prefill units
 JOINT_UNIT = "joint_sparse_matmul prefill"
+#: the long-context serve cell: batch 16, max-len 2048, chunks of 256
+LONG_B, LONG_A, LONG_C = 16, 2048, 256
+#: the times phase's names of row_attention's and row_norm's long-context
+#: units (one prefill-chunk call of the long-context cell)
+ATTN_LONG_UNIT = "row_attention long context"
+NORM_LONG_UNIT = "row_norm long context"
 
 
 def log(msg: str):
@@ -408,6 +418,20 @@ def _serve_attention_inputs(cfg, dev, dtype, gen, B=4, A=512, C=64):
                 chunk=(qc, pos_c[:B].to(dev)))
 
 
+def _long_attention_inputs(cfg, dev, dtype, gen, B=LONG_B, A=LONG_A,
+                           C=LONG_C):
+    """Queries and a random cache at the long-context serve cell's shape:
+    a prefill-chunk call of C queries per slot, slot b's chunk starting at
+    position C * (b mod 6) (chunks 0 to 5 of prompts up to 1536 tokens)."""
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    k = torch.randn((B, A, Hkv, hd), generator=gen).to(dtype).to(dev)
+    v = torch.randn((B, A, Hkv, hd), generator=gen).to(dtype).to(dev)
+    q = torch.randn((B, C, H, hd), generator=gen).to(dtype).to(dev)
+    pos = (C * (torch.arange(B, dtype=torch.int32) % 6)[:, None]
+           + torch.arange(C, dtype=torch.int32)[None])
+    return dict(k=k, v=v, long=(q, pos.to(dev)))
+
+
 def phase_kernel_rows(cfg, dev):
     """row_attention and row_norm against their plain versions at the
     serving shapes, and their row stability: a query (row) alone comes out
@@ -418,8 +442,9 @@ def phase_kernel_rows(cfg, dev):
     gen = torch.Generator().manual_seed(8)
     worst = {"row_attention": 0.0, "row_norm": 0.0}
     for dt in (torch.bfloat16, torch.float32):
-        a = _serve_attention_inputs(cfg, dev, dt, gen)
-        for what in ("decode", "chunk"):
+        serve = _serve_attention_inputs(cfg, dev, dt, gen)
+        long = _long_attention_inputs(cfg, dev, dt, gen)
+        for what, a in (("decode", serve), ("chunk", serve), ("long", long)):
             q, pos = a[what]
             y = rak.row_attention(q, a["k"], a["v"], pos)
             torch.cuda.synchronize()
@@ -434,21 +459,27 @@ def phase_kernel_rows(cfg, dev):
             log(f"[kernel] row_attention {what} {tuple(q.shape)} x cache "
                 f"{tuple(a['k'].shape)} {str(dt)[6:]}: max|d|={err:.3e} "
                 f"(tol {tol:.3e})")
-        q, pos = a["chunk"]
-        y = rak.row_attention(q, a["k"], a["v"], pos)
-        for t in (0, 31, q.shape[1] - 1):
-            one = rak.row_attention(q[:, t:t + 1].contiguous(), a["k"], a["v"],
-                                    pos[:, t:t + 1].contiguous())
-            assert torch.equal(one, y[:, t:t + 1]), ("row_attention rows", t)
-        log(f"[kernel] row_attention {str(dt)[6:]}: queries 0, 31, 63 of "
-            f"the chunk call bitwise equal to one-query calls")
+            del y, ref
+        for what, a, ts in (("chunk", serve, (0, 31, 63)),
+                            ("long", long, (0, 127, 255))):
+            q, pos = a[what]
+            y = rak.row_attention(q, a["k"], a["v"], pos)
+            for t in ts:
+                one = rak.row_attention(q[:, t:t + 1].contiguous(), a["k"],
+                                        a["v"], pos[:, t:t + 1].contiguous())
+                assert torch.equal(one, y[:, t:t + 1]), \
+                    ("row_attention rows", what, t)
+            log(f"[kernel] row_attention {str(dt)[6:]}: queries "
+                f"{', '.join(map(str, ts))} of the {what} call bitwise equal "
+                f"to one-query calls")
+        del long
         D = cfg.d_model
-        x256 = torch.randn((256, D), generator=gen).to(dt).to(dev)
+        x4096 = torch.randn((4096, D), generator=gen).to(dt).to(dev)
         scale = (1 + 0.1 * torch.randn((D,), generator=gen)).to(dev)
         bias = (0.1 * torch.randn((D,), generator=gen)).to(dev)
         for b, kind in ((None, "rms"), (bias, "layernorm")):
-            for R in (4, 256):
-                x = x256[:R].contiguous()
+            for R in (4, 256, 4096):
+                x = x4096[:R].contiguous()
                 y = rnk.row_norm(x, scale, b)
                 torch.cuda.synchronize()
                 err, tol = _err_tol(y, rnk.row_norm_plain(x, scale, b))
@@ -462,7 +493,7 @@ def phase_kernel_rows(cfg, dev):
                 log(f"[kernel] row_norm {kind} ({R}, {D}) {str(dt)[6:]}: "
                     f"max|d|={err:.3e} (tol {tol:.3e})")
         log(f"[kernel] row_norm {str(dt)[6:]}: rows of R=4 bitwise equal "
-            f"rows of R=256")
+            f"rows of R=256 and R=4096")
     return worst
 
 
@@ -1070,37 +1101,46 @@ def _time_cases(cfg, packs, tables_by_mode, dev, n_slots=4, M=256):
             library=lambda a=x8, b=w8: torch._int_mm(a, b),
             bytes=x.numel() * 4 + K * N * 2 + M * N * 4,
             ops=2 * M * K * N, peak=INT8_OPS))
-    cases["row_attention"] = _row_attention_cases(cfg, dev, gen)
-    cases["row_norm"] = _row_norm_cases(cfg, dev, gen)
+    attn = _row_attention_cases(cfg, dev, gen)
+    norm = _row_norm_cases(cfg, dev, gen)
+    cases["row_attention"] = [c for c in attn if c["name"] != "long context"]
+    cases[ATTN_LONG_UNIT] = [c for c in attn if c["name"] == "long context"]
+    cases["row_norm"] = [c for c in norm if c["K"] != LONG_B * LONG_C]
+    cases[NORM_LONG_UNIT] = [c for c in norm if c["K"] == LONG_B * LONG_C]
     return cases
 
 
 def _row_attention_cases(cfg, dev, gen):
     """A decode call and a prefill-chunk call of one layer's attention at
-    the serving shapes, each repeated over the layers. Bytes: the queries,
-    positions and outputs once, and the live cache rows of each slot once;
-    operations: 4 * hd per live key and query head."""
+    the serving shapes, and a prefill-chunk call of the long-context cell,
+    each repeated over the layers. Bytes: the queries, positions and
+    outputs once, and the live cache rows of each slot once; operations:
+    4 * hd per live key and query head."""
     import torch.nn.functional as F
     from repro_torch.kernels import row_attention as rak
-    a = _serve_attention_inputs(cfg, dev, torch.bfloat16, gen)
-    k, v = a["k"], a["v"]
-    B, A, Hkv, hd = k.shape
-    rep = cfg.n_heads // Hkv
-    kh = torch.repeat_interleave(k, rep, dim=2).transpose(1, 2)
-    vh = torch.repeat_interleave(v, rep, dim=2).transpose(1, 2)
+    serve = _serve_attention_inputs(cfg, dev, torch.bfloat16, gen)
+    long = _long_attention_inputs(cfg, dev, torch.bfloat16, gen)
     cases = []
-    for what in ("decode", "chunk"):
+    for what, a in (("decode", serve), ("chunk", serve), ("long", long)):
+        k, v = a["k"], a["v"]
+        B, A, Hkv, hd = k.shape
+        rep = cfg.n_heads // Hkv
+        kh = torch.repeat_interleave(k, rep, dim=2).transpose(1, 2)
+        vh = torch.repeat_interleave(v, rep, dim=2).transpose(1, 2)
         q, pos = a[what]
         live = torch.clamp(pos.long(), max=A - 1) + 1               # (B, Sq)
         mask = (torch.arange(A, device=dev)[None, None] <
                 live[:, :, None])[:, None]                          # (B,1,Sq,A)
         qh = q.transpose(1, 2)
         cases.append(dict(
-            name=what, K=tuple(q.shape), N=tuple(k.shape),
-            kernel=lambda q=q, pos=pos: rak.row_attention(q, k, v, pos),
-            plain=lambda q=q, pos=pos: rak.row_attention_plain(q, k, v, pos),
-            library=lambda qh=qh, mask=mask: F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask),
+            name="long context" if what == "long" else what,
+            K=tuple(q.shape), N=tuple(k.shape),
+            kernel=lambda q=q, pos=pos, k=k, v=v: rak.row_attention(
+                q, k, v, pos),
+            plain=lambda q=q, pos=pos, k=k, v=v: rak.row_attention_plain(
+                q, k, v, pos),
+            library=lambda qh=qh, mask=mask, kh=kh, vh=vh:
+                F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
             bytes=(2 * q.numel() * 2 + pos.numel() * 4
                    + 2 * int(live.max(dim=1).values.sum()) * Hkv * hd * 2),
             ops=4 * hd * cfg.n_heads * int(live.sum()), peak=BF16_FLOPS,
@@ -1109,16 +1149,17 @@ def _row_attention_cases(cfg, dev, gen):
 
 
 def _row_norm_cases(cfg, dev, gen):
-    """The norms of a decode call (4 rows) and of a prefill-chunk call (256
-    rows), 2 per layer and the final one. Bytes: x and out once, the scale
-    once; operations: 4 fp32 flops per element."""
+    """The norms of a decode call (4 rows), of a prefill-chunk call (256
+    rows) and of a long-context prefill-chunk call (16 x 256 rows), 2 per
+    layer and the final one. Bytes: x and out once, the scale once;
+    operations: 4 fp32 flops per element."""
     import torch.nn.functional as F
     from repro_torch.kernels import row_norm as rnk
     D = cfg.d_model
     scale = (1 + 0.1 * torch.randn((D,), generator=gen)).to(dev)
     scale_bf16 = scale.to(torch.bfloat16)
     cases = []
-    for R in (4, 256):
+    for R in (4, 256, LONG_B * LONG_C):
         x = torch.randn((R, D), generator=gen).to(torch.bfloat16).to(dev)
         library = None
         if hasattr(F, "rms_norm"):
@@ -1246,12 +1287,19 @@ def main() -> int:
             "library_device_ms": t["library_device_ms"],
             "host_us": t["host_us"], "work": work,
             "per_shape": t["per_shape"]})
-        if name == "joint_sparse_matmul":
+        units = {"joint_sparse_matmul": [
+            (f"one prefill call: 22 layers x 7 projections, M={m}, bf16",
+             f"{JOINT_UNIT} M={m}") for m in JOINT_PREFILL_M],
+            "row_attention": [
+                ("one long-context prefill-chunk call: 22 launches, batch 16 "
+                 "x 256 queries, 2048-slot cache, bf16", ATTN_LONG_UNIT)],
+            "row_norm": [
+                ("one long-context prefill-chunk call: 45 launches, 4096 "
+                 "rows, d=2048, bf16", NORM_LONG_UNIT)]}.get(name)
+        if units:
             kernels[-1]["units"] = [
-                {"work": f"one prefill call: 22 layers x 7 projections, "
-                         f"M={m}, bf16",
-                 **{k: v for k, v in times[f"{JOINT_UNIT} M={m}"].items()
-                    if k != "per_shape"}} for m in JOINT_PREFILL_M]
+                {"work": w, **{k: v for k, v in times[u].items()
+                               if k != "per_shape"}} for w, u in units]
     assert all(k["launches"] > 0 for k in kernels), \
         [(k["name"], k["launches"]) for k in kernels]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

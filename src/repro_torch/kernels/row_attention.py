@@ -17,7 +17,14 @@ Three things live here:
   * ``row_attention`` — the wrapper. A CPU tensor takes the plain version;
     a CUDA tensor launches the hand-written kernel
     (``csrc/row_attention.cu``, built by ``nvcc`` for sm_90a on first use,
-    loaded with ctypes) or raises. There is no fallback.
+    loaded with ctypes) or raises. There is no fallback. bf16 runs both
+    products on the tensor cores (``mma.sync``): a block is one 16-row tile
+    of (query, head) pairs of one KV head's group, so a K/V tile serves
+    every head of the group; its four warps split each 64-key tile, and
+    long caches split their keys over a thread-block cluster whose size
+    comes from the cache length alone. f32 runs exact fp32 on the CUDA
+    cores. Every launch-shape choice depends on (A, hd, Hq / Hkv, dtype)
+    only, never on Sq, B or the positions.
   * ``row_attention_plain`` — the reference's math in plain PyTorch: KV
     heads repeated, einsum logits in the activations' dtype, -1e30 mask,
     fp32 softmax cast back, einsum with v.
@@ -77,6 +84,29 @@ def _cache_view(t):
     return t if t.stride()[1:] == (H * hd, hd, 1) else t.contiguous()
 
 
+#: a block's shared memory on the H100 (bytes)
+_SMEM_MAX = 232448
+
+
+def smem_bytes(A: int, hd: int, dtype) -> int:
+    """Shared memory one block of the kernel needs for a cache of A rows
+    and head dim hd (``plan`` and ``f32_smem`` in ``csrc/row_attention.cu``):
+    bf16 keeps 16 rows of fp32 logits over its cluster rank's keys beside
+    its Q (or split-combine park) and two K/V stages, f32 A fp32 logits."""
+    if dtype == torch.float32:
+        return 4 * (A + 4 * hd) + 16
+    hdp = next(p for p in (16, 32, 64, 128, 256) if hd <= p)
+    tiles = -(-A // 64)
+    splits = 1                          # at least 8 key tiles per rank
+    while 2 * splits <= 8 and 16 * splits <= tiles:
+        splits *= 2
+    per_rank = -(-tiles // splits) * 64
+    front = max(16 * (hdp + 8) * 2, 16 * hdp * 4 if splits > 1 else 0)
+    body = max(2 * 64 * (hdp + 8) * 2 + 16 * (per_rank + 8) * 4,
+               4 * 16 * hdp * 4)
+    return front + body + 10 * 16 * 4
+
+
 def _check(q, k, v, qpos):
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B, Sq, Hq, hd), k and v (B, A, Hkv, hd); "
@@ -87,8 +117,9 @@ def _check(q, k, v, qpos):
         raise ValueError(f"q {tuple(q.shape)} and cache {tuple(k.shape)} do "
                          f"not match (batch, head dim, Hq % Hkv == 0)")
     if hd > 256:
-        raise ValueError(f"head dim {hd} > 256: the kernel holds at most 8 "
-                         f"head dims per lane")
+        raise ValueError(f"head dim {hd} > 256: the kernel's widest tile")
+    if B > 65535:
+        raise ValueError(f"batch {B} > 65535: one grid row per batch row")
     if tuple(qpos.shape) != (B, Sq):
         raise ValueError(f"qpos must be {(B, Sq)}, got {tuple(qpos.shape)}")
     for name, t in (("k", k), ("v", v), ("qpos", qpos)):
@@ -99,6 +130,11 @@ def _check(q, k, v, qpos):
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"cache dtypes {k.dtype}, {v.dtype} != q dtype "
                         f"{q.dtype}")
+    need = smem_bytes(k.shape[1], hd, q.dtype)
+    if need > _SMEM_MAX:
+        raise ValueError(f"a cache of {k.shape[1]} rows at head dim {hd} "
+                         f"needs {need} bytes of shared memory per block, "
+                         f"over the card's {_SMEM_MAX}")
 
 
 def row_attention(q, k, v, qpos):

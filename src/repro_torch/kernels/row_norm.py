@@ -12,7 +12,9 @@ Three things live here:
   * ``row_norm`` — the wrapper. A CPU tensor takes the plain version; a
     CUDA tensor launches the hand-written kernel (``csrc/row_norm.cu``,
     built by ``nvcc`` for sm_90a on first use, loaded with ctypes) or
-    raises. There is no fallback.
+    raises. There is no fallback. Up to 256 threads share a row and hold
+    it in registers (16-byte loads), so x is read once; the summation
+    order is fixed over element indices by D alone.
   * ``row_norm_plain`` — the reference's math in plain PyTorch.
   * ``LAUNCHES`` — the number of kernel launches so far, raised by one at
     each launch and nowhere else.
@@ -28,6 +30,9 @@ from . import build
 
 #: kernel launches so far in this process (the wrapper's CUDA branch only)
 LAUNCHES = 0
+
+#: the longest row the kernel takes (``row_norm.cu``: 256 threads x 128)
+MAX_D = 32768
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
@@ -69,6 +74,14 @@ def _param(t, D, device, name):
     return t.float().contiguous()
 
 
+def _check(x, D):
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"x dtype {x.dtype} not in (float32, bfloat16)")
+    if D > MAX_D:
+        raise ValueError(f"row length {D} > {MAX_D}: 256 threads of 16 "
+                         f"chunks of 8 hold a row")
+
+
 def row_norm(x, scale, bias=None, eps: float = 1e-6, plus_one: bool = False):
     """The norm of ``row_norm_plain`` over x's last axis. CPU tensors run
     the plain version; CUDA tensors launch the kernel on the current
@@ -78,9 +91,8 @@ def row_norm(x, scale, bias=None, eps: float = 1e-6, plus_one: bool = False):
         return row_norm_plain(x, scale, bias, eps, plus_one)
     if x.device.type != "cuda":
         raise ValueError(f"row_norm runs on cuda or cpu, not {x.device}")
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"x dtype {x.dtype} not in (float32, bfloat16)")
     D = x.shape[-1]
+    _check(x, D)
     scale = _param(scale, D, x.device, "scale")
     if bias is not None:
         bias = _param(bias, D, x.device, "bias")

@@ -50,14 +50,24 @@ def _attn_inputs(seed, B=2, Sq=5, Hq=8, Hkv=2, hd=16, A=24):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("Sq,Hkv", [(1, 2), (5, 2), (5, 8)])
-def test_row_attention_plain_matches_jax(dtype, Sq, Hkv):
+@pytest.mark.parametrize("Sq,Hkv,Hq,hd", [
+    pytest.param(1, 2, 8, 16, id="1-2"),
+    pytest.param(5, 2, 8, 16, id="5-2"),
+    pytest.param(5, 8, 8, 16, id="5-8"),
+    pytest.param(1, 2, 16, 64, id="1-2-hd64"),
+    pytest.param(5, 1, 8, 64, id="5-1-hd64"),
+    pytest.param(5, 2, 4, 128, id="5-2-hd128"),
+    pytest.param(1, 2, 14, 32, id="1-2-group7"),
+    pytest.param(5, 1, 7, 64, id="5-1-group7")])
+def test_row_attention_plain_matches_jax(dtype, Sq, Hkv, Hq, hd):
     """The reference's ``_sdpa`` on KV heads repeated as its callers
     repeat them, the same mask: decode (one query) and chunk shapes, GQA
-    and plain multi-head."""
+    (groups of 2 to 8, and arctic's 7) and plain multi-head, at the head
+    dims of the configs."""
     jnp = pytest.importorskip("jax.numpy")
     from repro.models.attention import _repeat_kv, _sdpa
-    q, k, v, qpos = _attn_inputs(Sq + Hkv, Sq=Sq, Hkv=Hkv)
+    seed = Sq + Hkv if hd == 16 else Sq + Hkv + Hq + hd
+    q, k, v, qpos = _attn_inputs(seed, Sq=Sq, Hq=Hq, Hkv=Hkv, hd=hd)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     A, rep = k.shape[1], q.shape[2] // Hkv
     mask = (np.arange(A)[None, None, :] <= qpos[:, :, None])[:, None]
@@ -125,6 +135,34 @@ def test_rms_head_norm_matches_jax():
                                atol=F32_RTOL * float(np.abs(want).max()))
 
 
+def test_row_attention_rejects_shapes_the_kernel_does_not_take():
+    """A shape past the kernel's limits raises before any launch: a head dim
+    over 256, a cache whose logits do not fit a block's shared memory."""
+    q = torch.zeros((1, 1, 2, 512))
+    k = torch.zeros((1, 8, 2, 512))
+    with pytest.raises(ValueError, match="head dim"):
+        rak._check(q, k, k, torch.zeros((1, 1), dtype=torch.int32))
+    q = torch.zeros((1, 1, 2, 64), dtype=torch.bfloat16)
+    k = torch.zeros((1, 65536, 2, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        rak._check(q, k, k, torch.zeros((1, 1), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("A,hd,fits", [(512, 64, True), (2048, 64, True),
+                                       (2048, 256, True), (4096, 128, True),
+                                       (65536, 64, False)])
+def test_row_attention_smem_plan(A, hd, fits):
+    """The bf16 kernel's shared memory per block: the long-context cache
+    (A = 2048) at every head dim of the configs fits the H100's 227 KB."""
+    assert (rak.smem_bytes(A, hd, torch.bfloat16) <= rak._SMEM_MAX) == fits
+
+
+def test_row_norm_rejects_rows_past_its_limit():
+    x = torch.zeros((1, rnk.MAX_D + 8), device="meta")
+    with pytest.raises(ValueError, match="row length"):
+        rnk._check(x, rnk.MAX_D + 8)
+
+
 # ------------------------------------------------------------ on the card --
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -164,3 +202,87 @@ def test_row_norm_kernel_matches_plain_and_is_row_stable(cuda, dtype,
     tol = _bf16_ulp(peak) if dtype == "bfloat16" else F32_RTOL * peak
     assert (got.float() - want.float()).abs().max().item() <= tol
     assert torch.equal(rnk.row_norm(x[:4], scale, bias), got[:4])
+
+
+def _long_attn_inputs(hd, group, A, dtype, device, B=2, Hkv=2, Sq=256):
+    """A 256-query chunk per slot against a cache slice whose batch stride
+    is not A rows (the cache is cut from a longer one): slot 0 from
+    position 0, with its first three queries fully masked (qpos < 0);
+    slot 1 from A - 200, so its last queries sit at qpos >= A."""
+    gen = torch.Generator().manual_seed(hd + group + A)
+    Hq = group * Hkv
+    q = torch.randn((B, Sq, Hq, hd), generator=gen).to(dtype).to(device)
+    big_k = torch.randn((B, A + 5, Hkv, hd), generator=gen).to(dtype)
+    big_v = torch.randn((B, A + 5, Hkv, hd), generator=gen).to(dtype)
+    k, v = big_k.to(device)[:, :A], big_v.to(device)[:, :A]
+    start = torch.tensor([0, A - 200], dtype=torch.int32)[:B]
+    qpos = start[:, None] + torch.arange(Sq, dtype=torch.int32)[None]
+    qpos[0, :3] = torch.tensor([-1, -7, -1], dtype=torch.int32)
+    return q, k, v, qpos.to(device)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("A", [100, 2048])
+@pytest.mark.parametrize("group", [1, 7, 8])
+@pytest.mark.parametrize("hd", [16, 64, 128, 256])
+def test_row_attention_kernel_shapes_and_row_stability(cuda, hd, group, A,
+                                                       dtype):
+    """Every head dim and group size of the configs, a cache length that is
+    not a multiple of the key tile and the long-context one, fully masked
+    queries and queries past the cache's end: within tolerance of the plain
+    version, and every query of the 256-query call bitwise equal to the
+    same query in calls of 1, 7 and 64 queries."""
+    tdt = getattr(torch, dtype)
+    q, k, v, qpos = _long_attn_inputs(hd, group, A, tdt, cuda)
+    assert not k.is_contiguous()
+    got = rak.row_attention(q, k, v, qpos)
+    torch.cuda.synchronize()
+    want = rak.row_attention_plain(q, k, v, qpos)
+    peak = want.float().abs().max().item()
+    tol = (ATTN_BF16_RTOL if dtype == "bfloat16" else F32_RTOL) * peak
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    Sq = q.shape[1]
+    for t in range(Sq):
+        one = rak.row_attention(q[:, t:t + 1].contiguous(), k, v,
+                                qpos[:, t:t + 1].contiguous())
+        assert torch.equal(one, got[:, t:t + 1]), t
+    for n in (7, 64):
+        for s0 in (0, 5, Sq - n):
+            part = rak.row_attention(q[:, s0:s0 + n].contiguous(), k, v,
+                                     qpos[:, s0:s0 + n].contiguous())
+            assert torch.equal(part, got[:, s0:s0 + n]), (n, s0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", sorted(_NORMS))
+@pytest.mark.parametrize("D", [128, 2048, 2050, 5632])
+def test_row_norm_kernel_shapes_and_row_stability(cuda, D, kind, dtype):
+    """Row lengths of the configs (a head norm, tinyllama's d_model, one not
+    a multiple of 8, its d_ff) at 4,096 rows within tolerance of the plain
+    version; the first rows of calls of 1, 4 and 256 rows, and of an x
+    that starts at an odd element offset, bitwise equal to the same rows
+    of the 4,096-row call."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(D + len(kind))
+    R = 4096
+    flat = torch.randn((R * D + 1,), generator=gen).to(tdt).to(cuda)
+    x = flat[:R * D].view(R, D)
+    odd = flat[1:].view(R, D)
+    odd_ref = odd.clone()                 # the same values, aligned
+    scale = torch.randn((D,), generator=gen).to(cuda)
+    bias = torch.randn((D,), generator=gen).to(cuda)
+    b = bias if _NORMS[kind]["layernorm"] else None
+    plus_one = _NORMS[kind]["plus_one"]
+    got = rnk.row_norm(x, scale, b, plus_one=plus_one)
+    torch.cuda.synchronize()
+    want = rnk.row_norm_plain(x, scale, b, plus_one=plus_one)
+    peak = want.float().abs().max().item()
+    tol = _bf16_ulp(peak) if dtype == "bfloat16" else F32_RTOL * peak
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    for n in (1, 4, 256):
+        assert torch.equal(rnk.row_norm(x[:n], scale, b, plus_one=plus_one),
+                           got[:n]), n
+    assert odd.data_ptr() % 16 != 0
+    assert torch.equal(rnk.row_norm(odd, scale, b, plus_one=plus_one),
+                       rnk.row_norm(odd_ref, scale, b, plus_one=plus_one))

@@ -1,13 +1,13 @@
-"""Time two trees' versions of the port's matmul kernels on one card, in turns.
+"""Time two trees' versions of the port's kernels on one card, in turns.
 
     python3 tools/kernel_ab.py --other build/parent
 
 ``--other`` is another checkout of this repository (for example the parent
 commit unpacked with ``git archive`` into ``build/``, which git ignores).
-For ``dbmu_matmul``, ``fta_int8_matmul``, ``joint_sparse_matmul`` and
-``block_sparse_matmul``, both trees' ``src/repro_torch/kernels/csrc/<name>.cu``
-are compiled by nvcc with the port's flags into ``build/kernel_ab/``, all
-builds at once, and both versions are called through their C entry points,
+For ``dbmu_matmul``, ``fta_int8_matmul``, ``joint_sparse_matmul``,
+``block_sparse_matmul``, ``row_attention`` and ``row_norm``, both trees'
+``src/repro_torch/kernels/csrc/<name>.cu`` are compiled by nvcc with the
+port's flags into ``build/kernel_ab/``, all builds at once, and both versions are called through their C entry points,
 which have the same signature in both trees, on the same inputs. The work
 units (tinyllama-1.1b's projections at full width, random weights from a
 seed):
@@ -23,20 +23,27 @@ seed):
     and one layer at M = 4 with f32 x (the CUDA-core path).
   * block_sparse_matmul: one layer at M = 256, the value pack at vs = 0.6
     (global tile pruning), bf16 x and payload; and the same with f32 x.
+  * row_attention (bf16): one layer's attention of a decode call (batch 4,
+    512-slot cache), of a 64-query prefill-chunk call, and of a prefill
+    call of the long-context cell (batch 16 x 256 queries, 2048-slot
+    cache), each counted once per layer (22 launches); the inputs of
+    ``chip_smoke.py``'s times phase.
+  * row_norm (bf16 RMSNorm, d = 2048): 4, 256 and 4096 rows, each counted
+    45 times (2 per layer and the final norm).
 
 Each version's outputs are first held against the plain version (DBMU bit
-for bit; bf16 out within one bf16 ulp of the peak, f32 out within 1e-5 of
-it); a version that disagrees fails the run. Then, in the turns other,
+for bit; bf16 out within one bf16 ulp of the peak, attention within 2^-6
+of it, f32 out within 1e-5 of it); a version that disagrees fails the
+run. ``--kernels`` picks some of the kernels. Then, in the turns other,
 this, this, other, each shape is timed with CUDA events over back-to-back
 launches, in device time from torch.profiler's device-side records (the
 clocks of ``chip_smoke.py``'s times phase), and in host µs per launch: the
 time to issue back-to-back calls, before the device has finished them (the
-fastest of several windows).
-For the joint and block-sparse units the host time is that of the port's
-Python wrapper, whose library is swapped for each tree's (the wrappers are
-the same in both trees); for the others, that of the C entry point; and
-for every unit also that of the C entry point alone, where the two trees'
-code differs. The
+fastest of several windows). For the joint, block-sparse, attention and
+norm units the host time is that of the port's Python wrapper, whose
+library is swapped for each tree's (the wrappers are the same in both
+trees); for the others, that of the C entry point; and for every unit also
+that of the C entry point alone, where the two trees' code differs. The
 card's name and power limit are printed first, then a line per unit and
 turn, then the whole result as one JSON object on the last line. Needs a
 CUDA card and nvcc.
@@ -57,7 +64,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
-from chip_smoke import _device_ms, _host_us, _time  # noqa: E402
+from chip_smoke import (ATTN_REL_TOL, LONG_B, LONG_C, _device_ms,  # noqa: E402
+                        _host_us, _long_attention_inputs,
+                        _serve_attention_inputs, _time)
 
 LAYER = [("wq", 2048, 2048), ("wk", 2048, 256), ("wv", 2048, 256),
          ("wo", 2048, 2048), ("w_gate", 2048, 5632), ("w_up", 2048, 5632),
@@ -80,10 +89,28 @@ UNITS = [
      torch.bfloat16),
     ("block_sparse_matmul", "one layer, M=256, f32 x", 256, LAYER, 1,
      torch.float32),
+    ("row_attention", "decode call", None, [("decode", 0, 0)], N_LAYERS,
+     torch.bfloat16),
+    ("row_attention", "64-query chunk call", None, [("chunk", 0, 0)],
+     N_LAYERS, torch.bfloat16),
+    ("row_attention", "long-context chunk call", None, [("long", 0, 0)],
+     N_LAYERS, torch.bfloat16),
+    ("row_norm", "4 rows", 4, [("rms", 0, 2048)], 2 * N_LAYERS + 1,
+     torch.bfloat16),
+    ("row_norm", "256 rows", 256, [("rms", 0, 2048)], 2 * N_LAYERS + 1,
+     torch.bfloat16),
+    ("row_norm", "4096 rows", LONG_B * LONG_C, [("rms", 0, 2048)],
+     2 * N_LAYERS + 1, torch.bfloat16),
 ]
-#: pointer and int arguments of each C entry point (then the stream)
-SIGNATURE = {"dbmu_matmul": (3, 3), "fta_int8_matmul": (4, 5),
-             "joint_sparse_matmul": (5, 9), "block_sparse_matmul": (4, 7)}
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+#: the arguments of each C entry point before the stream
+SIGNATURE = {"dbmu_matmul": [_P] * 3 + [_I] * 3,
+             "fta_int8_matmul": [_P] * 4 + [_I] * 5,
+             "joint_sparse_matmul": [_P] * 5 + [_I] * 9,
+             "block_sparse_matmul": [_P] * 4 + [_I] * 7,
+             "row_attention": [_P] * 5 + [_I] * 6 + [_L, _L, _F, _I],
+             "row_norm": [_P] * 4 + [_I, _I, _F, _I, _I]}
 ORDER = ("other", "this", "this", "other")
 ITERS = 20
 #: host-time windows per shape; the fastest counts (chip_smoke._host_us)
@@ -116,9 +143,7 @@ def _build(trees, names):
 
 def _entry(lib, name):
     fn = getattr(lib, f"{name}_launch")
-    n_ptr, n_int = SIGNATURE[name]
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + \
-        [ctypes.c_void_p]
+    fn.argtypes = SIGNATURE[name] + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -128,7 +153,38 @@ def _wrappers():
     host time is the wrapper's."""
     from repro_torch.kernels import block_sparse_matmul as bsk
     from repro_torch.kernels import joint_sparse_matmul as jsm
-    return {"joint_sparse_matmul": jsm, "block_sparse_matmul": bsk}
+    from repro_torch.kernels import row_attention as rak
+    from repro_torch.kernels import row_norm as rnk
+    return {"joint_sparse_matmul": jsm, "block_sparse_matmul": bsk,
+            "row_attention": rak, "row_norm": rnk}
+
+
+def _row_case(name, what, M, dev, gen):
+    """One launch of an attention or norm unit, as ``_case``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import row_attention as rak
+    from repro_torch.kernels import row_norm as rnk
+    if name == "row_norm":
+        x = torch.randn((M, 2048), generator=gen).to(torch.bfloat16).to(dev)
+        scale = (1 + 0.1 * torch.randn((2048,), generator=gen)).to(dev)
+        y = torch.empty_like(x)
+        return dict(ptrs=(x, scale, None, y), ints=(M, 2048, 1e-6, 0, 1),
+                    y=y, want=rnk.row_norm_plain(x, scale),
+                    wrapper=lambda: rnk.row_norm(x, scale))
+    cfg = get_config("tinyllama-1.1b")
+    make = _long_attention_inputs if what == "long" else \
+        _serve_attention_inputs
+    a = make(cfg, dev, torch.bfloat16, gen)
+    q, pos = a[what]
+    k, v = a["k"], a["v"]
+    B, Sq, Hq, hd = q.shape
+    y = torch.empty_like(q)
+    return dict(ptrs=(q, k, v, pos, y),
+                ints=(B, Sq, Hq, k.shape[2], k.shape[1], hd, k.stride(0),
+                      v.stride(0), hd ** -0.5, 1),
+                y=y, want=rak.row_attention_plain(q, k, v, pos),
+                tol=ATTN_REL_TOL,
+                wrapper=lambda: rak.row_attention(q, k, v, pos))
 
 
 def _case(name, K, N, M, xdt, dev, gen):
@@ -181,7 +237,8 @@ def _case(name, K, N, M, xdt, dev, gen):
 
 
 def _launcher(fn, case):
-    args = [t.data_ptr() for t in case["ptrs"]] + list(case["ints"])
+    args = [None if t is None else t.data_ptr() for t in case["ptrs"]] + \
+        list(case["ints"])
 
     def run():
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
@@ -200,6 +257,7 @@ def _check(name, version, label, case, run):
         peak = want.float().abs().max().item()
         err = (got.float() - want.float()).abs().max().item()
         tol = 1e-5 * peak if got.dtype == torch.float32 else \
+            case["tol"] * peak if "tol" in case else \
             2.0 ** (math.floor(math.log2(peak)) - 7)
         ok = err <= tol
     if not ok:
@@ -232,6 +290,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, type=Path,
                     help="root of the other checkout")
+    ap.add_argument("--kernels", nargs="+", choices=list(SIGNATURE),
+                    default=list(SIGNATURE), help="kernels to time "
+                    "(default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device is available", file=sys.stderr)
@@ -242,7 +303,8 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     trees = {"this": ROOT, "other": args.other.resolve()}
-    names = list(dict.fromkeys(u[0] for u in UNITS))
+    units = [u for u in UNITS if u[0] in args.kernels]
+    names = list(dict.fromkeys(u[0] for u in units))
     t0 = time.monotonic()
     libs = _build(trees, names)
     print(f"built {len(libs)} libraries in {time.monotonic() - t0:.2f} s",
@@ -252,9 +314,11 @@ def main(argv=None) -> int:
     saved = {name: mod._LIB for name, mod in wrappers.items()}
     result = {"card": smi, "order": ORDER, "units": []}
     try:
-        for name, label, M, shapes, repeat, xdt in UNITS:
+        for name, label, M, shapes, repeat, xdt in units:
             gen = torch.Generator().manual_seed(11)
-            cases = [dict(_case(name, K, N, M, xdt, dev, gen),
+            cases = [dict(_row_case(name, s, M, dev, gen)
+                          if name in ("row_attention", "row_norm")
+                          else _case(name, K, N, M, xdt, dev, gen),
                           label=s, K=K, N=N) for s, K, N in shapes]
             fns = {v: _entry(libs[(v, name)], name) for v in trees}
             runs = {v: [(c, _launcher(fns[v], c)) for c in cases]
