@@ -17,7 +17,8 @@ non-zero (no phase catches its own failure):
   3. kernel — each kernel against its plain PyTorch version at every
               projection shape of the path, M in {4, 256}: f32 output within
               1e-5 * max|ref|, bf16 output within one bf16 ulp of max|ref|,
-              DBMU bitwise equal (x with -128 and 127 in it), FTA/INT8
+              DBMU bitwise equal (x with -128 and 127 in it, and x over
+              [-255, 255] with +-200 and +-255 in every row), FTA/INT8
               rows of an M=4 call bitwise equal to the same rows of an
               M=256 call. The joint kernel also in f32 and bf16
               activations with its fp32 accumulators, rows of an M=4 call
@@ -30,15 +31,28 @@ non-zero (no phase catches its own failure):
               2048-slot cache, 256-query chunks starting at 256 * (b mod
               6)), and row_norm at 4, 256 and 4096 rows within 1e-5 *
               max|ref| or one bf16 ulp; a query (row) alone bitwise equal
-              to the same query (row) in the chunk.
+              to the same query (row) in the chunk. row_attention also at
+              caches past its resident logits (bf16 A = 32768, f32 A =
+              65536): the streaming path, within the same tolerances and
+              row-stable.
   4. serve  — tinyllama-1.1b at full width in joint mode, bf16, random
               weights from a seed, through repro_torch.launch.serve's
-              engine: 8 requests, batch 4, max-len 512, prompts 32..256,
-              32 generated tokens, prefill chunks of 64. Every request
-              completes; per device call the joint kernel launches 154 times
-              (22 layers x 7 projections), row_attention 22 times and
-              row_norm 45 times (2 per layer and the final norm), and no
-              other kernel launches; the first-token logits ((1, V) rows in
+              engine, whose decode, prefill-chunk and reset steps are each
+              one captured CUDA graph: 8 requests, batch 4, max-len 512,
+              prompts 32..256, 32 generated tokens, prefill chunks of 64.
+              The same trace through an engine running the same in-place
+              steps eagerly gives bitwise the same greedy streams and
+              first-token logits, and the recompile sentinel counts one
+              signature per step in both. Every request
+              completes; per device call the joint kernel launches 154
+              times (22 layers x 7 projections), row_attention 22 times
+              and row_norm 45 times (2 per layer and the final norm), and
+              no other kernel of the port launches: in the compiled run
+              as the device records them (torch.profiler, by the kernels'
+              symbols, graph replays included), in the eager run as the
+              wrappers count them; the compiled run's wrappers count the
+              first decode and prefill-chunk calls only (the warm-ups
+              before capture); the first-token logits ((1, V) rows in
               bf16) of two requests agree with the same model run through
               the plain versions; a chunked prefill equals stepwise decode
               bit for bit at model level (batch 1), and op by op through
@@ -56,10 +70,20 @@ non-zero (no phase catches its own failure):
               for every projection shape: masks and packs byte-identical to
               the CPU's, dbmu_matmul at M=256 exactly equal to the integer
               matmul oracle; then repro_torch.quickstart on the card.
-  7. profile — device busy and idle share over a window of decode calls
-              and over a window of prefill-chunk calls (batch 4 x 64
-              tokens), the joint kernel's share of the busy time, and the
-              kernels the device time goes to (torch.profiler).
+  7. profile — for the functional steps (a new cache per call), the
+              engine's in-place steps run eagerly, and the compiled
+              engine, wall time, device
+              busy time and idle share over a window of decode calls and
+              over a window of prefill-chunk calls (batch 4 x 64 tokens),
+              device ops and peak device memory per window, the joint
+              kernel's share of the busy time, and the kernels the device
+              time goes to (torch.profiler; a window in which it records no
+              device time says so); then the same for the three at the
+              long-context cell's shape (batch 16,
+              2048-slot cache, chunks of 256, decode from 1024 filled
+              positions). For each compiled engine, the device span of a
+              decode call (CUDA events) and the host time of its input
+              signature.
   8. times  — each kernel, its plain version and one PyTorch call computing
               the same function (the library yardstick, used nowhere in the
               port) with CUDA events after warm-up; the kernel and the
@@ -81,10 +105,12 @@ non-zero (no phase catches its own failure):
               one decode call and one prefill-chunk call (22 and 45
               launches each), and as units of their own one long-context
               prefill call (batch 16 x 256 queries against a 2048-slot
-              cache; 4096 rows of norms).
+              cache; 4096 rows of norms) and row_attention's streaming path
+              (one slot, 64 queries at the end of a 32768-slot cache).
 
 The launch counts of the JSON record come from the main paths: phase 4
-for the joint, row_attention and row_norm kernels, phase 5 for block-sparse and FTA/INT8, phase 6 for
+for the joint, row_attention and row_norm kernels (the device's records
+of the compiled run), phase 5 for block-sparse and FTA/INT8, phase 6 for
 DBMU, each counted from zero just before the path runs. The line before
 the last holds the kernels' JSON record, the one before it the card's
 name and power limit; the last line is the device record. Exits
@@ -143,6 +169,11 @@ LONG_B, LONG_A, LONG_C = 16, 2048, 256
 #: units (one prefill-chunk call of the long-context cell)
 ATTN_LONG_UNIT = "row_attention long context"
 NORM_LONG_UNIT = "row_norm long context"
+#: caches past the resident logits' limit (bf16 25,600 rows at hd 64, f32
+#: 57,852): row_attention's streaming path, and its times unit (one slot,
+#: a 64-query chunk at the end of a 32,768-slot cache)
+STREAM_A_BF16, STREAM_A_F32, STREAM_C = 32768, 65536, 64
+ATTN_STREAM_UNIT = "row_attention streaming"
 
 
 def log(msg: str):
@@ -384,6 +415,19 @@ def phase_kernel_value_bit_dbmu(cfg, dev):
             torch.cuda.synchronize()
             assert torch.equal(y, dbmu_sim.dbmu_matmul_plain(xi, packed)), \
                 (name, "dbmu", M)
+        # past the int8 range: the datapath's 8 magnitude planes read every
+        # |x| <= 255 (+-200, +-255 in every row; the first K tile only, then
+        # all of x)
+        xw = torch.randint(-255, 256, (256, K), generator=gen,
+                           dtype=torch.int32)
+        xw[:, :4] = torch.tensor([200, -200, 255, -255], dtype=torch.int32)
+        for what, x in (("first K tile", torch.cat(
+                [xw[:, :64], xi256.cpu()[:, 64:]], dim=1)), ("all of x", xw)):
+            x = x.contiguous().to(dev)
+            y = dbmu_sim.dbmu_matmul(x, packed)
+            torch.cuda.synchronize()
+            assert torch.equal(y, dbmu_sim.dbmu_matmul_plain(x, packed)), \
+                (name, "dbmu wide x", what)
         for kname, rows in errs.items():
             if not rows:
                 continue
@@ -396,7 +440,9 @@ def phase_kernel_value_bit_dbmu(cfg, dev):
         log(f"[kernel] fta_int8_matmul {name} {K}x{N}: rows of M=4 bitwise "
             f"equal rows of M=256 (f32 and bf16 x and out)")
         log(f"[kernel] dbmu_matmul {name} {K}x{N} M in (4, 256), x with "
-            f"-128 and 127: bitwise equal to its plain version; block-sparse "
+            f"-128 and 127, and M=256 with x in [-255, 255] (+-200 and "
+            f"+-255 in every row): bitwise equal to its plain version; "
+            f"block-sparse "
             f"pack (NT={wb.shape[0]}, MAXB={wb.shape[1]}) and FTA INT8 "
             f"weights card == cpu byte for byte")
     return worst
@@ -430,6 +476,20 @@ def _long_attention_inputs(cfg, dev, dtype, gen, B=LONG_B, A=LONG_A,
     pos = (C * (torch.arange(B, dtype=torch.int32) % 6)[:, None]
            + torch.arange(C, dtype=torch.int32)[None])
     return dict(k=k, v=v, long=(q, pos.to(dev)))
+
+
+def _stream_attention_inputs(cfg, dev, dtype, gen, A, B=1, C=STREAM_C):
+    """Queries and a random cache of A slots, past the limit of the
+    resident logits: C queries per slot at the end of the cache, so every
+    key is live for the last query (slot 0), and, for a second slot,
+    positions spread over the cache."""
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    k = torch.randn((B, A, Hkv, hd), generator=gen).to(dtype).to(dev)
+    v = torch.randn((B, A, Hkv, hd), generator=gen).to(dtype).to(dev)
+    q = torch.randn((B, C, H, hd), generator=gen).to(dtype).to(dev)
+    pos = [A - C + torch.arange(C, dtype=torch.int32),
+           torch.linspace(0, A - 1, C).to(torch.int32)][:B]
+    return dict(k=k, v=v, stream=(q, torch.stack(pos).to(dev)))
 
 
 def phase_kernel_rows(cfg, dev):
@@ -473,6 +533,29 @@ def phase_kernel_rows(cfg, dev):
                 f"{', '.join(map(str, ts))} of the {what} call bitwise equal "
                 f"to one-query calls")
         del long
+        A = STREAM_A_BF16 if dt == torch.bfloat16 else STREAM_A_F32
+        a = _stream_attention_inputs(cfg, dev, dt, gen, A, B=2, C=8)
+        q, pos = a["stream"]
+        assert rak.streams(A, cfg.hd, dt)
+        y = rak.row_attention(q, a["k"], a["v"], pos)
+        torch.cuda.synchronize()
+        ref = rak.row_attention_plain(q, a["k"], a["v"], pos)
+        peak = ref.float().abs().max().item()
+        err = (y.float() - ref.float()).abs().max().item()
+        tol = (F32_TOL if dt == torch.float32 else ATTN_REL_TOL) * peak
+        assert torch.isfinite(y).all() and err <= tol, \
+            ("row_attention streaming", dt, err, tol)
+        if dt == torch.bfloat16:
+            worst["row_attention"] = max(worst["row_attention"], err)
+        for t in (0, 3, 7):
+            one = rak.row_attention(q[:, t:t + 1].contiguous(), a["k"],
+                                    a["v"], pos[:, t:t + 1].contiguous())
+            assert torch.equal(one, y[:, t:t + 1]), ("streaming rows", t)
+        log(f"[kernel] row_attention streaming {tuple(q.shape)} x cache "
+            f"{tuple(a['k'].shape)} {str(dt)[6:]} (past the resident "
+            f"logits' limit): max|d|={err:.3e} (tol {tol:.3e}); queries 0, "
+            f"3, 7 bitwise equal to one-query calls")
+        del a, y, ref
         D = cfg.d_model
         x4096 = torch.randn((4096, D), generator=gen).to(dt).to(dev)
         scale = (1 + 0.1 * torch.randn((D,), generator=gen)).to(dev)
@@ -541,8 +624,12 @@ def _first_token_logits(engine, tables, prompt, chunk):
 
 
 def phase_serve(dev):
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
+    from repro_torch.obs import RecompileSentinel, device_launches
+    from repro_torch.serving import ServeEngine
     args = serve.build_parser().parse_args(SERVE_ARGS)
     cfg = get_config(args.arch, reduced=args.reduced,
                      dbpim_mode=args.dbpim_mode)
@@ -552,36 +639,107 @@ def phase_serve(dev):
     log(f"[serve] params + stacked tables on the card in "
         f"{time.monotonic() - t0:.2f} s ({cfg.name}, {cfg.n_layers} layers, "
         f"d={cfg.d_model}, d_ff={cfg.d_ff}, dtype={cfg.dtype})")
+    # the same trace through the same params and tables with the in-place
+    # steps run eagerly: what the compiled engine's graphs must reproduce;
+    # every launch is a host launch here, so the wrappers' counts see all
+    eager = ServeEngine(cfg, engine.params, n_slots=args.batch,
+                        max_len=args.max_len,
+                        prefill_chunk=args.prefill_chunk,
+                        stacked_tables=tables, device=dev, cuda_graphs=False)
     reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
-    outputs = engine.run(trace)
+    eager_outputs = eager.run(trace)
     torch.cuda.synchronize()
-    counts = read_launches()
-    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    s = engine.metrics.summary()
-    assert s["n_completed"] == len(trace) == 8, s["n_completed"]
-    assert all(len(outputs[r.rid]) == r.gen_len for r in trace)
+    eager_counts = read_launches()
+    eager_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    # the main path: the compiled engine. Its wrappers count the eager
+    # first call of each step kind (the capture and the replays launch
+    # nothing the host sees); every launch, replays included, is read from
+    # torch.profiler's device-side records by the kernels' symbols. The
+    # profiler now and then loses records (a window with none, or a call
+    # short of kernels it ran); such a run is taken again with a fresh
+    # engine, and the phase fails if no run of three counts every launch.
     per_call = {"joint_sparse_matmul":                   # 22 x 7 = 154
                 cfg.n_layers * len(_path_shapes(cfg)),
                 "row_attention": cfg.n_layers,
                 "row_norm": 2 * cfg.n_layers + 1}
-    launches = {name: counts[name] for name in per_call}
-    for name, n in per_call.items():
-        assert launches[name] == n * s["device_calls"], \
-            (name, launches[name], s["device_calls"])
-    assert sum(counts.values()) == sum(launches.values()), counts
+    recorded = {name: mod for name, mod in _kernel_modules().items()
+                if name != "block_sparse_matmul"}
+    for attempt in range(3):
+        if attempt:
+            engine = ServeEngine(cfg, engine.params, n_slots=args.batch,
+                                 max_len=args.max_len,
+                                 prefill_chunk=args.prefill_chunk,
+                                 stacked_tables=tables, device=dev)
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            outputs = engine.run(trace)
+            torch.cuda.synchronize()
+        counts = read_launches()
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        calls = engine.metrics.summary()["device_calls"]
+        # the device's records: each call, replays included, launches the
+        # path's kernels per_call times and no other of the port's kernels
+        # (the block-sparse matmul shares the joint kernel's symbols; the
+        # eager run's host counts stand for it)
+        device = device_launches(prof.key_averages(), recorded)
+        want = {name: per_call.get(name, 0) * calls for name in device}
+        if device == want:
+            break
+        log(f"[serve] compiled run {attempt + 1}: the profiler's device "
+            f"records count {device}, not {want}; taken again")
+    else:
+        raise AssertionError(f"device launches of the compiled serve run: "
+                             f"{device} != {want} in 3 runs")
+    keys = {RecompileSentinel.key(kind, cfg.name): 1
+            for kind in ("decode", "prefill_chunk_exact", "reset")}
+    assert engine.sentinel.counts() == keys, engine.sentinel.counts()
+    assert eager.sentinel.counts() == keys, eager.sentinel.counts()
+    assert outputs == eager_outputs, "compiled vs eager greedy streams"
+    assert set(engine.first_logits) == set(eager.first_logits)
+    for rid, row in engine.first_logits.items():
+        assert torch.equal(row, eager.first_logits[rid]), rid
+    log(f"[serve] compiled engine (one CUDA graph per step kind) vs the "
+        f"eager in-place steps on the same trace: all {len(outputs)} greedy "
+        f"streams and first-token logits bitwise equal; recompile sentinel "
+        + ", ".join(f"{k}={n}" for k, n in engine.sentinel.counts().items())
+        + " compiled signature(s)")
+    s = engine.metrics.summary()
+    e_s = eager.metrics.summary()
+    assert s["n_completed"] == len(trace) == 8, s["n_completed"]
+    assert all(len(outputs[r.rid]) == r.gen_len for r in trace)
+    assert e_s["device_calls"] == calls == s["device_calls"]
+    # the host: every launch of the eager run; of the compiled run, the
+    # first decode and the first prefill-chunk call's (the warm-ups)
+    assert eager_counts == {name: per_call.get(name, 0) * calls
+                            for name in eager_counts}, (eager_counts, calls)
+    assert counts == {name: 2 * per_call.get(name, 0)
+                      for name in counts}, counts
+    launches = {name: device[name] for name in per_call}
     lat = s["call_latency_ms"]
+    e_lat = e_s["call_latency_ms"]
     log(f"[serve] {s['n_completed']}/{s['n_requests']} requests, "
         f"{s['generated_tokens']} tokens, {s['engine_ticks']} ticks, "
         f"{s['decode_calls']} decode + {s['prefill_calls']} prefill calls; "
-        f"kernel launches " + ", ".join(
-            f"{name} {launches[name]} == {n} x {s['device_calls']}"
-            for name, n in per_call.items()) + " (other kernels: 0)")
-    log(f"[serve] {s['tokens_per_sec']:.1f} tokens/s over {s['wall_s']:.2f} "
-        f"s; decode ms/step p50={lat['decode']['p50_ms']:.2f} "
-        f"mean={lat['decode']['mean_ms']:.2f}; prefill_chunk_exact "
-        f"p50={lat['prefill_chunk_exact']['p50_ms']:.2f} ms; peak device "
-        f"memory {peak_gib:.2f} GiB")
+        f"device kernel launches (torch.profiler, graph replays included) "
+        + ", ".join(f"{name} {launches[name]} == {n} x {calls}"
+                    for name, n in per_call.items())
+        + " (the port's other kernels: 0); host-counted launches: eager run "
+        + ", ".join(f"{name} {eager_counts[name]}" for name in per_call)
+        + ", compiled run " + ", ".join(f"{name} {counts[name]}"
+                                        for name in per_call)
+        + " (the first decode and prefill-chunk calls' warm-ups)")
+    for what, summ, ls, peak in (
+            ("compiled (under torch.profiler)", s, lat, peak_gib),
+            ("eager", e_s, e_lat, eager_peak)):
+        log(f"[serve] {what}: {summ['tokens_per_sec']:.1f} tokens/s over "
+            f"{summ['wall_s']:.2f} s; decode ms/step "
+            f"p50={ls['decode']['p50_ms']:.2f} "
+            f"mean={ls['decode']['mean_ms']:.2f}; prefill_chunk_exact "
+            f"p50={ls['prefill_chunk_exact']['p50_ms']:.2f} "
+            f"mean={ls['prefill_chunk_exact']['mean_ms']:.2f} ms; peak "
+            f"device memory {peak:.3f} GiB")
     for rid in (0, 1):
         prompt = list(trace[rid].prompt)
         with plain_versions():
@@ -600,7 +758,7 @@ def phase_serve(dev):
             f"(max|ref|={peak:.3f}, tol {LOGIT_REL_TOL} x max|ref|); argmax "
             f"{int(got.argmax())} vs {int(ref.argmax())}")
     check_chunk_equals_stepwise(engine, tables, list(trace[0].prompt))
-    return launches, engine
+    return launches, engine, eager, tables
 
 
 class OpTrace:
@@ -872,18 +1030,32 @@ def phase_dbmu(cfg, dev):
     return counts["dbmu_matmul"]
 
 
-def _profile_window(window, n_calls):
-    """(wall ms, busy ms, device ops, joint ms, device-side records) per
-    call of ``window``: wall time from a run without the profiler, the rest
-    from torch.profiler's device-side records of a second, identical run;
-    busy None when the profiler recorded no device time."""
+def _profile_window(window, n_calls, setup=None):
+    """(wall ms, busy ms, device ops, joint ms, device-side records, peak
+    GiB, resident GiB) per call of ``window``: wall time, peak device
+    memory and the memory allocated at its start from a run without the
+    profiler, the rest from torch.profiler's device-side
+    records of a second, identical run; busy None when the profiler
+    recorded no device time. ``setup`` runs before each run, outside both
+    measurements."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def fresh():
+        if setup is not None:
+            setup()
+        torch.cuda.synchronize()
+
+    fresh()
     window()                                   # warm-up
-    torch.cuda.synchronize()
+    fresh()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     window()
     wall_ms = 1e3 * (time.monotonic() - t0) / n_calls
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    fresh()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         window()
@@ -894,61 +1066,181 @@ def _profile_window(window, n_calls):
                and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n_calls
     if busy_ms == 0:
-        return wall_ms, None, 0, 0.0, []
+        return wall_ms, None, 0, 0.0, [], peak_gib, base_gib
     joint_ms = sum(e.self_device_time_total for e in kernels
                    if any(sym in e.key for sym in JOINT_SYMBOLS)) / 1e3 / n_calls
     ops = sum(e.count for e in kernels) / n_calls
-    return wall_ms, busy_ms, ops, joint_ms, kernels
+    return wall_ms, busy_ms, ops, joint_ms, kernels, peak_gib, base_gib
 
 
-def phase_profile(engine, n_steps=8, n_chunks=4):
-    """Device busy and idle share over a window of decode calls of the
-    served engine (all slots active) and over a window of prefill-chunk
-    calls (every slot a full chunk, from an empty cache), the joint
-    kernel's share of the busy time, and where the device time goes."""
-    from repro_torch.models import init_cache
-    dev = engine.device
-    tok = torch.ones((engine.n_slots, 1), dtype=torch.int32, device=dev)
-    active = torch.ones((engine.n_slots,), dtype=torch.bool, device=dev)
-    state = {"cache": engine.cache}
+class FunctionalSteps:
+    """An engine's params and cache served by the functional steps
+    (``decode_step`` + ``merge_slots``, ``decode_chunk``, ``reset_slots``,
+    each returning a new cache) run eagerly: the baseline the engine's
+    in-place steps are measured against, whole-cache copies included. The
+    cache is the engine's at the start; the engine's own is never
+    written."""
 
-    def decode_window():
-        for _ in range(n_steps):
-            lg, state["cache"] = engine._decode(engine.params, state["cache"],
-                                                tok, active)
-            lg.float().cpu()                   # the engine's per-tick sync
+    sentinel = None
 
-    C = engine.prefill_chunk
-    chunk = torch.ones((engine.n_slots, C), dtype=torch.int32, device=dev)
-    n_valid = torch.full((engine.n_slots,), C, dtype=torch.int32, device=dev)
+    def __init__(self, engine, tables):
+        from repro_torch.models import (decode_chunk, decode_step,
+                                        merge_slots, reset_slots)
+        cfg = engine.cfg
+        self.device, self.n_slots = engine.device, engine.n_slots
+        self.prefill_chunk, self.max_len = engine.prefill_chunk, engine.max_len
+        self.params, self.cache = engine.params, engine.cache
 
-    def prefill_window():
-        cache = init_cache(engine.cfg, engine.n_slots, engine.max_len,
-                           device=dev)
-        cache["pos"] = torch.zeros((engine.n_slots,), dtype=torch.int32,
-                                   device=dev)
-        for _ in range(n_chunks):
-            lg, cache = engine._prefill(engine.params, cache, chunk, n_valid)
-            lg[:, 0].float().cpu()             # the engine's per-call sync
+        @torch.no_grad()
+        def decode(params, cache, token, active):
+            lg, new = decode_step(params, cache, token, cfg, tables=tables)
+            return lg, merge_slots(new, cache, active, cfg)
 
-    for what, window, n, rows in (
-            ("decode call", decode_window, n_steps, engine.n_slots),
-            ("prefill-chunk call", prefill_window, n_chunks,
-             engine.n_slots * C)):
-        wall_ms, busy_ms, ops, joint_ms, kernels = _profile_window(window, n)
-        if busy_ms is None:
-            log(f"[profile] {what}: device busy share not measured (the "
-                f"profiler recorded no device time)")
-            continue
-        log(f"[profile] {what} (batch {engine.n_slots}, {rows} rows per "
-            f"projection, {n} calls): {wall_ms:.2f} ms wall, device busy "
-            f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}; "
-            f"{ops:.0f} device ops per call; joint kernel {joint_ms:.3f} "
-            f"ms/call, {joint_ms / busy_ms:.1%} of busy")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-            ms = e.self_device_time_total / 1e3 / n
-            log(f"[profile]   {ms:.3f} ms/call ({ms / busy_ms:.1%} of busy), "
-                f"{e.count / n:.0f}/call: {e.key[:100]}")
+        @torch.no_grad()
+        def prefill(params, cache, tokens, n_valid):
+            return decode_chunk(params, cache, tokens, n_valid, cfg,
+                                tables=tables)
+
+        self._decode, self._prefill = decode, prefill
+        self._reset = lambda cache, mask: reset_slots(cache, mask, cfg)
+
+
+def phase_profile_long(engine, tables, out):
+    """``phase_profile`` at the long-context serve cell's shape (batch 16,
+    a 2048-slot cache, chunks of 256) over the serve phase's params and
+    tables: the functional steps, then an engine's in-place steps eagerly,
+    then compiled, one engine on the card at a time (the serve phase's two
+    engines stay resident)."""
+    from repro_torch.serving import ServeEngine
+    for label, graphs in (("long functional", False), ("long eager", False),
+                          ("long compiled", True)):
+        long = ServeEngine(engine.cfg, engine.params, n_slots=LONG_B,
+                           max_len=LONG_A, prefill_chunk=LONG_C,
+                           stacked_tables=tables, device=engine.device,
+                           cuda_graphs=graphs)
+        if label.endswith("functional"):
+            long = FunctionalSteps(long, tables)
+        phase_profile([(label, long)], out=out)
+        del long
+    return out
+
+
+def phase_profile(engines, n_steps=8, n_chunks=4, long_fill=4, out=None):
+    """For each engine (the functional steps, the eager in-place engine and
+    the compiled one, at the serve phase's shape and at the long-context
+    cell's), the device
+    busy time and idle share over a window of decode calls (all slots
+    active) and over a window of prefill-chunk calls (every slot a full
+    chunk, from slots reset by the engine's reset step), each call
+    through the engine's own steps on its own cache, so no step sees a new
+    signature; the joint kernel's share of the busy time, where the device
+    time goes, and the window's peak device memory. The long-context
+    engines decode from slots reset and filled by ``long_fill`` chunks
+    (1024 positions of 2048). For a compiled engine also the device span
+    of a decode call (CUDA events around back-to-back calls: the input
+    copies and the graph, without the host copy of the logits) and the
+    host µs of its input signature. Adds {(engine, call): (wall ms, busy
+    ms or None, ops, peak GiB)} to ``out`` and returns it."""
+    out = {} if out is None else out
+    for label, engine in engines:
+        dev = engine.device
+        B, C = engine.n_slots, engine.prefill_chunk
+        tok = torch.ones((B, 1), dtype=torch.int32, device=dev)
+        active = torch.ones((B,), dtype=torch.bool, device=dev)
+        chunk = torch.ones((B, C), dtype=torch.int32, device=dev)
+        n_valid = torch.full((B,), C, dtype=torch.int32, device=dev)
+        every = torch.ones((B,), dtype=torch.bool, device=dev)
+
+        def decode_window(engine=engine, tok=tok, active=active):
+            for _ in range(n_steps):
+                lg, engine.cache = engine._decode(engine.params, engine.cache,
+                                                  tok, active)
+                lg.float().cpu()               # the engine's per-tick sync
+
+        def reset_all(engine=engine, every=every):
+            engine.cache = engine._reset(engine.cache, every)
+
+        def prefill_window(engine=engine, chunk=chunk, n_valid=n_valid,
+                           n=n_chunks):
+            for _ in range(n):
+                lg, engine.cache = engine._prefill(engine.params,
+                                                   engine.cache, chunk,
+                                                   n_valid)
+                lg[:, 0].float().cpu()         # the engine's per-call sync
+
+        def filled(reset_all=reset_all, prefill_window=prefill_window):
+            reset_all()
+            prefill_window(n=long_fill)
+
+        long_cell = label.startswith("long")
+        for what, window, n, rows, setup in (
+                ("decode call", decode_window, n_steps, B,
+                 filled if long_cell else None),
+                ("prefill-chunk call", prefill_window, n_chunks, B * C,
+                 reset_all)):
+            wall_ms, busy_ms, ops, joint_ms, kernels, peak, base = \
+                _profile_window(window, n, setup)
+            out[(label, what)] = (wall_ms, busy_ms, ops, peak)
+            if busy_ms is None:
+                other = out.get((label.replace("compiled", "eager"), what))
+                log(f"[profile] {label} {what}: {wall_ms:.2f} ms wall, peak "
+                    f"device memory {peak:.3f} GiB ({base:.3f} GiB resident "
+                    f"before the window); torch.profiler recorded "
+                    f"no device time in this window" + (
+                        "" if other is None or other[1] is None else
+                        f" (inside CUDA graph replays); the eager window's "
+                        f"busy {other[1]:.3f} ms beside this wall"))
+                continue
+            log(f"[profile] {label} {what} (batch {B}, {rows} rows per "
+                f"projection, {engine.max_len}-slot cache, {n} calls): "
+                f"{wall_ms:.3f} ms wall, device busy "
+                f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}; "
+                f"{ops:.0f} device ops per call; joint kernel "
+                f"{joint_ms:.3f} ms/call, {joint_ms / busy_ms:.1%} of busy; "
+                f"peak device memory {peak:.3f} GiB ({base:.3f} GiB "
+                f"resident before the window)")
+            for e in sorted(kernels,
+                            key=lambda e: -e.self_device_time_total)[:8]:
+                ms = e.self_device_time_total / 1e3 / n
+                log(f"[profile]   {ms:.3f} ms/call ({ms / busy_ms:.1%} of "
+                    f"busy), {e.count / n:.0f}/call: {e.key[:100]}")
+        if getattr(engine._decode, "graphs", False):
+            if long_cell:
+                filled()
+
+            def decode_calls(engine=engine, tok=tok, active=active):
+                engine._decode(engine.params, engine.cache, tok, active)
+
+            span_ms = _time(decode_calls, iters=n_steps, warmup=1)
+            args = (engine.params, engine.cache, tok, active)
+            sig_us = _host_us(lambda: engine._decode._signature(args),
+                              iters=200)
+            # one synced call at a time, as the engine ticks: the host time
+            # until the call returns (signature, input copies, graph
+            # launch), then until the logits are on the host
+            issue = finish = 0.0
+            for _ in range(n_steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, _ = engine._decode(engine.params, engine.cache, tok,
+                                       active)
+                t1 = time.perf_counter()
+                lg.float().cpu()
+                issue += t1 - t0
+                finish += time.perf_counter() - t1
+            log(f"[profile] {label} decode call: device span "
+                f"{span_ms:.3f} ms per call (CUDA events around "
+                f"{n_steps} back-to-back calls: input copies and graph "
+                f"replay, no host copy); its input signature "
+                f"{sig_us:.1f} µs of host time per call; one synced call: "
+                f"{1e3 * issue / n_steps:.3f} ms until it returns, then "
+                f"{1e3 * finish / n_steps:.3f} ms until its logits are on "
+                f"the host")
+    for label, engine in engines:
+        if engine.sentinel is not None:
+            assert all(n == 1 for n in engine.sentinel.counts().values()), \
+                (label, engine.sentinel.counts())
+    return out
 
 
 def _time(fn, iters=200, warmup=20):
@@ -1103,8 +1395,11 @@ def _time_cases(cfg, packs, tables_by_mode, dev, n_slots=4, M=256):
             ops=2 * M * K * N, peak=INT8_OPS))
     attn = _row_attention_cases(cfg, dev, gen)
     norm = _row_norm_cases(cfg, dev, gen)
-    cases["row_attention"] = [c for c in attn if c["name"] != "long context"]
+    cases["row_attention"] = [c for c in attn
+                              if c["name"] not in ("long context",
+                                                   "streaming")]
     cases[ATTN_LONG_UNIT] = [c for c in attn if c["name"] == "long context"]
+    cases[ATTN_STREAM_UNIT] = [c for c in attn if c["name"] == "streaming"]
     cases["row_norm"] = [c for c in norm if c["K"] != LONG_B * LONG_C]
     cases[NORM_LONG_UNIT] = [c for c in norm if c["K"] == LONG_B * LONG_C]
     return cases
@@ -1120,8 +1415,11 @@ def _row_attention_cases(cfg, dev, gen):
     from repro_torch.kernels import row_attention as rak
     serve = _serve_attention_inputs(cfg, dev, torch.bfloat16, gen)
     long = _long_attention_inputs(cfg, dev, torch.bfloat16, gen)
+    stream = _stream_attention_inputs(cfg, dev, torch.bfloat16, gen,
+                                      STREAM_A_BF16)
     cases = []
-    for what, a in (("decode", serve), ("chunk", serve), ("long", long)):
+    for what, a in (("decode", serve), ("chunk", serve), ("long", long),
+                    ("stream", stream)):
         k, v = a["k"], a["v"]
         B, A, Hkv, hd = k.shape
         rep = cfg.n_heads // Hkv
@@ -1133,7 +1431,8 @@ def _row_attention_cases(cfg, dev, gen):
                 live[:, :, None])[:, None]                          # (B,1,Sq,A)
         qh = q.transpose(1, 2)
         cases.append(dict(
-            name="long context" if what == "long" else what,
+            name={"long": "long context", "stream": "streaming"}.get(what,
+                                                                    what),
             K=tuple(q.shape), N=tuple(k.shape),
             kernel=lambda q=q, pos=pos, k=k, v=v: rak.row_attention(
                 q, k, v, pos),
@@ -1250,11 +1549,13 @@ def main() -> int:
     worst = {"joint_sparse_matmul": phase_kernel(cfg, packs, dev),
              **phase_kernel_value_bit_dbmu(cfg, dev)}
     worst.update(phase_kernel_rows(cfg, dev))
-    serve_launches, engine = phase_serve(dev)
+    serve_launches, engine, eager, tables = phase_serve(dev)
     mode_launches, tables_by_mode = phase_modes(dev)
     launches = {**serve_launches, **mode_launches,
                 "dbmu_matmul": phase_dbmu(cfg, dev)}
-    phase_profile(engine)
+    phase_profile_long(engine, tables, phase_profile(
+        [("functional", FunctionalSteps(eager, tables)), ("eager", eager),
+         ("compiled", engine)]))
     times = phase_times(cfg, packs, tables_by_mode, dev)
 
     kernels = []
@@ -1292,7 +1593,9 @@ def main() -> int:
              f"{JOINT_UNIT} M={m}") for m in JOINT_PREFILL_M],
             "row_attention": [
                 ("one long-context prefill-chunk call: 22 launches, batch 16 "
-                 "x 256 queries, 2048-slot cache, bf16", ATTN_LONG_UNIT)],
+                 "x 256 queries, 2048-slot cache, bf16", ATTN_LONG_UNIT),
+                ("the streaming path: 22 launches, one slot, 64 queries at "
+                 "the end of a 32768-slot cache, bf16", ATTN_STREAM_UNIT)],
             "row_norm": [
                 ("one long-context prefill-chunk call: 45 launches, 4096 "
                  "rows, d=2048, bf16", NORM_LONG_UNIT)]}.get(name)

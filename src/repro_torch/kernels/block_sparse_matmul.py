@@ -20,7 +20,10 @@ Three things live here:
   * ``block_sparse_matmul_plain`` — the same function in plain PyTorch:
     gather, fp32 batched matmul, cast.
   * ``LAUNCHES`` — the number of kernel launches so far, raised by one at
-    each launch and nowhere else.
+    each launch and nowhere else. A launch recorded into a CUDA graph
+    runs at the graph's replays, which the host does not see: its capture
+    counts nothing, and the launches inside replays are read from the
+    device's own records (torch.profiler) by ``SYMBOLS``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,10 @@ BM, BK, BN = 128, 128, 128
 
 #: kernel launches so far in this process (the wrapper's CUDA branch only)
 LAUNCHES = 0
+
+#: the CUDA kernel symbols a launch runs, as the profiler names them
+#: (csrc/gather_matmul.cuh, shared with joint_sparse_matmul)
+SYMBOLS = ("gathered_tc_kernel", "gathered_fp32_kernel")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
@@ -120,5 +127,6 @@ def block_sparse_matmul(x, w_blocks, idx):
         raise RuntimeError(f"block_sparse_matmul launch failed: CUDA error "
                            f"{rc} (M={M}, K={K}, NT={NT}, MAXB={MAXB}, "
                            f"bk={bk}, bn={bn})")
-    LAUNCHES += 1
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES += 1
     return y

@@ -10,11 +10,11 @@
 //   y[m, n] = sum_k sum_{bit < 8} sum_{t < 2}
 //               sign(x[m, k]) * bit_b(|x[m, k]|) * valid_t * s_t * 2^(p_t) << bit
 //
-// x (M, K) int32 holding values in [-128, 127], the int8 range (the kernel
-// stages x as int8; a value outside it is cut to its low byte); packed
+// x (M, K) int32; the datapath reads 8 magnitude planes, so x enters as
+// x' = sign(x) * (|x| mod 256), and x' = x for every |x| <= 255; packed
 // (K, N, 2) uint8 term bytes (bit0 sign, bit1 hi/lo, bits 2-3 block, bit4
 // valid; bits 5-7 unused; repro_torch.core.dyadic.pack_terms); y (M, N)
-// int32, equal to the integer matmul x @ unpack_terms(packed) exactly.
+// int32, equal to the integer matmul x' @ unpack_terms(packed) exactly.
 //
 // Exact evaluation. The input planes fold: sum_bit 2^bit * sign(x) *
 // bit_b(|x|) = x, so x enters as one int8 operand. The weight keeps the
@@ -28,13 +28,20 @@
 //   y = sum_b (x @ S_b) << 2b,
 //
 // four int8 products per K step, recombined by the adder tree's shifts.
-// Each product P_b = x @ S_b is an int32 tensor-core sum of terms |x * S_b|
-// <= 512, so |P_b| <= 512 * K stays below 2^31 for every K the entry
-// point takes (MAX_K = 87,000; the same limit as before, where 128 * 192 * K
-// bounds y for pack_terms' packs). The shift-add runs in uint32, i.e.
-// modulo 2^32, so y is the exact integer result modulo 2^32: bit for bit
-// what the plain version's int64 sum cast to int32 gives, wrap-around
-// included.
+// x' is one int8 operand when it lies in [-128, 127]. A K tile of a block
+// with any x outside that range splits it instead, x' = 4 h + l with
+// h = sign * (|x'| >> 2) in [-63, 63] and l = sign * (|x'| & 3): the adder
+// tree's shift by 4 between neighbouring blocks takes the factor 4, so
+//
+//   y = sum_b 4^b (l @ S_b) + sum_{b < 3} 4^(b+1) (h @ S_b) + 4^3 (h @ 4 S_3),
+//
+// eight products into the same four accumulators (4 S_3 in [-16, 16]).
+// Each accumulator is an int32 tensor-core sum of terms of at most
+// 4 * 3 + 4 * 63 + 16 * 63 = 1272 per K, so it stays below 2^31 for every
+// K the entry point takes (MAX_K = 87,000; 128 * 192 * K bounds y for
+// pack_terms' packs). The shift-add runs in uint32, i.e. modulo 2^32, so y
+// is the exact integer result modulo 2^32: bit for bit what the plain
+// version's int64 sum cast to int32 gives, wrap-around included.
 //
 // Design. One block of two warpgroups per 128 x 64 output tile, `wgmma`
 // m64n64k32 s8 * s8 -> s32, one int32 accumulator set per block position b
@@ -50,6 +57,10 @@
 //     with a bias that keeps the bytewise sum free of carries.
 //   * The two warpgroups share one decode of the weight tile; the epilogue
 //     is the adder tree: the four products shifted and added.
+//   * Whether a K tile splits x is one block-wide vote per tile
+//     (__syncthreads_or), so x in the int8 range costs one compare per
+//     value; a split tile reads h and l from the staged int32 rows before
+//     the slot refills and waits for its own products.
 //   * Few output tiles (narrow N) split K over a cluster of up to 4 blocks,
 //     a split count fixed by K and N, the int32 partials added through
 //     distributed shared memory (integer sums: any order, the same bits).
@@ -89,7 +100,8 @@ constexpr int TERM_WORDS = 32;
 // the ring's mbarriers
 constexpr int T_RING = STAGES * X_SLOT;
 constexpr int SS_OFF = T_RING + STAGES * T_SLOT;
-constexpr int TW_OFF = SS_OFF + 2 * NBLK * SS_BYTES;
+constexpr int S4_OFF = SS_OFF + 2 * NBLK * SS_BYTES;   // 4 S_3 of a split tile
+constexpr int TW_OFF = S4_OFF + SS_BYTES;
 constexpr int BAR_OFF = TW_OFF + TERM_WORDS * 4;
 constexpr int SMEM_BYTES = BAR_OFF + STAGES * 8 + 1024;   // + alignment slack
 constexpr int TX_BYTES = X_SLOT + T_SLOT;
@@ -115,9 +127,11 @@ __device__ __forceinline__ uint32_t pair_word(const uint32_t* tw, uint32_t p) {
 
 // The A fragments of one K tile from its int32 rows: fragment register
 // (row r, k 4 t .. 4 t + 3) is the low bytes of one 16-byte chunk of x.
-__device__ __forceinline__ void load_a(uint32_t (&a)[BK / 32][4], const uint8_t* x_tile,
+// Returns whether any of the thread's x lies outside [-128, 127].
+__device__ __forceinline__ bool load_a(uint32_t (&a)[BK / 32][4], const uint8_t* x_tile,
                                        int lane, int warp) {
   const int g = lane >> 2, t4 = lane & 3;
+  uint32_t out = 0;
 #pragma unroll
   for (int s = 0; s < BK / 32; ++s)
 #pragma unroll
@@ -126,6 +140,39 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[BK / 32][4], const uint8_t*
       const uint4 v = *reinterpret_cast<const uint4*>(x_tile + r * X_LD + k * 4);
       a[s][i] =
           __byte_perm(__byte_perm(v.x, v.y, 0x0040), __byte_perm(v.z, v.w, 0x0040), 0x5410);
+      out |= static_cast<uint32_t>((v.x + 128u) > 255u) | static_cast<uint32_t>((v.y + 128u) > 255u) |
+             static_cast<uint32_t>((v.z + 128u) > 255u) | static_cast<uint32_t>((v.w + 128u) > 255u);
+    }
+  return out != 0;
+}
+
+// The split of one x value: x' = sign * (|x| & 255) = 4 h + l; the bytes of
+// h and l put at byte q of hi and lo.
+__device__ __forceinline__ void split_value(uint32_t x, int q, uint32_t& lo, uint32_t& hi) {
+  const int v = static_cast<int>(x);
+  const int m = (v < 0 ? -v : v) & 255;   // |INT_MIN| wraps to itself: m = 0, as in the planes
+  const int h = v < 0 ? -(m >> 2) : m >> 2, l = v < 0 ? -(m & 3) : m & 3;
+  lo |= static_cast<uint32_t>(l & 0xFF) << (8 * q);
+  hi |= static_cast<uint32_t>(h & 0xFF) << (8 * q);
+}
+
+// The A fragments of x' = 4 h + l (load_a's layout): l into lo, h into hi.
+__device__ __forceinline__ void load_split(uint32_t (&lo)[BK / 32][4], uint32_t (&hi)[BK / 32][4],
+                                           const uint8_t* x_tile, int lane, int warp) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int s = 0; s < BK / 32; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 16 * warp + g + 8 * (i & 1), k = 32 * s + 16 * (i >> 1) + 4 * t4;
+      const uint4 v = *reinterpret_cast<const uint4*>(x_tile + r * X_LD + k * 4);
+      uint32_t l = 0, h = 0;
+      split_value(v.x, 0, l, h);
+      split_value(v.y, 1, l, h);
+      split_value(v.z, 2, l, h);
+      split_value(v.w, 3, l, h);
+      lo[s][i] = l;
+      hi[s][i] = h;
     }
 }
 
@@ -176,6 +223,7 @@ dbmu_matmul_kernel(const __grid_constant__ CUtensorMap map_x,
   uint8_t* raw_x = smem;                          // the ring: int32 x tiles
   uint8_t* raw_t = smem + T_RING;                 //           term-byte tiles
   uint8_t* sS = smem + SS_OFF;                    // two sets of four S_b operands
+  uint8_t* s4 = smem + S4_OFF;                    // 4 S_3 of a split tile
   uint32_t* tw = reinterpret_cast<uint32_t*>(smem + TW_OFF);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
 
@@ -249,9 +297,20 @@ dbmu_matmul_kernel(const __grid_constant__ CUtensorMap map_x,
     }
     uint8_t* s_tiles = sS + (j & 1) * NBLK * SS_BYTES;   // read by tile j - 2's products
     decode_terms(raw_t + slot * T_SLOT, tw, s_tiles, tid);
-    load_a(a, raw_x + slot * X_SLOT, lane, warp);
+    const bool wide = load_a(a, raw_x + slot * X_SLOT, lane, warp);
     tc::fence_proxy_async();
-    __syncthreads();                      // every S_b written, the slot read
+    // every S_b written, the slot read; does any x of the tile need a split?
+    const bool split = __syncthreads_or(wide);
+    uint32_t ah[BK / 32][4];
+    if (split) {                          // the whole block: l into a, h into ah, 4 S_3
+      load_split(a, ah, raw_x + slot * X_SLOT, lane, warp);
+      static_assert(SS_BYTES == 16 * NTHREADS, "one 16-byte chunk of 4 S_3 per thread");
+      const uint4 w = reinterpret_cast<const uint4*>(s_tiles + 3 * SS_BYTES)[tid];
+      reinterpret_cast<uint4*>(s4)[tid] = make_uint4((w.x << 2) & 0xFCFCFCFCu, (w.y << 2) & 0xFCFCFCFCu,
+                                                     (w.z << 2) & 0xFCFCFCFCu, (w.w << 2) & 0xFCFCFCFCu);
+      tc::fence_proxy_async();
+      __syncthreads();                    // 4 S_3 written, the slot read
+    }
     if constexpr (TMA) {
       if (tid == 0 && j + STAGES < T) tma_stage(j + STAGES);
     }
@@ -270,7 +329,29 @@ dbmu_matmul_kernel(const __grid_constant__ CUtensorMap map_x,
       for (int b = 0; b < NBLK; ++b)
         tc::wgmma_s8_n64_rs(
             acc[b], a[s], tc::wgmma_desc(s_tiles + b * SS_BYTES + 2 * s * BN * 16, BN * 16, 128));
+    if (split) {                          // 4^(b+1) h @ S_b, and 4^3 h @ 4 S_3
+#pragma unroll
+      for (int s = 0; s < BK / 32; ++s) {
+#pragma unroll
+        for (int b = 0; b + 1 < NBLK; ++b)
+          tc::wgmma_s8_n64_rs(acc[b + 1], ah[s],
+                              tc::wgmma_desc(s_tiles + b * SS_BYTES + 2 * s * BN * 16, BN * 16,
+                                             128));
+        tc::wgmma_s8_n64_rs(acc[NBLK - 1], ah[s],
+                            tc::wgmma_desc(s4 + 2 * s * BN * 16, BN * 16, 128));
+      }
+    }
     tc::wgmma_commit();
+    if (split) {                          // ah and 4 S_3 are free once the products are done
+      tc::wgmma_wait<0>();
+#pragma unroll
+      for (int b = 0; b < NBLK; ++b) tc::fence_regs(acc[b]);
+#pragma unroll
+      for (int s = 0; s < BK / 32; ++s) {
+        tc::fence_regs(a[s]);
+        tc::fence_regs(ah[s]);
+      }
+    }
   };
   uint32_t a0[BK / 32][4], a1[BK / 32][4];
 #pragma unroll

@@ -63,6 +63,11 @@
 //   finite v leaves an MMA accumulator as it was), so the row comes out the
 //   same whichever rows share its tile and call.
 //
+// Caches whose logits do not fit a block's shared memory take streaming
+// kernels of their own (chosen from (A, hd) alone): they recompute the
+// logits in each pass instead of keeping them, with the same sums in the
+// same orders (below).
+//
 // f32 keeps exact fp32 on the CUDA cores (TF32 would break the 1e-5
 // contract): one block of four warps per (query, head), lanes over the
 // head dims, the logits in shared memory, orders fixed by hd alone.
@@ -99,6 +104,7 @@ __host__ __device__ __forceinline__ int pad_hd(int hd) {
 // The launch shape: a function of (A, hd) alone.
 struct Plan {
   int hdp, splits, tiles_per_rank;
+  bool stream;                            // the logits do not fit: attention_stream_kernel
   size_t smem;
 };
 
@@ -118,6 +124,21 @@ __host__ __device__ __forceinline__ int body_bytes(int hdp, int tiles_per_rank) 
   return live > outs ? live : outs;
 }
 
+// The streaming kernel's shared memory: the queries beside the park (it
+// reads them until its last product, while other ranks may already push
+// into the park), then four K/V stages, whose room holds the warps'
+// partial outputs at the end, and the row stats.
+constexpr int STREAM_STAGES = 4;          // K/V stages
+
+__host__ __device__ __forceinline__ int stream_front_bytes(int hdp, int splits) {
+  return ROWS * (hdp + 8) * 2 + (splits > 1 ? ROWS * hdp * 4 : 0);
+}
+
+__host__ __device__ __forceinline__ int stream_body_bytes(int hdp) {
+  const int live = STREAM_STAGES * BK * (hdp + 8) * 2, outs = WARPS * ROWS * hdp * 4;
+  return live > outs ? live : outs;
+}
+
 __host__ Plan plan(int A, int hd) {
   Plan p;
   p.hdp = pad_hd(hd);
@@ -128,6 +149,10 @@ __host__ Plan plan(int A, int hd) {
   p.tiles_per_rank = (tiles + c - 1) / c;
   p.smem = static_cast<size_t>(front_bytes(p.hdp, c)) + body_bytes(p.hdp, p.tiles_per_rank) +
            (6 + WARPS) * ROWS * 4;                                // row stats
+  p.stream = p.smem > SMEM_MAX;
+  if (p.stream)
+    p.smem = static_cast<size_t>(stream_front_bytes(p.hdp, c)) + stream_body_bytes(p.hdp) +
+             (6 + WARPS) * ROWS * 4;
   return p;
 }
 
@@ -542,6 +567,355 @@ int launch_tc(const Args& a, int B, const Plan& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bf16, streamed logits -------------------------------------------------
+//
+// A rank's 16 rows of fp32 logits outgrow a block's shared memory past
+// 25,600 keys at hd 64 (23,040 at hd 128, 17,920 at hd 256; 8 ranks of the
+// cluster). Such caches take this kernel, chosen from (A, hd) alone. It
+// keeps no logits: each pass streams the rank's K tiles again (pass 3 K
+// and V together, through four stages) and recomputes S = Q K^T and
+// l = bf16(S) * scale in registers. In the resident kernel a thread reads
+// back only the logits it wrote itself, so here it recomputes the same l,
+// e = exp(l - max) and p = bf16(e / sum) and adds them in the same orders:
+// the two kernels give the same bits, at three Q K^T products per key
+// instead of one. The queries stay in shared memory for the products of
+// every pass, beside the park.
+
+// probs() from two recomputed logits: the same e = exp(l - max) as pass 2
+// adds, the same correctly rounded quotient
+__device__ __forceinline__ uint32_t probs_of(float2 l, int key, int n, float m, float sum,
+                                             float r) {
+  if (key >= n) return 0u;
+  const float px = quotient(expf(__fsub_rn(l.x, m)), sum, r);
+  return pack_bf16(px, key + 1 < n ? quotient(expf(__fsub_rn(l.y, m)), sum, r) : 0.f);
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_stream_kernel(const Args a) {
+  constexpr int LD = HDP + 8;             // padded rows: conflict-free ldmatrix
+  constexpr int KS = HDP / 16;            // MMA steps over the head dim
+  constexpr int NO = HDP / 8;             // n8 tiles of the output
+  constexpr int STAGE = BK * LD;          // bf16 elements of a K/V stage
+  constexpr int NS = STREAM_STAGES;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int C = a.splits, TR = a.tiles_per_rank;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  float4* park = reinterpret_cast<float4*>(smem + ROWS * LD * 2);
+  uint8_t* body = smem + stream_front_bytes(HDP, C);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(body);  // NS K/V stages
+  float4* ocomb = reinterpret_cast<float4*>(body);  // after pass 3: the warps' outputs
+  int* rown = reinterpret_cast<int*>(body + stream_body_bytes(HDP));
+  int* rnone = rown + ROWS;
+  float* wred = reinterpret_cast<float*>(rnone + ROWS);         // WARPS x ROWS
+  float* pmax = wred + WARPS * ROWS;
+  float* psum = pmax + ROWS;
+  float* gmax = psum + ROWS;
+  float* gsum = gmax + ROWS;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, cq = lane & 3;
+  const int rank = blockIdx.z;
+  const int rb = blockIdx.x % a.row_blocks, hk = blockIdx.x / a.row_blocks, b = blockIdx.y;
+  const int A = a.A, G = a.G, Sq = a.Sq, hd = a.hd;
+  const bool vec = a.vec != 0;
+
+  // each row's live keys: 0 for rows past the call's, A when all masked
+  if (tid < ROWS) {
+    const int s = (rb * ROWS + tid) / G;
+    int n = 0, none = 0;
+    if (s < Sq) {
+      const int pos = a.qpos[b * Sq + s];
+      none = pos < 0;
+      n = none ? A : min(pos, A - 1) + 1;
+    }
+    rown[tid] = n;
+    rnone[tid] = none;
+  }
+  // the stages' columns past hd stay zero (loads write [0, hd) only)
+  if (hd < HDP)
+    for (int e = tid; e < NS * BK * (HDP - hd); e += NT) {
+      const int r = e / (HDP - hd);
+      ring[r * LD + hd + (e - r * (HDP - hd))] = __float2bfloat16(0.f);
+    }
+  __syncthreads();
+
+  int bn = 0;                             // live keys of the block's rows
+  for (int r = 0; r < ROWS; ++r) bn = max(bn, rown[r]);
+  const int T = (A + BK - 1) / BK, t0 = rank * TR, t1 = min(T, t0 + TR);
+  const int live = (bn + BK - 1) / BK;
+  const int L = min(C, (live + TR - 1) / TR);
+  const int ntiles = max(0, min(t1, live) - t0);
+  const int r0 = gq, r1 = gq + 8;
+  const int n0 = rown[r0], n1 = rown[r1];
+  const bool none0 = rnone[r0] != 0, none1 = rnone[r1] != 0;
+  const int kw = warp * KW;               // the warp's keys in every tile
+
+  const long long kv_stride = static_cast<long long>(a.Hkv) * hd;
+  const __nv_bfloat16* kb = a.k + b * a.k_bstride + static_cast<size_t>(hk) * hd;
+  const __nv_bfloat16* vb = a.v + b * a.v_bstride + static_cast<size_t>(hk) * hd;
+  // the stream: the rank's K tiles (pass 1), its K tiles again (pass 2),
+  // then K and V of each tile in turn (pass 3); item i sits in stage
+  // i % NS, and i + NS loads once i is done
+  const int items = 4 * ntiles;
+  auto issue = [&](int i) {
+    if (i >= items) return;
+    const int j = i - 2 * ntiles;
+    const bool is_v = j >= 0 && (j & 1);
+    const int tile = j >= 0 ? j >> 1 : i < ntiles ? i : i - ntiles;
+    load_rows<LD>(ring + (i % NS) * STAGE, is_v ? vb : kb, kv_stride, (t0 + tile) * BK, A, hd,
+                  vec, tid);
+  };
+  // item i has landed, items [0, issued) having been issued
+  auto wait = [&](int i, int issued) {
+    const int pending = min(issued, items) - 1 - i;
+    if (pending >= 3)
+      tc::cp_async_wait<3>();
+    else if (pending == 2)
+      tc::cp_async_wait<2>();
+    else if (pending == 1)
+      tc::cp_async_wait<1>();
+    else
+      tc::cp_async_wait<0>();
+    __syncthreads();
+  };
+  // S of the warp's 16 keys of the K tile kt: s[j] holds keys kw + 8 j +
+  // 2 cq, +1 of rows r0 (s[j][0], s[j][1]) and r1 (s[j][2], s[j][3])
+  auto scores = [&](const __nv_bfloat16* kt, float (&s)[2][4]) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qf[4], bf[4];
+      ldsm_x4(qf, qs + (((lane >> 3) & 1) * 8 + (lane & 7)) * LD + kk * 16 + (lane >> 4) * 8);
+      ldsm_x4(bf, kt + (kw + (lane >> 4) * 8 + (lane & 7)) * LD + kk * 16 +
+                      ((lane >> 3) & 1) * 8);
+      mma_bf16(s[0], qf, bf[0], bf[1]);
+      mma_bf16(s[1], qf, bf[2], bf[3]);
+    }
+  };
+  if (ntiles > 0) {
+    // the block's queries (zeros past hd and past the call's rows) arrive
+    // with the first K tile
+    for (int e = tid; e < ROWS * (HDP / 8); e += NT) {
+      const int r = e / (HDP / 8), c = (e - r * (HDP / 8)) * 8;
+      const int f = rb * ROWS + r, s = f / G, g = f - s * G;
+      __nv_bfloat16* d = qs + r * LD + c;
+      const __nv_bfloat16* src =
+          a.q + ((static_cast<size_t>(b) * Sq + s) * a.Hq + hk * G + g) * hd + c;
+      if (s < Sq && vec && c + 8 <= hd) {
+        tc::cp_async16(d, src);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          d[i] = s < Sq && c + i < hd ? src[i] : __float2bfloat16(0.f);
+      }
+    }
+    for (int i = 0; i < NS; ++i) issue(i);
+  }
+
+  // ---- pass 1: row maxima of l = bf16(q.k) * scale over live keys
+  float m0 = -INFINITY, m1 = -INFINITY;
+  for (int i = 0; i < ntiles; ++i) {
+    wait(i, i + NS);
+    float s[2][4];
+    scores(ring + (i % NS) * STAGE, s);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int key = (t0 + i) * BK + kw + j * 8 + 2 * cq;
+      const float2 l0 = logits(s[j][0], s[j][1], none0, a.scale);
+      const float2 l1 = logits(s[j][2], s[j][3], none1, a.scale);
+      if (key < n0) m0 = fmaxf(m0, l0.x);
+      if (key + 1 < n0) m0 = fmaxf(m0, l0.y);
+      if (key < n1) m1 = fmaxf(m1, l1.x);
+      if (key + 1 < n1) m1 = fmaxf(m1, l1.y);
+    }
+    __syncthreads();                      // the stage is free to refill
+    issue(i + NS);
+  }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+  if (cq == 0) {
+    wred[warp * ROWS + r0] = m0;
+    wred[warp * ROWS + r1] = m1;
+  }
+  __syncthreads();
+  if (tid < ROWS) {
+    float m = wred[tid];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) m = fmaxf(m, wred[w * ROWS + tid]);
+    pmax[tid] = m;
+  }
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  if (C > 1) cluster.sync(); else __syncthreads();
+  if (tid < ROWS && ntiles > 0) {
+    float m = pmax[tid];
+    for (int r = 0; r < L; ++r)
+      if (r != rank) m = fmaxf(m, *cluster.map_shared_rank(pmax + tid, r));
+    gmax[tid] = m;
+  }
+  __syncthreads();
+
+  // ---- pass 2: row sums of e = exp(l - max), each thread's keys in key
+  // order (a row's tiles past its live keys add nothing), the quad, the
+  // warps in order, the ranks in order
+  const float M0 = gmax[r0], M1 = gmax[r1];
+  float s0 = 0.f, s1 = 0.f;
+  for (int i = 0; i < ntiles; ++i) {
+    const int it = ntiles + i;
+    wait(it, it + NS);
+    float s[2][4];
+    scores(ring + (it % NS) * STAGE, s);
+    const bool live0 = (t0 + i) * BK < n0, live1 = (t0 + i) * BK < n1;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int key = (t0 + i) * BK + kw + j * 8 + 2 * cq;
+      if (live0) {
+        const float2 l = logits(s[j][0], s[j][1], none0, a.scale);
+        const float ex = expf(__fsub_rn(l.x, M0)), ey = expf(__fsub_rn(l.y, M0));
+        if (key < n0) s0 += ex;
+        if (key + 1 < n0) s0 += ey;
+      }
+      if (live1) {
+        const float2 l = logits(s[j][2], s[j][3], none1, a.scale);
+        const float ex = expf(__fsub_rn(l.x, M1)), ey = expf(__fsub_rn(l.y, M1));
+        if (key < n1) s1 += ex;
+        if (key + 1 < n1) s1 += ey;
+      }
+    }
+    __syncthreads();                      // the stage is free to refill
+    issue(it + NS);
+  }
+  s0 = quad_sum(s0);
+  s1 = quad_sum(s1);
+  if (cq == 0) {
+    wred[warp * ROWS + r0] = s0;
+    wred[warp * ROWS + r1] = s1;
+  }
+  __syncthreads();
+  if (tid < ROWS) {
+    float s = wred[tid];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) s += wred[w * ROWS + tid];
+    psum[tid] = s;
+  }
+  if (C > 1) cluster.sync(); else __syncthreads();
+  if (tid < ROWS && ntiles > 0) {
+    float s = rank == 0 ? psum[tid] : *cluster.map_shared_rank(psum + tid, 0);
+    for (int r = 1; r < L; ++r)
+      s += r == rank ? psum[tid] : *cluster.map_shared_rank(psum + tid, r);
+    gsum[tid] = s;
+  }
+  __syncthreads();
+
+  // ---- pass 3: p = bf16(e / sum), 0 for a dead key; P V over the warp's
+  // keys of the rank's tiles in order
+  const float S0 = gsum[r0], S1 = gsum[r1];
+  const float R0 = __frcp_rn(S0), R1 = __frcp_rn(S1);
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int i = 0; i < ntiles; ++i) {
+    const int it = 2 * ntiles + 2 * i;    // K tile i, then V tile i
+    wait(it + 1, it + NS);
+    float s[2][4];
+    scores(ring + (it % NS) * STAGE, s);
+    const __nv_bfloat16* vt = ring + ((it + 1) % NS) * STAGE;
+    const int key = (t0 + i) * BK + kw + 2 * cq;
+    uint32_t pa[4];
+    pa[0] = probs_of(logits(s[0][0], s[0][1], none0, a.scale), key, n0, M0, S0, R0);
+    pa[1] = probs_of(logits(s[0][2], s[0][3], none1, a.scale), key, n1, M1, S1, R1);
+    pa[2] = probs_of(logits(s[1][0], s[1][1], none0, a.scale), key + 8, n0, M0, S0, R0);
+    pa[3] = probs_of(logits(s[1][2], s[1][3], none1, a.scale), key + 8, n1, M1, S1, R1);
+#pragma unroll
+    for (int np = 0; np < NO / 2; ++np) {
+      uint32_t bf[4];
+      tc::ldmatrix_x4_trans(bf, vt + (kw + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD + np * 16 +
+                                    (lane >> 4) * 8);
+      mma_bf16(o[2 * np], pa, bf[0], bf[1]);
+      mma_bf16(o[2 * np + 1], pa, bf[2], bf[3]);
+    }
+    __syncthreads();                      // the stages are free to refill
+    issue(it + NS);
+    issue(it + 1 + NS);
+  }
+
+  // ---- the rank's output, as the resident kernel's
+  if (ntiles > 0) {
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      ocomb[(warp * NO + j) * 32 + lane] = make_float4(o[j][0], o[j][1], o[j][2], o[j][3]);
+  }
+  __syncthreads();
+  auto store = [&](int f, const float4& t) {
+    const int j = f >> 5, l = f & 31, col = 8 * j + 2 * (l & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int ff = rb * ROWS + (l >> 2) + 8 * h, s = ff / G, g = ff - s * G;
+      if (s >= Sq) continue;
+      const float x = h ? t.z : t.x, y = h ? t.w : t.y;
+      __nv_bfloat16* dst = a.out + ((static_cast<size_t>(b) * Sq + s) * a.Hq + hk * G + g) * hd;
+      if (col + 1 < hd && (hd & 1) == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(x, y);
+      } else {
+        if (col < hd) dst[col] = __float2bfloat16_rn(x);
+        if (col + 1 < hd) dst[col + 1] = __float2bfloat16_rn(y);
+      }
+    }
+  };
+  auto warp_total = [&](int f) {
+    float4 t = ocomb[f];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) {
+      const float4 u = ocomb[w * NO * 32 + f];
+      t.x += u.x;
+      t.y += u.y;
+      t.z += u.z;
+      t.w += u.w;
+    }
+    return t;
+  };
+  if (C == 1) {
+    for (int f = tid; f < NO * 32; f += NT) store(f, warp_total(f));
+    return;
+  }
+  const int per = NO * 32 / C;
+  if (ntiles > 0)
+    for (int f = tid; f < NO * 32; f += NT) {
+      const int q = f / per;
+      *(cluster.map_shared_rank(park, q) + rank * per + (f - q * per)) = warp_total(f);
+    }
+  cluster.sync();                         // every partial has arrived
+  for (int e = tid; e < per; e += NT) {
+    float4 t = park[e];
+    for (int r = 1; r < L; ++r) {
+      const float4 u = park[r * per + e];
+      t.x += u.x;
+      t.y += u.y;
+      t.z += u.z;
+      t.w += u.w;
+    }
+    store(rank * per + e, t);
+  }
+}
+
+template <int HDP>
+int launch_stream(const Args& a, int B, const Plan& p, cudaStream_t stream) {
+  static bool opted[64] = {};             // per device: the shared-memory opt-in
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= 64 || !opted[dev]) {
+    e = cudaFuncSetAttribute(attention_stream_kernel<HDP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < 64) opted[dev] = true;
+  }
+  e = tc::launch_split(attention_stream_kernel<HDP>, dim3(a.row_blocks * a.Hkv, B), p.splits, NT,
+                       static_cast<int>(p.smem), stream, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---- f32: CUDA cores -------------------------------------------------------
 
 constexpr int F32_NT = 128;
@@ -685,6 +1059,128 @@ int launch_f32(const void* q, const void* k, const void* v, const void* qpos, vo
   return static_cast<int>(cudaGetLastError());
 }
 
+// The logit of one key row kr, as the resident f32 kernel computes it:
+// lane l's in-order partial dot over head dims l, l + 32, ..., then the
+// xor butterfly.
+template <int NDL>
+__device__ __forceinline__ float f32_logit(const float (&qv)[NDL], const float* kr, int lane,
+                                           int hd, bool none, float scale) {
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < NDL; ++i) {
+    const int d = lane + 32 * i;
+    if (d < hd) acc = fmaf(qv[i], kr[d], acc);
+  }
+  acc = warp_sum(acc);
+  return none ? -1e30f : acc * scale;
+}
+
+// The f32 kernel's streamed form, for caches whose A logits do not fit a
+// block's shared memory (past 57,852 keys at hd 64): one chunk of F32_NT
+// logits at a time, recomputed in passes 2 and 3, each sum taken by the
+// same thread, warp and lane in the same order as in the resident kernel.
+// The normalisation is the correctly rounded quotient from the sum's
+// reciprocal (quotient()), the resident kernel's IEEE division wherever the
+// quotient is a normal float.
+template <int NDL>
+__global__ void __launch_bounds__(F32_NT)
+attention_f32_stream_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const int32_t* __restrict__ qpos,
+                            float* __restrict__ out, int Sq, int Hq, int Hkv, int A, int hd,
+                            long long k_bstride, long long v_bstride, float scale) {
+  extern __shared__ float fsmem[];
+  __shared__ float red[F32_WARPS];
+  float* p = fsmem;                       // F32_NT: a chunk's logits, then probabilities
+  float* part = p + F32_NT;               // F32_WARPS * hd partial output sums
+
+  const int h = blockIdx.x % Hq, s = blockIdx.x / Hq, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int hk = h / (Hq / Hkv);
+  const int pos = qpos[b * Sq + s];
+  const bool none = pos < 0;
+  const int n = none ? A : min(pos, A - 1) + 1;
+
+  const float* qrow = q + ((static_cast<size_t>(b) * Sq + s) * Hq + h) * hd;
+  float qv[NDL];
+#pragma unroll
+  for (int i = 0; i < NDL; ++i) {
+    const int d = lane + 32 * i;
+    qv[i] = d < hd ? qrow[d] : 0.f;
+  }
+  const float* kb = k + b * k_bstride + static_cast<size_t>(hk) * hd;
+  const float* vb = v + b * v_bstride + static_cast<size_t>(hk) * hd;
+  const size_t krow = static_cast<size_t>(Hkv) * hd;
+
+  float m = -FLT_MAX;
+#pragma unroll 4
+  for (int j = warp; j < n; j += F32_WARPS)
+    m = fmaxf(m, f32_logit<NDL>(qv, kb + j * krow, lane, hd, none, scale));
+  m = block_reduce<true>(m, red);
+
+  float sum = 0.f;
+  for (int c0 = 0; c0 < n; c0 += F32_NT) {
+    for (int j = c0 + warp; j < min(n, c0 + F32_NT); j += F32_WARPS) {
+      const float l = f32_logit<NDL>(qv, kb + j * krow, lane, hd, none, scale);
+      if (lane == 0) p[j - c0] = l;
+    }
+    __syncthreads();
+    if (c0 + tid < n) sum += expf(p[tid] - m);
+    __syncthreads();
+  }
+  sum = block_reduce<false>(sum, red);
+  const float r = __frcp_rn(sum);
+
+  float acc[NDL];
+#pragma unroll
+  for (int i = 0; i < NDL; ++i) acc[i] = 0.f;
+  for (int c0 = 0; c0 < n; c0 += F32_NT) {
+    const int c1 = min(n, c0 + F32_NT);
+    for (int j = c0 + warp; j < c1; j += F32_WARPS) {
+      const float l = f32_logit<NDL>(qv, kb + j * krow, lane, hd, none, scale);
+      if (lane == 0) p[j - c0] = l;
+    }
+    __syncthreads();
+    if (c0 + tid < n) p[tid] = quotient(expf(p[tid] - m), sum, r);
+    __syncthreads();
+#pragma unroll 4
+    for (int j = c0 + warp; j < c1; j += F32_WARPS) {
+      const float pj = p[j - c0];
+      const float* vr = vb + j * krow;
+#pragma unroll
+      for (int i = 0; i < NDL; ++i) {
+        const int d = lane + 32 * i;
+        if (d < hd) acc[i] = fmaf(pj, vr[d], acc[i]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < NDL; ++i) {
+    const int d = lane + 32 * i;
+    if (d < hd) part[warp * hd + d] = acc[i];
+  }
+  __syncthreads();
+  float* orow = out + ((static_cast<size_t>(b) * Sq + s) * Hq + h) * hd;
+  for (int d = tid; d < hd; d += F32_NT) {
+    float o = part[d];
+#pragma unroll
+    for (int w = 1; w < F32_WARPS; ++w) o += part[w * hd + d];
+    orow[d] = o;
+  }
+}
+
+template <int NDL>
+int launch_f32_stream(const void* q, const void* k, const void* v, const void* qpos, void* out,
+                      int B, int Sq, int Hq, int Hkv, int A, int hd, long long k_bstride,
+                      long long v_bstride, float scale, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (F32_NT + static_cast<size_t>(F32_WARPS) * hd);
+  attention_f32_stream_kernel<NDL><<<dim3(Hq * Sq, B), F32_NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int32_t*>(qpos), static_cast<float*>(out), Sq, Hq, Hkv, A, hd,
+      k_bstride, v_bstride, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
@@ -692,9 +1188,8 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // C entry point, loaded with ctypes. q, k, v and out share `dtype`.
 // Launches on `stream` and returns a CUDA error code, 0 on success
 // (cudaErrorInvalidValue for shapes or dtypes the kernel does not take:
-// hd > 256, B > 65535, or a cache longer than a block's shared memory
-// holds: bf16 keeps 16 rows x A / splits fp32 logits beside its tiles, f32
-// A fp32 logits).
+// hd > 256, B > 65535, more blocks than a grid holds). A cache whose
+// logits do not fit a block's shared memory takes the streaming kernel.
 extern "C" int row_attention_launch(const void* q, const void* k, const void* v, const void* qpos,
                                     void* out, int B, int Sq, int Hq, int Hkv, int A, int hd,
                                     long long k_bstride, long long v_bstride, float scale,
@@ -704,9 +1199,21 @@ extern "C" int row_attention_launch(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == F32) {
-    if (f32_smem(A, hd) + sizeof(float) * F32_WARPS > SMEM_MAX ||
-        static_cast<long long>(Hq) * Sq > 0x7fffffffLL)
+    if (static_cast<long long>(Hq) * Sq > 0x7fffffffLL)
       return static_cast<int>(cudaErrorInvalidValue);
+    if (f32_smem(A, hd) + sizeof(float) * F32_WARPS > SMEM_MAX) {
+      if (hd <= 32)
+        return launch_f32_stream<1>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, k_bstride,
+                                    v_bstride, scale, s);
+      if (hd <= 64)
+        return launch_f32_stream<2>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, k_bstride,
+                                    v_bstride, scale, s);
+      if (hd <= 128)
+        return launch_f32_stream<4>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, k_bstride,
+                                    v_bstride, scale, s);
+      return launch_f32_stream<8>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, k_bstride,
+                                  v_bstride, scale, s);
+    }
     if (hd <= 32)
       return launch_f32<1>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, k_bstride, v_bstride,
                            scale, s);
@@ -747,10 +1254,10 @@ extern "C" int row_attention_launch(const void* q, const void* k, const void* v,
           v_bstride % 8 == 0;
   a.scale = scale;
   switch (p.hdp) {
-    case 16: return launch_tc<16>(a, B, p, s);
-    case 32: return launch_tc<32>(a, B, p, s);
-    case 64: return launch_tc<64>(a, B, p, s);
-    case 128: return launch_tc<128>(a, B, p, s);
-    default: return launch_tc<256>(a, B, p, s);
+    case 16: return p.stream ? launch_stream<16>(a, B, p, s) : launch_tc<16>(a, B, p, s);
+    case 32: return p.stream ? launch_stream<32>(a, B, p, s) : launch_tc<32>(a, B, p, s);
+    case 64: return p.stream ? launch_stream<64>(a, B, p, s) : launch_tc<64>(a, B, p, s);
+    case 128: return p.stream ? launch_stream<128>(a, B, p, s) : launch_tc<128>(a, B, p, s);
+    default: return p.stream ? launch_stream<256>(a, B, p, s) : launch_tc<256>(a, B, p, s);
   }
 }

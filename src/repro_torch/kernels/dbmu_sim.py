@@ -13,8 +13,11 @@ bit1 hi/lo, bits 2-3 block, bit4 valid). The result must equal the integer
 matmul ``x_int8 @ unpack_terms(packed)`` exactly: this is the
 hardware-equivalence oracle for the whole compression pipeline.
 
-x holds int8-range values, [-128, 127], in int32: the kernel stages x as
-int8.
+x is int32. The datapath reads 8 sign-magnitude planes, so x enters as
+x' = sign(x) * (|x| mod 256): every |x| <= 255 exactly, as in the
+reference. The kernel takes x' as one int8 operand where it lies in
+[-128, 127], and splits it as 4 h + l (two int8 operands) in the K tiles
+where it does not.
 
 What lives here:
 
@@ -27,12 +30,15 @@ What lives here:
     below 2^53, so each is exact.
   * ``term_table``, ``pair_table``, ``block_operands`` and
     ``dbmu_matmul_blocks`` — the kernel's exact evaluation in plain
-    PyTorch. The input planes fold back into x; the weight splits by DB
+    PyTorch. The input planes fold back into x'; the weight splits by DB
     block position b into int8 operands S_b in [-4, 4] (``pair_table``
     maps a pair of term bytes to its four S_b from two ``term_table``
-    words, as the kernel's decode does), and y = sum_b (x @ S_b) << 2b.
+    words, as the kernel's decode does), and y = sum_b (x' @ S_b) << 2b.
   * ``LAUNCHES`` — the number of kernel launches so far, raised by one at
-    each launch and nowhere else.
+    each launch and nowhere else. A launch recorded into a CUDA graph
+    runs at the graph's replays, which the host does not see: its capture
+    counts nothing, and the launches inside replays are read from the
+    device's own records (torch.profiler) by ``SYMBOLS``.
 """
 
 from __future__ import annotations
@@ -49,19 +55,24 @@ MAX_TERMS = 2
 #: DB block positions of an 8-digit CSD word
 NBLOCKS = 4
 #: the longest K the kernel takes: y of pack_terms' packs (|y| <= 128 *
-#: 192 * K) fits int32, and each block product (|x @ S_b| <= 512 * K)
-#: stays far inside it; longer sums would wrap
+#: 192 * K for int8-range x) fits int32, and each of the kernel's int32
+#: accumulators (at most 1272 * K) stays far inside it; longer sums would
+#: wrap
 MAX_K = 87000
 
 #: kernel launches so far in this process (the wrapper's CUDA branch only)
 LAUNCHES = 0
 
+#: the CUDA kernel symbols a launch runs, as the profiler names them
+SYMBOLS = ("dbmu_matmul_kernel",)
+
 _LIB = None
 
 
 def dbmu_matmul_plain(x_int8, packed):
-    """x (M, K) int8-range ints; packed (K, N, 2) uint8 -> (M, N) int32,
-    plane by plane and term by term as the TPU kernel sums them."""
+    """x (M, K) int32; packed (K, N, 2) uint8 -> (M, N) int32, plane by
+    plane and term by term as the TPU kernel sums them: the 8 magnitude
+    planes of x, so |x| <= 255 is exact."""
     x = x_int8.to(torch.int32)
     sign_x = torch.where(x < 0, -1, 1).to(torch.int32)
     mag = x.abs()
@@ -112,12 +123,21 @@ def block_operands(packed) -> torch.Tensor:
     return pair_table().to(packed.device)[idx].permute(2, 0, 1)
 
 
+def input_operand(x):
+    """x' = sign(x) * (|x| mod 256), the value the datapath's 8 magnitude
+    planes of x carry (int64)."""
+    x = x.to(torch.int32)
+    mag = x.abs() & 255                  # |INT_MIN| wraps to itself: 0
+    return torch.where(x < 0, -mag, mag).to(torch.int64)
+
+
 def dbmu_matmul_blocks(x_int8, packed):
-    """The kernel's arithmetic in plain PyTorch: y = sum_b (x @ S_b) << 2b,
-    each product in float64 (integers below 2^53, exact), the sum modulo
-    2^32 as int32 (the kernel's uint32 shift-add)."""
+    """The kernel's arithmetic in plain PyTorch: y = sum_b (x' @ S_b) << 2b
+    (``input_operand``; the kernel's split of x' = 4 h + l sums to the
+    same integers), each product in float64 (integers below 2^53, exact),
+    the sum modulo 2^32 as int32 (the kernel's uint32 shift-add)."""
     s = block_operands(packed).double()
-    x = x_int8.double()
+    x = input_operand(x_int8).double()
     acc = torch.zeros((x.shape[0], packed.shape[1]), dtype=torch.int64,
                       device=x.device)
     for b in range(NBLOCKS):
@@ -155,11 +175,11 @@ def _check(x, packed):
 
 
 def dbmu_matmul(x_int8, packed):
-    """x (M, K) int32 holding int8 values, [-128, 127]; packed (K, N, 2)
-    uint8 -> (M, N) int32. CPU tensors run the plain version; CUDA tensors
+    """x (M, K) int32; packed (K, N, 2) uint8 -> (M, N) int32, the integer
+    matmul of x' = sign(x) * (|x| mod 256) (x itself for |x| <= 255) with
+    the packed weights. CPU tensors run the plain version; CUDA tensors
     launch the kernel on the current stream (any M, K <= MAX_K, any N) or
-    raise. The kernel stages x as int8: a value outside [-128, 127] is cut
-    to its low byte there."""
+    raise. Both give the same integers for every x."""
     global LAUNCHES
     if x_int8.device.type == "cpu":
         return dbmu_matmul_plain(x_int8, packed)
@@ -182,5 +202,6 @@ def dbmu_matmul(x_int8, packed):
     if rc != 0:
         raise RuntimeError(f"dbmu_matmul launch failed: CUDA error {rc} "
                            f"(M={M}, K={K}, N={N})")
-    LAUNCHES += 1
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES += 1
     return y

@@ -20,7 +20,10 @@ Three things live here:
     is no fallback.
   * ``fta_int8_matmul_plain`` — the same function in plain PyTorch.
   * ``LAUNCHES`` — the number of kernel launches so far, raised by one at
-    each launch and nowhere else.
+    each launch and nowhere else. A launch recorded into a CUDA graph
+    runs at the graph's replays, which the host does not see: its capture
+    counts nothing, and the launches inside replays are read from the
+    device's own records (torch.profiler) by ``SYMBOLS``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,9 @@ BM, BK, BN = 128, 512, 128
 
 #: kernel launches so far in this process (the wrapper's CUDA branch only)
 LAUNCHES = 0
+
+#: the CUDA kernel symbols a launch runs, as the profiler names them
+SYMBOLS = ("fta_int8_matmul_kernel",)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
@@ -109,5 +115,6 @@ def fta_int8_matmul(x, w_q, scales, out_dtype=torch.bfloat16):
     if rc != 0:
         raise RuntimeError(f"fta_int8_matmul launch failed: CUDA error {rc} "
                            f"(M={M}, K={K}, N={N})")
-    LAUNCHES += 1
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES += 1
     return y

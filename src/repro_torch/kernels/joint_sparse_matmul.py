@@ -22,7 +22,10 @@ Three things live here:
   * ``joint_sparse_matmul_plain`` — the same function in plain PyTorch:
     gather, dequantize to the activation dtype, fp32 matmul, scale, cast.
   * ``LAUNCHES`` — the number of kernel launches so far, raised by one at
-    each launch and nowhere else.
+    each launch and nowhere else. A launch recorded into a CUDA graph
+    runs at the graph's replays, which the host does not see: its capture
+    counts nothing, and the launches inside replays are read from the
+    device's own records (torch.profiler) by ``SYMBOLS``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,10 @@ from . import build
 
 #: kernel launches so far in this process (the wrapper's CUDA branch only)
 LAUNCHES = 0
+
+#: the CUDA kernel symbols a launch runs, as the profiler names them
+#: (csrc/gather_matmul.cuh, shared with block_sparse_matmul)
+SYMBOLS = ("gathered_tc_kernel", "gathered_fp32_kernel")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _LIB = None
@@ -130,5 +137,6 @@ def joint_sparse_matmul(x, w_blocks, idx, scales, out_dtype=None):
         raise RuntimeError(f"joint_sparse_matmul launch failed: CUDA error "
                            f"{rc} (M={M}, K={K}, NT={NT}, MAXB={MAXB}, "
                            f"bk={bk}, bn={bn})")
-    LAUNCHES += 1
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES += 1
     return y

@@ -23,13 +23,18 @@ Three things live here:
     every head of the group; its four warps split each 64-key tile, and
     long caches split their keys over a thread-block cluster whose size
     comes from the cache length alone. f32 runs exact fp32 on the CUDA
-    cores. Every launch-shape choice depends on (A, hd, Hq / Hkv, dtype)
-    only, never on Sq, B or the positions.
+    cores. A cache whose logits do not fit a block's shared memory takes a
+    streaming path that recomputes them in each pass, with the same sums
+    in the same orders. Every launch-shape choice depends on (A, hd,
+    Hq / Hkv, dtype) only, never on Sq, B or the positions.
   * ``row_attention_plain`` — the reference's math in plain PyTorch: KV
     heads repeated, einsum logits in the activations' dtype, -1e30 mask,
     fp32 softmax cast back, einsum with v.
   * ``LAUNCHES`` — the number of kernel launches so far, raised by one at
-    each launch and nowhere else.
+    each launch and nowhere else. A launch recorded into a CUDA graph
+    runs at the graph's replays, which the host does not see: its capture
+    counts nothing, and the launches inside replays are read from the
+    device's own records (torch.profiler) by ``SYMBOLS``.
 """
 
 from __future__ import annotations
@@ -42,6 +47,10 @@ from . import build
 
 #: kernel launches so far in this process (the wrapper's CUDA branch only)
 LAUNCHES = 0
+
+#: the CUDA kernel symbols a launch runs, as the profiler names them
+SYMBOLS = ("attention_tc_kernel", "attention_stream_kernel",
+           "attention_f32_kernel", "attention_f32_stream_kernel")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
@@ -88,23 +97,38 @@ def _cache_view(t):
 _SMEM_MAX = 232448
 
 
-def smem_bytes(A: int, hd: int, dtype) -> int:
-    """Shared memory one block of the kernel needs for a cache of A rows
-    and head dim hd (``plan`` and ``f32_smem`` in ``csrc/row_attention.cu``):
-    bf16 keeps 16 rows of fp32 logits over its cluster rank's keys beside
-    its Q (or split-combine park) and two K/V stages, f32 A fp32 logits."""
+def _plan_bytes(A: int, hd: int, dtype, stream: bool) -> int:
     if dtype == torch.float32:
-        return 4 * (A + 4 * hd) + 16
+        return 4 * ((128 if stream else A) + 4 * hd) + 16
     hdp = next(p for p in (16, 32, 64, 128, 256) if hd <= p)
     tiles = -(-A // 64)
     splits = 1                          # at least 8 key tiles per rank
     while 2 * splits <= 8 and 16 * splits <= tiles:
         splits *= 2
     per_rank = -(-tiles // splits) * 64
-    front = max(16 * (hdp + 8) * 2, 16 * hdp * 4 if splits > 1 else 0)
-    body = max(2 * 64 * (hdp + 8) * 2 + 16 * (per_rank + 8) * 4,
-               4 * 16 * hdp * 4)
-    return front + body + 10 * 16 * 4
+    q, park = 16 * (hdp + 8) * 2, 16 * hdp * 4 if splits > 1 else 0
+    outs = 4 * 16 * hdp * 4
+    if stream:
+        return q + park + max(4 * 64 * (hdp + 8) * 2, outs) + 10 * 16 * 4
+    return (max(q, park) + max(2 * 64 * (hdp + 8) * 2 + 16 * (per_rank + 8) * 4,
+                               outs) + 10 * 16 * 4)
+
+
+def streams(A: int, hd: int, dtype) -> bool:
+    """Whether a cache of A rows at head dim hd takes the kernel's
+    streaming path: its logits (bf16: 16 rows over a cluster rank's keys;
+    f32: all A) do not fit a block's shared memory, so each pass recomputes
+    them (``plan`` and ``f32_streams`` in ``csrc/row_attention.cu``)."""
+    return _plan_bytes(A, hd, dtype, False) > _SMEM_MAX
+
+
+def smem_bytes(A: int, hd: int, dtype) -> int:
+    """Shared memory one block of the kernel takes for a cache of A rows
+    and head dim hd: resident, bf16 keeps 16 rows of fp32 logits over its
+    cluster rank's keys beside its Q (or split-combine park) and two K/V
+    stages, f32 A fp32 logits; streaming, bf16 keeps Q, the park and four
+    K/V stages, f32 one chunk of 128 logits."""
+    return _plan_bytes(A, hd, dtype, streams(A, hd, dtype))
 
 
 def _check(q, k, v, qpos):
@@ -120,6 +144,12 @@ def _check(q, k, v, qpos):
         raise ValueError(f"head dim {hd} > 256: the kernel's widest tile")
     if B > 65535:
         raise ValueError(f"batch {B} > 65535: one grid row per batch row")
+    G = Hq // k.shape[2]
+    blocks = (-(-Sq * G // 16) * k.shape[2] if q.dtype == torch.bfloat16
+              else Sq * Hq)
+    if blocks > 2 ** 31 - 1:
+        raise ValueError(f"{blocks} row blocks > 2^31 - 1: one grid column "
+                         f"per block")
     if tuple(qpos.shape) != (B, Sq):
         raise ValueError(f"qpos must be {(B, Sq)}, got {tuple(qpos.shape)}")
     for name, t in (("k", k), ("v", v), ("qpos", qpos)):
@@ -130,11 +160,6 @@ def _check(q, k, v, qpos):
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"cache dtypes {k.dtype}, {v.dtype} != q dtype "
                         f"{q.dtype}")
-    need = smem_bytes(k.shape[1], hd, q.dtype)
-    if need > _SMEM_MAX:
-        raise ValueError(f"a cache of {k.shape[1]} rows at head dim {hd} "
-                         f"needs {need} bytes of shared memory per block, "
-                         f"over the card's {_SMEM_MAX}")
 
 
 def row_attention(q, k, v, qpos):
@@ -166,5 +191,6 @@ def row_attention(q, k, v, qpos):
         raise RuntimeError(f"row_attention launch failed: CUDA error {rc} "
                            f"(B={B}, Sq={Sq}, Hq={Hq}, Hkv={Hkv}, A={A}, "
                            f"hd={hd})")
-    LAUNCHES += 1
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES += 1
     return out

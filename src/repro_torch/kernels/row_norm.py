@@ -17,7 +17,10 @@ Three things live here:
     order is fixed over element indices by D alone.
   * ``row_norm_plain`` — the reference's math in plain PyTorch.
   * ``LAUNCHES`` — the number of kernel launches so far, raised by one at
-    each launch and nowhere else.
+    each launch and nowhere else. A launch recorded into a CUDA graph
+    runs at the graph's replays, which the host does not see: its capture
+    counts nothing, and the launches inside replays are read from the
+    device's own records (torch.profiler) by ``SYMBOLS``.
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ from . import build
 
 #: kernel launches so far in this process (the wrapper's CUDA branch only)
 LAUNCHES = 0
+
+#: the CUDA kernel symbols a launch runs, as the profiler names them
+SYMBOLS = ("row_norm_kernel",)
 
 #: the longest row the kernel takes (``row_norm.cu``: 256 threads x 128)
 MAX_D = 32768
@@ -111,5 +117,6 @@ def row_norm(x, scale, bias=None, eps: float = 1e-6, plus_one: bool = False):
     if rc != 0:
         raise RuntimeError(f"row_norm launch failed: CUDA error {rc} (R={R}, "
                            f"D={D})")
-    LAUNCHES += 1
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES += 1
     return out

@@ -11,6 +11,10 @@ through the ``joint_sparse_matmul`` kernel ((1 - value_sparsity) * 0.5 of
 dense bf16 weight bytes). ``--dbpim-mode value`` serves the bf16-payload
 variant of the same layout. Params are random, from ``--seed``.
 
+The engine's decode, prefill-chunk and reset steps are compiled once
+each (one CUDA graph per step on the card); the recompile sentinel's
+count per step is printed with the latencies.
+
 Load is a deterministic trace (serving.workload): Poisson arrivals at
 ``--arrival-rate`` requests/tick, prompt lengths from ``--prompt-len LO
 HI`` under ``--dist``, fixed ``--seed``.
@@ -112,6 +116,9 @@ def main(argv=None):
         print(f"[serve] latency {kind}: p50={h['p50_ms']:.2f} "
               f"p95={h['p95_ms']:.2f} p99={h['p99_ms']:.2f} ms "
               f"({h['count']} calls)")
+    if engine.sentinel is not None:
+        print("[serve] recompile sentinel: compiled signatures " + ", ".join(
+            f"{k}={n}" for k, n in engine.sentinel.counts().items()))
     if engine.device.type == "cuda":
         print(f"[serve] peak device memory "
               f"{torch.cuda.max_memory_allocated(engine.device) / 2**30:.2f}"

@@ -9,6 +9,11 @@ however many share a call: chunked prefill reproduces stepwise decode.
 
 Shapes: x (B, S, D); q (B, S, Hq, hd); k/v (B, S, Hkv, hd). Cache:
 {"k", "v"} (B, A, Hkv, hd) per layer, A = allocated length.
+
+Each attention takes the cache functionally (new k/v come back, as in
+JAX) or, for the serving engine's compiled steps, writes its rows into the
+given cache slices in place (``active`` for decode, ``inplace`` for a
+chunk): the counterpart of the reference's donated cache.
 """
 
 from __future__ import annotations
@@ -67,6 +72,14 @@ def _per_slot_pos(pos, B: int, device=None):
     return torch.atleast_1d(pos).expand(B)
 
 
+def _put_rows_(cache, b_idx, rows, new, live):
+    """cache[b_idx, rows] = new where ``live``, in place. A write that is
+    not live puts back the row's own contents, so its row must be one no
+    live write of the call targets: the row then keeps its bits."""
+    old = cache[b_idx, rows]
+    cache[b_idx, rows] = torch.where(live[..., None, None], new, old)
+
+
 def _project_qkv(p, x, positions, cfg: ModelConfig, mm):
     q = _split_heads(mm(p["wq"], x, "wq"), cfg.n_heads, cfg.hd)
     k = _split_heads(mm(p["wk"], x, "wk"), cfg.n_kv_heads, cfg.hd)
@@ -82,10 +95,15 @@ def _project_qkv(p, x, positions, cfg: ModelConfig, mm):
 
 
 def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
-                     dense_fn=None):
+                     dense_fn=None, active=None):
     """Single-token decode against one layer's cache slice. x (B, 1, D);
     cache_k/v (B, A, Hkv, hd); pos = tokens already in the cache, scalar
-    or (B,). Returns (out, new_k, new_v)."""
+    or (B,). Returns (out, new_k, new_v).
+
+    active (B,) bool writes the new rows into cache_k/v in place, for the
+    active slots only (inactive slots' slices keep their bits; their
+    outputs then attend to their old row and are not meant to be read),
+    and returns them as new_k/v; None leaves cache_k/v as they are."""
     mm = dense_fn or (lambda w, v, name: v @ w)
     B = x.shape[0]
     posv = _per_slot_pos(pos, B, x.device)                         # (B,)
@@ -93,23 +111,30 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
     A = cache_k.shape[1]
     slot = torch.clamp(posv, max=A - 1).long()
     rows = torch.arange(B, device=x.device)
-    new_k = cache_k.clone()
-    new_v = cache_v.clone()
-    new_k[rows, slot] = k[:, 0]
-    new_v[rows, slot] = v[:, 0]
+    if active is None:
+        new_k = cache_k.clone()
+        new_v = cache_v.clone()
+        new_k[rows, slot] = k[:, 0]
+        new_v[rows, slot] = v[:, 0]
+    else:
+        new_k, new_v = cache_k, cache_v
+        _put_rows_(new_k, rows, slot, k[:, 0], active)
+        _put_rows_(new_v, rows, slot, v[:, 0], active)
     out = _sdpa(q, new_k, new_v, posv[:, None])
     return mm(p["wo"], out.reshape(B, 1, cfg.q_dim), "wo"), new_k, new_v
 
 
 def prefill_attention(p, x, cache_k, cache_v, pos, n_valid,
-                      cfg: ModelConfig, dense_fn=None):
+                      cfg: ModelConfig, dense_fn=None, inplace=False):
     """Chunked cache-filling attention: C prompt tokens in one step.
 
     x (B, C, D); pos (B,) tokens already cached per slot; n_valid (B,) in
     [0, C] real tokens in this chunk. Writes the valid tokens' k/v at
     pos..pos+n_valid-1 and leaves every other cache row untouched (slots
     with n_valid = 0 keep their slice as it was), then attends each query
-    to every cached position <= its own. Returns (out, new_k, new_v)."""
+    to every cached position <= its own. Returns (out, new_k, new_v);
+    ``inplace`` writes the valid rows into cache_k/v themselves (every
+    other row keeps its bits) and returns them."""
     mm = dense_fn or (lambda w, v, name: v @ w)
     B, C, _ = x.shape
     A = cache_k.shape[1]
@@ -117,17 +142,31 @@ def prefill_attention(p, x, cache_k, cache_v, pos, n_valid,
     qpos = posv[:, None] + torch.arange(C, dtype=torch.int32,
                                         device=x.device)[None, :]    # (B,C)
     q, k, v = _project_qkv(p, x, qpos, cfg, mm)
-    # masked write: valid chunk tokens land on their rows, invalid ones on
-    # a scratch row A that is dropped (the reference's mode="drop" scatter)
     tok_valid = torch.arange(C, device=x.device)[None, :] < n_valid[:, None]
-    write_rows = torch.where(tok_valid, torch.clamp(qpos, max=A - 1),
-                             A).long()
     b_idx = torch.arange(B, device=x.device)[:, None].expand(B, C)
-    pad = cache_k.new_zeros((B, 1) + cache_k.shape[2:])
-    new_k = torch.cat([cache_k, pad], dim=1)
-    new_v = torch.cat([cache_v, pad], dim=1)
-    new_k[b_idx, write_rows] = k
-    new_v[b_idx, write_rows] = v
-    new_k, new_v = new_k[:, :A], new_v[:, :A]
+    if inplace:
+        # an invalid token writes its row back onto itself at qpos mod A:
+        # the C positions of a slot's chunk are C distinct rows mod A, and
+        # its valid ones (pos + n_valid <= A) are their own rows
+        if C > A:
+            raise ValueError(f"a chunk of {C} tokens is longer than the "
+                             f"cache ({A} rows)")
+        rows = torch.where(tok_valid, torch.clamp(qpos, max=A - 1),
+                           torch.remainder(qpos, A)).long()
+        new_k, new_v = cache_k, cache_v
+        _put_rows_(new_k, b_idx, rows, k, tok_valid)
+        _put_rows_(new_v, b_idx, rows, v, tok_valid)
+    else:
+        # masked write: valid chunk tokens land on their rows, invalid ones
+        # on a scratch row A that is dropped (the reference's mode="drop"
+        # scatter)
+        write_rows = torch.where(tok_valid, torch.clamp(qpos, max=A - 1),
+                                 A).long()
+        pad = cache_k.new_zeros((B, 1) + cache_k.shape[2:])
+        new_k = torch.cat([cache_k, pad], dim=1)
+        new_v = torch.cat([cache_v, pad], dim=1)
+        new_k[b_idx, write_rows] = k
+        new_v[b_idx, write_rows] = v
+        new_k, new_v = new_k[:, :A], new_v[:, :A]
     out = _sdpa(q, new_k, new_v, qpos)
     return mm(p["wo"], out.reshape(B, C, cfg.q_dim), "wo"), new_k, new_v

@@ -7,6 +7,14 @@ slices and table slices, the port walks the layers in a Python loop and
 slices layer ``l`` of each. Caches keep the JAX layout: attention segments
 hold stacked (L_seg, B, A, Hkv, hd) k/v, and "pos" is a scalar or a (B,)
 vector of per-slot depths. Functions return new caches, as in JAX.
+
+The serving engine's compiled steps use the in-place forms
+(``decode_step_``, ``decode_chunk_``, ``reset_slots_``): the same code,
+with each layer's k/v rows written into the cache where it lies and the
+positions advanced in place, the counterpart of the reference's donated
+cache. For the same inputs they leave the cache bitwise as the functional
+step leaves it (``decode_step`` + ``merge_slots``, ``decode_chunk``,
+``reset_slots``) and give the same logits for every slot that computed.
 """
 
 from __future__ import annotations
@@ -37,10 +45,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
-def _run_segments(params, cache, x, cfg, tables, layer_fn, new_pos):
+def _run_segments(params, cache, x, cfg, tables, layer_fn, new_pos,
+                  inplace=False):
     """Walk every segment's layers: ``layer_fn(seg, p, h, ck, cv, mm)``
     returns (h, ck, cv) for one layer. Returns (h, new cache) with every
-    position advanced to ``new_pos``."""
+    position advanced to ``new_pos``; ``inplace`` (layer_fn wrote its rows
+    into the cache slices it was given) advances the positions of
+    ``cache`` itself and returns it."""
     segs = _check_supported(cfg)
     seg_tables = segment_tables(tables, segs, cfg)
     new_cache = dict(cache)
@@ -55,11 +66,34 @@ def _run_segments(params, cache, x, cfg, tables, layer_fn, new_pos):
             x, ck, cv = layer_fn(seg, p, x, c["k"][l], c["v"][l], mm)
             ks.append(ck)
             vs.append(cv)
+        if inplace:
+            continue
         new_cache[seg.cache] = {"k": torch.stack(ks), "v": torch.stack(vs)}
         if "pos" in c:
             new_cache[seg.cache]["pos"] = new_pos
+    if inplace:
+        for pos in _positions(cache):
+            pos.copy_(new_pos)
+        return x, cache
     new_cache["pos"] = new_pos
     return x, new_cache
+
+
+def _positions(cache):
+    """Every "pos" leaf of a cache tree."""
+    for key, val in cache.items():
+        if isinstance(val, dict):
+            yield from _positions(val)
+        elif key == "pos":
+            yield val
+
+
+def _check_inplace(cache, B: int):
+    """The in-place steps keep per-slot (B,) positions where they lie."""
+    for pos in _positions(cache):
+        if tuple(pos.shape) != (B,):
+            raise ValueError(f"in-place steps need per-slot positions of "
+                             f"shape ({B},), got {tuple(pos.shape)}")
 
 
 def decode_step(params, cache, token, cfg: ModelConfig, tables=None):
@@ -68,17 +102,38 @@ def decode_step(params, cache, token, cfg: ModelConfig, tables=None):
     ``tables`` (sparsity.sparse_linear.SegmentedKernelTables) routes every
     projection of every layer through the joint kernel; None keeps plain
     matmuls."""
+    return _decode(params, cache, token, cfg, tables, None)
+
+
+def decode_step_(params, cache, token, active, cfg: ModelConfig,
+                 tables=None):
+    """``decode_step`` followed by ``merge_slots(new, cache, active)``, in
+    place: the active slots' k/v rows are written into ``cache`` and their
+    positions advanced; inactive slots keep their slices and positions.
+    Returns (logits (B, 1, V), cache). The active slots' logits and the
+    whole cache equal the functional pair's bitwise; inactive slots' logits
+    differ (their attention reads their old row) and are not meant to be
+    read. Positions must be (B,) vectors."""
+    _check_inplace(cache, token.shape[0])
+    return _decode(params, cache, token, cfg, tables, active)
+
+
+def _decode(params, cache, token, cfg, tables, active):
     pos = cache["pos"]
     x = embed_tokens(params["embed"], token, cfg)
 
     def layer(seg, p, h, ck, cv, mm):
         hn = apply_norm(p["norm1"], h, cfg)
         y, ck, cv = attn_mod.decode_attention(p["attn"], hn, ck, cv, pos,
-                                              cfg, dense_fn=mm)
+                                              cfg, dense_fn=mm, active=active)
         return _block_tail(seg, p, h + y, cfg, mm), ck, cv
 
+    if active is None:
+        new_pos = pos + 1
+    else:
+        new_pos = torch.where(active, pos + 1, pos)
     x, new_cache = _run_segments(params, cache, x, cfg, tables, layer,
-                                 pos + 1)
+                                 new_pos, inplace=active is not None)
     x = apply_norm(params["final_norm"], x, cfg)
     return logits_from_hidden(params["embed"], x, cfg), new_cache
 
@@ -92,6 +147,20 @@ def decode_chunk(params, cache, tokens, n_valid, cfg: ModelConfig,
     left untouched). Returns (logits (B, 1, V) of each slot's last valid
     token, cache advanced by n_valid per slot). Per token, the math is
     that of running decode_step n_valid times."""
+    return _chunk(params, cache, tokens, n_valid, cfg, tables, False)
+
+
+def decode_chunk_(params, cache, tokens, n_valid, cfg: ModelConfig,
+                  tables=None):
+    """``decode_chunk`` in place: the valid tokens' k/v rows are written
+    into ``cache`` and its positions advanced by n_valid; rows n_valid
+    excludes are not written. Returns (logits (B, 1, V), cache), bitwise
+    the functional step's. Positions must be (B,) vectors."""
+    _check_inplace(cache, tokens.shape[0])
+    return _chunk(params, cache, tokens, n_valid, cfg, tables, True)
+
+
+def _chunk(params, cache, tokens, n_valid, cfg, tables, inplace):
     B, C = tokens.shape
     pos = attn_mod._per_slot_pos(cache["pos"], B, tokens.device)
     n_valid = torch.as_tensor(n_valid, dtype=torch.int32,
@@ -101,11 +170,12 @@ def decode_chunk(params, cache, tokens, n_valid, cfg: ModelConfig,
     def layer(seg, p, h, ck, cv, mm):
         hn = apply_norm(p["norm1"], h, cfg)
         y, ck, cv = attn_mod.prefill_attention(p["attn"], hn, ck, cv, pos,
-                                               n_valid, cfg, dense_fn=mm)
+                                               n_valid, cfg, dense_fn=mm,
+                                               inplace=inplace)
         return _block_tail(seg, p, h + y, cfg, mm), ck, cv
 
     x, new_cache = _run_segments(params, cache, x, cfg, tables, layer,
-                                 pos + n_valid)
+                                 pos + n_valid, inplace=inplace)
     x = apply_norm(params["final_norm"], x, cfg)
     last = torch.clamp(n_valid - 1, 0, C - 1).long()
     x_last = x[torch.arange(B, device=x.device), last][:, None]   # (B, 1, D)
@@ -146,3 +216,25 @@ def reset_slots(cache, slot_mask, cfg: ModelConfig):
             return {k: zeros(v) for k, v in tree.items()}
         return torch.zeros_like(tree)
     return merge_slots(cache, zeros(cache), ~slot_mask, cfg)
+
+
+def reset_slots_(cache, slot_mask, cfg: ModelConfig):
+    """``reset_slots`` in place: the masked slots' k/v slices and
+    positions are zeroed where they lie. Returns ``cache``, bitwise the
+    functional result. Positions must be (B,) vectors."""
+    B = slot_mask.shape[0]
+    _check_inplace(cache, B)
+
+    def visit(key, tree):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                visit(k, v)
+        elif key == "pos":
+            tree.masked_fill_(slot_mask, 0)
+        else:
+            shape = [1] * tree.ndim
+            shape[1] = B
+            tree.masked_fill_(slot_mask.reshape(shape), 0)
+
+    visit(None, cache)
+    return cache

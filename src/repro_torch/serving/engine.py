@@ -10,11 +10,18 @@ cache slots; each request moves through
 with all scheduling on the host and all math in two fixed-shape steps
 (``launch.steps.build_step``) plus the slot reset:
 
-  * decode step   (B, 1) tokens + (B,) active mask (inactive slots' cache
-    writes are discarded by models.decode.merge_slots);
-  * prefill chunk (B, C) tokens + (B,) n_valid (models.decode_chunk);
+  * decode step   (B, 1) tokens + (B,) active mask (only active slots
+    write the cache: models.decode.decode_step_);
+  * prefill chunk (B, C) tokens + (B,) n_valid (models.decode_chunk_);
   * slot reset    zeroes a freed slot's cache slice and position before
-    admission (models.decode.reset_slots).
+    admission (models.decode.reset_slots_).
+
+Each step is compiled once (``launch.steps.compile_step``, the
+reference's ``jax.jit`` with the cache donated): on the card one CUDA
+graph per step kind, captured at its first call and replayed after, with
+the cache updated in place; on the CPU the same in-place steps run
+eagerly. The recompile sentinel (``obs.sentinel``) holds each step to one
+compiled signature and is checked at the end of every tick.
 
 One engine TICK = admit -> (prefill chunk, if any slot is prefilling) ->
 (decode step, if any slot is decoding): prefilling a new request never
@@ -25,7 +32,9 @@ constructor refuses them.
 
 The host-side argmax of every call's logits synchronises the device each
 tick, as the reference's ``np.asarray`` does; per-call latencies are
-measured through that copy, so they include the device time.
+measured through that copy, so they include the device time. A compiled
+step's logits are valid until its next call: the engine copies them to
+the host before that.
 """
 
 from __future__ import annotations
@@ -40,8 +49,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import build_step
-from repro_torch.models import init_cache, reset_slots
+from repro_torch.launch.steps import build_step, compile_step
+from repro_torch.models import init_cache
+from repro_torch.obs.sentinel import RecompileSentinel
 from repro_torch.serving.metrics import MetricsRecorder
 from repro_torch.serving.prefill import assemble_chunk
 from repro_torch.serving.workload import Request
@@ -88,7 +98,8 @@ class ServeEngine:
                  device="cuda", paged: bool = False, fault_plan=None,
                  journal=None, snapshot_dir: Optional[str] = None,
                  tracer=None, deadline_slack: Optional[float] = None,
-                 queue_cap: Optional[int] = None):
+                 queue_cap: Optional[int] = None,
+                 recompile_sentinel: bool = True, cuda_graphs: bool = True):
         unported = {"paged": paged, "fault_plan": fault_plan,
                     "journal": journal, "snapshot_dir": snapshot_dir,
                     "tracer": tracer, "deadline_slack": deadline_slack,
@@ -115,11 +126,26 @@ class ServeEngine:
             cache["attn"]["pos"] = torch.zeros((n_slots,), dtype=torch.int32,
                                                device=self.device)
         self.cache = cache
-        self._decode = build_step(cfg, "decode",
-                                  stacked_tables=stacked_tables)
-        self._prefill = build_step(cfg, "prefill_chunk",
-                                   stacked_tables=stacked_tables)
+        # the three steps, compiled once each with the params and the cache
+        # held where they lie (cuda_graphs=False runs them eagerly on the
+        # card too, counting signatures all the same)
+        def compiled(kind, buffers):
+            return compile_step(build_step(cfg, kind,
+                                           stacked_tables=stacked_tables),
+                                buffer_argnums=buffers, graphs=cuda_graphs)
+        self._decode = compiled("decode", (0, 1))
+        self._prefill = compiled("prefill_chunk", (0, 1))
+        self._reset = compiled("reset", (0,))
         self.prefill_kind = self._prefill.call_kind
+
+        # the fixed-shape no-recompile contract, enforced: each compiled
+        # step gets ONE signature; check() runs every tick (obs.sentinel)
+        self.sentinel = None
+        if recompile_sentinel:
+            self.sentinel = RecompileSentinel()
+            for step in (self._decode, self._prefill, self._reset):
+                self.sentinel.register(
+                    RecompileSentinel.key(step.call_kind, cfg.name), step)
 
         self.queue: deque = deque()
         self.slots = [_Slot() for _ in range(n_slots)]
@@ -189,6 +215,8 @@ class ServeEngine:
             n_decoding=sum(s.state is SlotState.DECODING for s in self.slots),
             device_calls=calls)
         self.tick_count += 1
+        if self.sentinel is not None:
+            self.sentinel.check()
 
     # -------------------------------------------------------------- phases
 
@@ -218,7 +246,7 @@ class ServeEngine:
             self.slot_log.append(iv)
             self._open_interval[s] = iv
         if mask.any():
-            self.cache = reset_slots(self.cache, self._tensor(mask), self.cfg)
+            self.cache = self._reset(self.cache, self._tensor(mask))
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)

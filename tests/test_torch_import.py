@@ -36,7 +36,8 @@ SLICE_MODULES = {
     "repro_torch.kernels.block_sparse_matmul",
     "repro_torch.kernels.dbmu_sim", "repro_torch.kernels.fta_int8_matmul",
     "repro_torch.kernels.row_attention", "repro_torch.kernels.row_norm",
-    "repro_torch.quickstart"}
+    "repro_torch.quickstart", "repro_torch.obs.sentinel",
+    "repro_torch.obs.launches", "repro_torch.launch.steps"}
 
 
 def test_port_and_chip_smoke_import_no_jax():

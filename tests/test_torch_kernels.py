@@ -330,6 +330,38 @@ def test_dbmu_blocks_exact_on_random_bytes(seed):
     assert torch.equal(got.to(torch.int64), x.to(torch.int64) @ w)
 
 
+def _wide_x(rng, M, K, extremes=(200, -200, 255, -255)):
+    """x (M, K) int32 over [-255, 255], every value of ``extremes`` in row
+    0 and in the last column, and a few values past 255 (300, -1000,
+    2^31 - 1, -2^31) that the datapath cuts to their low magnitude byte."""
+    x = torch.from_numpy(rng.integers(-255, 256, (M, K), dtype=np.int32))
+    for i, e in enumerate(extremes):
+        x[0, i % K] = e
+        x[i % M, -1] = e
+    if M * K >= 8:
+        x.view(-1)[-4:] = torch.tensor([300, -1000, 2 ** 31 - 1, -2 ** 31],
+                                       dtype=torch.int32)
+    return x
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_dbmu_blocks_exact_for_x_past_int8(seed):
+    """x at +-200 and +-255 and past 255: the kernel's arithmetic (the block
+    evaluation of x' = sign(x) * (|x| mod 256)) equals the plain datapath,
+    and x' @ W equals the integer matmul for every |x| <= 255."""
+    rng = np.random.default_rng(300 + seed)
+    M, K, N = (int(v) for v in rng.integers(2, 130, 3))
+    packed = torch.from_numpy(rng.integers(0, 256, (K, N, 2), dtype=np.uint8))
+    x = _wide_x(rng, M, K)
+    got = dbmu_sim.dbmu_matmul_blocks(x, packed)
+    assert torch.equal(got, dbmu_sim.dbmu_matmul_plain(x, packed))
+    w = dyadic.unpack_terms(packed).to(torch.int64)
+    xs = x.to(torch.int64)
+    small = xs.abs().le(255).all(dim=1)
+    assert torch.equal(got[small].to(torch.int64) % 2 ** 32,
+                       (xs[small] @ w) % 2 ** 32)
+
+
 # -------------------------------------------------------- on the card ------
 
 @pytest.mark.parametrize("M", [4, 37, 256])
@@ -418,6 +450,29 @@ def test_dbmu_kernel_ragged_any_bytes_on_card(cuda, M, K, N):
     torch.cuda.synchronize()
     assert torch.equal(got, dbmu_sim.dbmu_matmul_plain(x, packed))
     assert torch.equal(got, dbmu_sim.dbmu_matmul_blocks(x, packed))
+
+
+@pytest.mark.parametrize("M,K,N", [(4, 2048, 256), (37, 300, 129),
+                                   (256, 512, 384), (65, 127, 63)])
+def test_dbmu_kernel_exact_for_x_past_int8_on_card(cuda, M, K, N):
+    """x at +-200 and +-255 (and past 255) in some K tiles and not in
+    others, any term bytes: bitwise equal to the plain datapath and to the
+    block evaluation, one launch."""
+    rng = np.random.default_rng(M + K + N)
+    packed = torch.from_numpy(rng.integers(0, 256, (K, N, 2), dtype=np.uint8))
+    x = torch.from_numpy(rng.integers(-128, 128, (M, K), dtype=np.int32))
+    wide = _wide_x(rng, M, min(K, 64))
+    x[:, :wide.shape[1]] = wide           # the first K tile only
+    x, packed = x.to(cuda), packed.to(cuda)
+    before = dbmu_sim.LAUNCHES
+    got = dbmu_sim.dbmu_matmul(x, packed)
+    torch.cuda.synchronize()
+    assert dbmu_sim.LAUNCHES == before + 1
+    assert torch.equal(got, dbmu_sim.dbmu_matmul_plain(x, packed))
+    assert torch.equal(got, dbmu_sim.dbmu_matmul_blocks(x, packed))
+    every = _wide_x(rng, M, K).to(cuda)   # every K tile split
+    assert torch.equal(dbmu_sim.dbmu_matmul(every, packed),
+                       dbmu_sim.dbmu_matmul_plain(every, packed))
 
 
 def test_dbmu_kernel_rows_stable_on_card(cuda):

@@ -137,24 +137,43 @@ def test_rms_head_norm_matches_jax():
 
 def test_row_attention_rejects_shapes_the_kernel_does_not_take():
     """A shape past the kernel's limits raises before any launch: a head dim
-    over 256, a cache whose logits do not fit a block's shared memory."""
-    q = torch.zeros((1, 1, 2, 512))
-    k = torch.zeros((1, 8, 2, 512))
+    over 256, a batch over a grid's 65,535 rows. A cache whose logits do
+    not fit a block's shared memory is taken (the streaming path)."""
+    q = torch.zeros((1, 1, 2, 512), device="meta")
+    k = torch.zeros((1, 8, 2, 512), device="meta")
+    pos = torch.zeros((1, 1), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="head dim"):
-        rak._check(q, k, k, torch.zeros((1, 1), dtype=torch.int32))
-    q = torch.zeros((1, 1, 2, 64), dtype=torch.bfloat16)
-    k = torch.zeros((1, 65536, 2, 64), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="shared memory"):
-        rak._check(q, k, k, torch.zeros((1, 1), dtype=torch.int32))
+        rak._check(q, k, k, pos)
+    q = torch.zeros((65536, 1, 2, 64), dtype=torch.bfloat16, device="meta")
+    k = torch.zeros((65536, 8, 2, 64), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="batch"):
+        rak._check(q, k, k, torch.zeros((65536, 1), dtype=torch.int32,
+                                        device="meta"))
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros((1, 1, 2, 64), dtype=dtype, device="meta")
+        k = torch.zeros((1, 65536, 2, 64), dtype=dtype, device="meta")
+        rak._check(q, k, k, pos)
 
 
-@pytest.mark.parametrize("A,hd,fits", [(512, 64, True), (2048, 64, True),
-                                       (2048, 256, True), (4096, 128, True),
-                                       (65536, 64, False)])
-def test_row_attention_smem_plan(A, hd, fits):
-    """The bf16 kernel's shared memory per block: the long-context cache
-    (A = 2048) at every head dim of the configs fits the H100's 227 KB."""
-    assert (rak.smem_bytes(A, hd, torch.bfloat16) <= rak._SMEM_MAX) == fits
+@pytest.mark.parametrize("A,hd,dtype,streams", [
+    (512, 64, "bfloat16", False), (2048, 64, "bfloat16", False),
+    (2048, 256, "bfloat16", False), (4096, 128, "bfloat16", False),
+    (25600, 64, "bfloat16", False), (25601, 64, "bfloat16", True),
+    (23040, 128, "bfloat16", False), (23041, 128, "bfloat16", True),
+    (17920, 256, "bfloat16", False), (17921, 256, "bfloat16", True),
+    (32768, 64, "bfloat16", True), (32768, 128, "bfloat16", True),
+    (65536, 64, "bfloat16", True), (2 ** 20, 256, "bfloat16", True),
+    (2048, 64, "float32", False), (57852, 64, "float32", False),
+    (57853, 64, "float32", True), (65536, 64, "float32", True),
+    (65536, 256, "float32", True)])
+def test_row_attention_smem_plan(A, hd, dtype, streams):
+    """The kernel's shared memory per block fits the H100's 227 KB at every
+    cache length: caches up to the old limits (bf16 25,600 rows at hd 64,
+    23,040 at 128, 17,920 at 256; f32 57,852 at hd 64) keep their logits
+    resident, longer ones stream them."""
+    tdt = getattr(torch, dtype)
+    assert rak.streams(A, hd, tdt) == streams
+    assert rak.smem_bytes(A, hd, tdt) <= rak._SMEM_MAX
 
 
 def test_row_norm_rejects_rows_past_its_limit():
@@ -252,6 +271,38 @@ def test_row_attention_kernel_shapes_and_row_stability(cuda, hd, group, A,
             part = rak.row_attention(q[:, s0:s0 + n].contiguous(), k, v,
                                      qpos[:, s0:s0 + n].contiguous())
             assert torch.equal(part, got[:, s0:s0 + n]), (n, s0)
+
+
+@pytest.mark.parametrize("dtype,hd,A", [("bfloat16", 64, 32768),
+                                        ("bfloat16", 128, 32768),
+                                        ("float32", 64, 65536)])
+def test_row_attention_streams_caches_past_the_old_limit(cuda, dtype, hd, A):
+    """Caches whose logits do not fit a block's shared memory (bf16 past
+    25,600 rows at hd 64 and 23,040 at hd 128, f32 past 57,852) take the
+    streaming path: within tolerance of the plain version, with queries
+    spread over the whole cache, and every query of the call bitwise equal
+    to the same query alone and in a 7-query call."""
+    tdt = getattr(torch, dtype)
+    assert rak.streams(A, hd, tdt)
+    q, k, v, qpos = _long_attn_inputs(hd, 4, A, tdt, cuda, Sq=16)
+    qpos[1] = torch.arange(A - 16 * 997, A, 997, dtype=torch.int32,
+                           device=cuda)           # keys 0 .. A - 1 live
+    before = rak.LAUNCHES
+    got = rak.row_attention(q, k, v, qpos)
+    torch.cuda.synchronize()
+    assert rak.LAUNCHES == before + 1
+    want = rak.row_attention_plain(q, k, v, qpos)
+    peak = want.float().abs().max().item()
+    tol = (ATTN_BF16_RTOL if dtype == "bfloat16" else F32_RTOL) * peak
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    for t in range(q.shape[1]):
+        one = rak.row_attention(q[:, t:t + 1].contiguous(), k, v,
+                                qpos[:, t:t + 1].contiguous())
+        assert torch.equal(one, got[:, t:t + 1]), t
+    part = rak.row_attention(q[:, 5:12].contiguous(), k, v,
+                             qpos[:, 5:12].contiguous())
+    assert torch.equal(part, got[:, 5:12])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
