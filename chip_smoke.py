@@ -12,15 +12,18 @@ non-zero (no phase catches its own failure):
               started together; ptxas reports no register spills; TF32 is
               switched off for float32 matmuls and convolutions.
   2. pack   — for one full-width tinyllama-1.1b projection of each shape,
-              the joint pack made on the card is byte-identical to the CPU
-              pack.
+              and one full-width mamba2-1.3b layer's in_proj (2048 x 8512:
+              the last of 67 N tiles holds 64 real columns) and out_proj
+              (4096 x 2048), the joint pack made on the card is
+              byte-identical to the CPU pack.
   3. kernel — each kernel against its plain PyTorch version at every
               projection shape of the path, M in {4, 256}: f32 output within
               1e-5 * max|ref|, bf16 output within one bf16 ulp of max|ref|,
               DBMU bitwise equal (x with -128 and 127 in it, and x over
               [-255, 255] with +-200 and +-255 in every row), FTA/INT8
               rows of an M=4 call bitwise equal to the same rows of an
-              M=256 call. The joint kernel also in f32 and bf16
+              M=256 call. The joint kernel also at mamba2's two shapes,
+              and in f32 and bf16
               activations with its fp32 accumulators, rows of an M=4 call
               bitwise equal to the same rows of an M=256 call, and the bf16
               (value-only) payload; the block-sparse pack made on the card
@@ -30,7 +33,9 @@ non-zero (no phase catches its own failure):
               version, and at the long-context serve cell's shape (batch 16,
               2048-slot cache, 256-query chunks starting at 256 * (b mod
               6)), and row_norm at 4, 256 and 4096 rows within 1e-5 *
-              max|ref| or one bf16 ulp; a query (row) alone bitwise equal
+              max|ref| or one bf16 ulp, at tinyllama's d = 2048 and at
+              mamba2's gated-norm d = 4096 (a float32 scale, as the
+              model's); a query (row) alone bitwise equal
               to the same query (row) in the chunk. row_attention also at
               caches past its resident logits (bf16 A = 32768, f32 A =
               65536): the streaming path, within the same tolerances and
@@ -57,6 +62,27 @@ non-zero (no phase catches its own failure):
               the plain versions; a chunked prefill equals stepwise decode
               bit for bit at model level (batch 1), and op by op through
               every layer.
+              Then mamba2-1.3b the same way, at full width (48 layers,
+              no depth cut), its prefill chunks in the parallel SSD form:
+              compiled == eager bitwise, the sentinel one signature each
+              for decode, prefill_parallel and reset, per device call 96
+              joint launches (48 layers x in_proj, out_proj), 97 row_norm
+              (norm1 and the gated norm per layer, the final norm) and no
+              row_attention, the first-token logits of two requests
+              within 5e-2 x the peak of their entries other than the
+              echo of the last prompt token (the tied embedding's product
+              with itself, which no layer computes) of the plain
+              versions', and what the layers add to the last token's
+              residual stream within 5e-2 x its own peak.
+  4b. ssm   — mamba2 at model level (batch 1, a 40-token prompt in
+              chunks of 16, the last one ragged): exact chunks
+              (prefill_exact) bitwise equal to stepwise decode (logits,
+              conv windows and states of every layer); parallel chunks'
+              first-token logits and layers' output against stepwise
+              decode's, in bf16 and in a float32 copy (see
+              phase_ssm_exact for the tolerances), the first layer's conv
+              window bitwise; an exact-mode engine (2
+              requests, chunks of 8) compiled == eager bitwise.
   5. modes  — one full-width tinyllama-1.1b decoder layer (norms, chunked
               attention, MLP) with random weights, its projections packed by
               build_kernel_tables in mode "value" (vs = 0.6) and in mode
@@ -81,9 +107,11 @@ non-zero (no phase catches its own failure):
               device time says so); then the same for the three at the
               long-context cell's shape (batch 16,
               2048-slot cache, chunks of 256, decode from 1024 filled
-              positions). For each compiled engine, the device span of a
-              decode call (CUDA events) and the host time of its input
-              signature.
+              positions); and mamba2's eager and compiled engines at the
+              serve phase's shape, with the share of torch's own ops (the
+              SSD math) beside the joint kernel's. For each compiled
+              engine, the device span of a decode call (CUDA events) and
+              the host time of its input signature.
   8. times  — each kernel, its plain version and one PyTorch call computing
               the same function (the library yardstick, used nowhere in the
               port) with CUDA events after warm-up; the kernel and the
@@ -106,12 +134,18 @@ non-zero (no phase catches its own failure):
               launches each), and as units of their own one long-context
               prefill call (batch 16 x 256 queries against a 2048-slot
               cache; 4096 rows of norms) and row_attention's streaming path
-              (one slot, 64 queries at the end of a 32768-slot cache).
+              (one slot, 64 queries at the end of a 32768-slot cache); the
+              joint kernel's mamba2 units, one decode step (96 launches,
+              M=4) and one prefill call (96 launches, M=256), and
+              row_norm's mamba2 gated norms (48 launches at 4 and at 256
+              rows, d=4096).
 
 The launch counts of the JSON record come from the main paths: phase 4
 for the joint, row_attention and row_norm kernels (the device's records
-of the compiled run), phase 5 for block-sparse and FTA/INT8, phase 6 for
-DBMU, each counted from zero just before the path runs. The line before
+of the two compiled serve runs, tinyllama's and mamba2's, added), phase
+5 for block-sparse and FTA/INT8, phase 6 for DBMU, each counted from zero
+just before the path runs. The wall time of the run is printed before
+the card's line. The line before
 the last holds the kernels' JSON record, the one before it the card's
 name and power limit; the last line is the device record. Exits
 non-zero, printing no result, without a CUDA card or outside a checkout
@@ -150,6 +184,12 @@ SERVE_ARGS = ["--arch", "tinyllama-1.1b", "--dbpim-mode", "joint",
               "--batch", "4", "--max-len", "512", "--requests", "8",
               "--prompt-len", "32", "256", "--gen-len", "32",
               "--prefill-chunk", "64", "--seed", "0"]
+#: the SSM serve phase: mamba2-1.3b at full width, the same cell
+SSM_SERVE_ARGS = ["--arch", "mamba2-1.3b"] + SERVE_ARGS[2:]
+#: mamba2's exact-mode checks: a model-level prompt of 40 tokens in
+#: chunks of 16 (a ragged tail of 8), and an exact-mode engine serving 2
+#: requests in chunks of 8
+SSM_PROMPT, SSM_MODEL_CHUNK, SSM_EXACT_CHUNK = 40, 16, 8
 #: first-token logits, kernel path vs plain path: both bf16 models whose
 #: projections round to bf16 after fp32 sums taken in another order, over
 #: 22 layers; the gap stays a small fraction of the logit range
@@ -163,6 +203,12 @@ JOINT_PREFILL_M = (64, 256)
 JOINT_SYMBOLS = ("gathered_tc_kernel", "gathered_fp32_kernel")
 #: the times phase's name of the joint kernel's prefill units
 JOINT_UNIT = "joint_sparse_matmul prefill"
+#: the times phase's units of mamba2's joint launches (rows per launch: a
+#: decode step of 4 slots; the serve phase's chunk call, 4 slots x 64)
+JOINT_SSM_UNITS = {"joint_sparse_matmul mamba2 decode": 4,
+                   "joint_sparse_matmul mamba2 prefill": 256}
+#: the times phase's unit of mamba2's gated norms (d = 4096)
+NORM_SSM_UNIT = "row_norm mamba2 gated"
 #: the long-context serve cell: batch 16, max-len 2048, chunks of 256
 LONG_B, LONG_A, LONG_C = 16, 2048, 256
 #: the times phase's names of row_attention's and row_norm's long-context
@@ -186,7 +232,12 @@ def _bf16_ulp(v: float) -> float:
 
 def _path_shapes(cfg):
     """(name, K, N) of every projection on the serving path."""
-    d, q, kv, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    d = cfg.d_model
+    if cfg.family == "ssm":
+        d_in, N, nh = cfg.ssm_expand * d, cfg.ssm_state, \
+            cfg.ssm_expand * d // cfg.ssm_head_dim
+        return [("in_proj", d, 2 * d_in + 2 * N + nh), ("out_proj", d_in, d)]
+    q, kv, f = cfg.q_dim, cfg.kv_dim, cfg.d_ff
     return [("wq", d, q), ("wk", d, kv), ("wv", d, kv), ("wo", q, d),
             ("w_gate", d, f), ("w_up", d, f), ("w_down", f, d)]
 
@@ -318,7 +369,7 @@ def phase_kernel(cfg, packs, dev):
     # the value-only layout (bf16 payload, unit scales) through the same
     # kernel, at the widest shape
     from repro_torch.kernels import ops
-    name, K, N = _path_shapes(cfg)[4]
+    name, K, N = max(_path_shapes(cfg), key=lambda s: s[2])
     w = (torch.randn((1, K, N), generator=gen) * K ** -0.5).to(dev)
     p = ops.slice_joint_stacked(ops.pack_joint_sparse_stacked(
         w, value_sparsity=cfg.dbpim_value_sparsity, payload="bf16",
@@ -492,11 +543,13 @@ def _stream_attention_inputs(cfg, dev, dtype, gen, A, B=1, C=STREAM_C):
     return dict(k=k, v=v, stream=(q, torch.stack(pos).to(dev)))
 
 
-def phase_kernel_rows(cfg, dev):
+def phase_kernel_rows(cfg, dev, norm_widths):
     """row_attention and row_norm against their plain versions at the
-    serving shapes, and their row stability: a query (row) alone comes out
-    bitwise equal to the same query (row) in a chunk call. Returns the
-    worst abs error of the bf16 outputs per kernel."""
+    serving shapes (row_norm at every served width in ``norm_widths``:
+    tinyllama's d_model, mamba2's gated-norm d_in), and their row
+    stability: a query (row) alone comes out bitwise equal to the same
+    query (row) in a chunk call. Returns the worst abs error of the bf16
+    outputs per kernel."""
     from repro_torch.kernels import row_attention as rak
     from repro_torch.kernels import row_norm as rnk
     gen = torch.Generator().manual_seed(8)
@@ -556,27 +609,29 @@ def phase_kernel_rows(cfg, dev):
             f"logits' limit): max|d|={err:.3e} (tol {tol:.3e}); queries 0, "
             f"3, 7 bitwise equal to one-query calls")
         del a, y, ref
-        D = cfg.d_model
-        x4096 = torch.randn((4096, D), generator=gen).to(dt).to(dev)
-        scale = (1 + 0.1 * torch.randn((D,), generator=gen)).to(dev)
-        bias = (0.1 * torch.randn((D,), generator=gen)).to(dev)
-        for b, kind in ((None, "rms"), (bias, "layernorm")):
-            for R in (4, 256, 4096):
-                x = x4096[:R].contiguous()
-                y = rnk.row_norm(x, scale, b)
-                torch.cuda.synchronize()
-                err, tol = _err_tol(y, rnk.row_norm_plain(x, scale, b))
-                assert err <= tol, ("row_norm", kind, dt, R, err, tol)
-                if dt == torch.bfloat16:
-                    worst["row_norm"] = max(worst["row_norm"], err)
-                if R == 4:
-                    head = y
-                else:
-                    assert torch.equal(head, y[:4]), ("row_norm rows", kind)
-                log(f"[kernel] row_norm {kind} ({R}, {D}) {str(dt)[6:]}: "
-                    f"max|d|={err:.3e} (tol {tol:.3e})")
-        log(f"[kernel] row_norm {str(dt)[6:]}: rows of R=4 bitwise equal "
-            f"rows of R=256 and R=4096")
+        for D in norm_widths:
+            x4096 = torch.randn((4096, D), generator=gen).to(dt).to(dev)
+            scale = (1 + 0.1 * torch.randn((D,), generator=gen)).to(dev)
+            bias = (0.1 * torch.randn((D,), generator=gen)).to(dev)
+            for b, kind in ((None, "rms"), (bias, "layernorm")):
+                for R in (4, 256, 4096):
+                    x = x4096[:R].contiguous()
+                    y = rnk.row_norm(x, scale, b)
+                    torch.cuda.synchronize()
+                    err, tol = _err_tol(y, rnk.row_norm_plain(x, scale, b))
+                    assert err <= tol, ("row_norm", kind, D, dt, R, err, tol)
+                    if dt == torch.bfloat16:
+                        worst["row_norm"] = max(worst["row_norm"], err)
+                    if R == 4:
+                        head = y
+                    else:
+                        assert torch.equal(head, y[:4]), \
+                            ("row_norm rows", kind, D)
+                    log(f"[kernel] row_norm {kind} ({R}, {D}) "
+                        f"{str(dt)[6:]}, f32 scale: max|d|={err:.3e} "
+                        f"(tol {tol:.3e})")
+            log(f"[kernel] row_norm d={D} {str(dt)[6:]}: rows of R=4 "
+                f"bitwise equal rows of R=256 and R=4096")
     return worst
 
 
@@ -606,31 +661,73 @@ def plain_versions():
             setattr(mod, attr, kernel)
 
 
-def _first_token_logits(engine, tables, prompt, chunk):
+@contextlib.contextmanager
+def _final_norm_inputs(params):
+    """Records the input of the final norm of every decode call (the
+    residual stream after the last layer) into the list it yields."""
+    from repro_torch.models import decode
+    rows, norm = [], decode.apply_norm
+
+    def f(p, x, cfg):
+        if p is params["final_norm"]:
+            rows.append(x)
+        return norm(p, x, cfg)
+    decode.apply_norm = f
+    try:
+        yield rows
+    finally:
+        decode.apply_norm = norm
+
+
+def _stack_out(engine, x, token):
+    """What the layers added to the last token's residual stream: the
+    final norm's input row minus the token's embedding, f32 on the host.
+    With tied embeddings the first-token logits are dominated by the
+    embedding's product with itself (the echo of the last input token),
+    which no layer computes; this row is what the layers did."""
+    from repro_torch.models.layers import embed_tokens
+    tok = torch.tensor([[token]], dtype=torch.int32, device=engine.device)
+    e = embed_tokens(engine.params["embed"], tok, engine.cfg)[0, 0]
+    return (x.float() - e.float()).cpu()
+
+
+def _chunked_run(engine, tables, prompt, chunk, cfg=None):
+    """A prompt through functional ``decode_chunk`` calls at batch 1 on a
+    fresh cache: (the first-token logits, f32 on the host; the cache; the
+    last token's ``_stack_out``)."""
     from repro_torch.models import decode_chunk, init_cache
-    cfg = engine.cfg
+    cfg = cfg or engine.cfg
     cache = init_cache(cfg, 1, engine.max_len, device=engine.device)
     cache["pos"] = torch.zeros((1,), dtype=torch.int32, device=engine.device)
-    lg = None
-    for s in range(0, len(prompt), chunk):
-        part = prompt[s:s + chunk]
-        toks = torch.zeros((1, chunk), dtype=torch.int32)
-        toks[0, :len(part)] = torch.tensor(part, dtype=torch.int32)
-        lg, cache = decode_chunk(
-            engine.params, cache, toks.to(engine.device),
-            torch.tensor([len(part)], dtype=torch.int32,
-                         device=engine.device), cfg, tables=tables)
-    return lg[0, 0].float().cpu()
+    lg = part = None
+    with _final_norm_inputs(engine.params) as rows:
+        for s in range(0, len(prompt), chunk):
+            part = prompt[s:s + chunk]
+            toks = torch.zeros((1, chunk), dtype=torch.int32)
+            toks[0, :len(part)] = torch.tensor(part, dtype=torch.int32)
+            lg, cache = decode_chunk(
+                engine.params, cache, toks.to(engine.device),
+                torch.tensor([len(part)], dtype=torch.int32,
+                             device=engine.device), cfg, tables=tables)
+    stack = _stack_out(engine, rows[-1][0, len(part) - 1], prompt[-1])
+    return lg[0, 0].float().cpu(), cache, stack
 
 
-def phase_serve(dev):
+def phase_serve(dev, serve_args=SERVE_ARGS,
+                prefill_kind="prefill_chunk_exact"):
+    """One model served at full width through the compiled engine and an
+    eager one on the same trace (``serve_args``: tinyllama-1.1b, or
+    mamba2-1.3b with its parallel SSD chunks, ``prefill_kind``). Returns
+    (device launches per kernel over the compiled run, the two engines,
+    the stacked tables)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
+    from repro_torch import obs
     from repro_torch.obs import RecompileSentinel, device_launches
     from repro_torch.serving import ServeEngine
-    args = serve.build_parser().parse_args(SERVE_ARGS)
+    args = serve.build_parser().parse_args(serve_args)
     cfg = get_config(args.arch, reduced=args.reduced,
                      dbpim_mode=args.dbpim_mode)
     t0 = time.monotonic()
@@ -638,7 +735,8 @@ def phase_serve(dev):
     torch.cuda.synchronize()
     log(f"[serve] params + stacked tables on the card in "
         f"{time.monotonic() - t0:.2f} s ({cfg.name}, {cfg.n_layers} layers, "
-        f"d={cfg.d_model}, d_ff={cfg.d_ff}, dtype={cfg.dtype})")
+        f"d={cfg.d_model}, d_ff={cfg.d_ff}, dtype={cfg.dtype}); resident "
+        f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.3f} GiB")
     # the same trace through the same params and tables with the in-place
     # steps run eagerly: what the compiled engine's graphs must reproduce;
     # every launch is a host launch here, so the wrappers' counts see all
@@ -659,10 +757,7 @@ def phase_serve(dev):
     # profiler now and then loses records (a window with none, or a call
     # short of kernels it ran); such a run is taken again with a fresh
     # engine, and the phase fails if no run of three counts every launch.
-    per_call = {"joint_sparse_matmul":                   # 22 x 7 = 154
-                cfg.n_layers * len(_path_shapes(cfg)),
-                "row_attention": cfg.n_layers,
-                "row_norm": 2 * cfg.n_layers + 1}
+    per_call = obs.per_call(cfg)    # tinyllama 154/22/45, mamba2 96/0/97
     recorded = {name: mod for name, mod in _kernel_modules().items()
                 if name != "block_sparse_matmul"}
     for attempt in range(3):
@@ -692,8 +787,11 @@ def phase_serve(dev):
     else:
         raise AssertionError(f"device launches of the compiled serve run: "
                              f"{device} != {want} in 3 runs")
-    keys = {RecompileSentinel.key(kind, cfg.name): 1
-            for kind in ("decode", "prefill_chunk_exact", "reset")}
+    kind = prefill_kind
+    assert engine.prefill_kind == eager.prefill_kind == kind, \
+        engine.prefill_kind
+    keys = {RecompileSentinel.key(k, cfg.name): 1
+            for k in ("decode", kind, "reset")}
     assert engine.sentinel.counts() == keys, engine.sentinel.counts()
     assert eager.sentinel.counts() == keys, eager.sentinel.counts()
     assert outputs == eager_outputs, "compiled vs eager greedy streams"
@@ -733,31 +831,48 @@ def phase_serve(dev):
     for what, summ, ls, peak in (
             ("compiled (under torch.profiler)", s, lat, peak_gib),
             ("eager", e_s, e_lat, eager_peak)):
-        log(f"[serve] {what}: {summ['tokens_per_sec']:.1f} tokens/s over "
-            f"{summ['wall_s']:.2f} s; decode ms/step "
+        log(f"[serve] {cfg.name} {what}: {summ['tokens_per_sec']:.1f} "
+            f"tokens/s over {summ['wall_s']:.2f} s; decode ms/step "
             f"p50={ls['decode']['p50_ms']:.2f} "
-            f"mean={ls['decode']['mean_ms']:.2f}; prefill_chunk_exact "
-            f"p50={ls['prefill_chunk_exact']['p50_ms']:.2f} "
-            f"mean={ls['prefill_chunk_exact']['mean_ms']:.2f} ms; peak "
-            f"device memory {peak:.3f} GiB")
+            f"mean={ls['decode']['mean_ms']:.2f}; {kind} "
+            f"p50={ls[kind]['p50_ms']:.2f} "
+            f"mean={ls[kind]['mean_ms']:.2f} ms; peak "
+            f"device memory {peak:.3f} GiB (the compiled run's includes "
+            f"its three captures)")
+    # with tied embeddings (mamba2) the logits' peak is the echo of the
+    # last prompt token, which no layer computes: the scale is then the
+    # peak of the other entries, and the layers' output (_stack_out) of
+    # the kernel path's chunks is held to the plain path's as well
     for rid in (0, 1):
         prompt = list(trace[rid].prompt)
         with plain_versions():
-            ref = _first_token_logits(engine, tables, prompt,
-                                      engine.prefill_chunk)
+            ref = _chunked_run(engine, tables, prompt, engine.prefill_chunk)
         row = engine.first_logits[rid]
         assert row.shape == (1, cfg.vocab_size), row.shape
         assert row.dtype == torch.bfloat16 and row.device.type == "cpu"
         got = row[0].float()
-        d = (got - ref).abs().max().item()
-        peak = ref.abs().max().item()
+        d = (got - ref[0]).abs().max().item()
+        others = torch.ones_like(got, dtype=torch.bool)
+        if cfg.tie_embeddings:
+            others[prompt[-1]] = False
+        peak = ref[0][others].abs().max().item()
         assert torch.isfinite(got).all()
         assert d <= LOGIT_REL_TOL * peak, (rid, d, peak)
         log(f"[serve] request {rid} (prompt {len(prompt)}): first-token "
-            f"logits (1, V) bf16 row, kernel vs plain max|d|={d:.3e} "
-            f"(max|ref|={peak:.3f}, tol {LOGIT_REL_TOL} x max|ref|); argmax "
-            f"{int(got.argmax())} vs {int(ref.argmax())}")
-    check_chunk_equals_stepwise(engine, tables, list(trace[0].prompt))
+            f"logits (1, V) bf16 row, kernel vs plain max|d|={d:.3e} (tol "
+            f"{LOGIT_REL_TOL} x {peak:.3f}, max|ref|"
+            + (f" past the echo {ref[0][prompt[-1]].item():.3f} of the last "
+               f"token)" if cfg.tie_embeddings else ")"))
+        if cfg.family == "ssm":
+            g = _ssm_gaps(_chunked_run(engine, tables, prompt,
+                                       engine.prefill_chunk), ref, prompt[-1])
+            tol = LOGIT_REL_TOL * g["stack_peak"]
+            assert g["stack_d"] <= tol, (rid, g)
+            log(f"[serve] request {rid}: the layers' output of its chunks "
+                f"(batch 1), kernel vs plain max|d|={g['stack_d']:.3e} (tol "
+                f"{LOGIT_REL_TOL} x {g['stack_peak']:.3f})")
+    if cfg.family != "ssm":
+        check_chunk_equals_stepwise(engine, tables, list(trace[0].prompt))
     return launches, engine, eager, tables
 
 
@@ -862,8 +977,8 @@ def check_chunk_equals_stepwise(engine, tables, prompt):
     part = prompt[:C]
     trace = OpTrace(engine.cfg.n_layers)
     with trace.recording():
-        _first_token_logits(engine, tables, part, C)
-        _stepwise_logits(engine, tables, part)
+        _chunked_run(engine, tables, part, C)
+        _stepwise_run(engine, tables, part)
     assert len(trace.calls) == 1 + len(part)
     parted = _first_parting(trace.calls[0], trace.calls[1:])
     n_ops = len(trace.calls[0])
@@ -877,8 +992,8 @@ def check_chunk_equals_stepwise(engine, tables, prompt):
     log(f"[serve] chunked prefill vs stepwise decode ({len(part)} tokens, "
         f"batch 1): all {n_ops} ops bitwise equal, token by token, through "
         f"all {engine.cfg.n_layers} layers")
-    chunked = _first_token_logits(engine, tables, prompt, C)
-    stepwise = _stepwise_logits(engine, tables, prompt)
+    chunked, _, _ = _chunked_run(engine, tables, prompt, C)
+    stepwise, _, _ = _stepwise_run(engine, tables, prompt)
     assert torch.equal(chunked, stepwise), \
         (chunked - stepwise).abs().max().item()
     log(f"[serve] request 0 (prompt {len(prompt)}, "
@@ -886,16 +1001,159 @@ def check_chunk_equals_stepwise(engine, tables, prompt):
         f"bitwise equal to stepwise decode's")
 
 
-def _stepwise_logits(engine, tables, prompt):
+def _stepwise_run(engine, tables, prompt):
+    """A prompt through functional ``decode_step`` calls at batch 1 on a
+    fresh cache: (the last step's logits, f32 on the host; the cache; the
+    last token's ``_stack_out``)."""
     from repro_torch.models import decode_step, init_cache
     cache = init_cache(engine.cfg, 1, engine.max_len, device=engine.device)
     cache["pos"] = torch.zeros((1,), dtype=torch.int32, device=engine.device)
-    for tok in prompt:
-        lg, cache = decode_step(
-            engine.params, cache,
-            torch.tensor([[tok]], dtype=torch.int32, device=engine.device),
-            engine.cfg, tables=tables)
-    return lg[0, 0].float().cpu()
+    with _final_norm_inputs(engine.params) as rows:
+        for tok in prompt:
+            lg, cache = decode_step(
+                engine.params, cache,
+                torch.tensor([[tok]], dtype=torch.int32,
+                             device=engine.device), engine.cfg, tables=tables)
+    stack = _stack_out(engine, rows[-1][0, 0], prompt[-1])
+    return lg[0, 0].float().cpu(), cache, stack
+
+
+def _ssm_gaps(got, ref, echo):
+    """Measures of a mamba2 run against a reference run (each a
+    ``_chunked_run`` / ``_stepwise_run`` result) of the same prompt, whose
+    last token is ``echo``: the first-token logits as a whole, at the
+    echo's entry (the tied embedding's product with itself) and at every
+    other entry; the layers' output (``_stack_out``); the states, the
+    worst layer relative to its own peak; the conv windows."""
+    (lg, cg, sg), (lr, cr, sr) = got, ref
+    d = (lg - lr).abs()
+    rest = torch.ones_like(d, dtype=torch.bool)
+    rest[echo] = False
+    ds = (cg["ssm"]["state"] - cr["ssm"]["state"]).abs().flatten(1)
+    peaks = cr["ssm"]["state"].abs().flatten(1).amax(1).clamp_min(1e-30)
+    conv_eq = [torch.equal(a, b) for a, b in zip(cg["ssm"]["conv"],
+                                                  cr["ssm"]["conv"])]
+    return {"bitwise": bool(torch.equal(lg, lr)),
+            "logit_d": d.max().item(), "logit_peak": lr.abs().max().item(),
+            "echo_ref": lr[echo].item(), "echo_d": d[echo].item(),
+            "rest_d": d[rest].max().item(),
+            "rest_peak": lr[rest].abs().max().item(),
+            "stack_d": (sg - sr).abs().max().item(),
+            "stack_peak": sr.abs().max().item(),
+            "state_rel_d": (ds.amax(1) / peaks).max().item(),
+            "conv_equal_layers": sum(conv_eq),
+            "conv_first_layer_equal": conv_eq[0]}
+
+
+def phase_ssm_exact(engine, tables):
+    """mamba2's chunk forms against stepwise decode at model level (batch
+    1, a SSM_PROMPT-token prompt in chunks of SSM_MODEL_CHUNK, so the last
+    chunk is ragged): the exact chunk bitwise (logits, conv windows and
+    states); the parallel chunk's first-token logits and the layers'
+    output within tolerances relative to what the layers make, in bf16
+    and in a float32 copy of the model (see below); then an exact-mode
+    engine (2 requests, chunks of
+    SSM_EXACT_CHUNK) compiled against the same engine run eagerly,
+    bitwise, one signature per step."""
+    from repro_torch.models import ssm
+    from repro_torch.obs import RecompileSentinel
+    from repro_torch.serving import ServeEngine, WorkloadSpec, make_trace
+    cfg = engine.cfg
+    exact = cfg.scaled(prefill_exact=True)
+    gen = torch.Generator().manual_seed(9)
+    prompt = torch.randint(1, cfg.vocab_size, (SSM_PROMPT,),
+                           generator=gen).tolist()
+    step = _stepwise_run(engine, tables, prompt)
+    chunked, c_cache, _ = _chunked_run(engine, tables, prompt,
+                                       SSM_MODEL_CHUNK, exact)
+    assert torch.equal(chunked, step[0]), \
+        (chunked - step[0]).abs().max().item()
+    for key in ("conv", "state"):
+        assert torch.equal(c_cache["ssm"][key], step[1]["ssm"][key]), key
+    n_chunks = -(-SSM_PROMPT // SSM_MODEL_CHUNK)
+    log(f"[ssm] exact chunks ({SSM_PROMPT} tokens in {n_chunks} chunks of "
+        f"{SSM_MODEL_CHUNK}, batch 1): first-token logits, conv windows and "
+        f"states of all {cfg.n_layers} layers bitwise equal to stepwise "
+        f"decode's")
+    del c_cache
+    # the parallel SSD chunk reassociates the state's f32 sums (and sums
+    # the bf16 conv in another order), so it is tolerance-equal to
+    # stepwise decode. The reference's absolute PARALLEL_PREFILL_ATOL was
+    # set on its reduced config's logits and does not hold at full width
+    # (not for the reference either: tools/ssm_chunk_check.py). With the
+    # tied random embedding the logits' peak is the echo of the last
+    # token, which no layer computes, so the bounds take their scale from
+    # what the layers make: the logits within rel x the peak of the other
+    # entries, the layers' output (_stack_out) within rel x its own peak;
+    # bf16 at LOGIT_REL_TOL (two bf16 paths rounding in other orders over
+    # every layer), a float32 copy of the model (the SSD math alone) at
+    # PARALLEL_PREFILL_ATOL["float32"], its states too, each layer
+    # against its own peak. The first layer's conv window is bitwise
+    # stepwise decode's in both (its input, the embedding through the
+    # row-stable norm and joint kernel, is). What a planted fault reads
+    # against each bound: tools/ssm_chunk_check.py --impl port, PERF.md.
+    from repro_torch.launch import serve
+    for dtype in ("bfloat16", "float32"):
+        if dtype == "bfloat16":
+            e, t = engine, tables
+        else:
+            args = serve.build_parser().parse_args(SSM_SERVE_ARGS)
+            e, _, t = serve.build_engine_and_trace(
+                args, cfg.scaled(dtype="float32"))
+            step = _stepwise_run(e, t, prompt)
+        g = _ssm_gaps(_chunked_run(e, t, prompt, SSM_MODEL_CHUNK), step,
+                      prompt[-1])
+        atol = ssm.PARALLEL_PREFILL_ATOL[dtype]
+        rel = LOGIT_REL_TOL if dtype == "bfloat16" else atol
+        tol = rel * max(g["rest_peak"], 1.0)
+        stack_tol = rel * g["stack_peak"]
+        log(f"[ssm] {dtype}: parallel chunks vs stepwise decode, "
+            f"first-token logits max|d|={g['logit_d']:.3e} (tol {tol:.3e} = "
+            f"{rel} x {g['rest_peak']:.3f}, the peak past the echo "
+            f"{g['echo_ref']:.3f} of the last token; the reference's "
+            f"absolute PARALLEL_PREFILL_ATOL[{dtype}] {atol} "
+            f"{'holds' if g['logit_d'] <= atol else 'does not hold'}); "
+            f"the layers' output max|d|={g['stack_d']:.3e} (tol "
+            f"{stack_tol:.3e} = {rel} x {g['stack_peak']:.3f}); states "
+            f"max|d| {g['state_rel_d']:.3e} of their layer's peak; first "
+            f"layer's conv window bitwise equal: "
+            f"{g['conv_first_layer_equal']}")
+        assert g["logit_d"] <= tol, (dtype, g)
+        assert g["stack_d"] <= stack_tol, (dtype, g)
+        assert g["conv_first_layer_equal"], (dtype, g)
+        if dtype == "float32":
+            assert g["state_rel_d"] <= atol, g
+        del e, t, step
+    torch.cuda.empty_cache()
+    trace = make_trace(WorkloadSpec(n_requests=2, arrival_rate=0.0,
+                                    prompt_len=(20, 40), gen_len=(8, 8),
+                                    seed=2), cfg.vocab_size)
+    runs = {}
+    for graphs in (True, False):
+        e = ServeEngine(exact, engine.params, n_slots=2,
+                        max_len=engine.max_len,
+                        prefill_chunk=SSM_EXACT_CHUNK, stacked_tables=tables,
+                        device=engine.device, cuda_graphs=graphs)
+        runs[graphs] = (e, e.run(trace))
+        torch.cuda.synchronize()
+    (comp, out_c), (eag, out_e) = runs[True], runs[False]
+    assert comp.prefill_kind == "prefill_chunk_exact"
+    keys = {RecompileSentinel.key(k, cfg.name): 1
+            for k in ("decode", "prefill_chunk_exact", "reset")}
+    assert comp.sentinel.counts() == keys == eag.sentinel.counts()
+    assert out_c == out_e and set(out_c) == {r.rid for r in trace}
+    assert all(len(out_c[r.rid]) == r.gen_len for r in trace)
+    for rid, row in comp.first_logits.items():
+        assert torch.equal(row, eag.first_logits[rid]), rid
+    lat = comp.metrics.summary()["call_latency_ms"]
+    log(f"[ssm] exact-mode engine (prefill_exact, chunks of "
+        f"{SSM_EXACT_CHUNK}, 2 requests, prompts "
+        f"{[r.prompt_len for r in trace]}): compiled == eager, streams and "
+        f"first-token logits bitwise; sentinel "
+        + ", ".join(f"{k}={n}" for k, n in comp.sentinel.counts().items())
+        + f"; prefill_chunk_exact p50 "
+        f"{lat['prefill_chunk_exact']['p50_ms']:.2f} ms, p99 (the first "
+        f"call's capture) {lat['prefill_chunk_exact']['p99_ms']:.1f} ms")
 
 
 def _full_width_layer(cfg, dev):
@@ -1142,6 +1400,8 @@ def phase_profile(engines, n_steps=8, n_chunks=4, long_fill=4, out=None):
     host µs of its input signature. Adds {(engine, call): (wall ms, busy
     ms or None, ops, peak GiB)} to ``out`` and returns it."""
     out = {} if out is None else out
+    port_symbols = [sym for mod in _kernel_modules().values()
+                    for sym in mod.SYMBOLS]
     for label, engine in engines:
         dev = engine.device
         B, C = engine.n_slots, engine.prefill_chunk
@@ -1191,12 +1451,18 @@ def phase_profile(engines, n_steps=8, n_chunks=4, long_fill=4, out=None):
                         f" (inside CUDA graph replays); the eager window's "
                         f"busy {other[1]:.3f} ms beside this wall"))
                 continue
+            torch_ms = sum(e.self_device_time_total for e in kernels
+                           if not any(sym in e.key for sym in port_symbols)
+                           ) / 1e3 / n
             log(f"[profile] {label} {what} (batch {B}, {rows} rows per "
                 f"projection, {engine.max_len}-slot cache, {n} calls): "
                 f"{wall_ms:.3f} ms wall, device busy "
                 f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}; "
                 f"{ops:.0f} device ops per call; joint kernel "
                 f"{joint_ms:.3f} ms/call, {joint_ms / busy_ms:.1%} of busy; "
+                f"torch's ops (all but the port's kernels: SSD math, "
+                f"elementwise ops, copies, the unembedding) {torch_ms:.3f} "
+                f"ms/call, {torch_ms / busy_ms:.1%} of busy; "
                 f"peak device memory {peak:.3f} GiB ({base:.3f} GiB "
                 f"resident before the window)")
             for e in sorted(kernels,
@@ -1287,7 +1553,7 @@ def _host_us(fn, iters=20, windows=7):
     return 1e6 * best / iters
 
 
-def _device_ms(fn, iters=10, attempts=3):
+def _device_ms(fn, iters=10, attempts=6):
     """Mean device time per call (ms) from torch.profiler's device-side
     records (kernels, copies) over ``iters`` calls after a warm-up call:
     what the card spent, without the wrappers' host time. A profiling
@@ -1319,18 +1585,44 @@ def _bound(nbytes, ops, peak_ops):
                                        else "operations")
 
 
-def _time_cases(cfg, packs, tables_by_mode, dev, n_slots=4, M=256):
+def _joint_case(name, K, N, p, rows, repeat, gen, dev):
+    """One joint launch of ``rows`` bf16 rows against pack ``p``, repeated
+    ``repeat`` times in its unit (once per layer): bytes are x, the payload
+    as stored, idx, scales and the (rows, NT * bn) output once each;
+    operations 2 per stored weight and row."""
+    from repro_torch.kernels import joint_sparse_matmul as jsm
+    from repro_torch.kernels import ops
+    bf16 = torch.bfloat16
+    w_dense = ops.unpack_joint_sparse(p).to(bf16)
+    stored = p.w_blocks.numel()
+    nt, maxb, _, bn = p.w_blocks.shape
+    x = torch.randn((rows, K), generator=gen).to(bf16).to(dev)
+    return dict(
+        name=name, K=K, N=N, NT=nt, MAXB=maxb,
+        kernel=lambda x=x, p=p: jsm.joint_sparse_matmul(
+            x, p.w_blocks, p.idx, p.scales),
+        plain=lambda x=x, p=p: jsm.joint_sparse_matmul_plain(
+            x, p.w_blocks, p.idx, p.scales),
+        library=lambda x=x, w=w_dense: torch.matmul(x, w),
+        bytes=(x.numel() * 2 + stored + p.idx.numel() * 4
+               + p.scales.numel() * 4 + rows * nt * bn * 2),
+        ops=2 * rows * stored, peak=BF16_FLOPS, repeat=repeat)
+
+
+def _time_cases(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs,
+                n_slots=4, M=256):
     """Per work unit, one case per launch: the kernel, its plain version
     and the library call as closures, with the bytes and operations the
     launch needs. The joint kernel at the decode shapes (M = n_slots) and,
-    as units of their own, at the JOINT_PREFILL_M rows; the block-sparse
-    and FTA/INT8 kernels over phase 5's layer tables and the DBMU kernel
-    over the four projection shapes (M rows)."""
+    as units of their own, at the JOINT_PREFILL_M rows, and at mamba2's
+    two projections (JOINT_SSM_UNITS); the block-sparse and FTA/INT8
+    kernels over phase 5's layer tables and the DBMU kernel over the four
+    projection shapes (M rows); row_norm also at mamba2's gated norm
+    (d = 4096)."""
     from repro_torch.core import dyadic, pruning
     from repro_torch.kernels import block_sparse_matmul as bsk
     from repro_torch.kernels import dbmu_sim
     from repro_torch.kernels import fta_int8_matmul as ftk
-    from repro_torch.kernels import joint_sparse_matmul as jsm
     from repro_torch.kernels import ops
     gen = torch.Generator().manual_seed(3)
     bf16 = torch.bfloat16
@@ -1340,21 +1632,9 @@ def _time_cases(cfg, packs, tables_by_mode, dev, n_slots=4, M=256):
     cases.update({unit: [] for unit in joint_units})
     for name, K, N in _path_shapes(cfg):
         p = packs[(K, N)]
-        w_dense = ops.unpack_joint_sparse(p).to(bf16)
-        stored = p.w_blocks.numel()
-        nt, maxb, _, bn = p.w_blocks.shape
         for unit, rows in joint_units.items():
-            x = torch.randn((rows, K), generator=gen).to(bf16).to(dev)
-            cases[unit].append(dict(
-                name=name, K=K, N=N, NT=nt, MAXB=maxb,
-                kernel=lambda x=x, p=p: jsm.joint_sparse_matmul(
-                    x, p.w_blocks, p.idx, p.scales),
-                plain=lambda x=x, p=p: jsm.joint_sparse_matmul_plain(
-                    x, p.w_blocks, p.idx, p.scales),
-                library=lambda x=x, w=w_dense: torch.matmul(x, w),
-                bytes=(x.numel() * 2 + stored + p.idx.numel() * 4
-                       + p.scales.numel() * 4 + rows * nt * bn * 2),
-                ops=2 * rows * stored, peak=BF16_FLOPS, repeat=cfg.n_layers))
+            cases[unit].append(_joint_case(name, K, N, p, rows, cfg.n_layers,
+                                           gen, dev))
         x = torch.randn((M, K), generator=gen).to(bf16).to(dev)
         t = tables_by_mode["value"][name]
         wb, idx, w_dense = t["w_blocks"].to(bf16), t["idx"], t["w"].to(bf16)
@@ -1402,6 +1682,14 @@ def _time_cases(cfg, packs, tables_by_mode, dev, n_slots=4, M=256):
     cases[ATTN_STREAM_UNIT] = [c for c in attn if c["name"] == "streaming"]
     cases["row_norm"] = [c for c in norm if c["K"] != LONG_B * LONG_C]
     cases[NORM_LONG_UNIT] = [c for c in norm if c["K"] == LONG_B * LONG_C]
+    for unit, rows in JOINT_SSM_UNITS.items():
+        cases[unit] = [_joint_case(name, K, N, ssm_packs[(K, N)], rows,
+                                   ssm_cfg.n_layers, gen, dev)
+                       for name, K, N in _path_shapes(ssm_cfg)]
+    d_in = ssm_cfg.ssm_expand * ssm_cfg.d_model
+    cases[NORM_SSM_UNIT] = _row_norm_cases(ssm_cfg, dev, gen, D=d_in,
+                                           rows=(4, 256),
+                                           repeat=ssm_cfg.n_layers)
     return cases
 
 
@@ -1447,18 +1735,20 @@ def _row_attention_cases(cfg, dev, gen):
     return cases
 
 
-def _row_norm_cases(cfg, dev, gen):
+def _row_norm_cases(cfg, dev, gen, D=None, rows=(4, 256, LONG_B * LONG_C),
+                    repeat=None):
     """The norms of a decode call (4 rows), of a prefill-chunk call (256
     rows) and of a long-context prefill-chunk call (16 x 256 rows), 2 per
-    layer and the final one. Bytes: x and out once, the scale once;
-    operations: 4 fp32 flops per element."""
+    layer and the final one (``repeat``), at d_model (``D``). Bytes: x and
+    out once, the scale once; operations: 4 fp32 flops per element."""
     import torch.nn.functional as F
     from repro_torch.kernels import row_norm as rnk
-    D = cfg.d_model
+    D = D or cfg.d_model
+    repeat = repeat or 2 * cfg.n_layers + 1
     scale = (1 + 0.1 * torch.randn((D,), generator=gen)).to(dev)
     scale_bf16 = scale.to(torch.bfloat16)
     cases = []
-    for R in (4, 256, LONG_B * LONG_C):
+    for R in rows:
         x = torch.randn((R, D), generator=gen).to(torch.bfloat16).to(dev)
         library = None
         if hasattr(F, "rms_norm"):
@@ -1469,11 +1759,11 @@ def _row_norm_cases(cfg, dev, gen):
             plain=lambda x=x: rnk.row_norm_plain(x, scale),
             library=library,
             bytes=2 * R * D * 2 + D * 4, ops=4 * R * D, peak=FP32_FLOPS,
-            repeat=2 * cfg.n_layers + 1))
+            repeat=repeat))
     return cases
 
 
-def phase_times(cfg, packs, tables_by_mode, dev):
+def phase_times(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs):
     """Each kernel, its plain version and its library yardstick, launch by
     launch over its work unit, beside the bound; the joint kernel's
     decode-step totals count each projection once per layer. Returns
@@ -1485,7 +1775,8 @@ def phase_times(cfg, packs, tables_by_mode, dev):
         return "n/a" if v is None else f"{v:.4f} ms"
 
     out = {}
-    for kname, rows in _time_cases(cfg, packs, tables_by_mode, dev).items():
+    for kname, rows in _time_cases(cfg, packs, tables_by_mode, dev,
+                                   ssm_cfg, ssm_packs).items():
         tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
                    library_device_ms=0.0, bytes=0, ops=0, host_us=0.0)
         per_shape = []
@@ -1542,26 +1833,37 @@ def main() -> int:
     sys.path.insert(0, str(root / "src"))
     from repro_torch.configs import get_config
 
+    t_start = time.monotonic()
     dev = torch.device("cuda")
     phase_build()
     cfg = get_config("tinyllama-1.1b", dbpim_mode="joint")
+    ssm_cfg = get_config("mamba2-1.3b", dbpim_mode="joint")
     packs = phase_pack(cfg, dev)
-    worst = {"joint_sparse_matmul": phase_kernel(cfg, packs, dev),
+    ssm_packs = phase_pack(ssm_cfg, dev)
+    worst = {"joint_sparse_matmul": max(phase_kernel(cfg, packs, dev),
+                                        phase_kernel(ssm_cfg, ssm_packs,
+                                                     dev)),
              **phase_kernel_value_bit_dbmu(cfg, dev)}
-    worst.update(phase_kernel_rows(cfg, dev))
+    worst.update(phase_kernel_rows(
+        cfg, dev, (cfg.d_model, ssm_cfg.ssm_expand * ssm_cfg.d_model)))
     serve_launches, engine, eager, tables = phase_serve(dev)
+    ssm_launches, ssm_engine, ssm_eager, ssm_tables = phase_serve(
+        dev, SSM_SERVE_ARGS, "prefill_parallel")
+    phase_ssm_exact(ssm_engine, ssm_tables)
     mode_launches, tables_by_mode = phase_modes(dev)
-    launches = {**serve_launches, **mode_launches,
-                "dbmu_matmul": phase_dbmu(cfg, dev)}
+    launches = {**{k: n + ssm_launches[k] for k, n in serve_launches.items()},
+                **mode_launches, "dbmu_matmul": phase_dbmu(cfg, dev)}
     phase_profile_long(engine, tables, phase_profile(
         [("functional", FunctionalSteps(eager, tables)), ("eager", eager),
-         ("compiled", engine)]))
-    times = phase_times(cfg, packs, tables_by_mode, dev)
+         ("compiled", engine), ("mamba2 eager", ssm_eager),
+         ("mamba2 compiled", ssm_engine)]))
+    times = phase_times(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs)
 
     kernels = []
     for name, replaces, work in (
             ("joint_sparse_matmul", "kernels/joint_sparse_matmul.py:129",
-             "one decode step: 22 layers x 7 projections, M=4, bf16"),
+             "one tinyllama decode step: 22 layers x 7 projections, M=4, "
+             "bf16"),
             ("block_sparse_matmul", "kernels/block_sparse_matmul.py:73",
              "one full-width layer: 7 projections, M=256, bf16, vs=0.6"),
             ("fta_int8_matmul", "kernels/fta_int8_matmul.py:68",
@@ -1590,7 +1892,11 @@ def main() -> int:
             "per_shape": t["per_shape"]})
         units = {"joint_sparse_matmul": [
             (f"one prefill call: 22 layers x 7 projections, M={m}, bf16",
-             f"{JOINT_UNIT} M={m}") for m in JOINT_PREFILL_M],
+             f"{JOINT_UNIT} M={m}") for m in JOINT_PREFILL_M] + [
+            ("one mamba2 decode step: 48 layers x 2 projections, M=4, bf16",
+             "joint_sparse_matmul mamba2 decode"),
+            ("one mamba2 prefill call: 48 layers x 2 projections, M=256, "
+             "bf16", "joint_sparse_matmul mamba2 prefill")],
             "row_attention": [
                 ("one long-context prefill-chunk call: 22 launches, batch 16 "
                  "x 256 queries, 2048-slot cache, bf16", ATTN_LONG_UNIT),
@@ -1598,13 +1904,18 @@ def main() -> int:
                  "the end of a 32768-slot cache, bf16", ATTN_STREAM_UNIT)],
             "row_norm": [
                 ("one long-context prefill-chunk call: 45 launches, 4096 "
-                 "rows, d=2048, bf16", NORM_LONG_UNIT)]}.get(name)
+                 "rows, d=2048, bf16", NORM_LONG_UNIT),
+                ("mamba2's gated norms of one decode call (4 rows) and one "
+                 "prefill call (256 rows): 48 launches each, d=4096, bf16",
+                 NORM_SSM_UNIT)]}.get(name)
         if units:
             kernels[-1]["units"] = [
                 {"work": w, **{k: v for k, v in times[u].items()
                                if k != "per_shape"}} for w, u in units]
     assert all(k["launches"] > 0 for k in kernels), \
         [(k["name"], k["launches"]) for k in kernels]
+    log(f"[smoke] all phases passed in {time.monotonic() - t_start:.1f} s "
+        f"of wall time")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -27,8 +27,9 @@ def get_config(arch: str, reduced: bool = False,
     smoke-test variant of the same family. dbpim_mode selects the DB-PIM
     kernel path ("dense" | "value" | "bit" | "joint") the serving stack
     packs for (sparsity.sparse_linear.build_stacked_tables).
-    prefill_exact is carried for parity with the JAX package; the port
-    serves attention families only, whose chunks are always exact."""
+    prefill_exact=True makes SSM prefill chunks run the exact per-token
+    recurrence instead of the parallel SSD form (attention chunks are
+    always exact)."""
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; choose from {ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")

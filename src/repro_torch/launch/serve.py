@@ -13,7 +13,11 @@ variant of the same layout. Params are random, from ``--seed``.
 
 The engine's decode, prefill-chunk and reset steps are compiled once
 each (one CUDA graph per step on the card); the recompile sentinel's
-count per step is printed with the latencies.
+count per step is printed with the latencies, under each step's tag. SSM
+stacks (mamba2) prefill in the parallel SSD form by default (tag
+"prefill_parallel"); ``--prefill-exact`` runs the exact per-token
+recurrence instead (bit-identical to decode, C x the projection traffic;
+tag "prefill_chunk_exact", which attention stacks always use).
 
 Load is a deterministic trace (serving.workload): Poisson arrivals at
 ``--arrival-rate`` requests/tick, prompt lengths from ``--prompt-len LO
@@ -54,6 +58,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=16,
                     help="prompt tokens per chunked-prefill device call")
+    ap.add_argument("--prefill-exact", action="store_true",
+                    help="SSM chunks: force the exact per-token recurrence "
+                         "(bit-identical to decode, C x the projection "
+                         "traffic) instead of the default parallel SSD "
+                         "form")
     ap.add_argument("--arrival-rate", type=float, default=0.5,
                     help="Poisson arrivals per engine tick (0 = all at t0)")
     ap.add_argument("--dist", default="uniform",
@@ -97,14 +106,16 @@ def build_engine_and_trace(args, cfg):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = get_config(args.arch, reduced=args.reduced,
-                     dbpim_mode=args.dbpim_mode)
+                     dbpim_mode=args.dbpim_mode,
+                     prefill_exact=args.prefill_exact or None)
     engine, trace, _ = build_engine_and_trace(args, cfg)
     outputs = engine.run(trace)
     s = engine.metrics.summary()
     print(f"[serve] {s['n_completed']}/{s['n_requests']} requests, "
           f"{s['generated_tokens']} tokens in {s['engine_ticks']} ticks / "
           f"{s['device_calls']} device calls "
-          f"({s['decode_calls']} decode + {s['prefill_calls']} prefill)")
+          f"({s['decode_calls']} decode + {s['prefill_calls']} prefill, "
+          f"prefill kind {engine.prefill_kind})")
     if s["ttft_ticks_mean"] is not None:
         print(f"[serve] tokens/step={s['tokens_per_step']:.3f}  ttft_ticks "
               f"mean={s['ttft_ticks_mean']:.1f} p95={s['ttft_ticks_p95']}")

@@ -30,7 +30,11 @@ def build_step(cfg: ModelConfig, call_kind: str, *, stacked_tables=None):
         "decode".
       * "prefill_chunk" — chunked cache-filling prefill, ``(params, cache,
         tokens, n_valid)`` through ``models.decode_chunk_``. Tag
-        "prefill_chunk_exact": attention chunks are the decode math.
+        "prefill_parallel" when an SSM segment takes the parallel SSD chunk
+        (``cfg.serving_capabilities().parallel_prefill`` and not
+        ``cfg.prefill_exact``), else "prefill_chunk_exact": attention
+        chunks, and SSM chunks under ``prefill_exact``, are the decode
+        math.
       * "reset" — ``(cache, slot_mask)`` through ``models.reset_slots_``:
         zero the masked slots' cache slices and positions before
         admission. Tag "reset".
@@ -51,14 +55,15 @@ def build_step(cfg: ModelConfig, call_kind: str, *, stacked_tables=None):
                                 tables=stacked_tables)
         step_fn.call_kind = "decode"
     elif call_kind == "prefill_chunk":
-        if cfg.serving_capabilities().parallel_prefill:
-            raise NotImplementedError("SSM prefill chunks are not ported yet")
-
         @torch.no_grad()
         def step_fn(params, cache, tokens, n_valid):
             return decode_chunk_(params, cache, tokens, n_valid, cfg,
                                  tables=stacked_tables)
-        step_fn.call_kind = "prefill_chunk_exact"
+        step_fn.call_kind = (
+            "prefill_parallel"
+            if (cfg.serving_capabilities().parallel_prefill
+                and not cfg.prefill_exact)
+            else "prefill_chunk_exact")
     else:
         @torch.no_grad()
         def step_fn(cache, slot_mask):

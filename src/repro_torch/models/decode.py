@@ -1,20 +1,25 @@
 """Serving path: cache init, single-token decode, chunked prefill and
-per-slot cache surgery, for attention segments on a contiguous cache.
+per-slot cache surgery, for attention and SSM segments on a contiguous
+cache.
 
 Port of ``repro.models.decode``. The decoder is the segment list of
 ``models.segments``; where JAX scans each segment's stacked params, cache
 slices and table slices, the port walks the layers in a Python loop and
-slices layer ``l`` of each. Caches keep the JAX layout: attention segments
-hold stacked (L_seg, B, A, Hkv, hd) k/v, and "pos" is a scalar or a (B,)
-vector of per-slot depths. Functions return new caches, as in JAX.
+slices layer ``l`` of each, dispatching on the segment's mixer. Caches
+keep the JAX layout, the batch on axis 1 of every leaf: attention
+segments hold stacked (L_seg, B, A, Hkv, hd) k/v, SSM segments stacked
+(L_seg, B, W-1, Ch) conv windows and (L_seg, B, nh, P, N) float32 states,
+and "pos" is a scalar or a (B,) vector of per-slot depths. Functions
+return new caches, as in JAX.
 
 The serving engine's compiled steps use the in-place forms
 (``decode_step_``, ``decode_chunk_``, ``reset_slots_``): the same code,
-with each layer's k/v rows written into the cache where it lies and the
-positions advanced in place, the counterpart of the reference's donated
-cache. For the same inputs they leave the cache bitwise as the functional
-step leaves it (``decode_step`` + ``merge_slots``, ``decode_chunk``,
-``reset_slots``) and give the same logits for every slot that computed.
+with each layer's k/v rows (conv window and state) written into the cache
+where it lies and the positions advanced in place, the counterpart of the
+reference's donated cache. For the same inputs they leave the cache
+bitwise as the functional step leaves it (``decode_step`` +
+``merge_slots``, ``decode_chunk``, ``reset_slots``) and give the same
+logits for every slot that computed.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from . import attention as attn_mod
+from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import apply_norm, embed_tokens, logits_from_hidden
 from .transformer import (_block_tail, _check_supported, layer_slice,
@@ -34,10 +40,15 @@ from .transformer import (_block_tail, _check_supported, layer_slice,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> Dict:
     """Per-segment caches: {"pos": scalar, seg.cache: {"k", "v" (L_seg, B,
-    A, Hkv, hd), "pos"}}; multi-segment stacks track one global "pos"."""
+    A, Hkv, hd), "pos"} for attention, {"conv", "state"} for SSM};
+    multi-segment stacks track one global "pos"."""
     dev = resolve_device(device)
     cache: Dict = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
     for seg in _check_supported(cfg):
+        if seg.mixer == "ssm":
+            cache[seg.cache] = ssm_mod.init_ssm_cache(cfg, batch, seg.length,
+                                                      dev)
+            continue
         c = attn_mod.init_cache(cfg, batch, max_len, seg.length, dev)
         if seg.cache != "attn":
             c.pop("pos")
@@ -45,11 +56,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+#: a layer's two cache leaves, by the segment's mixer
+_CACHE_KEYS = {"attn": ("k", "v"), "ssm": ("conv", "state")}
+
+
 def _run_segments(params, cache, x, cfg, tables, layer_fn, new_pos,
                   inplace=False):
-    """Walk every segment's layers: ``layer_fn(seg, p, h, ck, cv, mm)``
-    returns (h, ck, cv) for one layer. Returns (h, new cache) with every
-    position advanced to ``new_pos``; ``inplace`` (layer_fn wrote its rows
+    """Walk every segment's layers: ``layer_fn(seg, p, h, a, b, mm)``
+    returns (h, a, b) for one layer, a and b its two cache leaves (k and v
+    for attention, conv and state for SSM). Returns (h, new cache) with
+    every position advanced to ``new_pos``; ``inplace`` (layer_fn wrote
     into the cache slices it was given) advances the positions of
     ``cache`` itself and returns it."""
     segs = _check_supported(cfg)
@@ -58,17 +74,19 @@ def _run_segments(params, cache, x, cfg, tables, layer_fn, new_pos,
     for seg in segs:
         st = seg_tables.get(seg.name)
         c = cache[seg.cache]
-        ks, vs = [], []
+        ka, kb = _CACHE_KEYS[seg.mixer]
+        outs_a, outs_b = [], []
         for l in range(seg.length):
             p = layer_slice(params[seg.name], l)
             mm = (st.dense_fn(layer_slice(st.arrays, l))
                   if st is not None else None)
-            x, ck, cv = layer_fn(seg, p, x, c["k"][l], c["v"][l], mm)
-            ks.append(ck)
-            vs.append(cv)
+            x, a, b = layer_fn(seg, p, x, c[ka][l], c[kb][l], mm)
+            outs_a.append(a)
+            outs_b.append(b)
         if inplace:
             continue
-        new_cache[seg.cache] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        new_cache[seg.cache] = {ka: torch.stack(outs_a),
+                                kb: torch.stack(outs_b)}
         if "pos" in c:
             new_cache[seg.cache]["pos"] = new_pos
     if inplace:
@@ -108,12 +126,12 @@ def decode_step(params, cache, token, cfg: ModelConfig, tables=None):
 def decode_step_(params, cache, token, active, cfg: ModelConfig,
                  tables=None):
     """``decode_step`` followed by ``merge_slots(new, cache, active)``, in
-    place: the active slots' k/v rows are written into ``cache`` and their
-    positions advanced; inactive slots keep their slices and positions.
-    Returns (logits (B, 1, V), cache). The active slots' logits and the
-    whole cache equal the functional pair's bitwise; inactive slots' logits
-    differ (their attention reads their old row) and are not meant to be
-    read. Positions must be (B,) vectors."""
+    place: the active slots' k/v rows (conv windows and states) are written
+    into ``cache`` and their positions advanced; inactive slots keep their
+    slices and positions. Returns (logits (B, 1, V), cache). The active
+    slots' logits and the whole cache equal the functional pair's bitwise;
+    inactive slots' logits may differ (their attention reads their old
+    row) and are not meant to be read. Positions must be (B,) vectors."""
     _check_inplace(cache, token.shape[0])
     return _decode(params, cache, token, cfg, tables, active)
 
@@ -122,11 +140,16 @@ def _decode(params, cache, token, cfg, tables, active):
     pos = cache["pos"]
     x = embed_tokens(params["embed"], token, cfg)
 
-    def layer(seg, p, h, ck, cv, mm):
+    def layer(seg, p, h, a, b, mm):
         hn = apply_norm(p["norm1"], h, cfg)
-        y, ck, cv = attn_mod.decode_attention(p["attn"], hn, ck, cv, pos,
-                                              cfg, dense_fn=mm, active=active)
-        return _block_tail(seg, p, h + y, cfg, mm), ck, cv
+        if seg.mixer == "attn":
+            y, a, b = attn_mod.decode_attention(p["attn"], hn, a, b, pos,
+                                                cfg, dense_fn=mm,
+                                                active=active)
+        else:
+            y, a, b = ssm_mod.decode_ssm(p["ssm"], hn, a, b, cfg,
+                                         dense_fn=mm, active=active)
+        return _block_tail(seg, p, h + y, cfg, mm), a, b
 
     if active is None:
         new_pos = pos + 1
@@ -145,17 +168,24 @@ def decode_chunk(params, cache, tokens, n_valid, cfg: ModelConfig,
     tokens (B, C) int; n_valid (B,) int in [0, C] real tokens per slot
     (ragged tails and idle slots pass fewer or 0; their cache slices are
     left untouched). Returns (logits (B, 1, V) of each slot's last valid
-    token, cache advanced by n_valid per slot). Per token, the math is
-    that of running decode_step n_valid times."""
+    token, cache advanced by n_valid per slot).
+
+    Per token, the math of attention segments is that of running
+    decode_step n_valid times, and so is that of SSM segments with
+    cfg.prefill_exact (``ssm.prefill_ssm``). The default SSM chunk is the
+    parallel SSD form (``ssm.prefill_ssm_parallel``): the in/out
+    projections read once per chunk instead of once per token, within
+    ``ssm.PARALLEL_PREFILL_ATOL`` of stepwise decode, not bitwise."""
     return _chunk(params, cache, tokens, n_valid, cfg, tables, False)
 
 
 def decode_chunk_(params, cache, tokens, n_valid, cfg: ModelConfig,
                   tables=None):
     """``decode_chunk`` in place: the valid tokens' k/v rows are written
-    into ``cache`` and its positions advanced by n_valid; rows n_valid
-    excludes are not written. Returns (logits (B, 1, V), cache), bitwise
-    the functional step's. Positions must be (B,) vectors."""
+    into ``cache`` (the conv windows and states of the slots with n_valid
+    > 0) and its positions advanced by n_valid; rows n_valid excludes are
+    not written. Returns (logits (B, 1, V), cache), bitwise the functional
+    step's. Positions must be (B,) vectors."""
     _check_inplace(cache, tokens.shape[0])
     return _chunk(params, cache, tokens, n_valid, cfg, tables, True)
 
@@ -167,12 +197,19 @@ def _chunk(params, cache, tokens, n_valid, cfg, tables, inplace):
                               device=tokens.device)
     x = embed_tokens(params["embed"], tokens, cfg)
 
-    def layer(seg, p, h, ck, cv, mm):
+    ssm_prefill = (ssm_mod.prefill_ssm if cfg.prefill_exact
+                   else ssm_mod.prefill_ssm_parallel)
+
+    def layer(seg, p, h, a, b, mm):
         hn = apply_norm(p["norm1"], h, cfg)
-        y, ck, cv = attn_mod.prefill_attention(p["attn"], hn, ck, cv, pos,
-                                               n_valid, cfg, dense_fn=mm,
-                                               inplace=inplace)
-        return _block_tail(seg, p, h + y, cfg, mm), ck, cv
+        if seg.mixer == "attn":
+            y, a, b = attn_mod.prefill_attention(p["attn"], hn, a, b, pos,
+                                                 n_valid, cfg, dense_fn=mm,
+                                                 inplace=inplace)
+        else:
+            y, a, b = ssm_prefill(p["ssm"], hn, a, b, n_valid, cfg,
+                                  dense_fn=mm, inplace=inplace)
+        return _block_tail(seg, p, h + y, cfg, mm), a, b
 
     x, new_cache = _run_segments(params, cache, x, cfg, tables, layer,
                                  pos + n_valid, inplace=inplace)
@@ -189,8 +226,8 @@ def _chunk(params, cache, tokens, n_valid, cfg, tables, inplace):
 def merge_slots(new_cache, old_cache, keep_mask, cfg: ModelConfig):
     """Per-slot cache select: slots where keep_mask (B,) is True take the
     updated cache, the rest keep their previous contents and position.
-    Every k/v leaf carries the batch on axis 1; "pos" leaves come out as
-    (B,) vectors whatever shape they came in."""
+    Every k/v, conv and state leaf carries the batch on axis 1; "pos"
+    leaves come out as (B,) vectors whatever shape they came in."""
     B = keep_mask.shape[0]
 
     def visit(key, new, old):
@@ -208,9 +245,10 @@ def merge_slots(new_cache, old_cache, keep_mask, cfg: ModelConfig):
 
 
 def reset_slots(cache, slot_mask, cfg: ModelConfig):
-    """Zero the KV cache slices and position of the slots where slot_mask
-    (B,) is True: the admission step before a freed slot takes a new
-    request."""
+    """Zero the KV / SSM cache slices and position of the slots where
+    slot_mask (B,) is True: the admission step before a freed slot takes a
+    new request (without it an SSM state would carry the previous
+    request's activations into the new one)."""
     def zeros(tree):
         if isinstance(tree, dict):
             return {k: zeros(v) for k, v in tree.items()}
@@ -219,7 +257,7 @@ def reset_slots(cache, slot_mask, cfg: ModelConfig):
 
 
 def reset_slots_(cache, slot_mask, cfg: ModelConfig):
-    """``reset_slots`` in place: the masked slots' k/v slices and
+    """``reset_slots`` in place: the masked slots' cache slices and
     positions are zeroed where they lie. Returns ``cache``, bitwise the
     functional result. Positions must be (B,) vectors."""
     B = slot_mask.shape[0]

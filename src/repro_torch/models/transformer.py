@@ -1,10 +1,11 @@
 """Parameter construction and the shared block tail for decoder LMs.
 
-Port of the dense-family part of ``repro.models.transformer``. Layer
-stacks are parameter-stacked with a leading layer axis, as in the JAX
-package; the decode loops in ``models.decode`` walk them layer by layer
-where JAX scans. Params come from a ``torch.Generator`` on the device, with
-the JAX package's shapes and scales (its numbers differ: the tests feed
+Port of the decoder part of ``repro.models.transformer``: dense-attention
+stacks and attention-free SSM (mamba2) stacks. Layer stacks are
+parameter-stacked with a leading layer axis, as in the JAX package; the
+decode loops in ``models.decode`` walk them layer by layer where JAX
+scans. Params come from a ``torch.Generator`` on the device, with the JAX
+package's shapes and scales (its numbers differ: the tests feed
 JAX-initialised params through ``repro_torch.weights`` instead).
 """
 
@@ -16,42 +17,64 @@ import torch
 
 from repro_torch.device import resolve_device
 from . import attention as attn_mod
+from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import apply_mlp, apply_norm, init_embeddings, init_mlp, init_norm
 from .segments import Segment, decoder_layout
 
 
+#: the (mixer, ffn) layer kinds the port serves: attention + gated MLP
+#: (dense family) and SSM with no FFN (mamba2)
+_LAYER_KINDS = {("attn", "mlp"), ("ssm", "none")}
+
+
 def _check_supported(cfg: ModelConfig):
     segs = decoder_layout(cfg)
     ok = (cfg.frontend == "none" and not cfg.is_encdec and not cfg.window
-          and cfg.mlp_type in ("swiglu", "geglu")
-          and all(s.mixer == "attn" and s.ffn == "mlp" and not s.cross
-                  for s in segs))
+          and all((s.mixer, s.ffn) in _LAYER_KINDS and not s.cross
+                  for s in segs)
+          and (cfg.mlp_type in ("swiglu", "geglu")
+               or all(s.ffn != "mlp" for s in segs)))
     if not ok:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the port serves the dense-attention "
-            f"family with full causal attention and gated MLPs so far (SSM, "
-            f"MoE, hybrid, enc-dec and sliding windows are later slices)")
+            f"{cfg.name} ({cfg.family}): the port serves dense-attention "
+            f"stacks with full causal attention and gated MLPs, and SSM "
+            f"(mamba2) stacks, so far (MoE FFNs, hybrid stacks, enc-dec "
+            f"cross-attention, frontends and sliding windows are later "
+            f"slices)")
     return segs
 
 
+def _init_block(cfg: ModelConfig, gen, dev, seg: Segment, lead):
+    """One segment's stacked layers: norm + mixer, then the FFN if the
+    segment has one (the JAX ``_init_block``)."""
+    p = {"norm1": init_norm(cfg, cfg.d_model, dev, lead)}
+    if seg.mixer == "attn":
+        p["attn"] = attn_mod.init_attention(cfg, gen, dev, lead)
+    else:
+        p["ssm"] = ssm_mod.init_ssm(cfg, gen, dev, lead)
+    if seg.ffn == "mlp":
+        p["norm2"] = init_norm(cfg, cfg.d_model, dev, lead)
+        p["mlp"] = init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, dev, lead)
+    return p
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Dict:
-    """Random params for a dense-family config, made on ``device`` from a
-    seeded ``torch.Generator``: same tree, shapes, dtypes and scales as
-    the JAX ``init_params`` (norm scales float32, weights in cfg.dtype)."""
+    """Random params for a served config, made on ``device`` from a seeded
+    ``torch.Generator``: same tree, shapes, dtypes and scales as the JAX
+    ``init_params`` (norm scales and the SSM's A_log, D, dt_bias and
+    norm_scale float32, weights in cfg.dtype). On the meta device: the
+    tree, shapes and dtypes only, allocating nothing."""
     dev = resolve_device(device)
     segs = _check_supported(cfg)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None                 # the meta device makes shapes, no numbers
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     params = {"embed": init_embeddings(cfg, gen, dev),
               "final_norm": init_norm(cfg, cfg.d_model, dev)}
     for seg in segs:
-        lead = (seg.length,)
-        params[seg.name] = {
-            "norm1": init_norm(cfg, cfg.d_model, dev, lead),
-            "attn": attn_mod.init_attention(cfg, gen, dev, lead),
-            "norm2": init_norm(cfg, cfg.d_model, dev, lead),
-            "mlp": init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, dev, lead)}
+        params[seg.name] = _init_block(cfg, gen, dev, seg, (seg.length,))
     return params
 
 
@@ -63,10 +86,13 @@ def layer_slice(tree, l: int):
 
 
 def _block_tail(seg: Segment, p, h, cfg: ModelConfig, mm=None):
-    """The sublayers after the mixer: the MLP (cross-attention and MoE
-    wait for their slices; _check_supported refuses them)."""
-    return h + apply_mlp(p["mlp"], apply_norm(p["norm2"], h, cfg), cfg,
-                         dense_fn=mm)
+    """The sublayers after the mixer: the MLP, or nothing for a segment
+    with no FFN (SSM stacks). Cross-attention and MoE wait for their
+    slices; _check_supported refuses them."""
+    if seg.ffn == "mlp":
+        h = h + apply_mlp(p["mlp"], apply_norm(p["norm2"], h, cfg), cfg,
+                          dense_fn=mm)
+    return h
 
 
 def segment_tables(tables, segs, cfg: ModelConfig):

@@ -4,7 +4,8 @@ A kernel wrapper counts its launches on the host (``LAUNCHES``), and the
 replays of a CUDA graph launch kernels the host never sees.
 ``device_launches`` counts them from torch.profiler's device-side records
 instead, by each wrapper's kernel ``SYMBOLS``, so launches inside graph
-replays are measured, not inferred from the capture.
+replays are measured, not inferred from the capture. ``per_call`` says
+how many a serving step call must make.
 """
 
 from __future__ import annotations
@@ -32,3 +33,22 @@ def device_launches(events, modules) -> dict:
             if pattern.search(e.key):
                 out[name] += e.count
     return out
+
+
+def per_call(cfg, token_steps: int = 1) -> dict:
+    """{name: launches} of one serving step call of ``cfg``'s joint-mode
+    path: the joint kernel once per packed projection and layer,
+    row_attention once per attention layer, row_norm once per layer for
+    norm1, once more per layer for the MLP's norm2 or the SSM's gated
+    norm, and once for the final norm. An SSM layer of an exact chunk
+    walks ``token_steps`` token steps, each projecting and gating once."""
+    from ..models.segments import packable_projections
+    segs = cfg.serving_capabilities().segments
+
+    def steps(s):
+        return token_steps if s.mixer == "ssm" else 1
+    return {"joint_sparse_matmul": sum(
+                len(packable_projections(s, cfg)) * s.length * steps(s)
+                for s in segs),
+            "row_attention": sum(s.length for s in segs if s.mixer == "attn"),
+            "row_norm": 1 + sum(s.length * (1 + steps(s)) for s in segs)}

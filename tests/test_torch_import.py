@@ -27,9 +27,9 @@ print(len(names), leaked, " ".join(names))
 assert not leaked, leaked
 """
 
-#: modules of the per-layer kernel-mode and DB-PIM pipeline slice and the
-#: row-stable kernels; the probe imports every module of the package,
-#: these among them
+#: modules of the per-layer kernel-mode and DB-PIM pipeline slice, the
+#: row-stable kernels, the compiled steps and the SSM family; the probe
+#: imports every module of the package, these among them
 SLICE_MODULES = {
     "repro_torch.core.dyadic", "repro_torch.core.pim_model",
     "repro_torch.core.pruning", "repro_torch.core.qat",
@@ -37,7 +37,8 @@ SLICE_MODULES = {
     "repro_torch.kernels.dbmu_sim", "repro_torch.kernels.fta_int8_matmul",
     "repro_torch.kernels.row_attention", "repro_torch.kernels.row_norm",
     "repro_torch.quickstart", "repro_torch.obs.sentinel",
-    "repro_torch.obs.launches", "repro_torch.launch.steps"}
+    "repro_torch.obs.launches", "repro_torch.launch.steps",
+    "repro_torch.models.ssm"}
 
 
 def test_port_and_chip_smoke_import_no_jax():

@@ -651,3 +651,39 @@ def test_block_sparse_kernel_layouts_on_card(cuda, xdt, layout, M):
     want = bsk.block_sparse_matmul_plain(x, w, idx)
     _assert_close(got.cpu(), want.float().cpu().numpy(), xdt == torch.bfloat16)
     assert torch.equal(got, full[:M])
+
+
+@pytest.mark.parametrize("M", [4, 256])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_joint_kernel_mamba2_in_proj_on_card(cuda, xdt, M):
+    """The joint kernel at mamba2-1.3b's in_proj, 2048 x 8512 packed at the
+    serving tiles (128 x 128, vs = 0.6): 8512 is not a multiple of 128, so
+    the last of the 67 N tiles holds 64 real columns. Against its plain
+    version as in test_joint_kernel_layouts_on_card; the 64 padded columns
+    come out zero, so ``ops.joint_dense``'s slice back to 8512 drops
+    nothing of dt (the last 64 real columns); rows bitwise equal to the
+    same rows of an M = 256 call."""
+    gen = torch.Generator().manual_seed(17)
+    w = torch.randn((1, 2048, 8512), generator=gen) * 2048 ** -0.5
+    packed = ops.pack_joint_sparse_stacked(w.to(torch.bfloat16).to(cuda),
+                                           value_sparsity=0.6, bk=128,
+                                           bn=128)
+    p = ops.slice_joint_stacked(packed, 0)
+    assert p.w_blocks.shape[0] == 67 and (p.k, p.n) == (2048, 8512)
+    x256 = torch.randn((256, 2048), generator=gen).to(xdt).to(cuda)
+    x = x256[:M].contiguous()
+    got = jsm.joint_sparse_matmul(x, p.w_blocks, p.idx, p.scales)
+    acc = jsm.joint_sparse_matmul(x, p.w_blocks, p.idx, p.scales,
+                                  out_dtype=torch.float32)
+    full = jsm.joint_sparse_matmul(x256, p.w_blocks, p.idx, p.scales)
+    torch.cuda.synchronize()
+    want = jsm.joint_sparse_matmul_plain(x, p.w_blocks, p.idx, p.scales)
+    want_acc = jsm.joint_sparse_matmul_plain(x, p.w_blocks, p.idx, p.scales,
+                                             torch.float32)
+    _assert_close(got.cpu(), want.float().cpu().numpy(), xdt == torch.bfloat16)
+    _assert_close(acc.cpu(), want_acc.cpu().numpy(), False)
+    assert got.shape == (M, 67 * 128)
+    assert not got[:, 8512:].any() and not acc[:, 8512:].any()
+    assert torch.equal(got, full[:M])
+    y = ops.joint_dense(x, p)
+    assert y.shape == (M, 8512) and torch.equal(y, got[:, :8512])

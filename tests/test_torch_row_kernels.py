@@ -307,10 +307,11 @@ def test_row_attention_streams_caches_past_the_old_limit(cuda, dtype, hd, A):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", sorted(_NORMS))
-@pytest.mark.parametrize("D", [128, 2048, 2050, 5632])
+@pytest.mark.parametrize("D", [128, 2048, 2050, 4096, 5632])
 def test_row_norm_kernel_shapes_and_row_stability(cuda, D, kind, dtype):
     """Row lengths of the configs (a head norm, tinyllama's d_model, one not
-    a multiple of 8, its d_ff) at 4,096 rows within tolerance of the plain
+    a multiple of 8, mamba2's gated-norm d_in, tinyllama's d_ff) at 4,096
+    rows within tolerance of the plain
     version; the first rows of calls of 1, 4 and 256 rows, and of an x
     that starts at an odd element offset, bitwise equal to the same rows
     of the 4,096-row call."""

@@ -4,7 +4,8 @@ with ragged ``n_valid`` including 0, the slot reset), the CPU engine's
 greedy streams against JAX stepwise decode with one compiled signature
 per step, and, on a CUDA card, each captured CUDA graph's replays
 against the eager in-place step, with the kernel launches inside the
-replays read from the device's own records.
+replays read from the device's own records: for tinyllama and for a
+reduced mamba2 (parallel and exact chunks).
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -q -m port \
         tests/test_torch_steps.py
@@ -26,7 +27,7 @@ from repro_torch.launch.steps import build_step, compile_step
 from repro_torch.models import (decode_chunk, decode_chunk_, decode_step,
                                 init_cache, init_params, merge_slots,
                                 reset_slots)
-from repro_torch.obs import RecompileSentinel, device_launches
+from repro_torch.obs import RecompileSentinel, device_launches, per_call
 from repro_torch.serving import ServeEngine, WorkloadSpec, make_trace
 from repro_torch.sparsity.sparse_linear import (build_stacked_tables,
                                                 strip_packed_projections)
@@ -45,10 +46,12 @@ ACTIVE = [[True, False, True, True], [False, True, False, True],
 N_VALID = [[4, 0, 2, 1], [1, 3, 0, 4], [0, 0, 0, 2]]
 
 
-def _model(dtype="float32", device="cpu", reduced=True, n_layers=None):
-    cfg = get_config("tinyllama-1.1b", reduced=reduced,
+def _model(dtype="float32", device="cpu", reduced=True, n_layers=None,
+           arch="tinyllama-1.1b", exact=False):
+    cfg = get_config(arch, reduced=reduced,
                      dbpim_mode="joint").scaled(dtype=dtype,
-                                                dbpim_value_sparsity=0.5)
+                                                dbpim_value_sparsity=0.5,
+                                                prefill_exact=exact)
     if n_layers is not None:
         cfg = cfg.scaled(n_layers=n_layers)
     params = init_params(cfg, seed=0, device=device)
@@ -78,8 +81,9 @@ def _filled_cache(cfg, params, tables, device, seed=0, max_len=A):
     prefill chunks of random tokens (FILL)."""
     cache = init_cache(cfg, B, max_len, device=device)
     cache["pos"] = torch.zeros((B,), dtype=torch.int32, device=device)
-    cache["attn"]["pos"] = torch.zeros((B,), dtype=torch.int32,
-                                       device=device)
+    if "attn" in cache:
+        cache["attn"]["pos"] = torch.zeros((B,), dtype=torch.int32,
+                                           device=device)
     gen = torch.Generator().manual_seed(seed)
     for n in FILL:
         toks = torch.randint(1, cfg.vocab_size, (B, C), generator=gen,
@@ -198,17 +202,40 @@ def test_engine_streams_equal_jax_stepwise_one_compile_per_step():
         for kind in ("decode", "prefill_chunk_exact", "reset")}
 
 
+@pytest.mark.parametrize("arch,token_steps,want", [
+    ("tinyllama-1.1b", 1, (154, 22, 45)),
+    ("mamba2-1.3b", 1, (96, 0, 97)),
+    ("mamba2-1.3b", 8, (768, 0, 433))])
+def test_per_call_counts_the_full_width_paths(arch, token_steps, want):
+    """Launches per step call at full width: tinyllama's 22 layers x 7
+    projections, an attention and two norms each, and the final norm;
+    mamba2's 48 layers x 2 projections and two norms, no attention; an
+    exact chunk of 8 tokens projects and gates once per token step."""
+    cfg = get_config(arch, dbpim_mode="joint")
+    got = per_call(cfg, token_steps)
+    assert got == dict(zip(("joint_sparse_matmul", "row_attention",
+                            "row_norm"), want))
+
+
 # --------------------------------------------------------- on the card --
 
-@pytest.fixture(scope="module")
-def card_model():
-    """Two full-width tinyllama-1.1b layers, bf16, joint tables on the
-    card; skips without one."""
+#: the card models: two full-width tinyllama-1.1b layers, and reduced
+#: mamba2 with parallel and with exact chunks
+CARD_MODELS = {"tinyllama": dict(reduced=False, n_layers=2),
+               "mamba2-parallel": dict(arch="mamba2-1.3b"),
+               "mamba2-exact": dict(arch="mamba2-1.3b", exact=True)}
+
+
+@pytest.fixture(scope="module", params=list(CARD_MODELS))
+def card_model(request):
+    """A bf16 model of CARD_MODELS with joint tables on the card; skips
+    without one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: CUDA graphs and the kernels have "
                     "no CPU mode")
     dev = torch.device("cuda")
-    cfg, params, tables = _model("bfloat16", dev, reduced=False, n_layers=2)
+    cfg, params, tables = _model("bfloat16", dev,
+                                 **CARD_MODELS[request.param])
     return cfg, params, tables, _filled_cache(cfg, params, tables, dev,
                                               max_len=64)
 
@@ -230,9 +257,10 @@ def _delta(before):
     return {k: n - before[k] for k, n in _launches().items() if n != before[k]}
 
 
-def _per_call(cfg):
-    return {"joint_sparse_matmul": 7 * cfg.n_layers,
-            "row_attention": cfg.n_layers, "row_norm": 2 * cfg.n_layers + 1}
+def _per_call(cfg, steps=1):
+    """The path's launches per step call (``obs.per_call``), the kernels it
+    does not launch left out."""
+    return {name: n for name, n in per_call(cfg, steps).items() if n}
 
 
 def _graph_run(make, filled, invoke, n_calls, want, attempts=3):
@@ -260,11 +288,11 @@ def _graph_run(make, filled, invoke, n_calls, want, attempts=3):
     pytest.fail(f"device launches {device} != {want} in {attempts} windows")
 
 
-def _expected_launches(cfg, n_calls):
+def _expected_launches(cfg, n_calls, steps=1):
     """Device launches of ``n_calls`` step calls: the path's kernels
     ``_per_call`` times per call (the first call's eager warm-up, then one
     replay each), the others none."""
-    per = _per_call(cfg)
+    per = _per_call(cfg, steps)
     return {name: n_calls * per.get(name, 0) for name in DEVICE_MODULES}
 
 
@@ -272,9 +300,10 @@ def test_graph_replays_equal_eager_decode_on_card(card_model):
     """The compiled decode step (first call eager, then replays of its
     graph) against the eager in-place step, over calls with changing
     active slots: all logits and the whole cache bitwise. The device
-    records 14 joint, 2 attention and 5 norm launches per call, replays
-    included, and no other kernel; the host counts the first call's eager
-    launches and nothing at the capture or the replays."""
+    records the path's launches per call (tinyllama: 14 joint, 2 attention
+    and 5 norm; mamba2: 4 joint and 5 norm), replays included, and no
+    other kernel; the host counts the first call's eager launches and
+    nothing at the capture or the replays."""
     cfg, params, tables, filled = card_model
     step = build_step(cfg, "decode", stacked_tables=tables)
     gen = torch.Generator().manual_seed(3)
@@ -299,8 +328,10 @@ def test_graph_replays_equal_eager_decode_on_card(card_model):
 def test_graph_replays_equal_eager_chunk_and_reset_on_card(card_model):
     """The compiled prefill-chunk and reset steps against their eager
     in-place forms over calls with changing n_valid and masks, with the
-    launches of the replays from the device's records."""
+    launches of the replays from the device's records (an exact SSM chunk
+    walks its C tokens)."""
     cfg, params, tables, filled = card_model
+    steps = C if cfg.prefill_exact else 1
     chunk = build_step(cfg, "prefill_chunk", stacked_tables=tables)
     reset = build_step(cfg, "reset")
     gen = torch.Generator().manual_seed(4)
@@ -326,11 +357,12 @@ def test_graph_replays_equal_eager_chunk_and_reset_on_card(card_model):
     (g_chunk, g_reset), outs, host = _graph_run(
         lambda: (compile_step(chunk, buffer_argnums=(0, 1)),
                  compile_step(reset, buffer_argnums=(0,))),
-        filled, invoke, len(calls), _expected_launches(cfg, len(calls)))
+        filled, invoke, len(calls),
+        _expected_launches(cfg, len(calls), steps))
     for call, (lg_g, cache_g) in enumerate(outs):
         assert torch.equal(lg_g, want[call][0]), call
         _assert_trees_equal(cache_g, want[call][1], f"chunk call {call}")
-    assert host == [_per_call(cfg)] + [{}] * (len(calls) - 1)
+    assert host == [_per_call(cfg, steps)] + [{}] * (len(calls) - 1)
     assert g_chunk._cache_size() == g_reset._cache_size() == 1
 
 

@@ -6,10 +6,11 @@ turns, through the port's serve CLI's engine.
 ``--other`` is another checkout (for example the parent commit unpacked
 with ``git archive`` into ``build/``, which git ignores). Each cell builds
 the engine and trace of ``python -m repro_torch.launch.serve``
-(``serve.build_engine_and_trace``: tinyllama-1.1b at full width, joint
-mode, random weights from seed 0) with each tree's own code and serves
-the trace, in the turns other, this, this, other, one process per run,
-each tree's kernels built before its first run is timed:
+(``serve.build_engine_and_trace``: ``--arch``, tinyllama-1.1b by default,
+or mamba2-1.3b, at full width, joint mode, random weights from seed 0)
+with each tree's own code and serves the trace, in the turns other, this,
+this, other, one process per run, each tree's kernels built before its
+first run is timed:
 
   * short: batch 4, max-len 512, 8 requests, prompts U[32, 256], 32
     generated tokens, prefill chunks of 64 (``chip_smoke.py``'s serve
@@ -19,7 +20,9 @@ each tree's kernels built before its first run is timed:
     chunks of 256.
 
 Each run reports the CLI's numbers: tokens/s, the decode and prefill-chunk
-call p50 and mean (log-bucketed histograms), the recompile sentinel's
+call p50 and mean (log-bucketed histograms; the prefill calls under the
+engine's ``prefill_kind``, which the run also reports), the recompile
+sentinel's
 counts where the tree has one; and the peak device memory of the serve
 run itself (the peak is reset after the params and packed tables are
 built, which the CLI's own figure includes) beside the memory resident
@@ -37,8 +40,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-COMMON = ["--arch", "tinyllama-1.1b", "--dbpim-mode", "joint",
-          "--gen-len", "32", "--seed", "0"]
+COMMON = ["--dbpim-mode", "joint", "--gen-len", "32", "--seed", "0"]
 CELLS = {
     "short": ["--batch", "4", "--max-len", "512", "--requests", "8",
               "--prompt-len", "32", "256", "--prefill-chunk", "64"],
@@ -55,8 +57,10 @@ from repro_torch.kernels import build
 from repro_torch.launch import serve
 build.build_all(%r)
 args = serve.build_parser().parse_args(sys.argv[1:])
-cfg = get_config(args.arch, reduced=args.reduced, dbpim_mode=args.dbpim_mode)
+cfg = get_config(args.arch, reduced=args.reduced, dbpim_mode=args.dbpim_mode,
+                 prefill_exact=getattr(args, "prefill_exact", False) or None)
 engine, trace, _ = serve.build_engine_and_trace(args, cfg)
+kind = getattr(engine, "prefill_kind", "prefill_chunk_exact")
 torch.cuda.synchronize()
 torch.cuda.reset_peak_memory_stats()
 resident = torch.cuda.memory_allocated()
@@ -69,21 +73,22 @@ print(json.dumps({
     "tokens_per_s": s["tokens_per_sec"],
     "decode_p50_ms": lat["decode"]["p50_ms"],
     "decode_mean_ms": lat["decode"]["mean_ms"],
-    "prefill_p50_ms": lat["prefill_chunk_exact"]["p50_ms"],
-    "prefill_mean_ms": lat["prefill_chunk_exact"]["mean_ms"],
+    "prefill_kind": kind,
+    "prefill_p50_ms": lat[kind]["p50_ms"],
+    "prefill_mean_ms": lat[kind]["mean_ms"],
     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
     "resident_gib": resident / 2 ** 30,
     "sentinel": None if sentinel is None else sentinel.counts()}))
 """ % (KERNELS,)
 
 
-def run(root: Path, cell: str) -> dict:
+def run(root: Path, cell: str, arch: str) -> dict:
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
-    proc = subprocess.run([sys.executable, "-c", RUN_SCRIPT, *COMMON,
-                           *CELLS[cell]], cwd=root, env=env,
+    proc = subprocess.run([sys.executable, "-c", RUN_SCRIPT, "--arch", arch,
+                           *COMMON, *CELLS[cell]], cwd=root, env=env,
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"serve run failed in {root} ({cell}):\n"
+        raise RuntimeError(f"serve run failed in {root} ({arch} {cell}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
@@ -94,6 +99,8 @@ def main(argv=None) -> int:
                     help="root of the other tree")
     ap.add_argument("--cells", nargs="+", default=list(CELLS),
                     choices=list(CELLS))
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    help="the served model, at full width")
     args = ap.parse_args(argv)
     this = Path(__file__).resolve().parents[1]
     other = args.other.resolve()
@@ -101,19 +108,19 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    result = {"card": smi, "runs": []}
+    result = {"card": smi, "arch": args.arch, "runs": []}
     for cell in args.cells:
         for turn, (tree, root) in enumerate((("other", other),
                                              ("this", this), ("this", this),
                                              ("other", other))):
-            r = run(root, cell)
+            r = run(root, cell, args.arch)
             r.update(cell=cell, tree=tree, turn=turn)
             result["runs"].append(r)
             print(f"[serve_ab] {cell} turn {turn} {tree}: "
                   f"{r['tokens_per_s']:.1f} tok/s, decode p50 "
                   f"{r['decode_p50_ms']:.2f} mean {r['decode_mean_ms']:.2f} "
-                  f"ms, prefill-chunk p50 {r['prefill_p50_ms']:.2f} mean "
-                  f"{r['prefill_mean_ms']:.2f} ms, serve-run peak "
+                  f"ms, {r['prefill_kind']} p50 {r['prefill_p50_ms']:.2f} "
+                  f"mean {r['prefill_mean_ms']:.2f} ms, serve-run peak "
                   f"{r['peak_gib']:.3f} GiB (resident at start "
                   f"{r['resident_gib']:.3f}); sentinel {r['sentinel']}",
                   flush=True)
