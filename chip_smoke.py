@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Phases, each printed on its own line; any failure raises and exits
-non-zero (no phase catches its own failure):
+Phases, each printed on its own lines (each line after the seconds since
+the run started), run in the order 1, 2, 3, 4c, 4, 4b, 5, 6, 7, 8; any
+failure raises and exits non-zero (no phase catches its own failure):
 
   1. build  — nvcc builds the six kernels (joint_sparse_matmul,
               block_sparse_matmul, fta_int8_matmul, dbmu_matmul, and the
@@ -14,7 +15,9 @@ non-zero (no phase catches its own failure):
   2. pack   — for one full-width tinyllama-1.1b projection of each shape,
               and one full-width mamba2-1.3b layer's in_proj (2048 x 8512:
               the last of 67 N tiles holds 64 real columns) and out_proj
-              (4096 x 2048), the joint pack made on the card is
+              (4096 x 2048), and one full-width layer slice of each
+              mixtral-8x7b and arctic-480b projection shape (attention
+              and expert), the joint pack made on the card is
               byte-identical to the CPU pack.
   3. kernel — each kernel against its plain PyTorch version at every
               projection shape of the path, M in {4, 256}: f32 output within
@@ -22,7 +25,10 @@ non-zero (no phase catches its own failure):
               DBMU bitwise equal (x with -128 and 127 in it, and x over
               [-255, 255] with +-200 and +-255 in every row), FTA/INT8
               rows of an M=4 call bitwise equal to the same rows of an
-              M=256 call. The joint kernel also at mamba2's two shapes,
+              M=256 call. The joint kernel also at mixtral's and
+              arctic's shapes with M in {4, 8, 64, 256} (rows of M=4
+              bitwise equal to the same rows of the others), at mamba2's
+              two shapes,
               and in f32 and bf16
               activations with its fp32 accumulators, rows of an M=4 call
               bitwise equal to the same rows of an M=256 call, and the bf16
@@ -83,6 +89,35 @@ non-zero (no phase catches its own failure):
               phase_ssm_exact for the tolerances), the first layer's conv
               window bitwise; an exact-mode engine (2
               requests, chunks of 8) compiled == eager bitwise.
+  4c. moe   — the MoE family. Grouped packs: each reduced mixtral and
+              arctic expert stack packed on the card equals the CPU's
+              byte for byte, and the slice-by-slice build
+              (sparse_linear.init_stacked_serving) equals the whole-stack
+              build on the card. mixtral-8x7b at full width and depth (32
+              layers, 8 experts, window 4096), built slice by slice (its
+              90 GB of dense expert stacks never exist; the build's peak
+              stays under the packs + the non-expert dense weights + one
+              layer's dense expert stacks), served on phase 4's trace by
+              the compiled engine, prompts stepwise (prefill mode "full":
+              the ring cache cannot chunk): per decode call 896 joint, 32
+              row_attention and 65 row_norm launches from the device
+              records; compiled == eager bitwise on 2 short requests,
+              whose first-token logits agree with the plain path (stepwise,
+              batch 1) within 5e-2 x max|ref|; a profiled compiled decode
+              window beside its bytes bound. The ring: reduced mixtral
+              (window 32) at max-len 96, requests of 70..90 positions,
+              compiled == eager bitwise and the last logits past two wraps
+              against the plain path (5e-2 x max|ref|); cut in width and
+              depth, since at full width a wrap takes 4,096 decode calls.
+              arctic-480b at full width, cut to 2 of its 35 layers (35
+              layers' packs, 187 GB, outgrow the card): 2 requests with
+              chunked prefill (chunks of 8, per-position dispatch),
+              compiled == eager bitwise, 782 joint launches a call,
+              first-token logits against the plain path, and a chunk equal
+              to stepwise decode op by op, bitwise (gate values, each
+              expert projection, the dense residual MLP, the MoE output).
+              The joint kernel is also checked at mixtral's and arctic's
+              projection shapes in phases 2 and 3 (M in 4, 8, 64, 256).
   5. modes  — one full-width tinyllama-1.1b decoder layer (norms, chunked
               attention, MLP) with random weights, its projections packed by
               build_kernel_tables in mode "value" (vs = 0.6) and in mode
@@ -138,11 +173,14 @@ non-zero (no phase catches its own failure):
               joint kernel's mamba2 units, one decode step (96 launches,
               M=4) and one prefill call (96 launches, M=256), and
               row_norm's mamba2 gated norms (48 launches at 4 and at 256
-              rows, d=4096).
+              rows, d=4096); the joint kernel's mixtral unit, one decode
+              call's 768 expert launches at M=8 (an expert's capacity at
+              batch 4) with torch.matmul on the dense shapes beside it.
 
-The launch counts of the JSON record come from the main paths: phase 4
-for the joint, row_attention and row_norm kernels (the device's records
-of the two compiled serve runs, tinyllama's and mamba2's, added), phase
+The launch counts of the JSON record come from the main paths: phases 4
+and 4c for the joint, row_attention and row_norm kernels (the device's
+records of the compiled serve runs, tinyllama's, mamba2's, mixtral's and
+arctic's, added), phase
 5 for block-sparse and FTA/INT8, phase 6 for DBMU, each counted from zero
 just before the path runs. The wall time of the run is printed before
 the card's line. The line before
@@ -215,6 +253,35 @@ LONG_B, LONG_A, LONG_C = 16, 2048, 256
 #: units (one prefill-chunk call of the long-context cell)
 ATTN_LONG_UNIT = "row_attention long context"
 NORM_LONG_UNIT = "row_norm long context"
+#: the MoE serve phase: mixtral-8x7b at full width and depth, the same
+#: cell (its sliding window makes the engine prefill stepwise, so the
+#: chunk size is unused)
+MOE_SERVE_ARGS = ["--arch", "mixtral-8x7b"] + SERVE_ARGS[2:]
+#: mixtral's compiled == eager check and its first-token logits against
+#: the plain path: 2 requests of 8..16 prompt tokens, 4 generated (the
+#: eager engine issues 896 joint launches a call from the host)
+MOE_SHORT = dict(n_requests=2, arrival_rate=0.0, prompt_len=(8, 16),
+                 gen_len=(4, 4), seed=5)
+#: the ring wrapping on the card: reduced mixtral (window 32) at max-len
+#: 96, requests of 70..90 positions, so every ring wraps more than once
+#: (full width would take over 4,096 decode calls a wrap)
+RING_ARGS = ["--arch", "mixtral-8x7b", "--reduced", "--dbpim-mode", "joint",
+             "--batch", "4", "--max-len", "96", "--requests", "4",
+             "--prompt-len", "40", "60", "--gen-len", "30", "--seed", "0"]
+#: arctic-480b at full width, cut to 2 of its 35 layers: 35 layers' packs
+#: (187.4 GB) outgrow one card; 2 requests with chunked prefill
+ARCTIC_LAYERS = 2
+ARCTIC_ARGS = ["--arch", "arctic-480b", "--dbpim-mode", "joint", "--batch",
+               "4", "--max-len", "128", "--requests", "2", "--prompt-len",
+               "16", "48", "--gen-len", "8", "--prefill-chunk", "8",
+               "--seed", "0"]
+#: the joint kernel's rows per launch at the MoE path's shapes: a decode
+#: step (4), an expert's capacity at batch 4 (8), an arctic chunk's expert
+#: launch (8 positions x 8) and a prefill-chunk call (256)
+MOE_KERNEL_M = (4, 8, 64, 256)
+#: the times phase's unit of mixtral's expert launches (one decode call:
+#: 32 layers x 3 projections x 8 experts, 8 rows each)
+JOINT_MOE_UNIT = "joint_sparse_matmul mixtral experts"
 #: caches past the resident logits' limit (bf16 25,600 rows at hd 64, f32
 #: 57,852): row_attention's streaming path, and its times unit (one slot,
 #: a 64-query chunk at the end of a 32,768-slot cache)
@@ -222,8 +289,12 @@ STREAM_A_BF16, STREAM_A_F32, STREAM_C = 32768, 65536, 64
 ATTN_STREAM_UNIT = "row_attention streaming"
 
 
+_T0 = time.monotonic()
+
+
 def log(msg: str):
-    print(msg, flush=True)
+    """A line of the run's log, after the seconds since the run started."""
+    print(f"{time.monotonic() - _T0:7.1f} {msg}", flush=True)
 
 
 def _bf16_ulp(v: float) -> float:
@@ -328,17 +399,17 @@ def phase_pack(cfg, dev):
     return packs
 
 
-def phase_kernel(cfg, packs, dev):
-    """Kernel vs plain at every path shape; returns the max abs error of
-    the bf16 outputs (the serving dtype)."""
+def phase_kernel(cfg, packs, dev, ms=(4, 256)):
+    """Kernel vs plain at every path shape, at each row count of ``ms``;
+    returns the max abs error of the bf16 outputs (the serving dtype)."""
     from repro_torch.kernels import joint_sparse_matmul as jsm
     gen = torch.Generator().manual_seed(2)
     worst_bf16 = 0.0
     for name, K, N in _distinct(_path_shapes(cfg)):
         p = packs[(K, N)]
         for dt in (torch.bfloat16, torch.float32):
-            x256 = torch.randn((256, K), generator=gen).to(dt).to(dev)
-            for M in (4, 256):
+            x256 = torch.randn((max(ms), K), generator=gen).to(dt).to(dev)
+            for M in ms:
                 x = x256[:M].contiguous()
                 y = jsm.joint_sparse_matmul(x, p.w_blocks, p.idx, p.scales)
                 acc = jsm.joint_sparse_matmul(x, p.w_blocks, p.idx, p.scales,
@@ -357,15 +428,15 @@ def phase_kernel(cfg, packs, dev):
                 assert err <= tol, (name, dt, M, err, tol)
                 if dt == torch.bfloat16:
                     worst_bf16 = max(worst_bf16, err)
-                if M == 4:
+                if M == ms[0]:
                     head = y
                 else:
-                    assert torch.equal(head, y[:4]), (name, dt, "rows")
+                    assert torch.equal(head, y[:ms[0]]), (name, dt, "rows")
                 log(f"[kernel] {name} {K}x{N} {str(dt)[6:]} M={M}: "
                     f"max|d|={err:.3e} (tol {tol:.3e}), acc "
                     f"max|d|={err_acc:.3e} (tol {F32_TOL * peak:.3e})")
-            log(f"[kernel] {name} {str(dt)[6:]}: rows of M=4 bitwise equal "
-                f"rows of M=256")
+            log(f"[kernel] {name} {str(dt)[6:]}: rows of M={ms[0]} bitwise "
+                f"equal rows of M=" + "/".join(map(str, ms[1:])))
     # the value-only layout (bf16 payload, unit scales) through the same
     # kernel, at the widest shape
     from repro_torch.kernels import ops
@@ -713,6 +784,55 @@ def _chunked_run(engine, tables, prompt, chunk, cfg=None):
     return lg[0, 0].float().cpu(), cache, stack
 
 
+def _counted_run(engine, trace, fresh):
+    """The main path: ``trace`` through the compiled ``engine`` under
+    torch.profiler. Its wrappers count the eager first call of each step
+    kind (the capture and the replays launch nothing the host sees); every
+    launch, replays included, is read from torch.profiler's device-side
+    records by the kernels' symbols, and must be ``obs.per_call`` of each
+    kernel per device call, with no other kernel of the port. The profiler
+    now and then loses records (a window with none, or a call short of
+    kernels it ran); such a run is taken again with a ``fresh()`` engine,
+    and the phase fails if no run of three counts every launch. Returns
+    (engine, outputs, device launches, host launches, peak GiB)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.obs import device_launches
+    dev = engine.device
+    per_call = obs.per_call(engine.cfg)
+    # the block-sparse matmul shares the joint kernel's symbols; the eager
+    # runs' host counts stand for it
+    recorded = {name: mod for name, mod in _kernel_modules().items()
+                if name != "block_sparse_matmul"}
+    for attempt in range(3):
+        if attempt:
+            engine = fresh()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            outputs = engine.run(trace)
+            torch.cuda.synchronize()
+            # the profiler has dropped the records of a run's last
+            # kernels (arctic's last dense-MLP launches and final norm):
+            # a tail of other kernels goes last
+            pad = torch.zeros((64,), device=dev)
+            for _ in range(64):
+                pad.add_(1)
+            torch.cuda.synchronize()
+        counts = read_launches()
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        calls = engine.metrics.summary()["device_calls"]
+        device = device_launches(prof, recorded)
+        want = {name: per_call.get(name, 0) * calls for name in device}
+        if device == want:
+            return engine, outputs, device, counts, peak_gib
+        log(f"[serve] compiled run {attempt + 1}: the profiler's device "
+            f"records count {device}, not {want}; taken again")
+    raise AssertionError(f"device launches of the compiled serve run: "
+                         f"{device} != {want} in 3 runs")
+
+
 def phase_serve(dev, serve_args=SERVE_ARGS,
                 prefill_kind="prefill_chunk_exact"):
     """One model served at full width through the compiled engine and an
@@ -720,12 +840,10 @@ def phase_serve(dev, serve_args=SERVE_ARGS,
     mamba2-1.3b with its parallel SSD chunks, ``prefill_kind``). Returns
     (device launches per kernel over the compiled run, the two engines,
     the stacked tables)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch import obs
-    from repro_torch.obs import RecompileSentinel, device_launches
+    from repro_torch.obs import RecompileSentinel
     from repro_torch.serving import ServeEngine
     args = serve.build_parser().parse_args(serve_args)
     cfg = get_config(args.arch, reduced=args.reduced,
@@ -750,43 +868,14 @@ def phase_serve(dev, serve_args=SERVE_ARGS,
     torch.cuda.synchronize()
     eager_counts = read_launches()
     eager_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    # the main path: the compiled engine. Its wrappers count the eager
-    # first call of each step kind (the capture and the replays launch
-    # nothing the host sees); every launch, replays included, is read from
-    # torch.profiler's device-side records by the kernels' symbols. The
-    # profiler now and then loses records (a window with none, or a call
-    # short of kernels it ran); such a run is taken again with a fresh
-    # engine, and the phase fails if no run of three counts every launch.
+    # the main path: the compiled engine
     per_call = obs.per_call(cfg)    # tinyllama 154/22/45, mamba2 96/0/97
-    recorded = {name: mod for name, mod in _kernel_modules().items()
-                if name != "block_sparse_matmul"}
-    for attempt in range(3):
-        if attempt:
-            engine = ServeEngine(cfg, engine.params, n_slots=args.batch,
-                                 max_len=args.max_len,
-                                 prefill_chunk=args.prefill_chunk,
-                                 stacked_tables=tables, device=dev)
-        reset_launches()
-        torch.cuda.reset_peak_memory_stats(dev)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            outputs = engine.run(trace)
-            torch.cuda.synchronize()
-        counts = read_launches()
-        peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-        calls = engine.metrics.summary()["device_calls"]
-        # the device's records: each call, replays included, launches the
-        # path's kernels per_call times and no other of the port's kernels
-        # (the block-sparse matmul shares the joint kernel's symbols; the
-        # eager run's host counts stand for it)
-        device = device_launches(prof.key_averages(), recorded)
-        want = {name: per_call.get(name, 0) * calls for name in device}
-        if device == want:
-            break
-        log(f"[serve] compiled run {attempt + 1}: the profiler's device "
-            f"records count {device}, not {want}; taken again")
-    else:
-        raise AssertionError(f"device launches of the compiled serve run: "
-                             f"{device} != {want} in 3 runs")
+    engine, outputs, device, counts, peak_gib = _counted_run(
+        engine, trace, lambda: ServeEngine(
+            cfg, engine.params, n_slots=args.batch, max_len=args.max_len,
+            prefill_chunk=args.prefill_chunk, stacked_tables=tables,
+            device=dev))
+    calls = engine.metrics.summary()["device_calls"]
     kind = prefill_kind
     assert engine.prefill_kind == eager.prefill_kind == kind, \
         engine.prefill_kind
@@ -878,8 +967,10 @@ def phase_serve(dev, serve_args=SERVE_ARGS,
 
 class OpTrace:
     """Records the output of every op of the decode path (embedding,
-    norms, projections, RoPE, attention, MLP, logits), labelled with its
-    layer, one list per decode_step / decode_chunk call."""
+    norms, projections, RoPE, attention, MLP; the MoE's gate values,
+    expert projections, dense residual MLP and block output; logits),
+    labelled with its layer, one list per decode_step / decode_chunk
+    call."""
 
     def __init__(self, n_layers: int):
         self.n_layers = n_layers
@@ -892,7 +983,7 @@ class OpTrace:
 
     @contextlib.contextmanager
     def recording(self):
-        from repro_torch.models import attention, decode, transformer
+        from repro_torch.models import attention, decode, moe, transformer
         from repro_torch.sparsity import sparse_linear
         patches = []
 
@@ -928,7 +1019,29 @@ class OpTrace:
 
                 def rec(w, x, name):
                     return self._record(f"L{self._layer} {name}", mm(w, x, name))
+
+                def expert(w, x, name):
+                    # (G, E, C, N) with G the chunk position: token first
+                    out = mm.expert(w, x, name)
+                    self._record(f"L{self._layer} {name}", out.transpose(0, 1))
+                    return out
+                rec.expert = expert
                 return rec
+            return f
+
+        def moe_block(fn):
+            def f(*a, **kw):
+                y, aux = fn(*a, **kw)
+                self._record(f"L{self._layer} moe", y)
+                return y, aux
+            return f
+
+        def route(fn):
+            def f(*a, **kw):
+                probs, vals, idx = fn(*a, **kw)
+                # (G, Tg, k) gate values, G the chunk position: token first
+                self._record(f"L{self._layer} gates", vals.transpose(0, 1))
+                return probs, vals, idx
             return f
 
         patch(decode, "embed_tokens", embed)
@@ -939,6 +1052,9 @@ class OpTrace:
         patch(attention, "apply_rope", at_layer("rope"))
         patch(attention, "_sdpa", at_layer("sdpa"))
         patch(sparse_linear.StackedKernelTables, "dense_fn", dense_fn)
+        patch(moe, "apply_moe_block", moe_block)
+        patch(moe, "_route", route)
+        patch(moe, "apply_mlp", at_layer("dense_mlp"))
         try:
             yield self
         finally:
@@ -1154,6 +1270,319 @@ def phase_ssm_exact(engine, tables):
         + f"; prefill_chunk_exact p50 "
         f"{lat['prefill_chunk_exact']['p50_ms']:.2f} ms, p99 (the first "
         f"call's capture) {lat['prefill_chunk_exact']['p99_ms']:.1f} ms")
+
+
+def _nbytes(arrays) -> int:
+    """Device bytes of a tables' ``arrays`` dict (or any subset of it)."""
+    return sum(a.numel() * a.element_size() for t in arrays.values()
+               for a in t.values())
+
+
+def phase_moe_pack(dev):
+    """Grouped packs on the card: each reduced mixtral expert stack packed
+    by ``pack_joint_sparse_grouped`` on the card equals the CPU pack byte
+    for byte; the slice-by-slice build (``init_stacked_serving``) equals
+    ``strip_packed_projections`` / ``build_stacked_tables`` of the whole
+    ``init_params`` tree on the card, mixtral and arctic, reduced."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.sparsity.sparse_linear import (build_stacked_tables,
+                                                    init_stacked_serving,
+                                                    strip_packed_projections)
+    fields = ("w_blocks", "idx", "scales", "nblocks")
+    for arch in ("mixtral-8x7b", "arctic-480b"):
+        cfg = get_config(arch, reduced=True, dbpim_mode="joint")
+        params = init_params(cfg, seed=0, device=dev)
+        for name in ("w_gate", "w_up", "w_down"):
+            w = params["blocks"]["moe"][name]
+            kw = dict(value_sparsity=cfg.dbpim_value_sparsity,
+                      **_tiles(*w.shape[-2:]))
+            card = ops.pack_joint_sparse_grouped(w, **kw)
+            cpu = ops.pack_joint_sparse_grouped(w.cpu(), **kw)
+            for field in fields:
+                a, b = getattr(card, field).cpu(), getattr(cpu, field)
+                assert a.dtype == b.dtype and torch.equal(a, b), (name, field)
+        tables = build_stacked_tables(params, cfg)
+        stripped = strip_packed_projections(params, cfg)
+        del params
+        sliced, sliced_tables = init_stacked_serving(cfg, seed=0, device=dev)
+        flat = {}
+
+        def walk(tree, path=""):
+            if isinstance(tree, dict):
+                for k, v in tree.items():
+                    walk(v, f"{path}/{k}")
+            else:
+                flat.setdefault(path, []).append(tree)
+        walk(stripped)
+        walk(sliced)
+        assert all(len(v) == 2 and v[0].dtype == v[1].dtype
+                   and torch.equal(*v) for v in flat.values()), arch
+        assert tables.static == sliced_tables.static
+        for name, t in tables.arrays.items():
+            for field in fields:
+                assert torch.equal(t[field],
+                                   sliced_tables.arrays[name][field]), \
+                    (arch, name, field)
+        E, L = cfg.n_experts, cfg.n_layers
+        log(f"[moe] {cfg.name}: grouped packs of its {L} x {E} expert "
+            f"stacks made on the card == the CPU's byte for byte; the "
+            f"slice-by-slice build == the whole-stack build (params and "
+            f"{len(tables.arrays)} tables) byte for byte")
+
+
+def _memory_bound(cfg, tables):
+    """(packs, non-expert dense weights, one layer's dense expert stacks,
+    all dense expert stacks) in GiB for a MoE config's build: what
+    ``init_stacked_serving`` may hold at once is the first three."""
+    gib = 2 ** 30
+    d, f, E, L = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.n_layers
+    attn = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
+    dense_mlp = 3 * d * f if cfg.dense_residual else 0
+    non_expert = 2 * (L * (attn + dense_mlp) + 2 * cfg.vocab_size * d)
+    layer = 2 * 3 * E * d * f
+    return (_nbytes(tables.arrays) / gib, non_expert / gib, layer / gib,
+            L * layer / gib)
+
+
+def _moe_build(args, cfg, dev):
+    """The serve CLI's engine, trace and tables for a MoE config, built
+    slice by slice on the card; prints (and bounds) the build's peak
+    device memory. Returns (engine, trace, tables)."""
+    from repro_torch.launch import serve
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    gib = 2 ** 30
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    engine, trace, tables = serve.build_engine_and_trace(args, cfg)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / gib
+    resident = (torch.cuda.memory_allocated(dev) - base) / gib
+    packs, non_expert, layer, dense = _memory_bound(cfg, tables)
+    experts = _nbytes({k: v for k, v in tables.arrays.items()
+                       if k.startswith("moe/")}) / gib
+    bound = packs + non_expert + layer
+    log(f"[moe] {cfg.name} ({cfg.n_layers} layers, d={cfg.d_model}, "
+        f"d_ff={cfg.d_ff}, {cfg.n_experts} experts): params + tables built "
+        f"slice by slice on the card in {secs:.2f} s; packs {packs:.3f} "
+        f"GiB (experts {experts:.3f}); build peak {peak:.3f} GiB over what "
+        f"was resident before (bound: packs + non-expert dense weights "
+        f"{non_expert:.3f} + one layer's dense expert stacks {layer:.3f} = "
+        f"{bound:.3f}; all dense expert stacks would be {dense:.3f}); "
+        f"resident after {resident:.3f} GiB (card total "
+        f"{torch.cuda.memory_allocated(dev) / gib:.3f})")
+    assert peak <= bound, (peak, bound)
+    return engine, trace, tables
+
+
+def _same_runs(comp, out_c, eag, out_e, trace, kinds):
+    """Compiled vs eager engine on one trace: streams and first-token
+    logits bitwise equal, every request complete, one signature a step."""
+    from repro_torch.obs import RecompileSentinel
+    keys = {RecompileSentinel.key(k, comp.cfg.name): 1 for k in kinds}
+    assert comp.sentinel.counts() == keys == eag.sentinel.counts(), \
+        (comp.sentinel.counts(), eag.sentinel.counts())
+    assert out_c == out_e and set(out_c) == {r.rid for r in trace}
+    assert all(len(out_c[r.rid]) == r.gen_len for r in trace)
+    assert set(comp.first_logits) == set(eag.first_logits)
+    for rid, row in comp.first_logits.items():
+        assert torch.equal(row, eag.first_logits[rid]), rid
+
+
+def _logit_gap(got, ref):
+    """(max|d|, tolerance) of kernel-path logits against the plain path's:
+    LOGIT_REL_TOL of the plain path's peak (the embeddings are untied)."""
+    peak = ref.abs().max().item()
+    assert torch.isfinite(got).all()
+    return (got.float() - ref).abs().max().item(), LOGIT_REL_TOL * peak
+
+
+def phase_moe_serve(dev):
+    """mixtral-8x7b at full width and depth (32 layers) in joint mode,
+    built slice by slice on the card (its 90 GB of dense expert stacks
+    never exist), served through the compiled engine on the serve phase's
+    trace; its sliding window makes the engine prefill stepwise ("full":
+    no chunk step is built). Per decode call 896 joint, 32 row_attention
+    and 65 row_norm launches from the device records; compiled == eager
+    bitwise on 2 short requests, whose first-token logits agree with the
+    plain path; a profiled decode window. Returns the device launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch import obs
+    from repro_torch.serving import ServeEngine, WorkloadSpec, make_trace
+    args = serve.build_parser().parse_args(MOE_SERVE_ARGS)
+    cfg = get_config(args.arch, dbpim_mode=args.dbpim_mode)
+    engine, trace, tables = _moe_build(args, cfg, dev)
+    assert engine.prefill_mode == "full" and engine._prefill is None
+    assert engine.cache["attn"]["k"].shape[2] == min(args.max_len,
+                                                     cfg.window)
+
+    def make(graphs=True):
+        return ServeEngine(cfg, engine.params, n_slots=args.batch,
+                           max_len=args.max_len, stacked_tables=tables,
+                           device=dev, cuda_graphs=graphs)
+    engine, outputs, device, counts, peak = _counted_run(engine, trace, make)
+    per_call = obs.per_call(cfg)
+    s = engine.metrics.summary()
+    calls = s["device_calls"]
+    assert per_call == {"joint_sparse_matmul": 896, "row_attention": 32,
+                        "row_norm": 65}, per_call
+    assert s["n_completed"] == len(trace) == 8 and s["prefill_calls"] == 0
+    assert all(len(outputs[r.rid]) == r.gen_len for r in trace)
+    assert counts == {name: per_call.get(name, 0) for name in counts}, counts
+    from repro_torch.obs import RecompileSentinel
+    assert engine.sentinel.counts() == {
+        RecompileSentinel.key(k, cfg.name): 1 for k in ("decode", "reset")}
+    lat = s["call_latency_ms"]["decode"]
+    log(f"[moe] {cfg.name} compiled serve (under torch.profiler): "
+        f"{s['n_completed']}/{s['n_requests']} requests, "
+        f"{s['generated_tokens']} tokens, {calls} decode calls (prompts "
+        f"stepwise: prefill mode full), {s['tokens_per_sec']:.1f} tokens/s "
+        f"over {s['wall_s']:.2f} s; decode ms/call p50={lat['p50_ms']:.2f} "
+        f"mean={lat['mean_ms']:.2f}; device launches "
+        + ", ".join(f"{name} {device[name]} == {n} x {calls}"
+                    for name, n in per_call.items())
+        + f" (the port's other kernels: 0); host-counted: the first decode "
+        f"call's warm-up {counts['joint_sparse_matmul']}; sentinel "
+        + ", ".join(f"{k}={n}" for k, n in engine.sentinel.counts().items())
+        + f"; peak device memory {peak:.3f} GiB")
+    # compiled == eager, and the kernel path against the plain one, on 2
+    # short requests
+    short = make_trace(WorkloadSpec(**MOE_SHORT), cfg.vocab_size)
+    runs = {}
+    for graphs in (True, False):
+        e = make(graphs)
+        runs[graphs] = (e, e.run(short))
+        torch.cuda.synchronize()
+    (comp, out_c), (eag, out_e) = runs[True], runs[False]
+    _same_runs(comp, out_c, eag, out_e, short, ("decode", "reset"))
+    log(f"[moe] {cfg.name}, 2 requests (prompts "
+        f"{[r.prompt_len for r in short]}): compiled == eager, streams and "
+        f"first-token logits bitwise; eager decode p50 "
+        f"{eag.metrics.summary()['call_latency_ms']['decode']['p50_ms']:.1f}"
+        f" ms")
+    for r in short:
+        with plain_versions():
+            ref = _stepwise_run(engine, tables, list(r.prompt))[0]
+        d, tol = _logit_gap(comp.first_logits[r.rid][0], ref)
+        assert d <= tol, (r.rid, d, tol)
+        log(f"[moe] {cfg.name} request {r.rid}: first-token logits (1, V) "
+            f"bf16, kernel path vs the plain path (stepwise, batch 1) "
+            f"max|d|={d:.3e} (tol {tol:.3e} = {LOGIT_REL_TOL} x max|ref|)")
+    del runs, comp, eag, e
+    prof = phase_profile([("mixtral compiled", engine)])
+    bound_ms = 1e3 * (_nbytes(tables.arrays) + 2 * cfg.d_model
+                      * cfg.vocab_size) / HBM_BYTES_PER_S
+    wall, busy = prof[("mixtral compiled", "decode call")][:2]
+    log(f"[moe] {cfg.name} compiled decode call: {wall:.3f} ms wall, "
+        f"busy {'not measured' if busy is None else f'{busy:.3f} ms'}; "
+        f"bytes bound {bound_ms:.3f} ms (packs "
+        f"{_nbytes(tables.arrays) / 1e9:.2f} GB + unembedding "
+        f"{2 * cfg.d_model * cfg.vocab_size / 1e9:.2f} GB at 3.35 TB/s)")
+    return {name: device[name] for name in per_call}
+
+
+def phase_ring(dev):
+    """The ring on the card: reduced mixtral (window 32) at max-len 96,
+    through the compiled engine and an eager one on requests of 70..90
+    positions (every ring wraps more than once): streams and first-token
+    logits bitwise equal; then request 0's prompt and stream through
+    stepwise decode, kernel path against plain, the last step's logits
+    (past two wraps) within LOGIT_REL_TOL of the plain path's peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServeEngine
+    args = serve.build_parser().parse_args(RING_ARGS)
+    cfg = get_config(args.arch, reduced=True, dbpim_mode=args.dbpim_mode)
+    engine, trace, tables = serve.build_engine_and_trace(args, cfg)
+    eager = ServeEngine(cfg, engine.params, n_slots=args.batch,
+                        max_len=args.max_len, stacked_tables=tables,
+                        device=dev, cuda_graphs=False)
+    out_c, out_e = engine.run(trace), eager.run(trace)
+    torch.cuda.synchronize()
+    A = engine.cache["attn"]["k"].shape[2]
+    assert A == cfg.window == 32 and engine.prefill_mode == "full"
+    assert min(r.prompt_len + r.gen_len for r in trace) > 2 * A
+    _same_runs(engine, out_c, eager, out_e, trace, ("decode", "reset"))
+    r = trace[0]
+    seq = list(r.prompt) + out_c[r.rid][:-1]
+    got = _stepwise_run(engine, tables, seq)[0]
+    with plain_versions():
+        ref = _stepwise_run(engine, tables, seq)[0]
+    d, tol = _logit_gap(got, ref)
+    assert d <= tol, (d, tol)
+    log(f"[moe] ring ({cfg.name}, window {cfg.window}, max-len "
+        f"{args.max_len}: {A} rows): {len(trace)} requests of "
+        f"{[r.prompt_len + r.gen_len for r in trace]} positions, compiled "
+        f"== eager bitwise (streams, first-token logits); request 0's "
+        f"{len(seq)} positions stepwise, the last logits kernel vs plain "
+        f"max|d|={d:.3e} (tol {tol:.3e}); reduced width and depth: at full "
+        f"width a wrap takes over 4,096 decode calls")
+
+
+def phase_arctic(dev):
+    """arctic-480b at full width, cut to ARCTIC_LAYERS of its 35 layers
+    (the dense residual MLP beside 128 experts), built slice by slice,
+    served on 2 requests with chunked prefill (per-position dispatch):
+    per call 782 joint launches from the device records, compiled ==
+    eager bitwise, first-token logits against the plain path, and a
+    chunk equal to stepwise decode op by op, bitwise (the router's
+    rows included). Returns the device launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch import obs
+    from repro_torch.serving import ServeEngine
+    args = serve.build_parser().parse_args(ARCTIC_ARGS)
+    cfg = get_config(args.arch, dbpim_mode=args.dbpim_mode).scaled(
+        n_layers=ARCTIC_LAYERS)
+    engine, trace, tables = _moe_build(args, cfg, dev)
+
+    def make(graphs=True):
+        return ServeEngine(cfg, engine.params, n_slots=args.batch,
+                           max_len=args.max_len,
+                           prefill_chunk=args.prefill_chunk,
+                           stacked_tables=tables, device=dev,
+                           cuda_graphs=graphs)
+    eager = make(False)
+    reset_launches()
+    out_e = eager.run(trace)
+    torch.cuda.synchronize()
+    eager_counts = read_launches()
+    engine, out_c, device, counts, peak = _counted_run(engine, trace, make)
+    per_call = obs.per_call(cfg)
+    calls = engine.metrics.summary()["device_calls"]
+    assert per_call == {"joint_sparse_matmul": 782, "row_attention": 2,
+                        "row_norm": 5}, per_call
+    assert eager_counts == {name: per_call.get(name, 0) * calls
+                            for name in eager_counts}, eager_counts
+    kinds = ("decode", "prefill_chunk_exact", "reset")
+    _same_runs(engine, out_c, eager, out_e, trace, kinds)
+    s = engine.metrics.summary()
+    log(f"[moe] {cfg.name} ({cfg.n_layers} of 35 layers) compiled engine, "
+        f"{len(trace)} requests (prompts {[r.prompt_len for r in trace]}), "
+        f"chunks of {args.prefill_chunk}: {s['decode_calls']} decode + "
+        f"{s['prefill_calls']} prefill calls, compiled == eager bitwise; "
+        f"device launches "
+        + ", ".join(f"{name} {device[name]} == {n} x {calls}"
+                    for name, n in per_call.items())
+        + f"; decode p50 {s['call_latency_ms']['decode']['p50_ms']:.2f} ms, "
+        f"prefill_chunk_exact p50 "
+        f"{s['call_latency_ms']['prefill_chunk_exact']['p50_ms']:.2f} ms; "
+        f"peak {peak:.3f} GiB")
+    for r in trace:
+        with plain_versions():
+            ref = _chunked_run(engine, tables, list(r.prompt),
+                               engine.prefill_chunk)[0]
+        d, tol = _logit_gap(engine.first_logits[r.rid][0], ref)
+        assert d <= tol, (r.rid, d, tol)
+        log(f"[moe] {cfg.name} request {r.rid}: first-token logits, kernel "
+            f"vs plain max|d|={d:.3e} (tol {tol:.3e})")
+    check_chunk_equals_stepwise(engine, tables, list(trace[0].prompt))
+    return {name: device[name] for name in per_call}
 
 
 def _full_width_layer(cfg, dev):
@@ -1433,11 +1862,12 @@ def phase_profile(engines, n_steps=8, n_chunks=4, long_fill=4, out=None):
             prefill_window(n=long_fill)
 
         long_cell = label.startswith("long")
-        for what, window, n, rows, setup in (
-                ("decode call", decode_window, n_steps, B,
-                 filled if long_cell else None),
-                ("prefill-chunk call", prefill_window, n_chunks, B * C,
-                 reset_all)):
+        windows = [("decode call", decode_window, n_steps, B,
+                    filled if long_cell else None)]
+        if engine._prefill is not None:       # none in "full" prefill mode
+            windows.append(("prefill-chunk call", prefill_window, n_chunks,
+                            B * C, reset_all))
+        for what, window, n, rows, setup in windows:
             wall_ms, busy_ms, ops, joint_ms, kernels, peak, base = \
                 _profile_window(window, n, setup)
             out[(label, what)] = (wall_ms, busy_ms, ops, peak)
@@ -1610,15 +2040,16 @@ def _joint_case(name, K, N, p, rows, repeat, gen, dev):
 
 
 def _time_cases(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs,
-                n_slots=4, M=256):
+                moe_cfg, moe_packs, n_slots=4, M=256):
     """Per work unit, one case per launch: the kernel, its plain version
     and the library call as closures, with the bytes and operations the
     launch needs. The joint kernel at the decode shapes (M = n_slots) and,
     as units of their own, at the JOINT_PREFILL_M rows, and at mamba2's
-    two projections (JOINT_SSM_UNITS); the block-sparse and FTA/INT8
-    kernels over phase 5's layer tables and the DBMU kernel over the four
-    projection shapes (M rows); row_norm also at mamba2's gated norm
-    (d = 4096)."""
+    two projections (JOINT_SSM_UNITS), and at mixtral's expert shapes
+    (JOINT_MOE_UNIT: one decode call's 768 expert launches at its
+    capacity of 8 rows); the block-sparse and FTA/INT8 kernels over phase
+    5's layer tables and the DBMU kernel over the four projection shapes
+    (M rows); row_norm also at mamba2's gated norm (d = 4096)."""
     from repro_torch.core import dyadic, pruning
     from repro_torch.kernels import block_sparse_matmul as bsk
     from repro_torch.kernels import dbmu_sim
@@ -1686,6 +2117,11 @@ def _time_cases(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs,
         cases[unit] = [_joint_case(name, K, N, ssm_packs[(K, N)], rows,
                                    ssm_cfg.n_layers, gen, dev)
                        for name, K, N in _path_shapes(ssm_cfg)]
+    from repro_torch.models.moe import capacity
+    cases[JOINT_MOE_UNIT] = [
+        _joint_case(name, K, N, moe_packs[(K, N)], capacity(moe_cfg, n_slots),
+                    moe_cfg.n_layers * moe_cfg.n_experts, gen, dev)
+        for name, K, N in _path_shapes(moe_cfg)[4:]]
     d_in = ssm_cfg.ssm_expand * ssm_cfg.d_model
     cases[NORM_SSM_UNIT] = _row_norm_cases(ssm_cfg, dev, gen, D=d_in,
                                            rows=(4, 256),
@@ -1763,7 +2199,8 @@ def _row_norm_cases(cfg, dev, gen, D=None, rows=(4, 256, LONG_B * LONG_C),
     return cases
 
 
-def phase_times(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs):
+def phase_times(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs,
+                moe_cfg, moe_packs):
     """Each kernel, its plain version and its library yardstick, launch by
     launch over its work unit, beside the bound; the joint kernel's
     decode-step totals count each projection once per layer. Returns
@@ -1776,7 +2213,8 @@ def phase_times(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs):
 
     out = {}
     for kname, rows in _time_cases(cfg, packs, tables_by_mode, dev,
-                                   ssm_cfg, ssm_packs).items():
+                                   ssm_cfg, ssm_packs, moe_cfg,
+                                   moe_packs).items():
         tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
                    library_device_ms=0.0, bytes=0, ops=0, host_us=0.0)
         per_shape = []
@@ -1838,26 +2276,47 @@ def main() -> int:
     phase_build()
     cfg = get_config("tinyllama-1.1b", dbpim_mode="joint")
     ssm_cfg = get_config("mamba2-1.3b", dbpim_mode="joint")
+    moe_cfg = get_config("mixtral-8x7b", dbpim_mode="joint")
+    arctic_cfg = get_config("arctic-480b", dbpim_mode="joint").scaled(
+        n_layers=ARCTIC_LAYERS)
     packs = phase_pack(cfg, dev)
     ssm_packs = phase_pack(ssm_cfg, dev)
-    worst = {"joint_sparse_matmul": max(phase_kernel(cfg, packs, dev),
-                                        phase_kernel(ssm_cfg, ssm_packs,
-                                                     dev)),
+    moe_packs = phase_pack(moe_cfg, dev)
+    arctic_packs = phase_pack(arctic_cfg, dev)
+    worst = {"joint_sparse_matmul": max(
+                 phase_kernel(cfg, packs, dev),
+                 phase_kernel(ssm_cfg, ssm_packs, dev),
+                 phase_kernel(moe_cfg, moe_packs, dev, MOE_KERNEL_M),
+                 phase_kernel(arctic_cfg, arctic_packs, dev, MOE_KERNEL_M)),
              **phase_kernel_value_bit_dbmu(cfg, dev)}
+    del arctic_packs
     worst.update(phase_kernel_rows(
         cfg, dev, (cfg.d_model, ssm_cfg.ssm_expand * ssm_cfg.d_model)))
+    # the MoE phases come before the other serve phases and the profile
+    # phase: late in a process that has run many profiled windows, the
+    # profiler has dropped device records of arctic's counted run
+    phase_moe_pack(dev)
+    moe_launches = phase_moe_serve(dev)
+    torch.cuda.empty_cache()
+    phase_ring(dev)
+    arctic_launches = phase_arctic(dev)
+    torch.cuda.empty_cache()
     serve_launches, engine, eager, tables = phase_serve(dev)
     ssm_launches, ssm_engine, ssm_eager, ssm_tables = phase_serve(
         dev, SSM_SERVE_ARGS, "prefill_parallel")
     phase_ssm_exact(ssm_engine, ssm_tables)
     mode_launches, tables_by_mode = phase_modes(dev)
-    launches = {**{k: n + ssm_launches[k] for k, n in serve_launches.items()},
-                **mode_launches, "dbmu_matmul": phase_dbmu(cfg, dev)}
+    launches = {k: n + ssm_launches[k] + moe_launches[k] + arctic_launches[k]
+                for k, n in serve_launches.items()}
+    launches.update(mode_launches, dbmu_matmul=phase_dbmu(cfg, dev))
     phase_profile_long(engine, tables, phase_profile(
         [("functional", FunctionalSteps(eager, tables)), ("eager", eager),
          ("compiled", engine), ("mamba2 eager", ssm_eager),
          ("mamba2 compiled", ssm_engine)]))
-    times = phase_times(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs)
+    del engine, eager, tables, ssm_engine, ssm_eager, ssm_tables
+    torch.cuda.empty_cache()
+    times = phase_times(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs,
+                        moe_cfg, moe_packs)
 
     kernels = []
     for name, replaces, work in (
@@ -1896,7 +2355,10 @@ def main() -> int:
             ("one mamba2 decode step: 48 layers x 2 projections, M=4, bf16",
              "joint_sparse_matmul mamba2 decode"),
             ("one mamba2 prefill call: 48 layers x 2 projections, M=256, "
-             "bf16", "joint_sparse_matmul mamba2 prefill")],
+             "bf16", "joint_sparse_matmul mamba2 prefill"),
+            ("one mixtral-8x7b decode call's expert launches: 32 layers x "
+             "3 projections x 8 experts, M=8 (an expert's capacity at "
+             "batch 4), bf16", JOINT_MOE_UNIT)],
             "row_attention": [
                 ("one long-context prefill-chunk call: 22 launches, batch 16 "
                  "x 256 queries, 2048-slot cache, bf16", ATTN_LONG_UNIT),

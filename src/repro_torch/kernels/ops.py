@@ -249,7 +249,10 @@ def _quantize_and_compact(w, m, bk, bn, fta_project, maxb=None,
     tiles = q.reshape(kt, bk, nt, bn).permute(2, 0, 1, 3)        # (nt,kt,bk,bn)
     w_blocks = torch.gather(
         tiles, 1, order[:, :, None, None].expand(nt, maxb, bk, bn))
-    w_blocks = w_blocks * real[:, :, None, None].to(w_blocks.dtype)
+    # padded slots hold +0 (a product with 0 would keep a bf16 sign)
+    w_blocks = torch.where(real[:, :, None, None], w_blocks,
+                           torch.zeros((), dtype=w_blocks.dtype,
+                                       device=w_blocks.device))
     return (w_blocks.contiguous(), idx, nblocks, scales.reshape(1, Np),
             Kp, Np)
 
@@ -271,6 +274,26 @@ def pack_joint_sparse(w_dense, mask=None, *, bk: int = BK, bn: int = BN,
     return JointPacked(w_blocks, idx, scales, nblocks, K, N, Kp)
 
 
+def _balanced_mask(w, value_sparsity, bk: int, bn: int):
+    """The stacked and grouped packs' mask of one (K, N) slice:
+    column-balanced tile pruning at ``value_sparsity``, or every weight
+    kept when it is 0 or None."""
+    if value_sparsity:
+        return tile_prune_mask_balanced(w, value_sparsity, bk, bn)
+    return torch.ones(w.shape, dtype=torch.int32, device=w.device)
+
+
+def balanced_maxb(K: int, value_sparsity, bk: int = BK) -> int:
+    """MAXB of a stacked or grouped pack with no explicit masks, from the
+    shape alone: column-balanced pruning keeps ``kt - round(vs * kt)``
+    K-blocks in every N-tile column of every slice (``kt`` with no
+    pruning), the keep count of ``tile_prune_mask_balanced``."""
+    kt = -(-K // bk)
+    if not value_sparsity:
+        return kt
+    return kt - min(int(round(value_sparsity * kt)), kt - 1)
+
+
 def pack_joint_sparse_stacked(w_stack, masks=None, *, bk: int = BK,
                               bn: int = BN, value_sparsity: float = None,
                               fta_project: bool = True,
@@ -279,29 +302,125 @@ def pack_joint_sparse_stacked(w_stack, masks=None, *, bk: int = BK,
     column-balanced tile pruning (or the explicit ``masks``), INT8/FTA
     quantization and compaction into one shared MAXB (the max survivor
     count over every (layer, column); short layers pad with zero-payload
-    slots). Payload "bf16" is the value-only layout."""
+    slots). Payload "bf16" is the value-only layout. With no explicit
+    masks MAXB follows from the shape (``balanced_maxb``) and the layers
+    pack one at a time, in float32 one layer at a time."""
     if w_stack.ndim != 3 or not w_stack.shape[0]:
         raise ValueError(f"w_stack must be (L, K, N), got "
                          f"{tuple(w_stack.shape)}")
-    w_stack = w_stack.float()
     L, K, N = w_stack.shape
     if masks is None:
-        ms = [(tile_prune_mask_balanced(w_stack[l], value_sparsity, bk, bn)
-               if value_sparsity else
-               torch.ones((K, N), dtype=torch.int32, device=w_stack.device))
-              for l in range(L)]
+        maxb = balanced_maxb(K, value_sparsity, bk)
+        parts = [pack_joint_sparse_balanced(
+                     w_stack[l], maxb, bk=bk, bn=bn,
+                     value_sparsity=value_sparsity, fta_project=fta_project,
+                     payload=payload) for l in range(L)]
+        fields = [(p.w_blocks, p.idx, p.scales, p.nblocks) for p in parts]
+        Kp = parts[0].k_pad
     else:
+        w_stack = w_stack.float()
         ms = [masks[l].to(torch.int32) for l in range(L)]
-    maxb = max(1, max(int(_tile_alive(ms[l], bk, bn).sum(dim=0).max())
-                      for l in range(L)))
-    parts = [_quantize_and_compact(w_stack[l], ms[l], bk, bn, fta_project,
-                                   maxb=maxb, payload=payload)
-             for l in range(L)]
-    Kp = parts[0][4]
-    return JointPackedStacked(
-        torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts]),
-        torch.stack([p[3] for p in parts]), torch.stack([p[2] for p in parts]),
-        K, N, Kp)
+        maxb = max(1, max(int(_tile_alive(ms[l], bk, bn).sum(dim=0).max())
+                          for l in range(L)))
+        parts = [_quantize_and_compact(w_stack[l], ms[l], bk, bn,
+                                       fta_project, maxb=maxb,
+                                       payload=payload) for l in range(L)]
+        fields = [(p[0], p[1], p[3], p[2]) for p in parts]
+        Kp = parts[0][4]
+    return JointPackedStacked(*(torch.stack(f) for f in zip(*fields)),
+                              K, N, Kp)
+
+
+#: weights per column block of ``pack_joint_sparse_balanced``: its int64
+#: and float64 temporaries stay near 1 GiB whatever the slice's width
+PACK_BLOCK_ELEMS = 1 << 23
+
+
+def pack_joint_sparse_balanced(w, maxb: int, *, bk: int = BK, bn: int = BN,
+                               value_sparsity: float = None,
+                               fta_project: bool = True,
+                               payload: str = "int8") -> JointPacked:
+    """One (K, N) slice of a stacked or grouped pack with no explicit
+    masks, packed on its own at the pack's shared ``maxb``
+    (``balanced_maxb``): byte for byte the slice the whole-stack pack
+    makes, with only this slice in memory. Every step (balanced pruning
+    within each N-tile column, the per-filter scale, FTA, compaction) is
+    local to an N tile, so the slice packs in blocks of whole N tiles,
+    ``PACK_BLOCK_ELEMS`` weights at a time."""
+    K, N = w.shape
+    cols = bn * max(1, PACK_BLOCK_ELEMS // (K * bn))
+    parts = []
+    for c0 in range(0, N, cols):
+        blk = w[:, c0:c0 + cols].float()
+        parts.append(_quantize_and_compact(
+            blk, _balanced_mask(blk, value_sparsity, bk, bn), bk, bn,
+            fta_project, maxb=maxb, payload=payload))
+    w_blocks, idx, nblocks, scales = (
+        torch.cat([p[i] for p in parts], dim=d)
+        for i, d in ((0, 0), (1, 0), (2, 0), (3, 1)))
+    return JointPacked(w_blocks, idx, scales, nblocks, K, N, parts[0][4])
+
+
+class JointPackedGrouped(NamedTuple):
+    """A grouped projection family (MoE experts): all L layers x E members
+    packed with ONE shared MAXB over every (layer, member) pair. The
+    JointPacked fields with leading (L, E) axes: ``w_blocks`` (L, E, NT,
+    MAXB, bk, bn) int8 or bf16, ``idx`` (L, E, NT, MAXB) int32,
+    ``scales`` (L, E, 1, N_pad) float32, ``nblocks`` (L, E, NT) int32."""
+    w_blocks: torch.Tensor
+    idx: torch.Tensor
+    scales: torch.Tensor
+    nblocks: torch.Tensor
+    k: int
+    n: int
+    k_pad: int
+
+    @property
+    def maxb(self) -> int:
+        return self.w_blocks.shape[3]
+
+
+def pack_joint_sparse_grouped(w_group, masks=None, *, bk: int = BK,
+                              bn: int = BN, value_sparsity: float = None,
+                              fta_project: bool = True,
+                              payload: str = "int8") -> JointPackedGrouped:
+    """Group-uniform joint compilation of (L, E, K, N) expert weights: the
+    stacked pack over the flattened (L * E) axis (per-slice balanced tile
+    pruning or the explicit ``masks`` (L, E, K, N), one MAXB shared by
+    every layer of every expert), then the (L, E) axes restored."""
+    if w_group.ndim != 4 or not (w_group.shape[0] and w_group.shape[1]):
+        raise ValueError(f"w_group must be (L, E, K, N), got "
+                         f"{tuple(w_group.shape)}")
+    L, E, K, N = w_group.shape
+    flat_masks = None
+    if masks is not None:
+        flat_masks = torch.as_tensor(masks).reshape(L * E, K, N)
+    flat = pack_joint_sparse_stacked(
+        w_group.reshape(L * E, K, N), flat_masks, bk=bk, bn=bn,
+        value_sparsity=value_sparsity, fta_project=fta_project,
+        payload=payload)
+
+    def regroup(a):
+        return a.reshape((L, E) + tuple(a.shape[1:]))
+    return JointPackedGrouped(
+        regroup(flat.w_blocks), regroup(flat.idx), regroup(flat.scales),
+        regroup(flat.nblocks), flat.k, flat.n, flat.k_pad)
+
+
+def slice_joint_grouped(packed: JointPackedGrouped, l: int,
+                        e: int) -> JointPacked:
+    """Expert e of layer l as a per-projection JointPacked view."""
+    return JointPacked(packed.w_blocks[l, e], packed.idx[l, e],
+                       packed.scales[l, e], packed.nblocks[l, e],
+                       packed.k, packed.n, packed.k_pad)
+
+
+def unpack_joint_sparse_grouped(packed: JointPackedGrouped):
+    """Invert pack_joint_sparse_grouped -> dense float32 (L, E, K, N)."""
+    L, E = packed.w_blocks.shape[:2]
+    return torch.stack([
+        torch.stack([unpack_joint_sparse(slice_joint_grouped(packed, l, e))
+                     for e in range(E)]) for l in range(L)])
 
 
 def slice_joint_stacked(packed: JointPackedStacked, l: int) -> JointPacked:
@@ -333,8 +452,8 @@ def unpack_joint_sparse_stacked(packed: JointPackedStacked):
 
 def joint_storage_bytes(packed) -> int:
     """Device bytes of a joint artifact as the JAX package counts them
-    (payload elements + 4-byte index + 4-byte scales); JointPacked or
-    JointPackedStacked."""
+    (payload elements + 4-byte index + 4-byte scales); JointPacked,
+    JointPackedStacked or JointPackedGrouped."""
     return int(packed.w_blocks.numel() + packed.idx.numel() * 4
                + packed.scales.numel() * 4)
 

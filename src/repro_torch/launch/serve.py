@@ -9,7 +9,15 @@ projections into the uniform-MAXB joint-sparse stacked layout once at
 startup, on the device, and serves both decode steps and prefill chunks
 through the ``joint_sparse_matmul`` kernel ((1 - value_sparsity) * 0.5 of
 dense bf16 weight bytes). ``--dbpim-mode value`` serves the bf16-payload
-variant of the same layout. Params are random, from ``--seed``.
+variant of the same layout. Params are random, from ``--seed``, built
+with their tables by ``sparse_linear.init_stacked_serving``: each MoE
+expert slice is packed as it is drawn, so mixtral-8x7b's 90 GB of dense
+expert stacks never exist at once; every expert projection runs one
+joint launch per expert.
+
+``--prefill-mode full`` feeds prompt tokens through the decode step one
+at a time; sliding-window archs (mixtral) fall back to it from the
+default "chunked", since their ring cache needs stepwise writes.
 
 The engine's decode, prefill-chunk and reset steps are compiled once
 each (one CUDA graph per step on the card); the recompile sentinel's
@@ -32,10 +40,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
-from repro_torch.models import init_params
 from repro_torch.serving import ServeEngine, WorkloadSpec, make_trace
-from repro_torch.sparsity.sparse_linear import (build_stacked_tables,
-                                                strip_packed_projections)
+from repro_torch.sparsity.sparse_linear import init_stacked_serving
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -58,6 +64,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=16,
                     help="prompt tokens per chunked-prefill device call")
+    ap.add_argument("--prefill-mode", default="chunked",
+                    choices=["chunked", "full"],
+                    help="'full' = token-by-token prefill through the decode "
+                         "step (sliding-window archs always)")
     ap.add_argument("--prefill-exact", action="store_true",
                     help="SSM chunks: force the exact per-token recurrence "
                          "(bit-identical to decode, C x the projection "
@@ -79,13 +89,12 @@ def build_engine_and_trace(args, cfg):
     """Engine + trace from parsed args (shared by the CLI and
     chip_smoke.py). Returns (engine, trace, stacked_tables)."""
     dev = resolve_device(args.device)
-    params = init_params(cfg, seed=args.seed, device=dev)
-    tables = None
-    if cfg.dbpim and cfg.dbpim_mode != "dense":
-        tables = build_stacked_tables(params, cfg,
-                                      value_sparsity=args.value_sparsity)
-        # the packed tables now serve these matmuls: drop the dense copies
-        params = strip_packed_projections(params, cfg)
+    # the params and their stacked tables, each MoE expert slice packed
+    # as it is drawn (a full-width MoE's dense expert stacks outgrow the
+    # card); the packed projections' dense copies are stripped
+    params, tables = init_stacked_serving(cfg, seed=args.seed, device=dev,
+                                          value_sparsity=args.value_sparsity)
+    if tables is not None:
         nbytes = sum(a.numel() * a.element_size()
                      for t in tables.arrays.values() for a in t.values())
         print(f"[serve] dbpim_mode={cfg.dbpim_mode}: "
@@ -94,6 +103,7 @@ def build_engine_and_trace(args, cfg):
     engine = ServeEngine(cfg, params, n_slots=args.batch,
                          max_len=args.max_len,
                          prefill_chunk=args.prefill_chunk,
+                         prefill_mode=args.prefill_mode,
                          stacked_tables=tables, device=dev)
     spec = WorkloadSpec(n_requests=args.requests,
                         arrival_rate=args.arrival_rate,
@@ -109,13 +119,16 @@ def main(argv=None):
                      dbpim_mode=args.dbpim_mode,
                      prefill_exact=args.prefill_exact or None)
     engine, trace, _ = build_engine_and_trace(args, cfg)
+    if engine.prefill_mode != args.prefill_mode:
+        print(f"[serve] {cfg.name}: chunked prefill unsupported (sliding-"
+              f"window ring cache); falling back to stepwise (full) prefill")
     outputs = engine.run(trace)
     s = engine.metrics.summary()
     print(f"[serve] {s['n_completed']}/{s['n_requests']} requests, "
           f"{s['generated_tokens']} tokens in {s['engine_ticks']} ticks / "
           f"{s['device_calls']} device calls "
           f"({s['decode_calls']} decode + {s['prefill_calls']} prefill, "
-          f"prefill kind {engine.prefill_kind})")
+          f"prefill {engine.prefill_mode}, kind {engine.prefill_kind})")
     if s["ttft_ticks_mean"] is not None:
         print(f"[serve] tokens/step={s['tokens_per_step']:.3f}  ttft_ticks "
               f"mean={s['ttft_ticks_mean']:.1f} p95={s['ttft_ticks_p95']}")

@@ -1,5 +1,6 @@
 """Attention for the serving path: GQA with RoPE and qk-norm against a
-contiguous static-shape KV cache.
+contiguous static-shape KV cache, a ring of ``window`` rows for
+sliding-window archs (mixtral).
 
 Port of the contiguous branches of ``repro.models.attention``, with the
 same -1e30 masking and the fp32 softmax cast back to the activation dtype.
@@ -9,6 +10,13 @@ however many share a call: chunked prefill reproduces stepwise decode.
 
 Shapes: x (B, S, D); q (B, S, Hq, hd); k/v (B, S, Hkv, hd). Cache:
 {"k", "v"} (B, A, Hkv, hd) per layer, A = allocated length.
+
+The ring (cfg.window > 0): A = min(max_len, window) rows, a decode step
+writes position ``pos`` at row ``pos mod A``, and a row is valid if it
+was written (row <= pos) or the ring is full (pos >= A), when every row
+is. That is ``row_attention`` with the query's position clamped to A - 1:
+the same kernel serves it. Windowed archs prefill stepwise; the chunk
+(``prefill_attention``) refuses them, as the reference does.
 
 Each attention takes the cache functionally (new k/v come back, as in
 JAX) or, for the serving engine's compiled steps, writes its rows into the
@@ -55,10 +63,11 @@ def _sdpa(q, k, v, qpos):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
                device):
-    """Stacked KV cache for a layer stack (full causal attention: the
-    sliding-window ring buffer is not ported yet)."""
+    """Stacked KV cache for a layer stack. Sliding-window archs allocate
+    only the window (the ring)."""
     dt = dtype_of(cfg)
-    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    alloc = min(max_len, cfg.window) if cfg.window else max_len
+    shape = (n_layers, batch, alloc, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device),
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
@@ -98,7 +107,9 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
                      dense_fn=None, active=None):
     """Single-token decode against one layer's cache slice. x (B, 1, D);
     cache_k/v (B, A, Hkv, hd); pos = tokens already in the cache, scalar
-    or (B,). Returns (out, new_k, new_v).
+    or (B,). Returns (out, new_k, new_v). A windowed arch's cache is the
+    ring: the new row goes to pos mod A and the query attends to every
+    valid row (its position clamped to A - 1).
 
     active (B,) bool writes the new rows into cache_k/v in place, for the
     active slots only (inactive slots' slices keep their bits; their
@@ -109,7 +120,8 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
     posv = _per_slot_pos(pos, B, x.device)                         # (B,)
     q, k, v = _project_qkv(p, x, posv[:, None], cfg, mm)
     A = cache_k.shape[1]
-    slot = torch.clamp(posv, max=A - 1).long()
+    slot = (torch.remainder(posv, A) if cfg.window
+            else torch.clamp(posv, max=A - 1)).long()
     rows = torch.arange(B, device=x.device)
     if active is None:
         new_k = cache_k.clone()
@@ -120,7 +132,8 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
         new_k, new_v = cache_k, cache_v
         _put_rows_(new_k, rows, slot, k[:, 0], active)
         _put_rows_(new_v, rows, slot, v[:, 0], active)
-    out = _sdpa(q, new_k, new_v, posv[:, None])
+    qpos = torch.clamp(posv, max=A - 1) if cfg.window else posv
+    out = _sdpa(q, new_k, new_v, qpos[:, None])
     return mm(p["wo"], out.reshape(B, 1, cfg.q_dim), "wo"), new_k, new_v
 
 
@@ -134,7 +147,13 @@ def prefill_attention(p, x, cache_k, cache_v, pos, n_valid,
     with n_valid = 0 keep their slice as it was), then attends each query
     to every cached position <= its own. Returns (out, new_k, new_v);
     ``inplace`` writes the valid rows into cache_k/v themselves (every
-    other row keeps its bits) and returns them."""
+    other row keeps its bits) and returns them.
+
+    Requires cfg.window == 0: a sliding-window ring overwrites rows within
+    the chunk, which only a sequential walk reproduces."""
+    if cfg.window:
+        raise ValueError("chunked prefill does not support sliding-window "
+                         "ring caches; use stepwise (full-forward) prefill")
     mm = dense_fn or (lambda w, v, name: v @ w)
     B, C, _ = x.shape
     A = cache_k.shape[1]

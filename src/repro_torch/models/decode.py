@@ -1,6 +1,7 @@
 """Serving path: cache init, single-token decode, chunked prefill and
-per-slot cache surgery, for attention and SSM segments on a contiguous
-cache.
+per-slot cache surgery, for attention (with an MLP or MoE FFN) and SSM
+segments on a contiguous cache (a ring of ``window`` rows for
+sliding-window archs, which prefill stepwise).
 
 Port of ``repro.models.decode``. The decoder is the segment list of
 ``models.segments``; where JAX scans each segment's stacked params, cache
@@ -175,7 +176,13 @@ def decode_chunk(params, cache, tokens, n_valid, cfg: ModelConfig,
     cfg.prefill_exact (``ssm.prefill_ssm``). The default SSM chunk is the
     parallel SSD form (``ssm.prefill_ssm_parallel``): the in/out
     projections read once per chunk instead of once per token, within
-    ``ssm.PARALLEL_PREFILL_ATOL`` of stepwise decode, not bitwise."""
+    ``ssm.PARALLEL_PREFILL_ATOL`` of stepwise decode, not bitwise. MoE
+    layers group their capacity dispatch by chunk position, so each
+    position routes the pool one decode step routes.
+
+    Requires full causal attention (cfg.window == 0): a sliding-window
+    ring overwrites rows within a chunk, which only a sequential walk
+    reproduces."""
     return _chunk(params, cache, tokens, n_valid, cfg, tables, False)
 
 
@@ -191,6 +198,10 @@ def decode_chunk_(params, cache, tokens, n_valid, cfg: ModelConfig,
 
 
 def _chunk(params, cache, tokens, n_valid, cfg, tables, inplace):
+    if cfg.window:
+        raise ValueError(f"chunked prefill is not supported for {cfg.name}"
+                         f": sliding-window ring caches need stepwise "
+                         f"prefill")
     B, C = tokens.shape
     pos = attn_mod._per_slot_pos(cache["pos"], B, tokens.device)
     n_valid = torch.as_tensor(n_valid, dtype=torch.int32,
@@ -209,7 +220,7 @@ def _chunk(params, cache, tokens, n_valid, cfg, tables, inplace):
         else:
             y, a, b = ssm_prefill(p["ssm"], hn, a, b, n_valid, cfg,
                                   dense_fn=mm, inplace=inplace)
-        return _block_tail(seg, p, h + y, cfg, mm), a, b
+        return _block_tail(seg, p, h + y, cfg, mm, per_position=True), a, b
 
     x, new_cache = _run_segments(params, cache, x, cfg, tables, layer,
                                  pos + n_valid, inplace=inplace)

@@ -1,8 +1,8 @@
 """Request-level serving engine: admission queue + per-slot state machine
 + fixed-shape steps.
 
-Port of the FIFO, contiguous-cache, chunked-prefill subset of
-``repro.serving.engine``. The engine owns a static batch of ``n_slots``
+Port of the FIFO, contiguous-cache subset of ``repro.serving.engine``,
+with both prefill modes. The engine owns a static batch of ``n_slots``
 cache slots; each request moves through
 
     QUEUED -> PREFILLING -> DECODING -> DONE
@@ -12,7 +12,10 @@ with all scheduling on the host and all math in two fixed-shape steps
 
   * decode step   (B, 1) tokens + (B,) active mask (only active slots
     write the cache: models.decode.decode_step_);
-  * prefill chunk (B, C) tokens + (B,) n_valid (models.decode_chunk_);
+  * prefill chunk (B, C) tokens + (B,) n_valid (models.decode_chunk_),
+    in prefill_mode "chunked" only: in "full" mode (and for
+    sliding-window archs, which cannot chunk) prompt tokens ride the
+    decode step one at a time and no chunk step is built;
   * slot reset    zeroes a freed slot's cache slice and position before
     admission (models.decode.reset_slots_).
 
@@ -23,9 +26,10 @@ the cache updated in place; on the CPU the same in-place steps run
 eagerly. The recompile sentinel (``obs.sentinel``) holds each step to one
 compiled signature and is checked at the end of every tick.
 
-One engine TICK = admit -> (prefill chunk, if any slot is prefilling) ->
-(decode step, if any slot is decoding): prefilling a new request never
-stalls in-flight decodes. Tick accounting and the slot state machine are
+One engine TICK = admit -> (prefill chunk, if any slot is prefilling and
+the mode is "chunked") -> (decode step, if any slot is decoding, or
+prefilling in "full" mode): prefilling a new request never stalls
+in-flight decodes. Tick accounting and the slot state machine are
 the reference's; its fault tolerance, tracing, journal, snapshots,
 paging, SPF admission and SLO shedding are not ported yet and the
 constructor refuses them.
@@ -53,7 +57,7 @@ from repro_torch.launch.steps import build_step, compile_step
 from repro_torch.models import init_cache
 from repro_torch.obs.sentinel import RecompileSentinel
 from repro_torch.serving.metrics import MetricsRecorder
-from repro_torch.serving.prefill import assemble_chunk
+from repro_torch.serving.prefill import PREFILL_MODES, assemble_chunk
 from repro_torch.serving.workload import Request
 
 
@@ -93,7 +97,8 @@ class ServeEngine:
     """
 
     def __init__(self, cfg, params, *, n_slots: int = 4, max_len: int = 64,
-                 prefill_chunk: int = 16, schedule: str = "fifo",
+                 prefill_chunk: int = 16, prefill_mode: str = "chunked",
+                 schedule: str = "fifo",
                  stacked_tables=None, max_ticks: int = 100_000,
                  device="cuda", paged: bool = False, fault_plan=None,
                  journal=None, snapshot_dir: Optional[str] = None,
@@ -110,6 +115,14 @@ class ServeEngine:
         if schedule != "fifo":
             raise NotImplementedError(f"schedule={schedule!r} is not ported "
                                       f"yet (fifo only)")
+        if prefill_mode not in PREFILL_MODES:
+            raise ValueError(f"prefill_mode {prefill_mode!r} not in "
+                             f"{PREFILL_MODES}")
+        if prefill_mode == "chunked" and \
+                not cfg.serving_capabilities().chunked_prefill:
+            # sliding-window archs: the ring cache needs stepwise writes
+            prefill_mode = "full"
+        self.prefill_mode = prefill_mode
         self.cfg = cfg
         self.device = resolve_device(device)
         self.n_slots = n_slots
@@ -134,9 +147,13 @@ class ServeEngine:
                                            stacked_tables=stacked_tables),
                                 buffer_argnums=buffers, graphs=cuda_graphs)
         self._decode = compiled("decode", (0, 1))
-        self._prefill = compiled("prefill_chunk", (0, 1))
+        self._prefill = (compiled("prefill_chunk", (0, 1))
+                         if prefill_mode == "chunked" else None)
         self._reset = compiled("reset", (0,))
-        self.prefill_kind = self._prefill.call_kind
+        # the chunk math of the prefill step; None in "full" mode, where
+        # prompt tokens ride the decode call
+        self.prefill_kind = (self._prefill.call_kind
+                             if self._prefill is not None else None)
 
         # the fixed-shape no-recompile contract, enforced: each compiled
         # step gets ONE signature; check() runs every tick (obs.sentinel)
@@ -144,8 +161,9 @@ class ServeEngine:
         if recompile_sentinel:
             self.sentinel = RecompileSentinel()
             for step in (self._decode, self._prefill, self._reset):
-                self.sentinel.register(
-                    RecompileSentinel.key(step.call_kind, cfg.name), step)
+                if step is not None:
+                    self.sentinel.register(
+                        RecompileSentinel.key(step.call_kind, cfg.name), step)
 
         self.queue: deque = deque()
         self.slots = [_Slot() for _ in range(n_slots)]
@@ -206,7 +224,9 @@ class ServeEngine:
     def tick(self):
         tick = self.tick_count
         self._admit(tick)
-        calls = self._prefill_phase(tick)
+        calls = 0
+        if self.prefill_mode == "chunked":
+            calls += self._prefill_phase(tick)
         calls += self._decode_phase(tick)
         self.metrics.on_tick(
             tick, queue_depth=len(self.queue),
@@ -286,11 +306,17 @@ class ServeEngine:
         return 1
 
     def _decode_phase(self, tick: int) -> int:
+        """One decode step over the decoding slots and, in "full" mode,
+        the prefilling ones, each feeding its next prompt token."""
+        stepwise_prefill = self.prefill_mode == "full"
         tokens = np.zeros((self.n_slots, 1), np.int32)
         active = np.zeros((self.n_slots,), bool)
         for s, slot in enumerate(self.slots):
             if slot.state is SlotState.DECODING:
                 tokens[s, 0] = slot.pending_token
+                active[s] = True
+            elif stepwise_prefill and slot.state is SlotState.PREFILLING:
+                tokens[s, 0] = slot.prompt[slot.cursor]
                 active[s] = True
         if not active.any():
             return 0
@@ -308,6 +334,13 @@ class ServeEngine:
             if not np.isfinite(lg[s]).all():
                 raise FloatingPointError(f"slot {s}: non-finite logits in "
                                          f"decode at tick {tick}")
+            if slot.state is SlotState.PREFILLING:
+                slot.cursor += 1
+                self.metrics.on_prefill_step(slot.rid)
+                if slot.cursor >= len(slot.prompt):
+                    self._finish_prefill(s, int(nxt[s]),
+                                         logits[s].to("cpu", copy=True), tick)
+                continue
             tok = int(nxt[s])
             self.outputs[slot.rid].append(tok)
             slot.pending_token = tok

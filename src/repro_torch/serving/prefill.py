@@ -1,10 +1,15 @@
-"""Chunked cache-filling prefill for the serving engine.
+"""Prefill policies of the serving engine.
 
-Port of ``repro.serving.prefill``: fixed-shape (B, prefill_chunk) chunks
-through ``launch.steps.build_step("prefill_chunk")``, so each prefilling
-slot advances up to ``prefill_chunk`` prompt tokens per device call and
-time-to-first-token is ceil(P/C) calls. The "full" policy (prompt tokens
-through the decode step one at a time) is not ported yet.
+Port of ``repro.serving.prefill``. Two policies over the same per-slot
+caches:
+
+  * "chunked": fixed-shape (B, prefill_chunk) chunks through
+    ``launch.steps.build_step("prefill_chunk")``, so each prefilling slot
+    advances up to ``prefill_chunk`` prompt tokens per device call and
+    time-to-first-token is ceil(P/C) calls;
+  * "full": prompt tokens feed the ordinary (B, 1) decode step one at a
+    time (P calls to first token), sharing the decode call with in-flight
+    decodes. Sliding-window archs (a ring cache) take this one.
 """
 
 from __future__ import annotations
@@ -12,6 +17,8 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import numpy as np
+
+PREFILL_MODES = ("chunked", "full")
 
 
 def assemble_chunk(prompts: Dict[int, np.ndarray], cursors: Dict[int, int],

@@ -132,7 +132,8 @@ def _map_with_path(fn, tree, prefix=""):
 class StackedKernelTables:
     """Joint-sparse weights for a whole layer stack. ``arrays`` maps hook
     name -> {"w_blocks", "idx", "scales", "nblocks"} stacked tensors
-    (leading axis = layer); ``static`` the per-projection (k, n, k_pad)."""
+    (leading axis = layer; grouped ``moe/*`` entries carry the expert axis
+    second); ``static`` the per-projection (k, n, k_pad)."""
     arrays: Dict[str, Dict[str, torch.Tensor]]
     static: Dict[str, Tuple[int, int, int]]
 
@@ -140,18 +141,35 @@ class StackedKernelTables:
         """The dense_fn(w, x, name) hook from one layer's slices
         (``models.transformer.layer_slice`` of ``arrays``): packed
         projections run ``ops.joint_dense``, the rest stay plain matmuls.
-        (The grouped ``expert`` hook waits for MoE.)"""
+        Its ``expert(w, x, name)`` attribute is the grouped form that
+        ``models.moe`` routes the expert contractions through: x (..., E,
+        C, K) -> (..., E, C, N), one ``joint_dense`` per packed expert
+        slice, stacked on axis -3; the plain einsum with ``w`` (E, K, N)
+        when ``name`` is not packed."""
         from repro_torch.kernels import ops
+
+        def _packed(t, name, e=None):
+            k, n, k_pad = self.static[name]
+            a = t if e is None else {key: arr[e] for key, arr in t.items()}
+            return ops.JointPacked(a["w_blocks"], a["idx"], a["scales"],
+                                   a["nblocks"], k, n, k_pad)
 
         def mm(w, x, name):
             t = None if slices is None else slices.get(name)
             if t is None:
                 return x @ w
-            k, n, k_pad = self.static[name]
-            packed = ops.JointPacked(t["w_blocks"], t["idx"], t["scales"],
-                                     t["nblocks"], k, n, k_pad)
-            return ops.joint_dense(x, packed).to(x.dtype)
+            return ops.joint_dense(x, _packed(t, name)).to(x.dtype)
 
+        def expert(w, x, name):
+            t = None if slices is None else slices.get(name)
+            if t is None:
+                return torch.einsum("...eck,ekf->...ecf", x, w)
+            E = t["w_blocks"].shape[0]
+            return torch.stack(
+                [ops.joint_dense(x[..., e, :, :], _packed(t, name, e)
+                                 ).to(x.dtype) for e in range(E)], dim=-3)
+
+        mm.expert = expert
         return mm
 
 
@@ -184,8 +202,9 @@ def _proj_subpath(seg, name: str) -> str:
 
 
 def _stacked_projections(params, cfg: ModelConfig):
-    """segment name -> {hook name -> stacked (L, K, N) weight}; None when
-    the param tree does not carry the stacked segment subtrees."""
+    """segment name -> {hook name -> stacked weight: (L, K, N), or (L, E,
+    K, N) for the grouped ``moe/*`` experts}; None when the param tree
+    does not carry the stacked segment subtrees."""
     out = {}
     for seg in decoder_layout(cfg):
         blk = params.get(seg.name)
@@ -205,20 +224,11 @@ def _stacked_projections(params, cfg: ModelConfig):
     return out
 
 
-def build_stacked_tables(params, cfg: ModelConfig,
-                         mode: Optional[str] = None,
-                         value_sparsity: Optional[float] = None,
-                         bk: Optional[int] = None, bn: Optional[int] = None,
-                         ) -> Optional[SegmentedKernelTables]:
-    """Pack every stacked projection of ``params`` for serving, per decoder
-    segment, on the device the params lie on. "joint" packs at
-    cfg.dbpim_value_sparsity (INT8/FTA payload); "bit" the same layout at
-    zero value sparsity; "value" the bf16-payload layout; "dense" returns
-    None. bk/bn default to the kernel tile, clamped down to the projection
-    dims rounded up to a multiple of 8, so reduced configs (d_model < 128)
-    do not pack pure padding."""
-    from repro_torch.kernels import ops
-
+def _pack_settings(cfg: ModelConfig, mode, value_sparsity):
+    """(value sparsity, payload) of a stacked pack in ``mode``, or None for
+    "dense". "joint" packs at cfg.dbpim_value_sparsity (INT8/FTA
+    payload); "bit" the same layout at zero value sparsity; "value" the
+    bf16-payload layout."""
     mode = mode or (cfg.dbpim_mode if cfg.dbpim else "dense")
     if mode not in KERNEL_MODES:
         raise ValueError(f"mode {mode!r} not in {KERNEL_MODES}")
@@ -229,33 +239,117 @@ def build_stacked_tables(params, cfg: ModelConfig,
     else:
         vs = value_sparsity if value_sparsity is not None else \
             cfg.dbpim_value_sparsity
-    payload = "bf16" if mode == "value" else "int8"
+    return vs, ("bf16" if mode == "value" else "int8")
+
+
+def _tile_dims(K: int, N: int, bk, bn):
+    """bk/bn default to the kernel tile, clamped down to the projection
+    dims rounded up to a multiple of 8, so reduced configs (d_model < 128)
+    do not pack pure padding."""
+    def round8(d):
+        return max(8, 8 * (-(-d // 8)))
+    from repro_torch.kernels import ops
+    return (bk if bk is not None else min(ops.BK, round8(K)),
+            bn if bn is not None else min(ops.BN, round8(N)))
+
+
+def _pack_stack(w, vs, payload, bk, bn):
+    """One projection family packed: (arrays entry, (k, n, k_pad)). A
+    rank-4 (L, E, K, N) stack of experts packs grouped."""
+    from repro_torch.kernels import ops
+    bk, bn = _tile_dims(w.shape[-2], w.shape[-1], bk, bn)
+    pack = (ops.pack_joint_sparse_grouped if w.ndim == 4
+            else ops.pack_joint_sparse_stacked)
+    p = pack(w, value_sparsity=vs or None, bk=bk, bn=bn, payload=payload)
+    return ({"w_blocks": p.w_blocks, "idx": p.idx, "scales": p.scales,
+             "nblocks": p.nblocks}, (p.k, p.n, p.k_pad))
+
+
+def build_stacked_tables(params, cfg: ModelConfig,
+                         mode: Optional[str] = None,
+                         value_sparsity: Optional[float] = None,
+                         bk: Optional[int] = None, bn: Optional[int] = None,
+                         ) -> Optional[SegmentedKernelTables]:
+    """Pack every stacked projection of ``params`` for serving, per decoder
+    segment, on the device the params lie on: "joint" at
+    cfg.dbpim_value_sparsity (INT8/FTA payload), "bit" the same layout at
+    zero value sparsity, "value" the bf16-payload layout; "dense" returns
+    None. MoE expert stacks (L, E, K, N) pack grouped: one MAXB over every
+    (layer, expert) slice."""
+    settings = _pack_settings(cfg, mode, value_sparsity)
+    if settings is None:
+        return None
+    vs, payload = settings
     by_segment = _stacked_projections(params, cfg)
     if by_segment is None:
         return None
-
-    def round8(d):
-        return max(8, 8 * (-(-d // 8)))
-
     segments: Dict[str, StackedKernelTables] = {}
     for seg_name, projections in by_segment.items():
         arrays, static = {}, {}
         for name, w in projections.items():
-            if w.ndim != 3:
-                raise NotImplementedError(
-                    f"{seg_name}/{name}: grouped (MoE expert) packs are not "
-                    f"ported yet")
-            bk_eff = bk if bk is not None else min(ops.BK, round8(w.shape[-2]))
-            bn_eff = bn if bn is not None else min(ops.BN, round8(w.shape[-1]))
-            packed = ops.pack_joint_sparse_stacked(
-                w, value_sparsity=vs or None, bk=bk_eff, bn=bn_eff,
-                payload=payload)
-            arrays[name] = {"w_blocks": packed.w_blocks, "idx": packed.idx,
-                            "scales": packed.scales,
-                            "nblocks": packed.nblocks}
-            static[name] = (packed.k, packed.n, packed.k_pad)
+            arrays[name], static[name] = _pack_stack(w, vs, payload, bk, bn)
         segments[seg_name] = StackedKernelTables(arrays=arrays, static=static)
     return SegmentedKernelTables(segments=segments)
+
+
+def init_stacked_serving(cfg: ModelConfig, seed: int = 0, device="cuda",
+                         mode: Optional[str] = None,
+                         value_sparsity: Optional[float] = None,
+                         bk: Optional[int] = None, bn: Optional[int] = None):
+    """``(strip_packed_projections(params), build_stacked_tables(params,
+    ...))`` of ``params = models.init_params(cfg, seed, device)``, byte
+    for byte, without ever holding a whole dense expert stack: the MoE
+    init draws each expert stack one (layer, expert) slice at a time, and
+    here each slice is packed into preallocated (L, E, NT, MAXB, bk, bn)
+    tables as it is drawn, and dropped. MAXB comes from the shape
+    (``ops.balanced_maxb``: balanced pruning, no explicit masks). Every
+    other leaf is drawn as ``init_params`` draws it, and the other
+    projection stacks pack as in ``build_stacked_tables``. A mixtral-8x7b
+    build holds the packs, the non-expert weights and one expert slice.
+    "dense" returns (params, None)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+
+    settings = _pack_settings(cfg, mode, value_sparsity)
+    if settings is None:
+        return init_params(cfg, seed=seed, device=device), None
+    vs, payload = settings
+    grouped: Dict[str, Dict[str, torch.Tensor]] = {}
+    static: Dict[str, Tuple[int, int, int]] = {}
+
+    def sink(seg, name, l, e, w):
+        """Pack slice (l, e) of ``seg``'s expert projection ``name`` into
+        its (L, E, ...) tables, made at its first slice."""
+        bk_, bn_ = _tile_dims(*w.shape, bk, bn)
+        p = ops.pack_joint_sparse_balanced(
+            w, ops.balanced_maxb(w.shape[0], vs, bk_), bk=bk_, bn=bn_,
+            value_sparsity=vs or None, payload=payload)
+        key = (seg.name, name)
+        if key not in grouped:
+            grouped[key] = {
+                f: torch.empty((seg.length, cfg.n_experts)
+                               + tuple(getattr(p, f).shape),
+                               dtype=getattr(p, f).dtype, device=w.device)
+                for f in ("w_blocks", "idx", "scales", "nblocks")}
+            static[key] = (p.k, p.n, p.k_pad)
+        for f, t in grouped[key].items():
+            t[l, e] = getattr(p, f)
+
+    params = init_params(cfg, seed=seed, device=device, expert_sink=sink)
+    by_segment = _stacked_projections(params, cfg)
+    segments: Dict[str, StackedKernelTables] = {}
+    for seg in decoder_layout(cfg):
+        arrays, stat = {}, {}
+        for name, w in by_segment[seg.name].items():
+            if (seg.name, name) in grouped:
+                arrays[name] = grouped[(seg.name, name)]
+                stat[name] = static[(seg.name, name)]
+            else:
+                arrays[name], stat[name] = _pack_stack(w, vs, payload, bk,
+                                                       bn)
+        segments[seg.name] = StackedKernelTables(arrays=arrays, static=stat)
+    return (strip_packed_projections(params, cfg),
+            SegmentedKernelTables(segments=segments))
 
 
 def _packed_param_paths(cfg: ModelConfig):
@@ -284,8 +378,9 @@ def strip_packed_projections(params, cfg: ModelConfig):
 
 def reconstruct_stacked_params(params, tables: SegmentedKernelTables, cfg):
     """Dense FTA reference weights: each packed projection in ``params``
-    replaced by its unpacked (pruned + dequantized) stack, so the plain
-    matmul path reproduces what the joint kernels compute."""
+    replaced by its unpacked (pruned + dequantized) stack, grouped expert
+    stacks included, so the plain matmul path reproduces what the joint
+    kernels compute."""
     from repro_torch.kernels import ops
 
     segs = {s.name: s for s in decoder_layout(cfg)}
@@ -293,11 +388,15 @@ def reconstruct_stacked_params(params, tables: SegmentedKernelTables, cfg):
     for seg_name, seg_tables in tables.segments.items():
         for name, t in seg_tables.arrays.items():
             k, n, k_pad = seg_tables.static[name]
-            packed = ops.JointPackedStacked(t["w_blocks"], t["idx"],
-                                            t["scales"], t["nblocks"],
-                                            k, n, k_pad)
-            recon[projection_param_path(segs[seg_name], name)] = \
-                ops.unpack_joint_sparse_stacked(packed)
+            fields = (t["w_blocks"], t["idx"], t["scales"], t["nblocks"],
+                      k, n, k_pad)
+            if t["w_blocks"].ndim == 6:         # grouped (L, E, ...) experts
+                dense = ops.unpack_joint_sparse_grouped(
+                    ops.JointPackedGrouped(*fields))
+            else:
+                dense = ops.unpack_joint_sparse_stacked(
+                    ops.JointPackedStacked(*fields))
+            recon[projection_param_path(segs[seg_name], name)] = dense
 
     def visit(path, leaf):
         dense = recon.get(path)

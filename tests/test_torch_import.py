@@ -28,8 +28,8 @@ assert not leaked, leaked
 """
 
 #: modules of the per-layer kernel-mode and DB-PIM pipeline slice, the
-#: row-stable kernels, the compiled steps and the SSM family; the probe
-#: imports every module of the package, these among them
+#: row-stable kernels, the compiled steps, the SSM and the MoE families;
+#: the probe imports every module of the package, these among them
 SLICE_MODULES = {
     "repro_torch.core.dyadic", "repro_torch.core.pim_model",
     "repro_torch.core.pruning", "repro_torch.core.qat",
@@ -38,7 +38,7 @@ SLICE_MODULES = {
     "repro_torch.kernels.row_attention", "repro_torch.kernels.row_norm",
     "repro_torch.quickstart", "repro_torch.obs.sentinel",
     "repro_torch.obs.launches", "repro_torch.launch.steps",
-    "repro_torch.models.ssm"}
+    "repro_torch.models.ssm", "repro_torch.models.moe"}
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -64,8 +64,16 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.models import init_cache, init_params
     from repro_torch.serving import ServeEngine
     from repro_torch.weights import params_from_numpy
+    from repro_torch.sparsity.sparse_linear import init_stacked_serving
     cfg = get_config("tinyllama-1.1b", reduced=True)
+    moe_cfg = get_config("mixtral-8x7b", reduced=True, dbpim_mode="joint")
     for call in (lambda: init_params(cfg),
+                 lambda: init_params(moe_cfg),
+                 lambda: init_stacked_serving(moe_cfg),
+                 lambda: serve.main(["--arch", "mixtral-8x7b", "--reduced",
+                                     "--dbpim-mode", "joint"]),
+                 lambda: serve.main(["--arch", "arctic-480b", "--reduced",
+                                     "--dbpim-mode", "joint"]),
                  lambda: init_cache(cfg, 2, 8),
                  lambda: ServeEngine(cfg, {}),
                  lambda: params_from_numpy({"w": torch.zeros(2).numpy()}),
@@ -76,6 +84,9 @@ def test_entry_points_raise_without_a_card():
             call()
     params = init_params(cfg, device="cpu")
     assert params["blocks"]["attn"]["wq"].device.type == "cpu"
+    params, tables = init_stacked_serving(moe_cfg, device="cpu")
+    assert params["blocks"]["moe"]["router"].device.type == "cpu"
+    assert tables.arrays["moe/w_gate"]["w_blocks"].device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

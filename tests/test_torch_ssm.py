@@ -633,9 +633,12 @@ def test_serve_cli_runs_mamba2_on_cpu(capsys, exact):
 # --------------------------------------------------- what is refused ------
 
 @pytest.mark.parametrize("arch,kw", [
-    ("mixtral-8x7b", {}), ("jamba-v0.1-52b", {}), ("whisper-base", {}),
-    ("tinyllama-1.1b", {"window": 8})])
+    ("mixtral-8x7b", {"mlp_type": "gelu"}), ("jamba-v0.1-52b", {}),
+    ("whisper-base", {}), ("tinyllama-1.1b", {"mlp_type": "gelu"})])
 def test_check_supported_still_refuses(arch, kw):
+    """Hybrid stacks, enc-dec and plain gelu MLPs (dense or expert) wait
+    for later slices (MoE and sliding windows are served since the MoE
+    slice)."""
     cfg = get_config(arch, reduced=True).scaled(**kw)
     with pytest.raises(NotImplementedError, match="later slices"):
         _check_supported(cfg)

@@ -282,7 +282,7 @@ def _graph_run(make, filled, invoke, n_calls, want, attempts=3):
                 torch.cuda.synchronize()
                 host.append(_delta(before))
                 outs.append((_clone(out), _clone(cache)))
-        device = device_launches(prof.key_averages(), DEVICE_MODULES)
+        device = device_launches(prof, DEVICE_MODULES)
         if device == want:
             return steps, outs, host
     pytest.fail(f"device launches {device} != {want} in {attempts} windows")
