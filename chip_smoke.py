@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Phases, each printed on its own lines (each line after the seconds since
-the run started), run in the order 1, 2, 3, 4c, 4, 4b, 5, 6, 7, 8; any
-failure raises and exits non-zero (no phase catches its own failure):
+the run started), run in the order 1, 2, 3, 4, 4b, 4c, 4d, 5, 6, 7, 8;
+any failure raises and exits non-zero (no phase catches its own failure):
 
   1. build  — nvcc builds the six kernels (joint_sparse_matmul,
               block_sparse_matmul, fta_int8_matmul, dbmu_matmul, and the
@@ -17,8 +17,13 @@ failure raises and exits non-zero (no phase catches its own failure):
               the last of 67 N tiles holds 64 real columns) and out_proj
               (4096 x 2048), and one full-width layer slice of each
               mixtral-8x7b and arctic-480b projection shape (attention
-              and expert), the joint pack made on the card is
-              byte-identical to the CPU pack.
+              and expert), of jamba-v0.1-52b's new shapes (in_proj 4096 x
+              16544: 130 N tiles, the last holding 32 real columns;
+              out_proj 8192 x 4096; its attention, dense MLP and expert
+              shapes are mixtral's) and of whisper-base's (512 x 512
+              self- and cross-attention, 512 x 2048, 2048 x 512), the
+              joint pack made on the card is byte-identical to the CPU
+              pack.
   3. kernel — each kernel against its plain PyTorch version at every
               projection shape of the path, M in {4, 256}: f32 output within
               1e-5 * max|ref|, bf16 output within one bf16 ulp of max|ref|,
@@ -26,9 +31,11 @@ failure raises and exits non-zero (no phase catches its own failure):
               [-255, 255] with +-200 and +-255 in every row), FTA/INT8
               rows of an M=4 call bitwise equal to the same rows of an
               M=256 call. The joint kernel also at mixtral's and
-              arctic's shapes with M in {4, 8, 64, 256} (rows of M=4
-              bitwise equal to the same rows of the others), at mamba2's
-              two shapes,
+              arctic's and jamba's shapes with M in {4, 8, 64, 256} and
+              at whisper's with M in {4, 8, 64, 256, 6000} (6000: the
+              cross-attention's k/v over 4 x 1,500 encoder rows; rows of
+              M=4 bitwise equal to the same rows of the others), at
+              mamba2's two shapes,
               and in f32 and bf16
               activations with its fp32 accumulators, rows of an M=4 call
               bitwise equal to the same rows of an M=256 call, and the bf16
@@ -39,9 +46,15 @@ failure raises and exits non-zero (no phase catches its own failure):
               version, and at the long-context serve cell's shape (batch 16,
               2048-slot cache, 256-query chunks starting at 256 * (b mod
               6)), and row_norm at 4, 256 and 4096 rows within 1e-5 *
-              max|ref| or one bf16 ulp, at tinyllama's d = 2048 and at
-              mamba2's gated-norm d = 4096 (a float32 scale, as the
-              model's); a query (row) alone bitwise equal
+              max|ref| or one bf16 ulp, at tinyllama's d = 2048, at
+              mamba2's gated-norm d = 4096, at whisper's d = 512 and at
+              jamba's gated-norm d = 8192 (a float32 scale, as the
+              model's; RMSNorm and LayerNorm with a bias); row_attention
+              also non-causal at 1,500 keys, hd 64, group 1 (whisper's
+              encoder, 4 x 1,500 queries, and cross-attention, 1 and 64
+              queries a slot), causal at whisper's decoder self-attention
+              (a 448-slot cache) and at jamba's hd 128, group 4; a query
+              (row) alone bitwise equal
               to the same query (row) in the chunk. row_attention also at
               caches past its resident logits (bf16 A = 32768, f32 A =
               65536): the streaming path, within the same tolerances and
@@ -118,6 +131,39 @@ failure raises and exits non-zero (no phase catches its own failure):
               expert projection, the dense residual MLP, the MoE output).
               The joint kernel is also checked at mixtral's and arctic's
               projection shapes in phases 2 and 3 (M in 4, 8, 64, 256).
+  4d. segmented — the hybrid and enc-dec families. jamba's expert
+              slices packed on the card as the slice-by-slice build packs
+              them == the CPU's byte for byte. jamba-v0.1-52b at full
+              width and depth (32 layers: 28 SSM, 4 attention, 16 MoE of
+              16 experts, 16 dense MLP), built slice by slice (the build's
+              peak under packs + non-expert dense weights + one layer's
+              dense expert stacks), served on phase 4's trace by the
+              compiled engine with parallel SSD chunks of 64: per call 888
+              joint, 4 row_attention and 93 row_norm launches from the
+              device records; compiled == eager bitwise on 2 short
+              requests; exact chunks (batch 1, 40 tokens in chunks of 16)
+              bitwise equal to stepwise decode op by op through every
+              segment (k/v rows, conv windows, states, gate values, each
+              expert projection) and in every cache leaf; in bf16 the
+              kernel path's first-token logits of the 2 short requests
+              within 5e-2 x max|ref| of the plain path's, with the plain
+              path's top-2 choices replayed into it (each side's own
+              rounding flips near-tied choices); with its own routing,
+              and parallel chunks vs stepwise decode, measured in bf16 and
+              held in a float32 copy at full depth (kernel vs plain
+              first-token logits within 1e-3 x max|ref|; parallel chunks
+              within the reference's PARALLEL_PREFILL_ATOL["float32"]
+              relative bounds); a profiled decode and prefill window beside the
+              decode call's bytes bound. whisper-base at full width: phase
+              4's checks on its trace at max-len 448 (60 joint, 12
+              row_attention and 19 row_norm launches a call; compiled ==
+              eager; first-token logits within 5e-2 x max|ref| of the
+              plain path; a chunk == stepwise op by op, cross-attention
+              included), the encoder once over 4 x 1,500 frames (6
+              row_attention and 13 row_norm launches and no joint launch
+              from the device records, the engine's enc_out bitwise, its
+              output within 5e-2 x max|ref| of the plain path) and a
+              profiled decode and prefill window.
   5. modes  — one full-width tinyllama-1.1b decoder layer (norms, chunked
               attention, MLP) with random weights, its projections packed by
               build_kernel_tables in mode "value" (vs = 0.6) and in mode
@@ -138,8 +184,9 @@ failure raises and exits non-zero (no phase catches its own failure):
               over a window of prefill-chunk calls (batch 4 x 64 tokens),
               device ops and peak device memory per window, the joint
               kernel's share of the busy time, and the kernels the device
-              time goes to (torch.profiler; a window in which it records no
-              device time says so); then the same for the three at the
+              time goes to (torch.profiler; busy counts only from a window
+              whose records hold every port launch of every call, else
+              it says "not measured"); then the same for the three at the
               long-context cell's shape (batch 16,
               2048-slot cache, chunks of 256, decode from 1024 filled
               positions); and mamba2's eager and compiled engines at the
@@ -152,7 +199,10 @@ failure raises and exits non-zero (no phase catches its own failure):
               port) with CUDA events after warm-up; the kernel and the
               library call also in device time from torch.profiler's
               device-side records (at these sizes the event time of a lone
-              launch is mostly the caller's host time); beside the bound: the
+              launch is mostly the caller's host time), from a window
+              holding every record of every call only (else "not
+              measured"; every profiled window opens and ends on a pad of
+              spin kernels, left out); beside the bound: the
               larger of bytes over 3.35 TB/s and operations over the peak of
               their type (989 TFLOP/s bf16, 1,979 TOP/s int8, 67 TFLOP/s
               fp32 outside the tensor cores), the H100 SXM data sheet's
@@ -175,12 +225,17 @@ failure raises and exits non-zero (no phase catches its own failure):
               row_norm's mamba2 gated norms (48 launches at 4 and at 256
               rows, d=4096); the joint kernel's mixtral unit, one decode
               call's 768 expert launches at M=8 (an expert's capacity at
-              batch 4) with torch.matmul on the dense shapes beside it.
+              batch 4) with torch.matmul on the dense shapes beside it;
+              jamba's decode call (888 launches: experts at M=8, the rest
+              at M=4) and whisper's cross-attention k/v (12 launches at
+              M=6000), each with torch.matmul on the dense shapes beside
+              it; row_attention's whisper encoder call (6 launches of 4 x
+              1,500 queries against 1,500 keys) with SDPA beside it.
 
-The launch counts of the JSON record come from the main paths: phases 4
-and 4c for the joint, row_attention and row_norm kernels (the device's
-records of the compiled serve runs, tinyllama's, mamba2's, mixtral's and
-arctic's, added), phase
+The launch counts of the JSON record come from the main paths: phases 4,
+4c and 4d for the joint, row_attention and row_norm kernels (the device's
+records of the compiled serve runs, tinyllama's, mamba2's, mixtral's,
+arctic's, jamba's and whisper's, and of whisper's encoder, added), phase
 5 for block-sparse and FTA/INT8, phase 6 for DBMU, each counted from zero
 just before the path runs. The wall time of the run is printed before
 the card's line. The line before
@@ -232,6 +287,8 @@ SSM_PROMPT, SSM_MODEL_CHUNK, SSM_EXACT_CHUNK = 40, 16, 8
 #: projections round to bf16 after fp32 sums taken in another order, over
 #: 22 layers; the gap stays a small fraction of the logit range
 LOGIT_REL_TOL = 5e-2
+#: the pad's kernel (``torch.cuda._sleep``), left out of every reading
+PAD_SYMBOL = "spin_kernel"
 #: the joint kernel's prefill work units: rows per launch (a 64-token chunk
 #: of one slot; the serve phase's chunk call of 4 slots x 64 tokens)
 JOINT_PREFILL_M = (64, 256)
@@ -288,6 +345,36 @@ JOINT_MOE_UNIT = "joint_sparse_matmul mixtral experts"
 STREAM_A_BF16, STREAM_A_F32, STREAM_C = 32768, 65536, 64
 ATTN_STREAM_UNIT = "row_attention streaming"
 
+#: the segmented phase: jamba-v0.1-52b at full width and depth on phase
+#: 4's trace (parallel SSD chunks of 64), and whisper-base at full width on
+#: the same trace at its decoder context of 448
+JAMBA_SERVE_ARGS = ["--arch", "jamba-v0.1-52b"] + SERVE_ARGS[2:]
+WHISPER_MAX_LEN = 448
+WHISPER_SERVE_ARGS = (["--arch", "whisper-base"] + SERVE_ARGS[2:6]
+                      + ["--max-len", str(WHISPER_MAX_LEN)] + SERVE_ARGS[8:])
+#: jamba's chunks at model level: batch 1, a 40-token prompt in chunks of
+#: 16 (the last ragged)
+JAMBA_PROMPT, JAMBA_CHUNK = 40, 16
+#: jamba's first-token logits in float32, kernel path vs plain path: fp32
+#: sums in other orders (1e-5 of a projection's peak) carried through 32
+#: layers
+JAMBA_F32_REL = 1e-3
+#: the joint kernel's rows per launch at whisper's shapes: a decode step,
+#: an expert-sized launch, a chunk of one slot, a chunk call, and the
+#: cross-attention's k/v over 4 slots x 1,500 encoder rows
+WHISPER_KERNEL_M = (4, 8, 64, 256, 6000)
+#: the times phase's units of the segmented phase
+#: launches per call the segmented phase holds its runs to (obs.per_call)
+JAMBA_PER_CALL = {"joint_sparse_matmul": 888, "row_attention": 4,
+                  "row_norm": 93}
+WHISPER_PER_CALL = {"joint_sparse_matmul": 60, "row_attention": 12,
+                    "row_norm": 19}
+WHISPER_ENCODER_PER_CALL = {"joint_sparse_matmul": 0, "row_attention": 6,
+                            "row_norm": 13}
+JOINT_JAMBA_UNIT = "joint_sparse_matmul jamba decode call"
+JOINT_XATTN_UNIT = "joint_sparse_matmul whisper cross K/V"
+ATTN_ENCODER_UNIT = "row_attention whisper encoder call"
+
 
 _T0 = time.monotonic()
 
@@ -302,15 +389,23 @@ def _bf16_ulp(v: float) -> float:
 
 
 def _path_shapes(cfg):
-    """(name, K, N) of every projection on the serving path."""
-    d = cfg.d_model
-    if cfg.family == "ssm":
+    """(name, K, N) of every projection on the serving path: attention's
+    (cross-attention's are the same shapes), the SSM's, then the MLP's
+    (an expert's are the same shapes)."""
+    d, f = cfg.d_model, cfg.d_ff
+    out = []
+    if cfg.family != "ssm":
+        q, kv = cfg.q_dim, cfg.kv_dim
+        out += [("wq", d, q), ("wk", d, kv), ("wv", d, kv), ("wo", q, d)]
+    if cfg.family in ("ssm", "hybrid"):
         d_in, N, nh = cfg.ssm_expand * d, cfg.ssm_state, \
             cfg.ssm_expand * d // cfg.ssm_head_dim
-        return [("in_proj", d, 2 * d_in + 2 * N + nh), ("out_proj", d_in, d)]
-    q, kv, f = cfg.q_dim, cfg.kv_dim, cfg.d_ff
-    return [("wq", d, q), ("wk", d, kv), ("wv", d, kv), ("wo", q, d),
-            ("w_gate", d, f), ("w_up", d, f), ("w_down", f, d)]
+        out += [("in_proj", d, 2 * d_in + 2 * N + nh), ("out_proj", d_in, d)]
+    if cfg.family != "ssm":
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            out.append(("w_gate", d, f))
+        out += [("w_up", d, f), ("w_down", f, d)]
+    return out
 
 
 def _distinct(shapes):
@@ -369,12 +464,19 @@ def phase_build():
         f"{time.monotonic() - t0:.2f} s (one nvcc each, in parallel)")
 
 
-def phase_pack(cfg, dev):
-    """Full-width packs of one layer per projection shape: card vs CPU."""
+def phase_pack(cfg, dev, have=None):
+    """Full-width packs of one layer per projection shape: card vs CPU.
+    Shapes already packed and checked for another model (``have``, its
+    packs by (K, N)) are taken from there."""
     from repro_torch.kernels import ops
     gen = torch.Generator().manual_seed(1)
     packs = {}
     for name, K, N in _distinct(_path_shapes(cfg)):
+        if have and (K, N) in have:
+            packs[(K, N)] = have[(K, N)]
+            log(f"[pack] {cfg.name} {name} {K}x{N}: the same shape as a "
+                f"projection checked above")
+            continue
         w = (torch.randn((1, K, N), generator=gen) * K ** -0.5)
         w = w.to(torch.bfloat16)
         t0 = time.monotonic()
@@ -399,13 +501,16 @@ def phase_pack(cfg, dev):
     return packs
 
 
-def phase_kernel(cfg, packs, dev, ms=(4, 256)):
-    """Kernel vs plain at every path shape, at each row count of ``ms``;
-    returns the max abs error of the bf16 outputs (the serving dtype)."""
+def phase_kernel(cfg, packs, dev, ms=(4, 256), have=()):
+    """Kernel vs plain at every path shape (but those of ``have``, checked
+    for another model), at each row count of ``ms``; returns the max abs
+    error of the bf16 outputs (the serving dtype)."""
     from repro_torch.kernels import joint_sparse_matmul as jsm
     gen = torch.Generator().manual_seed(2)
     worst_bf16 = 0.0
     for name, K, N in _distinct(_path_shapes(cfg)):
+        if (K, N) in have:
+            continue
         p = packs[(K, N)]
         for dt in (torch.bfloat16, torch.float32):
             x256 = torch.randn((max(ms), K), generator=gen).to(dt).to(dev)
@@ -750,6 +855,36 @@ def _final_norm_inputs(params):
         decode.apply_norm = norm
 
 
+@contextlib.contextmanager
+def _routing(replay=None):
+    """MoE routing, call by call: records each ``moe._route`` call's top-k
+    indices into the dict it yields (``idx``), or, given ``replay`` (such
+    a list, from the same calls of another run), routes each call to the
+    replayed indices, its gate values this run's router probabilities at
+    them, renormalized as ``_route`` does; ``flips`` counts the tokens
+    whose own choices differed. A replay must cover every call."""
+    from repro_torch.models import moe
+    route = moe._route
+    seen = {"idx": [], "flips": 0}
+
+    def f(xg, router, k):
+        probs, vals, idx = route(xg, router, k)
+        if replay is not None:
+            want = replay[len(seen["idx"])]
+            seen["flips"] += int((idx != want).any(-1).sum())
+            idx = want
+            vals = torch.gather(probs, -1, idx)
+            vals = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
+        seen["idx"].append(idx)
+        return probs, vals, idx
+    moe._route = f
+    try:
+        yield seen
+    finally:
+        moe._route = route
+    assert replay is None or len(seen["idx"]) == len(replay)
+
+
 def _stack_out(engine, x, token):
     """What the layers added to the last token's residual stream: the
     final norm's input row minus the token's embedding, f32 on the host.
@@ -762,13 +897,22 @@ def _stack_out(engine, x, token):
     return (x.float() - e.float()).cpu()
 
 
-def _chunked_run(engine, tables, prompt, chunk, cfg=None):
+def _enc_row(engine, slot=0):
+    """Slot ``slot``'s row of an enc-dec engine's encoder output, (1, Se,
+    D); None for a decoder-only model."""
+    enc = engine.cache.get("enc_out")
+    return None if enc is None else enc[slot:slot + 1]
+
+
+def _chunked_run(engine, tables, prompt, chunk, cfg=None, slot=0):
     """A prompt through functional ``decode_chunk`` calls at batch 1 on a
-    fresh cache: (the first-token logits, f32 on the host; the cache; the
-    last token's ``_stack_out``)."""
+    fresh cache (an enc-dec model's holding ``slot``'s encoder row): (the
+    first-token logits, f32 on the host; the cache; the last token's
+    ``_stack_out``)."""
     from repro_torch.models import decode_chunk, init_cache
     cfg = cfg or engine.cfg
-    cache = init_cache(cfg, 1, engine.max_len, device=engine.device)
+    cache = init_cache(cfg, 1, engine.max_len, device=engine.device,
+                       enc_out=_enc_row(engine, slot))
     cache["pos"] = torch.zeros((1,), dtype=torch.int32, device=engine.device)
     lg = part = None
     with _final_norm_inputs(engine.params) as rows:
@@ -811,15 +955,9 @@ def _counted_run(engine, trace, fresh):
         reset_launches()
         torch.cuda.reset_peak_memory_stats(dev)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _pad()
             outputs = engine.run(trace)
-            torch.cuda.synchronize()
-            # the profiler has dropped the records of a run's last
-            # kernels (arctic's last dense-MLP launches and final norm):
-            # a tail of other kernels goes last
-            pad = torch.zeros((64,), device=dev)
-            for _ in range(64):
-                pad.add_(1)
-            torch.cuda.synchronize()
+            _pad()
         counts = read_launches()
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         calls = engine.metrics.summary()["device_calls"]
@@ -834,10 +972,11 @@ def _counted_run(engine, trace, fresh):
 
 
 def phase_serve(dev, serve_args=SERVE_ARGS,
-                prefill_kind="prefill_chunk_exact"):
+                prefill_kind="prefill_chunk_exact", tag="serve"):
     """One model served at full width through the compiled engine and an
     eager one on the same trace (``serve_args``: tinyllama-1.1b, or
-    mamba2-1.3b with its parallel SSD chunks, ``prefill_kind``). Returns
+    mamba2-1.3b with its parallel SSD chunks, ``prefill_kind``; or
+    whisper-base, whose engines share the encoder's output). Returns
     (device launches per kernel over the compiled run, the two engines,
     the stacked tables)."""
     from repro_torch.configs import get_config
@@ -851,17 +990,19 @@ def phase_serve(dev, serve_args=SERVE_ARGS,
     t0 = time.monotonic()
     engine, trace, tables = serve.build_engine_and_trace(args, cfg)
     torch.cuda.synchronize()
-    log(f"[serve] params + stacked tables on the card in "
+    log(f"[{tag}] params + stacked tables on the card in "
         f"{time.monotonic() - t0:.2f} s ({cfg.name}, {cfg.n_layers} layers, "
         f"d={cfg.d_model}, d_ff={cfg.d_ff}, dtype={cfg.dtype}); resident "
         f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.3f} GiB")
     # the same trace through the same params and tables with the in-place
     # steps run eagerly: what the compiled engine's graphs must reproduce;
     # every launch is a host launch here, so the wrappers' counts see all
+    enc_out = engine.cache.get("enc_out")
     eager = ServeEngine(cfg, engine.params, n_slots=args.batch,
                         max_len=args.max_len,
                         prefill_chunk=args.prefill_chunk,
-                        stacked_tables=tables, device=dev, cuda_graphs=False)
+                        stacked_tables=tables, enc_out=enc_out, device=dev,
+                        cuda_graphs=False)
     reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     eager_outputs = eager.run(trace)
@@ -874,7 +1015,7 @@ def phase_serve(dev, serve_args=SERVE_ARGS,
         engine, trace, lambda: ServeEngine(
             cfg, engine.params, n_slots=args.batch, max_len=args.max_len,
             prefill_chunk=args.prefill_chunk, stacked_tables=tables,
-            device=dev))
+            enc_out=enc_out, device=dev))
     calls = engine.metrics.summary()["device_calls"]
     kind = prefill_kind
     assert engine.prefill_kind == eager.prefill_kind == kind, \
@@ -887,7 +1028,7 @@ def phase_serve(dev, serve_args=SERVE_ARGS,
     assert set(engine.first_logits) == set(eager.first_logits)
     for rid, row in engine.first_logits.items():
         assert torch.equal(row, eager.first_logits[rid]), rid
-    log(f"[serve] compiled engine (one CUDA graph per step kind) vs the "
+    log(f"[{tag}] compiled engine (one CUDA graph per step kind) vs the "
         f"eager in-place steps on the same trace: all {len(outputs)} greedy "
         f"streams and first-token logits bitwise equal; recompile sentinel "
         + ", ".join(f"{k}={n}" for k, n in engine.sentinel.counts().items())
@@ -906,7 +1047,7 @@ def phase_serve(dev, serve_args=SERVE_ARGS,
     launches = {name: device[name] for name in per_call}
     lat = s["call_latency_ms"]
     e_lat = e_s["call_latency_ms"]
-    log(f"[serve] {s['n_completed']}/{s['n_requests']} requests, "
+    log(f"[{tag}] {s['n_completed']}/{s['n_requests']} requests, "
         f"{s['generated_tokens']} tokens, {s['engine_ticks']} ticks, "
         f"{s['decode_calls']} decode + {s['prefill_calls']} prefill calls; "
         f"device kernel launches (torch.profiler, graph replays included) "
@@ -920,7 +1061,7 @@ def phase_serve(dev, serve_args=SERVE_ARGS,
     for what, summ, ls, peak in (
             ("compiled (under torch.profiler)", s, lat, peak_gib),
             ("eager", e_s, e_lat, eager_peak)):
-        log(f"[serve] {cfg.name} {what}: {summ['tokens_per_sec']:.1f} "
+        log(f"[{tag}] {cfg.name} {what}: {summ['tokens_per_sec']:.1f} "
             f"tokens/s over {summ['wall_s']:.2f} s; decode ms/step "
             f"p50={ls['decode']['p50_ms']:.2f} "
             f"mean={ls['decode']['mean_ms']:.2f}; {kind} "
@@ -932,10 +1073,12 @@ def phase_serve(dev, serve_args=SERVE_ARGS,
     # last prompt token, which no layer computes: the scale is then the
     # peak of the other entries, and the layers' output (_stack_out) of
     # the kernel path's chunks is held to the plain path's as well
+    slot_of = {iv.rid: iv.slot for iv in engine.slot_log}
     for rid in (0, 1):
         prompt = list(trace[rid].prompt)
         with plain_versions():
-            ref = _chunked_run(engine, tables, prompt, engine.prefill_chunk)
+            ref = _chunked_run(engine, tables, prompt, engine.prefill_chunk,
+                               slot=slot_of[rid])
         row = engine.first_logits[rid]
         assert row.shape == (1, cfg.vocab_size), row.shape
         assert row.dtype == torch.bfloat16 and row.device.type == "cpu"
@@ -947,7 +1090,7 @@ def phase_serve(dev, serve_args=SERVE_ARGS,
         peak = ref[0][others].abs().max().item()
         assert torch.isfinite(got).all()
         assert d <= LOGIT_REL_TOL * peak, (rid, d, peak)
-        log(f"[serve] request {rid} (prompt {len(prompt)}): first-token "
+        log(f"[{tag}] request {rid} (prompt {len(prompt)}): first-token "
             f"logits (1, V) bf16 row, kernel vs plain max|d|={d:.3e} (tol "
             f"{LOGIT_REL_TOL} x {peak:.3f}, max|ref|"
             + (f" past the echo {ref[0][prompt[-1]].item():.3f} of the last "
@@ -957,11 +1100,12 @@ def phase_serve(dev, serve_args=SERVE_ARGS,
                                        engine.prefill_chunk), ref, prompt[-1])
             tol = LOGIT_REL_TOL * g["stack_peak"]
             assert g["stack_d"] <= tol, (rid, g)
-            log(f"[serve] request {rid}: the layers' output of its chunks "
+            log(f"[{tag}] request {rid}: the layers' output of its chunks "
                 f"(batch 1), kernel vs plain max|d|={g['stack_d']:.3e} (tol "
                 f"{LOGIT_REL_TOL} x {g['stack_peak']:.3f})")
     if cfg.family != "ssm":
-        check_chunk_equals_stepwise(engine, tables, list(trace[0].prompt))
+        check_chunk_equals_stepwise(engine, tables, list(trace[0].prompt),
+                                    tag=tag)
     return launches, engine, eager, tables
 
 
@@ -976,14 +1120,17 @@ class OpTrace:
         self.n_layers = n_layers
         self.calls = []
         self._layer = -1
+        self._token = None      # the token step of an exact SSM chunk
+        self._steps = None      # token steps taken in the current one
 
     def _record(self, name, out):
-        self.calls[-1].append((name, out))
+        self.calls[-1].append((name, self._token, out))
         return out
 
     @contextlib.contextmanager
     def recording(self):
-        from repro_torch.models import attention, decode, moe, transformer
+        from repro_torch.models import (attention, decode, moe, ssm,
+                                        transformer)
         from repro_torch.sparsity import sparse_linear
         patches = []
 
@@ -1044,6 +1191,33 @@ class OpTrace:
                 return probs, vals, idx
             return f
 
+        def exact_chunk(fn):
+            # an exact SSM chunk: one decode_ssm step per token, each one's
+            # ops tagged with its token
+            def f(*a, **kw):
+                self._steps = 0
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self._steps = None
+            return f
+
+        def ssm_step(fn):
+            # decode_ssm's output, conv window and state (its in_proj and
+            # out_proj are recorded through the tables' hook)
+            def f(*a, **kw):
+                if self._steps is not None:
+                    self._token, self._steps = self._steps, self._steps + 1
+                try:
+                    y, conv, state = fn(*a, **kw)
+                    for name, t in (("ssm y", y), ("conv", conv),
+                                    ("state", state)):
+                        self._record(f"L{self._layer} {name}", t)
+                    return y, conv, state
+                finally:
+                    self._token = None
+            return f
+
         patch(decode, "embed_tokens", embed)
         patch(decode, "apply_norm", norm1)
         patch(decode, "logits_from_hidden", at_layer("logits"))
@@ -1055,6 +1229,8 @@ class OpTrace:
         patch(moe, "apply_moe_block", moe_block)
         patch(moe, "_route", route)
         patch(moe, "apply_mlp", at_layer("dense_mlp"))
+        patch(ssm, "prefill_ssm", exact_chunk)
+        patch(ssm, "decode_ssm", ssm_step)
         try:
             yield self
         finally:
@@ -1066,17 +1242,38 @@ def _first_parting(chunk_call, step_calls):
     """Ops (label, max|d|) where a one-chunk prefill and stepwise decode
     of the same tokens differ, in the order the model runs them. Token t of
     the chunk's output (dim 1) is compared with step t's; the logits, which
-    the chunk gives for its last token only, with the last step's."""
-    labels = [lab for lab, _ in chunk_call]
-    for call in step_calls:
-        assert [lab for lab, _ in call] == labels
+    the chunk gives for its last token only, with the last step's; an op of
+    an exact SSM chunk's token step t (its projections, output, conv window
+    and state) with the same op of step t; cross-attention's k/v
+    projections of the encoder rows whole, with every step's. An op
+    recorded more than once a layer (both norms of a cross-attention
+    layer, both attentions) is matched by its occurrence."""
+    def keyed(call):
+        seen, out = {}, {}
+        for label, token, t in call:
+            n = seen.get((label, token), 0)
+            seen[(label, token)] = n + 1
+            out[(label, token, n)] = t
+        return out
+
+    steps = [keyed(call) for call in step_calls]
+    for step in steps[1:]:
+        assert step.keys() == steps[0].keys()
+    chunk = keyed(chunk_call)
+    assert {(lab, n) for lab, _, n in chunk} == \
+        {(lab, n) for lab, _, n in steps[0]}
     parted = []
-    for j, (label, tc) in enumerate(chunk_call):
-        if label.endswith("logits"):
-            pairs = [(tc[:, 0], step_calls[-1][j][1][:, 0])]
+    for (label, token, n), tc in chunk.items():
+        key = (label, None, n)
+        if token is not None:
+            pairs = [(tc, steps[token][key])]
+        elif label.endswith("logits"):
+            pairs = [(tc[:, 0], steps[-1][key][:, 0])]
+        elif label.endswith(("xattn/wk", "xattn/wv")):
+            pairs = [(tc, step[key]) for step in steps]
         else:
-            pairs = [(tc[:, t], step[j][1][:, 0])
-                     for t, step in enumerate(step_calls)]
+            pairs = [(tc[:, t], step[key][:, 0])
+                     for t, step in enumerate(steps)]
         if not all(torch.equal(a, b) for a, b in pairs):
             d = max((a.float() - b.float()).abs().max().item()
                     for a, b in pairs)
@@ -1084,45 +1281,65 @@ def _first_parting(chunk_call, step_calls):
     return parted
 
 
-def check_chunk_equals_stepwise(engine, tables, prompt):
+def check_chunk_equals_stepwise(engine, tables, prompt, cfg=None,
+                                chunk=None, tag="serve"):
     """Chunked prefill == stepwise decode at model level on the card
-    (kernel path, batch 1): op by op through every layer over one
-    chunk, then the first-token logits of the whole prompt. Fails naming
-    the first op where the two paths part."""
-    C = engine.prefill_chunk
+    (kernel path, batch 1): op by op through every layer over one chunk
+    (``cfg`` may be the engine's with ``prefill_exact``; ``chunk``
+    defaults to the engine's), then the first-token logits and every
+    cache leaf of the whole prompt. Fails naming the first op where the
+    two paths part."""
+    cfg = cfg or engine.cfg
+    C = chunk or engine.prefill_chunk
     part = prompt[:C]
-    trace = OpTrace(engine.cfg.n_layers)
+    trace = OpTrace(cfg.n_layers)
     with trace.recording():
-        _chunked_run(engine, tables, part, C)
+        _chunked_run(engine, tables, part, C, cfg)
         _stepwise_run(engine, tables, part)
     assert len(trace.calls) == 1 + len(part)
     parted = _first_parting(trace.calls[0], trace.calls[1:])
     n_ops = len(trace.calls[0])
     if parted:
         worst = max(parted, key=lambda p: p[1])
-        log(f"[serve] chunked prefill vs stepwise decode ({len(part)} "
+        log(f"[{tag}] chunked prefill vs stepwise decode ({len(part)} "
             f"tokens, batch 1): {len(parted)} of {n_ops} ops differ; first "
             f"{parted[0][0]} max|d|={parted[0][1]:.3e}; largest {worst[0]} "
             f"max|d|={worst[1]:.3e}")
     assert not parted, parted[:3]
-    log(f"[serve] chunked prefill vs stepwise decode ({len(part)} tokens, "
+    log(f"[{tag}] chunked prefill vs stepwise decode ({len(part)} tokens, "
         f"batch 1): all {n_ops} ops bitwise equal, token by token, through "
-        f"all {engine.cfg.n_layers} layers")
-    chunked, _, _ = _chunked_run(engine, tables, prompt, C)
-    stepwise, _, _ = _stepwise_run(engine, tables, prompt)
+        f"all {cfg.n_layers} layers")
+    del trace
+    chunked, c_cache, _ = _chunked_run(engine, tables, prompt, C, cfg)
+    stepwise, s_cache, _ = _stepwise_run(engine, tables, prompt)
     assert torch.equal(chunked, stepwise), \
         (chunked - stepwise).abs().max().item()
-    log(f"[serve] request 0 (prompt {len(prompt)}, "
-        f"{-(-len(prompt) // C)} chunks): chunked prefill first-token logits "
-        f"bitwise equal to stepwise decode's")
+    leaves = _flat(s_cache)
+    for path, leaf in _flat(c_cache).items():
+        assert torch.equal(leaf, leaves[path]), path
+    log(f"[{tag}] a prompt of {len(prompt)} tokens in "
+        f"{-(-len(prompt) // C)} chunks of {C}: first-token logits and all "
+        f"{len(leaves)} cache leaves bitwise equal to stepwise decode's")
 
 
-def _stepwise_run(engine, tables, prompt):
+def _flat(tree, path=""):
+    """{'/'-joined path: leaf} of a nested dict."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{path}/{k}"))
+        return out
+    return {path: tree}
+
+
+def _stepwise_run(engine, tables, prompt, slot=0):
     """A prompt through functional ``decode_step`` calls at batch 1 on a
-    fresh cache: (the last step's logits, f32 on the host; the cache; the
-    last token's ``_stack_out``)."""
+    fresh cache (an enc-dec model's holding ``slot``'s encoder row): (the
+    last step's logits, f32 on the host; the cache; the last token's
+    ``_stack_out``)."""
     from repro_torch.models import decode_step, init_cache
-    cache = init_cache(engine.cfg, 1, engine.max_len, device=engine.device)
+    cache = init_cache(engine.cfg, 1, engine.max_len, device=engine.device,
+                       enc_out=_enc_row(engine, slot))
     cache["pos"] = torch.zeros((1,), dtype=torch.int32, device=engine.device)
     with _final_norm_inputs(engine.params) as rows:
         for tok in prompt:
@@ -1334,19 +1551,29 @@ def phase_moe_pack(dev):
 
 def _memory_bound(cfg, tables):
     """(packs, non-expert dense weights, one layer's dense expert stacks,
-    all dense expert stacks) in GiB for a MoE config's build: what
-    ``init_stacked_serving`` may hold at once is the first three."""
+    all dense expert stacks) in GiB for a MoE config's build, from the
+    packed shapes: what ``init_stacked_serving`` may hold at once is the
+    first three."""
     gib = 2 ** 30
-    d, f, E, L = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.n_layers
-    attn = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
-    dense_mlp = 3 * d * f if cfg.dense_residual else 0
-    non_expert = 2 * (L * (attn + dense_mlp) + 2 * cfg.vocab_size * d)
-    layer = 2 * 3 * E * d * f
-    return (_nbytes(tables.arrays) / gib, non_expert / gib, layer / gib,
-            L * layer / gib)
+    size = 2 if cfg.dtype == "bfloat16" else 4          # dense weight bytes
+    non_expert = size * cfg.vocab_size * cfg.d_model * (
+        1 if cfg.tie_embeddings else 2)
+    expert_layer, experts = {}, 0
+    for name, t in tables.arrays.items():
+        k, n, _ = tables.static[name]
+        L = t["w_blocks"].shape[0]
+        if "moe/" in name:
+            E = t["w_blocks"].shape[1]
+            seg = name.rsplit("moe/", 1)[0]
+            expert_layer[seg] = expert_layer.get(seg, 0) + size * E * k * n
+            experts += size * L * E * k * n
+        else:
+            non_expert += size * L * k * n
+    return (_nbytes(tables.arrays) / gib, non_expert / gib,
+            max(expert_layer.values()) / gib, experts / gib)
 
 
-def _moe_build(args, cfg, dev):
+def _moe_build(args, cfg, dev, tag="moe"):
     """The serve CLI's engine, trace and tables for a MoE config, built
     slice by slice on the card; prints (and bounds) the build's peak
     device memory. Returns (engine, trace, tables)."""
@@ -1364,9 +1591,9 @@ def _moe_build(args, cfg, dev):
     resident = (torch.cuda.memory_allocated(dev) - base) / gib
     packs, non_expert, layer, dense = _memory_bound(cfg, tables)
     experts = _nbytes({k: v for k, v in tables.arrays.items()
-                       if k.startswith("moe/")}) / gib
+                       if "moe/" in k}) / gib
     bound = packs + non_expert + layer
-    log(f"[moe] {cfg.name} ({cfg.n_layers} layers, d={cfg.d_model}, "
+    log(f"[{tag}] {cfg.name} ({cfg.n_layers} layers, d={cfg.d_model}, "
         f"d_ff={cfg.d_ff}, {cfg.n_experts} experts): params + tables built "
         f"slice by slice on the card in {secs:.2f} s; packs {packs:.3f} "
         f"GiB (experts {experts:.3f}); build peak {peak:.3f} GiB over what "
@@ -1585,6 +1812,350 @@ def phase_arctic(dev):
     return {name: device[name] for name in per_call}
 
 
+def _encoder_attention_inputs(cfg, dev, dtype, gen, Sq, B=4):
+    """Non-causal attention at whisper's shapes: B slots' ``cfg.encoder_seq``
+    keys (the encoder's frames, or the encoder output cross-attention
+    reads), Sq queries a slot, every query at the last key (the
+    reference's all-ones mask)."""
+    A, H, hd = cfg.encoder_seq, cfg.n_heads, cfg.hd
+    k = torch.randn((B, A, cfg.n_kv_heads, hd), generator=gen).to(dtype)
+    v = torch.randn((B, A, cfg.n_kv_heads, hd), generator=gen).to(dtype)
+    q = torch.randn((B, Sq, H, hd), generator=gen).to(dtype)
+    pos = torch.full((B, Sq), A - 1, dtype=torch.int32)
+    return q.to(dev), k.to(dev), v.to(dev), pos.to(dev)
+
+
+def phase_seg_kernel_rows(jamba_cfg, whisper_cfg, dev):
+    """row_attention at the segmented phase's shapes against its plain
+    version (f32 within 1e-5 x max|ref|, bf16 within 2^-6 x max|ref|):
+    non-causal, every query at the last of 1,500 keys, hd 64, group 1 (the
+    whisper encoder's 4 x 1,500 queries; cross-attention's 1 and 64
+    queries a slot); causal, whisper's decoder self-attention (hd 64,
+    group 1) against its 448-slot cache and jamba's attention (hd 128,
+    group 4) against a 512-slot cache, each a decode call and a 64-query
+    chunk. A query alone comes out bitwise equal to the same query in the
+    call. Returns the worst bf16
+    error. (row_norm's new widths, 512 with LayerNorm and jamba's gated
+    8192, run in phase_kernel_rows.)"""
+    from repro_torch.kernels import row_attention as rak
+    gen = torch.Generator().manual_seed(10)
+    worst = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        cases = [(f"whisper {what}",) + _encoder_attention_inputs(
+                    whisper_cfg, dev, dt, gen, Sq)
+                 for what, Sq in (("encoder", whisper_cfg.encoder_seq),
+                                  ("cross decode", 1), ("cross chunk", 64))]
+        for name, c, A in (("whisper self", whisper_cfg, WHISPER_MAX_LEN),
+                           ("jamba", jamba_cfg, 512)):
+            a = _serve_attention_inputs(c, dev, dt, gen, A=A)
+            cases += [(f"{name} {what}", a[what][0], a["k"], a["v"],
+                       a[what][1]) for what in ("decode", "chunk")]
+        for what, q, k, v, pos in cases:
+            y = rak.row_attention(q, k, v, pos)
+            torch.cuda.synchronize()
+            ref = rak.row_attention_plain(q, k, v, pos)
+            peak = ref.float().abs().max().item()
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = (F32_TOL if dt == torch.float32 else ATTN_REL_TOL) * peak
+            assert torch.isfinite(y).all() and err <= tol, \
+                ("row_attention", what, dt, err, tol)
+            if dt == torch.bfloat16:
+                worst = max(worst, err)
+            ts = sorted({0, q.shape[1] // 2, q.shape[1] - 1})
+            for t in ts:
+                one = rak.row_attention(q[:, t:t + 1].contiguous(), k, v,
+                                        pos[:, t:t + 1].contiguous())
+                assert torch.equal(one, y[:, t:t + 1]), (what, dt, t)
+            log(f"[seg] row_attention {what} {tuple(q.shape)} x "
+                f"{tuple(k.shape)} {str(dt)[6:]}: max|d|={err:.3e} (tol "
+                f"{tol:.3e}); queries {ts} bitwise equal to one-query calls")
+            del y, ref
+    return worst
+
+
+def phase_seg_pack(jamba_cfg, dev):
+    """jamba's expert slices as the slice-by-slice build packs them
+    (``pack_joint_sparse_balanced`` at the shape's balanced MAXB), made on
+    the card, byte-identical to the CPU's: w_gate / w_up and w_down."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator().manual_seed(11)
+    vs = jamba_cfg.dbpim_value_sparsity
+    d, f = jamba_cfg.d_model, jamba_cfg.d_ff
+    for name, K, N in (("moe/w_up", d, f), ("moe/w_down", f, d)):
+        w = (torch.randn((K, N), generator=gen) * K ** -0.5).to(
+            torch.bfloat16)
+        kw = dict(bk=128, bn=128, value_sparsity=vs, payload="int8")
+        maxb = ops.balanced_maxb(K, vs, 128)
+        card = ops.pack_joint_sparse_balanced(w.to(dev), maxb, **kw)
+        cpu = ops.pack_joint_sparse_balanced(w, maxb, **kw)
+        for field in ("w_blocks", "idx", "scales", "nblocks"):
+            a, b = getattr(card, field).cpu(), getattr(cpu, field)
+            assert a.dtype == b.dtype and torch.equal(a, b), (name, field)
+        log(f"[seg] {jamba_cfg.name} expert slice {name} {K}x{N}, packed as "
+            f"the slice-by-slice build packs it (MAXB {maxb}): card pack == "
+            f"cpu pack byte for byte")
+
+
+def _gaps(got, ref):
+    """A chunk form's run against stepwise decode's (each a
+    ``_chunked_run`` / ``_stepwise_run`` result): the first-token logits'
+    max|d| and peak, the layers' output (``_stack_out``) max|d| and
+    peak, and the worst SSM state's max|d| relative to its own peak."""
+    (lg, cg, sg), (lr, cr, sr) = got, ref
+    states = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+              for path, b in _flat(cr).items() if path.endswith("/state")
+              for a in [_flat(cg)[path]]]
+    return {"logit_d": (lg - lr).abs().max().item(),
+            "logit_peak": lr.abs().max().item(),
+            "stack_d": (sg - sr).abs().max().item(),
+            "stack_peak": sr.abs().max().item(),
+            "state_rel_d": max(states)}
+
+
+def phase_jamba(dev):
+    """jamba-v0.1-52b at full width and depth (32 layers: 28 SSM, 4
+    attention, 16 MoE of 16 experts, 16 dense MLP) in joint mode, built
+    slice by slice on the card (its 90 GB of dense experts never exist;
+    the build's peak under packs + non-expert dense weights + one layer's
+    dense expert stacks), served on phase 4's trace by the compiled
+    engine with parallel SSD chunks of 64: per call 888 joint, 4
+    row_attention and 93 row_norm launches from the device records;
+    compiled == eager bitwise on 2 short requests; exact chunks (batch 1,
+    40 tokens in chunks of 16) bitwise equal to stepwise decode op by op,
+    and every cache leaf; a profiled compiled decode and prefill window
+    beside the decode call's bytes bound. In bf16 the kernel path's
+    first-token logits are held to the plain path's with the plain path's
+    top-2 choices replayed into it (``_routing``): each side's own rounding
+    flips near-tied choices. The kernel path against the plain path with
+    its own routing, and the parallel chunks against stepwise decode, are
+    held in a float32 copy at full depth (``_jamba_f32``, see there).
+    Returns the device launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch import obs
+    from repro_torch.obs import RecompileSentinel
+    from repro_torch.serving import ServeEngine, WorkloadSpec, make_trace
+    args = serve.build_parser().parse_args(JAMBA_SERVE_ARGS)
+    cfg = get_config(args.arch, dbpim_mode=args.dbpim_mode)
+    engine, trace, tables = _moe_build(args, cfg, dev, tag="seg")
+    kinds = ("decode", "prefill_parallel", "reset")
+    assert engine.prefill_kind == "prefill_parallel"
+    assert len(tables.segments) == cfg.n_layers
+
+    def make(graphs=True):
+        return ServeEngine(cfg, engine.params, n_slots=args.batch,
+                           max_len=args.max_len,
+                           prefill_chunk=args.prefill_chunk,
+                           stacked_tables=tables, device=dev,
+                           cuda_graphs=graphs)
+    engine, outputs, device, counts, peak = _counted_run(engine, trace, make)
+    per_call = obs.per_call(cfg)
+    assert per_call == JAMBA_PER_CALL, per_call
+    s = engine.metrics.summary()
+    calls = s["device_calls"]
+    assert s["n_completed"] == len(trace) == args.requests
+    assert all(len(outputs[r.rid]) == r.gen_len for r in trace)
+    assert counts == {name: 2 * per_call.get(name, 0) for name in counts}, \
+        counts
+    assert engine.sentinel.counts() == {
+        RecompileSentinel.key(k, cfg.name): 1 for k in kinds}
+    lat = s["call_latency_ms"]
+    log(f"[seg] {cfg.name} compiled serve (under torch.profiler): "
+        f"{s['n_completed']}/{s['n_requests']} requests, "
+        f"{s['generated_tokens']} tokens, {s['decode_calls']} decode + "
+        f"{s['prefill_calls']} prefill_parallel calls, "
+        f"{s['tokens_per_sec']:.1f} tokens/s over {s['wall_s']:.2f} s; "
+        f"decode ms/call p50={lat['decode']['p50_ms']:.2f} "
+        f"mean={lat['decode']['mean_ms']:.2f}; prefill_parallel p50="
+        f"{lat['prefill_parallel']['p50_ms']:.2f} ms; device launches "
+        + ", ".join(f"{name} {device[name]} == {n} x {calls}"
+                    for name, n in per_call.items())
+        + f" (the port's other kernels: 0); sentinel "
+        + ", ".join(f"{k}={n}" for k, n in engine.sentinel.counts().items())
+        + f"; peak device memory {peak:.3f} GiB")
+    # compiled == eager on 2 short requests (one chunk each)
+    short = make_trace(WorkloadSpec(**MOE_SHORT), cfg.vocab_size)
+    runs = {}
+    for graphs in (True, False):
+        e = make(graphs)
+        runs[graphs] = (e, e.run(short))
+        torch.cuda.synchronize()
+    (comp, out_c), (eag, out_e) = runs[True], runs[False]
+    _same_runs(comp, out_c, eag, out_e, short, kinds)
+    log(f"[seg] {cfg.name}, 2 requests (prompts "
+        f"{[r.prompt_len for r in short]}): compiled == eager, streams and "
+        f"first-token logits bitwise, one signature per step")
+    first = {r.rid: comp.first_logits[r.rid][0] for r in short}
+    del runs, comp, eag, e
+    # exact chunks: bitwise stepwise decode, op by op through every segment
+    gen = torch.Generator().manual_seed(12)
+    prompt = torch.randint(1, cfg.vocab_size, (JAMBA_PROMPT,),
+                           generator=gen).tolist()
+    check_chunk_equals_stepwise(engine, tables, prompt,
+                                cfg.scaled(prefill_exact=True), JAMBA_CHUNK,
+                                tag="seg")
+    # bf16: the kernel path against the plain path with the plain path's
+    # top-2 choices replayed into it (each side's own rounding flips
+    # near-tied choices, a flipped slot reading another expert), held to
+    # LOGIT_REL_TOL; beside it the engine's own first-token logits and the
+    # plain path against itself in another order (its parallel chunks
+    # against its stepwise decode), measured
+    for r in short:
+        p = list(r.prompt)
+        with plain_versions(), _routing() as plain:
+            ref = _chunked_run(engine, tables, p, args.prefill_chunk)[0]
+        with plain_versions():
+            own = _stepwise_run(engine, tables, p)[0]
+        with _routing(plain["idx"]) as replayed:
+            got = _chunked_run(engine, tables, p, args.prefill_chunk)[0]
+        d, tol = _logit_gap(got, ref)
+        d_own, _ = _logit_gap(first[r.rid], ref)
+        log(f"[seg] {cfg.name} bf16 request {r.rid}: first-token logits, "
+            f"kernel vs plain path with the plain path's routing replayed "
+            f"({len(plain['idx'])} routing calls, {replayed['flips']} "
+            f"tokens whose own top-2 differed) max|d|={d:.3e} (tol "
+            f"{tol:.3e} = {LOGIT_REL_TOL} x max|ref|); measured beside it: "
+            f"the engine's own routing {d_own:.3e}, the plain path's chunk "
+            f"vs its own stepwise decode {(ref - own).abs().max().item():.3e}")
+        assert d <= tol, (r.rid, d, tol)
+    g = _gaps(_chunked_run(engine, tables, prompt, JAMBA_CHUNK),
+              _stepwise_run(engine, tables, prompt))
+    log(f"[seg] {cfg.name} bf16: parallel chunks vs stepwise decode "
+        f"({JAMBA_PROMPT} tokens in chunks of {JAMBA_CHUNK}): first-token "
+        f"logits max|d|={g['logit_d']:.3e} of max|ref| "
+        f"{g['logit_peak']:.3f}; the layers' output max|d|="
+        f"{g['stack_d']:.3e} of {g['stack_peak']:.3f}; states max|d| "
+        f"{g['state_rel_d']:.3e} of their layer's peak (measured, not a "
+        f"bound: held in float32 below)")
+    prof = phase_profile([("jamba compiled", engine)])
+    packs = _nbytes(tables.arrays)
+    unembed = 2 * cfg.d_model * cfg.vocab_size
+    state = 2 * sum(v.numel() * v.element_size()
+                    for path, v in _flat(engine.cache).items()
+                    if path.endswith("/state"))
+    experts = _nbytes({k: v for k, v in tables.arrays.items()
+                       if "moe/" in k})
+    bound_ms = 1e3 * (packs + unembed + state) / HBM_BYTES_PER_S
+    wall, busy = prof[("jamba compiled", "decode call")][:2]
+    log(f"[seg] {cfg.name} compiled decode call: {wall:.3f} ms wall, busy "
+        f"{'not measured' if busy is None else f'{busy:.3f} ms'}; bytes "
+        f"bound {bound_ms:.3f} ms (packs {packs / 1e9:.2f} GB, of which "
+        f"experts {experts / 1e9:.2f}; unembedding {unembed / 1e9:.2f} GB; "
+        f"SSM states read and written {state / 1e9:.3f} GB; at 3.35 TB/s)")
+    launches = {name: device[name] for name in per_call}
+    del engine, tables, prof
+    torch.cuda.empty_cache()
+    _jamba_f32(args, cfg, short, prompt, dev)
+    return launches
+
+
+def _jamba_f32(args, cfg, short, prompt, dev):
+    """jamba in float32 at full width and depth (built slice by slice;
+    int8 packs as in bf16, f32 activations through the joint kernel's fp32
+    path): the first-token logits of the 2 short requests, kernel path vs
+    plain path, within JAMBA_F32_REL x max|ref|; parallel chunks vs
+    stepwise decode (the 40-token prompt in chunks of 16) within the
+    reference's PARALLEL_PREFILL_ATOL["float32"] x max(|ref|, 1) on the
+    logits, x its peak on the layers' output, and of each layer's peak on
+    the states. In bf16 neither bound can separate a fault from rounding
+    at this depth: the two sides' roundings flip near-tied top-2 routing
+    choices (a flipped slot reads another expert), and the plain path
+    disagrees with itself (chunk vs stepwise) by ~6 % of the logits'
+    peak."""
+    from repro_torch.models import ssm
+    c32 = cfg.scaled(dtype="float32")
+    e, _, t = _moe_build(args, c32, dev, tag="seg")
+    worst = 0.0
+    for r in short:
+        p = list(r.prompt)
+        got = _chunked_run(e, t, p, args.prefill_chunk)[0]
+        with plain_versions():
+            ref = _chunked_run(e, t, p, args.prefill_chunk)[0]
+        d = (got - ref).abs().max().item()
+        tol = JAMBA_F32_REL * ref.abs().max().item()
+        worst = max(worst, d)
+        log(f"[seg] {cfg.name} float32 request {r.rid}: first-token logits, "
+            f"kernel vs plain path max|d|={d:.3e} (tol {tol:.3e} = "
+            f"{JAMBA_F32_REL} x max|ref|)")
+        assert d <= tol, (r.rid, d, tol)
+    g = _gaps(_chunked_run(e, t, prompt, JAMBA_CHUNK),
+              _stepwise_run(e, t, prompt))
+    rel = ssm.PARALLEL_PREFILL_ATOL["float32"]
+    tol, stack_tol = rel * max(g["logit_peak"], 1.0), rel * g["stack_peak"]
+    log(f"[seg] {cfg.name} float32: parallel chunks vs stepwise decode "
+        f"({JAMBA_PROMPT} tokens in chunks of {JAMBA_CHUNK}), first-token "
+        f"logits max|d|={g['logit_d']:.3e} (tol {tol:.3e} = {rel} x "
+        f"{g['logit_peak']:.3f}); the layers' output max|d|="
+        f"{g['stack_d']:.3e} (tol {stack_tol:.3e}); states max|d| "
+        f"{g['state_rel_d']:.3e} of their layer's peak (tol {rel})")
+    assert g["logit_d"] <= tol and g["stack_d"] <= stack_tol, g
+    assert g["state_rel_d"] <= rel, g
+    del e, t
+    torch.cuda.empty_cache()
+
+
+def phase_whisper(dev):
+    """whisper-base at full width (6 encoder + 6 decoder layers) in joint
+    mode: the encoder once over 4 x 1,500 frames from a seed (6
+    row_attention and 13 row_norm launches and no joint launch from the
+    device records; its output within LOGIT_REL_TOL x max|ref| of the
+    plain path), then phase_serve's checks on phase 4's trace at max-len
+    448 (60 joint, 12 row_attention and 19 row_norm launches a call;
+    compiled == eager bitwise; first-token logits against the plain path;
+    a chunk equal to stepwise decode op by op, cross-attention included),
+    and a profiled decode and prefill window. Returns the device launches,
+    the encoder's included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.launch import serve
+    from repro_torch.models import encode
+    from repro_torch.models.inputs import stub_frames
+    from repro_torch.obs import device_launches
+    launches, engine, eager, tables = phase_serve(
+        dev, WHISPER_SERVE_ARGS, "prefill_chunk_exact", tag="seg")
+    cfg = engine.cfg
+    assert obs.per_call(cfg) == WHISPER_PER_CALL
+    del eager
+    seed = serve.build_parser().parse_args(WHISPER_SERVE_ARGS).seed
+    frames = stub_frames(cfg, engine.n_slots, seed, dev)
+    recorded = {name: mod for name, mod in _kernel_modules().items()
+                if name != "block_sparse_matmul"}
+    want = obs.encoder_per_call(cfg)
+    assert want == WHISPER_ENCODER_PER_CALL, want
+    for attempt in range(3):
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _pad()
+            enc = encode(engine.params, frames, cfg)
+            _pad()
+        device = device_launches(prof, recorded)
+        if all(device[k] == want.get(k, 0) for k in device):
+            break
+        log(f"[seg] encoder run {attempt + 1}: the profiler's device records "
+            f"count {device}, not {want}; taken again")
+    else:
+        raise AssertionError(f"encoder launches {device} != {want}")
+    counts = read_launches()
+    assert all(counts[k] == want.get(k, 0) for k in device), counts
+    assert torch.equal(enc, engine.cache["enc_out"])
+    t0 = time.monotonic()
+    encode(engine.params, frames, cfg)
+    torch.cuda.synchronize()
+    enc_ms = 1e3 * (time.monotonic() - t0)
+    with plain_versions():
+        ref = encode(engine.params, frames, cfg).float()
+    d, tol = _logit_gap(enc, ref)
+    assert enc.shape == frames.shape and d <= tol, (d, tol)
+    log(f"[seg] {cfg.name} encoder over {tuple(frames.shape)} frames: "
+        f"device launches " + ", ".join(f"{k} {v}" for k, v in device.items())
+        + f" (== {want}); {enc_ms:.2f} ms; the engine's enc_out is this "
+        f"output bitwise; kernel vs plain path max|d|={d:.3e} (tol "
+        f"{tol:.3e} = {LOGIT_REL_TOL} x max|ref|)")
+    phase_profile([("whisper compiled", engine)])
+    return {k: launches.get(k, 0) + device.get(k, 0) for k in launches}
+
+
 def _full_width_layer(cfg, dev):
     """One tinyllama-1.1b decoder layer's params at full width, random
     from a seeded generator on the card."""
@@ -1717,15 +2288,17 @@ def phase_dbmu(cfg, dev):
     return counts["dbmu_matmul"]
 
 
-def _profile_window(window, n_calls, setup=None):
+def _profile_window(window, n_calls, launches, setup=None):
     """(wall ms, busy ms, device ops, joint ms, device-side records, peak
     GiB, resident GiB) per call of ``window``: wall time, peak device
     memory and the memory allocated at its start from a run without the
-    profiler, the rest from torch.profiler's device-side
-    records of a second, identical run; busy None when the profiler
-    recorded no device time. ``setup`` runs before each run, outside both
+    profiler, the rest from torch.profiler's device-side records of a
+    second, identical run. That run counts only if its records hold
+    ``launches`` ({kernel: the port's launches a call}) x ``n_calls`` of
+    each of the port's kernels: the profiler loses records now and then,
+    which would read as a shorter busy time. Up to 3 runs are taken; busy
+    None if none is whole. ``setup`` runs before each run, outside the
     measurements."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def fresh():
@@ -1742,18 +2315,25 @@ def _profile_window(window, n_calls, setup=None):
     window()
     wall_ms = 1e3 * (time.monotonic() - t0) / n_calls
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    fresh()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        window()
-    # device-side records only (kernels, copies): a CPU op's record also
-    # carries the device time of the kernels it launched
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n_calls
-    if busy_ms == 0:
+    seen = []
+    for _ in range(3):
+        fresh()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _pad()
+            window()
+            _pad()
+        got = _device_records(prof)[2]
+        seen.append({k: n - launches.get(k, 0) * n_calls
+                     for k, n in got.items()})
+        if not any(seen[-1].values()):
+            break
+    else:
+        log(f"[profile]   no whole window: port launches short of "
+            f"{launches} x {n_calls} by {seen}")
         return wall_ms, None, 0, 0.0, [], peak_gib, base_gib
+    kernels = _device_events(prof)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n_calls
     joint_ms = sum(e.self_device_time_total for e in kernels
                    if any(sym in e.key for sym in JOINT_SYMBOLS)) / 1e3 / n_calls
     ops = sum(e.count for e in kernels) / n_calls
@@ -1773,7 +2353,7 @@ class FunctionalSteps:
     def __init__(self, engine, tables):
         from repro_torch.models import (decode_chunk, decode_step,
                                         merge_slots, reset_slots)
-        cfg = engine.cfg
+        self.cfg = cfg = engine.cfg
         self.device, self.n_slots = engine.device, engine.n_slots
         self.prefill_chunk, self.max_len = engine.prefill_chunk, engine.max_len
         self.params, self.cache = engine.params, engine.cache
@@ -1828,6 +2408,7 @@ def phase_profile(engines, n_steps=8, n_chunks=4, long_fill=4, out=None):
     copies and the graph, without the host copy of the logits) and the
     host µs of its input signature. Adds {(engine, call): (wall ms, busy
     ms or None, ops, peak GiB)} to ``out`` and returns it."""
+    from repro_torch import obs
     out = {} if out is None else out
     port_symbols = [sym for mod in _kernel_modules().values()
                     for sym in mod.SYMBOLS]
@@ -1862,21 +2443,23 @@ def phase_profile(engines, n_steps=8, n_chunks=4, long_fill=4, out=None):
             prefill_window(n=long_fill)
 
         long_cell = label.startswith("long")
+        cfg = engine.cfg
         windows = [("decode call", decode_window, n_steps, B,
-                    filled if long_cell else None)]
+                    filled if long_cell else None, obs.per_call(cfg))]
         if engine._prefill is not None:       # none in "full" prefill mode
             windows.append(("prefill-chunk call", prefill_window, n_chunks,
-                            B * C, reset_all))
-        for what, window, n, rows, setup in windows:
+                            B * C, reset_all,
+                            obs.per_call(cfg, C if cfg.prefill_exact else 1)))
+        for what, window, n, rows, setup, per_call in windows:
             wall_ms, busy_ms, ops, joint_ms, kernels, peak, base = \
-                _profile_window(window, n, setup)
+                _profile_window(window, n, per_call, setup)
             out[(label, what)] = (wall_ms, busy_ms, ops, peak)
             if busy_ms is None:
                 other = out.get((label.replace("compiled", "eager"), what))
                 log(f"[profile] {label} {what}: {wall_ms:.2f} ms wall, peak "
                     f"device memory {peak:.3f} GiB ({base:.3f} GiB resident "
-                    f"before the window); torch.profiler recorded "
-                    f"no device time in this window" + (
+                    f"before the window); busy not measured: torch.profiler "
+                    f"kept no whole record of this window" + (
                         "" if other is None or other[1] is None else
                         f" (inside CUDA graph replays); the eager window's "
                         f"busy {other[1]:.3f} ms beside this wall"))
@@ -1983,27 +2566,84 @@ def _host_us(fn, iters=20, windows=7):
     return 1e6 * best / iters
 
 
-def _device_ms(fn, iters=10, attempts=6):
+def _pad():
+    """Opens and ends a profiled window: late in a long process the
+    profiler drops the records of a window's first and last kernels (on
+    an H100: arctic's last dense-MLP launches and final norm, the first 2
+    to 4 port launches of every profile window), so 64 spin kernels
+    (``torch.cuda._sleep``, ~10 µs each) run before the window's own work
+    starts and after it has finished. Readings leave their records out
+    (``PAD_SYMBOL``)."""
+    torch.cuda.synchronize()
+    for _ in range(64):
+        torch.cuda._sleep(20000)
+    torch.cuda.synchronize()
+
+
+def _device_records(prof):
+    """(device-side records but the pad's, the port's kernel launches
+    among them, and those per kernel) of a finished torch.profiler window
+    (the block-sparse matmul shares the joint kernel's symbols and counts
+    as it)."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.obs import device_launches
+    recorded = {name: mod for name, mod in _kernel_modules().items()
+                if name != "block_sparse_matmul"}
+    n = sum(1 for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and PAD_SYMBOL not in e.name())
+    per_kernel = device_launches(prof, recorded)
+    return n, sum(per_kernel.values()), per_kernel
+
+
+def _device_events(prof):
+    """A finished window's device-side ``key_averages`` entries (kernels,
+    copies) with device time, but the pad's: a CPU op's entry also
+    carries the device time of the kernels it launched."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0 and PAD_SYMBOL not in e.key]
+
+
+def _device_ms(fn, iters=10, attempts=6, launches=None):
     """Mean device time per call (ms) from torch.profiler's device-side
     records (kernels, copies) over ``iters`` calls after a warm-up call:
-    what the card spent, without the wrappers' host time. A profiling
-    window now and then comes back with no device records; it is taken
-    again, up to ``attempts`` times in all, and None is returned if none
-    recorded device time."""
-    from torch.autograd import DeviceType
+    what the card spent, without the wrappers' host time. Late in a long
+    process the profiler loses records (a window with none, or with some
+    calls' kernels missing, which reads under the bytes bound), so a
+    window counts only if it is whole: ``iters`` x as many records as the
+    most one call showed in three windows of its own, and, given
+    ``launches`` (the port's kernel launches a call), ``iters`` x that
+    many port-kernel records. Up to ``attempts`` windows are taken; None
+    if none is whole."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(attempts):
+
+    def window(n):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            _pad()
+            for _ in range(n):
                 fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
+            _pad()
+        return prof
+
+    fn()
+    torch.cuda.synchronize()
+    per_call = max(_device_records(window(1))[0] for _ in range(3))
+    seen = []
+    for _ in range(attempts):
+        prof = window(iters)
+        records, port, _ = _device_records(prof)
+        if per_call and records == iters * per_call and (
+                launches is None or port == iters * launches):
+            us = sum(e.self_device_time_total for e in _device_events(prof))
             return us / 1e3 / iters
+        seen.append((records, port))
+    log(f"[times]   no whole window: (records, port launches) {seen}, "
+        f"want ({iters * per_call}, "
+        f"{'any' if launches is None else iters * launches})")
     return None
 
 
@@ -2040,14 +2680,17 @@ def _joint_case(name, K, N, p, rows, repeat, gen, dev):
 
 
 def _time_cases(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs,
-                moe_cfg, moe_packs, n_slots=4, M=256):
+                moe_cfg, moe_packs, seg, n_slots=4, M=256):
     """Per work unit, one case per launch: the kernel, its plain version
     and the library call as closures, with the bytes and operations the
     launch needs. The joint kernel at the decode shapes (M = n_slots) and,
     as units of their own, at the JOINT_PREFILL_M rows, and at mamba2's
     two projections (JOINT_SSM_UNITS), and at mixtral's expert shapes
     (JOINT_MOE_UNIT: one decode call's 768 expert launches at its
-    capacity of 8 rows); the block-sparse and FTA/INT8 kernels over phase
+    capacity of 8 rows), at jamba's (one decode call, 888 launches) and
+    at whisper's cross-attention k/v over 4 x 1,500 encoder rows (``seg``:
+    jamba's and whisper's configs and packs); row_attention also at the
+    whisper encoder's shape; the block-sparse and FTA/INT8 kernels over phase
     5's layer tables and the DBMU kernel over the four projection shapes
     (M rows); row_norm also at mamba2's gated norm (d = 4096)."""
     from repro_torch.core import dyadic, pruning
@@ -2126,7 +2769,65 @@ def _time_cases(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs,
     cases[NORM_SSM_UNIT] = _row_norm_cases(ssm_cfg, dev, gen, D=d_in,
                                            rows=(4, 256),
                                            repeat=ssm_cfg.n_layers)
+    jamba_cfg, jamba_packs, whisper_cfg, whisper_packs = seg
+    cases[JOINT_JAMBA_UNIT] = _jamba_decode_cases(jamba_cfg, jamba_packs,
+                                                  n_slots, gen, dev)
+    d = whisper_cfg.d_model
+    cases[JOINT_XATTN_UNIT] = [
+        _joint_case(name, d, d, whisper_packs[(d, d)],
+                    n_slots * whisper_cfg.encoder_seq,
+                    whisper_cfg.n_layers, gen, dev)
+        for name in ("xattn/wk", "xattn/wv")]
+    cases[ATTN_ENCODER_UNIT] = [_encoder_attention_case(whisper_cfg, dev,
+                                                        gen, n_slots)]
     return cases
+
+
+def _jamba_decode_cases(cfg, packs, n_slots, gen, dev):
+    """One jamba decode call's 888 joint launches, one case per projection
+    kind and shape: the attention's, the SSM's and the dense MLP's at M =
+    n_slots, once per layer of their kind; the experts' at M = capacity
+    (8 at batch 4), once per MoE layer and expert."""
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.segments import (decoder_layout,
+                                             packable_projections)
+    shapes = {name: (K, N) for name, K, N in _path_shapes(cfg)}
+    layers = {}
+    for seg in decoder_layout(cfg):
+        for name in packable_projections(seg, cfg):
+            layers[name] = layers.get(name, 0) + seg.length
+    cases = []
+    for name, n in layers.items():
+        expert = name.startswith("moe/")
+        K, N = shapes[name[4:] if expert else name]
+        cases.append(_joint_case(
+            name, K, N, packs[(K, N)],
+            capacity(cfg, n_slots) if expert else n_slots,
+            n * cfg.n_experts if expert else n, gen, dev))
+    assert sum(c["repeat"] for c in cases) == \
+        JAMBA_PER_CALL["joint_sparse_matmul"], cases
+    return cases
+
+
+def _encoder_attention_case(cfg, dev, gen, n_slots):
+    """One layer of the whisper encoder's attention (non-causal, every
+    query against all encoder_seq keys), repeated over its layers, with
+    SDPA (no mask) beside it. Bytes: q, k, v and the output once each and
+    the positions; operations: 4 * hd per key and query head."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import row_attention as rak
+    q, k, v, pos = _encoder_attention_inputs(cfg, dev, torch.bfloat16, gen,
+                                             cfg.encoder_seq, n_slots)
+    B, A, Hkv, hd = k.shape
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    return dict(
+        name="encoder", K=tuple(q.shape), N=tuple(k.shape),
+        kernel=lambda: rak.row_attention(q, k, v, pos),
+        plain=lambda: rak.row_attention_plain(q, k, v, pos),
+        library=lambda: F.scaled_dot_product_attention(qh, kh, vh),
+        bytes=2 * (2 * q.numel() + 2 * k.numel()) + pos.numel() * 4,
+        ops=4 * hd * cfg.n_heads * B * q.shape[1] * A, peak=BF16_FLOPS,
+        repeat=cfg.encoder_layers)
 
 
 def _row_attention_cases(cfg, dev, gen):
@@ -2200,7 +2901,7 @@ def _row_norm_cases(cfg, dev, gen, D=None, rows=(4, 256, LONG_B * LONG_C),
 
 
 def phase_times(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs,
-                moe_cfg, moe_packs):
+                moe_cfg, moe_packs, seg):
     """Each kernel, its plain version and its library yardstick, launch by
     launch over its work unit, beside the bound; the joint kernel's
     decode-step totals count each projection once per layer. Returns
@@ -2213,8 +2914,8 @@ def phase_times(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs,
 
     out = {}
     for kname, rows in _time_cases(cfg, packs, tables_by_mode, dev,
-                                   ssm_cfg, ssm_packs, moe_cfg,
-                                   moe_packs).items():
+                                   ssm_cfg, ssm_packs, moe_cfg, moe_packs,
+                                   seg).items():
         tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
                    library_device_ms=0.0, bytes=0, ops=0, host_us=0.0)
         per_shape = []
@@ -2223,11 +2924,12 @@ def phase_times(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs,
             repeat = c.get("repeat", 1)
             n_launches += repeat
             ms, plain = _time_auto(c["kernel"]), _time_auto(c["plain"])
-            dev_ms, host = _device_ms(c["kernel"]), _host_us(c["kernel"])
+            dev_ms = _device_ms(c["kernel"], launches=1)
+            host = _host_us(c["kernel"])
             lib = lib_dev = None
             if c["library"]:
                 lib, lib_dev = (_time_auto(c["library"]),
-                                _device_ms(c["library"]))
+                                _device_ms(c["library"], launches=0))
             bound, by = _bound(c["bytes"], c["ops"], c["peak"])
             per_shape.append(dict(
                 {k: v for k, v in c.items()
@@ -2279,34 +2981,55 @@ def main() -> int:
     moe_cfg = get_config("mixtral-8x7b", dbpim_mode="joint")
     arctic_cfg = get_config("arctic-480b", dbpim_mode="joint").scaled(
         n_layers=ARCTIC_LAYERS)
+    jamba_cfg = get_config("jamba-v0.1-52b", dbpim_mode="joint")
+    whisper_cfg = get_config("whisper-base", dbpim_mode="joint")
     packs = phase_pack(cfg, dev)
     ssm_packs = phase_pack(ssm_cfg, dev)
     moe_packs = phase_pack(moe_cfg, dev)
     arctic_packs = phase_pack(arctic_cfg, dev)
+    jamba_packs = phase_pack(jamba_cfg, dev, have=moe_packs)
+    whisper_packs = phase_pack(whisper_cfg, dev)
     worst = {"joint_sparse_matmul": max(
                  phase_kernel(cfg, packs, dev),
                  phase_kernel(ssm_cfg, ssm_packs, dev),
                  phase_kernel(moe_cfg, moe_packs, dev, MOE_KERNEL_M),
-                 phase_kernel(arctic_cfg, arctic_packs, dev, MOE_KERNEL_M)),
+                 phase_kernel(arctic_cfg, arctic_packs, dev, MOE_KERNEL_M),
+                 phase_kernel(jamba_cfg, jamba_packs, dev, MOE_KERNEL_M,
+                              have=moe_packs),
+                 phase_kernel(whisper_cfg, whisper_packs, dev,
+                              WHISPER_KERNEL_M)),
              **phase_kernel_value_bit_dbmu(cfg, dev)}
     del arctic_packs
     worst.update(phase_kernel_rows(
-        cfg, dev, (cfg.d_model, ssm_cfg.ssm_expand * ssm_cfg.d_model)))
-    # the MoE phases come before the other serve phases and the profile
-    # phase: late in a process that has run many profiled windows, the
-    # profiler has dropped device records of arctic's counted run
+        cfg, dev, (cfg.d_model, ssm_cfg.ssm_expand * ssm_cfg.d_model,
+                   whisper_cfg.d_model,
+                   jamba_cfg.ssm_expand * jamba_cfg.d_model)))
+    worst["row_attention"] = max(worst["row_attention"],
+                                 phase_seg_kernel_rows(jamba_cfg,
+                                                       whisper_cfg, dev))
+    # every counted serve run comes before the profile phase, the small
+    # ones first: late in a process that has run many profiled windows
+    # and counted runs (mixtral's records ~2 M kernels), the profiler has
+    # dropped device records of a counted run (arctic's, then
+    # tinyllama's); the serve phases' engines stay resident for phase 7
+    serve_launches, engine, eager, tables = phase_serve(dev)
+    ssm_launches, ssm_engine, ssm_eager, ssm_tables = phase_serve(
+        dev, SSM_SERVE_ARGS, "prefill_parallel")
+    phase_ssm_exact(ssm_engine, ssm_tables)
     phase_moe_pack(dev)
     moe_launches = phase_moe_serve(dev)
     torch.cuda.empty_cache()
     phase_ring(dev)
     arctic_launches = phase_arctic(dev)
     torch.cuda.empty_cache()
-    serve_launches, engine, eager, tables = phase_serve(dev)
-    ssm_launches, ssm_engine, ssm_eager, ssm_tables = phase_serve(
-        dev, SSM_SERVE_ARGS, "prefill_parallel")
-    phase_ssm_exact(ssm_engine, ssm_tables)
+    phase_seg_pack(jamba_cfg, dev)
+    jamba_launches = phase_jamba(dev)
+    torch.cuda.empty_cache()
+    whisper_launches = phase_whisper(dev)
+    torch.cuda.empty_cache()
     mode_launches, tables_by_mode = phase_modes(dev)
     launches = {k: n + ssm_launches[k] + moe_launches[k] + arctic_launches[k]
+                + jamba_launches[k] + whisper_launches[k]
                 for k, n in serve_launches.items()}
     launches.update(mode_launches, dbmu_matmul=phase_dbmu(cfg, dev))
     phase_profile_long(engine, tables, phase_profile(
@@ -2316,7 +3039,8 @@ def main() -> int:
     del engine, eager, tables, ssm_engine, ssm_eager, ssm_tables
     torch.cuda.empty_cache()
     times = phase_times(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs,
-                        moe_cfg, moe_packs)
+                        moe_cfg, moe_packs,
+                        (jamba_cfg, jamba_packs, whisper_cfg, whisper_packs))
 
     kernels = []
     for name, replaces, work in (
@@ -2358,12 +3082,21 @@ def main() -> int:
              "bf16", "joint_sparse_matmul mamba2 prefill"),
             ("one mixtral-8x7b decode call's expert launches: 32 layers x "
              "3 projections x 8 experts, M=8 (an expert's capacity at "
-             "batch 4), bf16", JOINT_MOE_UNIT)],
+             "batch 4), bf16", JOINT_MOE_UNIT),
+            ("one jamba-v0.1-52b decode call: 888 launches (16 x 16 x 3 "
+             "experts at M=8, 16 x 3 dense MLP, 28 x 2 SSM and 4 x 4 "
+             "attention at M=4), bf16", JOINT_JAMBA_UNIT),
+            ("whisper-base's cross-attention K/V of one decode call: 6 "
+             "layers x (xattn/wk, xattn/wv), M=6000 (4 slots x 1500 "
+             "encoder rows), bf16", JOINT_XATTN_UNIT)],
             "row_attention": [
                 ("one long-context prefill-chunk call: 22 launches, batch 16 "
                  "x 256 queries, 2048-slot cache, bf16", ATTN_LONG_UNIT),
                 ("the streaming path: 22 launches, one slot, 64 queries at "
-                 "the end of a 32768-slot cache, bf16", ATTN_STREAM_UNIT)],
+                 "the end of a 32768-slot cache, bf16", ATTN_STREAM_UNIT),
+                ("one whisper-base encoder call: 6 launches, batch 4 x 1500 "
+                 "queries against 1500 keys, non-causal, hd 64, bf16",
+                 ATTN_ENCODER_UNIT)],
             "row_norm": [
                 ("one long-context prefill-chunk call: 45 launches, 4096 "
                  "rows, d=2048, bf16", NORM_LONG_UNIT),

@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --dbpim-mode joint
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
+        --reduced --dbpim-mode joint --device cpu
 
 Runs on the CUDA card by default (``--device cpu`` runs the plain
 versions on the CPU). ``--dbpim-mode joint`` packs every layer's
@@ -27,6 +29,14 @@ stacks (mamba2) prefill in the parallel SSD form by default (tag
 recurrence instead (bit-identical to decode, C x the projection traffic;
 tag "prefill_chunk_exact", which attention stacks always use).
 
+Hybrid stacks (jamba) serve their interleaved SSM, attention, MLP and
+MoE layers through the same steps (parallel SSD chunks by default).
+Enc-dec models (whisper) first encode one batch of stub frames, normal(0,
+1) from ``--seed`` in bf16, one row per slot: the encoder runs once,
+unpacked, before the engine starts, and its time is printed apart from
+the decode and prefill calls; each decode step projects the cross-
+attention's k/v from its output, as the reference does.
+
 Load is a deterministic trace (serving.workload): Poisson arrivals at
 ``--arrival-rate`` requests/tick, prompt lengths from ``--prompt-len LO
 HI`` under ``--dist``, fixed ``--seed``.
@@ -35,11 +45,14 @@ HI`` under ``--dist``, fixed ``--seed``.
 from __future__ import annotations
 
 import argparse
+import time
 
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
+from repro_torch.models import encode
+from repro_torch.models.inputs import stub_frames
 from repro_torch.serving import ServeEngine, WorkloadSpec, make_trace
 from repro_torch.sparsity.sparse_linear import init_stacked_serving
 
@@ -85,6 +98,23 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def encode_frames(params, cfg, batch: int, seed: int, device):
+    """The encoder's output for one batch of stub frames (one row per
+    engine slot, ``inputs.stub_frames``: the reference serve CLI's frames)
+    through ``models.encode``; prints its time."""
+    frames = stub_frames(cfg, batch, seed, device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.monotonic()
+    enc_out = encode(params, frames, cfg)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    print(f"[serve] encoder: {tuple(frames.shape)} frames in "
+          f"{1e3 * (time.monotonic() - t0):.2f} ms (once, before the "
+          f"engine; unpacked)")
+    return enc_out
+
+
 def build_engine_and_trace(args, cfg):
     """Engine + trace from parsed args (shared by the CLI and
     chip_smoke.py). Returns (engine, trace, stacked_tables)."""
@@ -100,11 +130,14 @@ def build_engine_and_trace(args, cfg):
         print(f"[serve] dbpim_mode={cfg.dbpim_mode}: "
               f"{len(tables.arrays)} projection families packed, "
               f"{nbytes / 1e6:.2f} MB stacked tables (dense copies stripped)")
+    enc_out = None
+    if cfg.is_encdec:
+        enc_out = encode_frames(params, cfg, args.batch, args.seed, dev)
     engine = ServeEngine(cfg, params, n_slots=args.batch,
                          max_len=args.max_len,
                          prefill_chunk=args.prefill_chunk,
                          prefill_mode=args.prefill_mode,
-                         stacked_tables=tables, device=dev)
+                         stacked_tables=tables, enc_out=enc_out, device=dev)
     spec = WorkloadSpec(n_requests=args.requests,
                         arrival_rate=args.arrival_rate,
                         prompt_len=tuple(args.prompt_len),

@@ -212,7 +212,9 @@ def compile_step(step_fn, *, buffer_argnums=(), graphs: bool = True):
     cache is another signature); the stacked tables live in the step's
     closure; the per-call inputs are the static buffers; and every
     intermediate comes from the graph's private memory pool, which the
-    graph keeps for its lifetime.
+    graph keeps for its lifetime. An enc-dec cache's "enc_out" is such a
+    cache leaf, read and never written: another encoder output is another
+    signature.
 
     On the CPU, or with ``graphs=False``, the step runs eagerly on every
     call and still records its signature, so the recompile sentinel counts

@@ -1,6 +1,7 @@
 """Attention for the serving path: GQA with RoPE and qk-norm against a
 contiguous static-shape KV cache, a ring of ``window`` rows for
-sliding-window archs (mixtral).
+sliding-window archs (mixtral); the whisper encoder's non-causal
+attention and the decoder's cross-attention.
 
 Port of the contiguous branches of ``repro.models.attention``, with the
 same -1e30 masking and the fp32 softmax cast back to the activation dtype.
@@ -17,6 +18,12 @@ was written (row <= pos) or the ring is full (pos >= A), when every row
 is. That is ``row_attention`` with the query's position clamped to A - 1:
 the same kernel serves it. Windowed archs prefill stepwise; the chunk
 (``prefill_attention``) refuses them, as the reference does.
+
+Attention without a cache attends every query to every key through the
+same kernel, with each query's position at the last key: the encoder's
+full-sequence ``attention(causal=False)`` (whisper) and the decoder's
+``cross_attention`` over the encoder output, whose k/v are projected from
+it at every call, as in the reference.
 
 Each attention takes the cache functionally (new k/v come back, as in
 JAX) or, for the serving engine's compiled steps, writes its rows into the
@@ -59,6 +66,47 @@ def _sdpa(q, k, v, qpos):
     """q (B,Sq,Hq,hd), k/v (B,A,Hkv,hd) the cache, qpos (B,Sq) each
     query's position: it attends to cache rows 0..qpos."""
     return row_attention.row_attention(q, k, v, qpos)
+
+
+def _all_keys(x, n_keys: int):
+    """(B, S) query positions that reach every one of ``n_keys`` keys: the
+    reference's all-ones mask in ``row_attention``'s terms."""
+    return torch.full(x.shape[:2], n_keys - 1, dtype=torch.int32,
+                      device=x.device)
+
+
+def attention(p, x, cfg: ModelConfig, positions, causal: bool = True,
+              dense_fn=None):
+    """Full-sequence attention without a cache. x (B, S, D); positions (B,
+    S) for RoPE. ``causal=False`` (the whisper encoder): every query
+    attends to all S keys."""
+    if causal:
+        raise NotImplementedError(
+            "causal full-sequence attention (transformer.forward) is not "
+            "ported yet: it needs row_attention's lower key bound for "
+            "sliding windows (ROADMAP Queue 1 item 4b)")
+    mm = dense_fn or (lambda w, v, name: v @ w)
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, x, positions, cfg, mm)
+    out = _sdpa(q, k, v, _all_keys(x, S))
+    return mm(p["wo"], out.reshape(B, S, cfg.q_dim), "wo")
+
+
+def cross_attention(p, x, enc_out, cfg: ModelConfig, dense_fn=None):
+    """Decoder cross-attention over the encoder output (whisper). x (B, S,
+    D); enc_out (B, Se, D). wq projects x, and wk and wv project enc_out
+    at every call (B x Se rows each), as in the reference; no RoPE, no
+    qk-norm. Hook names carry the "xattn/" prefix, so a block's self- and
+    cross-attention projections are distinct table entries."""
+    mm = dense_fn or (lambda w, v, name: v @ w)
+    B, S, _ = x.shape
+    q = _split_heads(mm(p["wq"], x, "xattn/wq"), cfg.n_heads, cfg.hd)
+    k = _split_heads(mm(p["wk"], enc_out, "xattn/wk"), cfg.n_kv_heads,
+                     cfg.hd)
+    v = _split_heads(mm(p["wv"], enc_out, "xattn/wv"), cfg.n_kv_heads,
+                     cfg.hd)
+    out = _sdpa(q, k, v, _all_keys(x, enc_out.shape[1]))
+    return mm(p["wo"], out.reshape(B, S, cfg.q_dim), "xattn/wo")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,

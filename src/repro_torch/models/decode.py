@@ -1,7 +1,8 @@
 """Serving path: cache init, single-token decode, chunked prefill and
-per-slot cache surgery, for attention (with an MLP or MoE FFN) and SSM
-segments on a contiguous cache (a ring of ``window`` rows for
-sliding-window archs, which prefill stepwise).
+per-slot cache surgery, for every segment layout the port serves
+(attention with an MLP or MoE FFN, SSM, hybrid interleavings of both, the
+whisper decoder with cross-attention) on a contiguous cache (a ring of
+``window`` rows for sliding-window archs, which prefill stepwise).
 
 Port of ``repro.models.decode``. The decoder is the segment list of
 ``models.segments``; where JAX scans each segment's stacked params, cache
@@ -10,7 +11,10 @@ slices layer ``l`` of each, dispatching on the segment's mixer. Caches
 keep the JAX layout, the batch on axis 1 of every leaf: attention
 segments hold stacked (L_seg, B, A, Hkv, hd) k/v, SSM segments stacked
 (L_seg, B, W-1, Ch) conv windows and (L_seg, B, nh, P, N) float32 states,
-and "pos" is a scalar or a (B,) vector of per-slot depths. Functions
+and "pos" is a scalar or a (B,) vector of per-slot depths; a hybrid stack
+keys each segment's cache by its name and keeps one global "pos". An
+enc-dec cache also holds "enc_out" (B, Se, D), the encoder's output,
+which every step reads and no step or slot surgery writes. Functions
 return new caches, as in JAX.
 
 The serving engine's compiled steps use the in-place forms
@@ -34,15 +38,16 @@ from . import attention as attn_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import apply_norm, embed_tokens, logits_from_hidden
-from .transformer import (_block_tail, _check_supported, layer_slice,
-                          segment_tables)
+from .transformer import (_block_tail, _check_supported, _sinusoidal_at,
+                          layer_slice, segment_tables)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device="cuda") -> Dict:
+               device="cuda", enc_out=None) -> Dict:
     """Per-segment caches: {"pos": scalar, seg.cache: {"k", "v" (L_seg, B,
     A, Hkv, hd), "pos"} for attention, {"conv", "state"} for SSM};
-    multi-segment stacks track one global "pos"."""
+    multi-segment stacks track one global "pos". An enc-dec config given
+    ``enc_out`` (B, Se, D) keeps it under "enc_out", as it is."""
     dev = resolve_device(device)
     cache: Dict = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
     for seg in _check_supported(cfg):
@@ -54,6 +59,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         if seg.cache != "attn":
             c.pop("pos")
         cache[seg.cache] = c
+    if cfg.is_encdec and enc_out is not None:
+        cache["enc_out"] = enc_out
     return cache
 
 
@@ -140,6 +147,10 @@ def decode_step_(params, cache, token, active, cfg: ModelConfig,
 def _decode(params, cache, token, cfg, tables, active):
     pos = cache["pos"]
     x = embed_tokens(params["embed"], token, cfg)
+    if cfg.rope_pct == 0:
+        posv = attn_mod._per_slot_pos(pos, token.shape[0], token.device)
+        x = x + _sinusoidal_at(posv[:, None], cfg.d_model).to(x.dtype)
+    enc_out = cache.get("enc_out")
 
     def layer(seg, p, h, a, b, mm):
         hn = apply_norm(p["norm1"], h, cfg)
@@ -150,7 +161,7 @@ def _decode(params, cache, token, cfg, tables, active):
         else:
             y, a, b = ssm_mod.decode_ssm(p["ssm"], hn, a, b, cfg,
                                          dense_fn=mm, active=active)
-        return _block_tail(seg, p, h + y, cfg, mm), a, b
+        return _block_tail(seg, p, h + y, cfg, mm, enc_out), a, b
 
     if active is None:
         new_pos = pos + 1
@@ -207,6 +218,11 @@ def _chunk(params, cache, tokens, n_valid, cfg, tables, inplace):
     n_valid = torch.as_tensor(n_valid, dtype=torch.int32,
                               device=tokens.device)
     x = embed_tokens(params["embed"], tokens, cfg)
+    if cfg.rope_pct == 0:
+        qpos = pos[:, None] + torch.arange(C, dtype=torch.int32,
+                                           device=tokens.device)[None, :]
+        x = x + _sinusoidal_at(qpos, cfg.d_model).to(x.dtype)
+    enc_out = cache.get("enc_out")
 
     ssm_prefill = (ssm_mod.prefill_ssm if cfg.prefill_exact
                    else ssm_mod.prefill_ssm_parallel)
@@ -220,7 +236,8 @@ def _chunk(params, cache, tokens, n_valid, cfg, tables, inplace):
         else:
             y, a, b = ssm_prefill(p["ssm"], hn, a, b, n_valid, cfg,
                                   dense_fn=mm, inplace=inplace)
-        return _block_tail(seg, p, h + y, cfg, mm, per_position=True), a, b
+        return (_block_tail(seg, p, h + y, cfg, mm, enc_out,
+                            per_position=True), a, b)
 
     x, new_cache = _run_segments(params, cache, x, cfg, tables, layer,
                                  pos + n_valid, inplace=inplace)
@@ -238,12 +255,15 @@ def merge_slots(new_cache, old_cache, keep_mask, cfg: ModelConfig):
     """Per-slot cache select: slots where keep_mask (B,) is True take the
     updated cache, the rest keep their previous contents and position.
     Every k/v, conv and state leaf carries the batch on axis 1; "pos"
-    leaves come out as (B,) vectors whatever shape they came in."""
+    leaves come out as (B,) vectors whatever shape they came in;
+    "enc_out" passes through as the new cache has it."""
     B = keep_mask.shape[0]
 
     def visit(key, new, old):
         if isinstance(new, dict):
             return {k: visit(k, new[k], old[k]) for k in new}
+        if key == "enc_out":
+            return new
         if key == "pos":
             return torch.where(keep_mask,
                                attn_mod._per_slot_pos(new, B, new.device),
@@ -259,18 +279,21 @@ def reset_slots(cache, slot_mask, cfg: ModelConfig):
     """Zero the KV / SSM cache slices and position of the slots where
     slot_mask (B,) is True: the admission step before a freed slot takes a
     new request (without it an SSM state would carry the previous
-    request's activations into the new one)."""
+    request's activations into the new one). "enc_out" is the slots'
+    encoder output, not a request's: it stays as it is."""
     def zeros(tree):
         if isinstance(tree, dict):
-            return {k: zeros(v) for k, v in tree.items()}
+            return {k: (v if k == "enc_out" else zeros(v))
+                    for k, v in tree.items()}
         return torch.zeros_like(tree)
     return merge_slots(cache, zeros(cache), ~slot_mask, cfg)
 
 
 def reset_slots_(cache, slot_mask, cfg: ModelConfig):
     """``reset_slots`` in place: the masked slots' cache slices and
-    positions are zeroed where they lie. Returns ``cache``, bitwise the
-    functional result. Positions must be (B,) vectors."""
+    positions are zeroed where they lie ("enc_out" untouched). Returns
+    ``cache``, bitwise the functional result. Positions must be (B,)
+    vectors."""
     B = slot_mask.shape[0]
     _check_inplace(cache, B)
 
@@ -278,6 +301,8 @@ def reset_slots_(cache, slot_mask, cfg: ModelConfig):
         if isinstance(tree, dict):
             for k, v in tree.items():
                 visit(k, v)
+        elif key == "enc_out":
+            return
         elif key == "pos":
             tree.masked_fill_(slot_mask, 0)
         else:

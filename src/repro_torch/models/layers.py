@@ -75,11 +75,16 @@ def apply_rope(x, cos, sin, cfg: ModelConfig):
 # --------------------------------------------------------------- MLP -------
 
 def init_mlp(cfg: ModelConfig, gen, d: int, f: int, device, lead=()):
+    """Gated MLPs (swiglu, geglu) have w_gate, w_up and w_down; the plain
+    gelu MLP (whisper) w_up and w_down."""
     dt = dtype_of(cfg)
     s_in, s_out = d ** -0.5, f ** -0.5
-    return {"w_gate": (_normal(gen, lead + (d, f), device) * s_in).to(dt),
-            "w_up": (_normal(gen, lead + (d, f), device) * s_in).to(dt),
-            "w_down": (_normal(gen, lead + (f, d), device) * s_out).to(dt)}
+    p = {}
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        p["w_gate"] = (_normal(gen, lead + (d, f), device) * s_in).to(dt)
+    p["w_up"] = (_normal(gen, lead + (d, f), device) * s_in).to(dt)
+    p["w_down"] = (_normal(gen, lead + (f, d), device) * s_out).to(dt)
+    return p
 
 
 def make_matmul(cfg: ModelConfig, tables=None):
@@ -96,10 +101,13 @@ def make_matmul(cfg: ModelConfig, tables=None):
 
 
 def apply_mlp(p, x, cfg: ModelConfig, dense_fn=None):
-    """Gated MLP (swiglu or geglu; the plain gelu MLP comes with the
-    enc-dec slice). dense_fn(w, x, name) lets the joint-sparse path
-    intercept matmuls."""
+    """Gated MLP (swiglu or geglu) or the plain gelu MLP (whisper:
+    gelu(x @ w_up) @ w_down, tanh approximation). dense_fn(w, x, name) lets
+    the joint-sparse path intercept matmuls."""
     mm = dense_fn or (lambda w, v, name: v @ w)
+    if cfg.mlp_type == "gelu":
+        h = F.gelu(mm(p["w_up"], x, "w_up"), approximate="tanh")
+        return mm(p["w_down"], h, "w_down")
     gate = mm(p["w_gate"], x, "w_gate")
     g = (F.silu(gate) if cfg.mlp_type == "swiglu"
          else F.gelu(gate, approximate="tanh"))

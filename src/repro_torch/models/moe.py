@@ -66,15 +66,17 @@ def _expert_stack(gen, lead, E, d_in, d_out, scale, dt, device, name,
 
 
 def init_moe(cfg: ModelConfig, gen, device, lead, expert_sink=None):
-    """Router (L, d, E) float32 and the gated expert stacks (L, E, d, f),
-    (L, E, f, d) in cfg.dtype, with the JAX package's scales. ``lead`` is
-    the (L,) stack of the segment."""
+    """Router (L, d, E) float32 and the expert stacks (L, E, d, f), (L, E,
+    f, d) in cfg.dtype (w_gate only for gated MLPs), with the JAX
+    package's scales. ``lead`` is the (L,) stack of the segment."""
     dt = dtype_of(cfg)
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     s = d ** -0.5
     p = {"router": _normal(gen, lead + (d, E), device) * s}
-    for name, d_in, d_out, scale in (("w_gate", d, f, s), ("w_up", d, f, s),
-                                     ("w_down", f, d, f ** -0.5)):
+    stacks = [("w_up", d, f, s), ("w_down", f, d, f ** -0.5)]
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        stacks.insert(0, ("w_gate", d, f, s))
+    for name, d_in, d_out, scale in stacks:
         p[name] = _expert_stack(gen, lead, E, d_in, d_out, scale, dt, device,
                                 name, expert_sink)
     return p
@@ -192,14 +194,16 @@ def apply_moe(p, x, cfg: ModelConfig, expert_fn=None,
 
 
 def _expert_ffn_grouped(p, xin, cfg: ModelConfig, expert_fn=None):
-    """xin (G, E, C, D) -> (G, E, C, D): the gated expert MLP, each
-    contraction x (..., E, C, K) @ w (E, K, F) through ``expert_fn`` (the
-    stacked tables' ``expert`` hook: one joint launch per packed expert
-    slice) or a plain einsum."""
+    """xin (G, E, C, D) -> (G, E, C, D): the expert MLP (gated, or plain
+    gelu), each contraction x (..., E, C, K) @ w (E, K, F) through
+    ``expert_fn`` (the stacked tables' ``expert`` hook: one joint launch
+    per packed expert slice) or a plain einsum."""
     def mm(name, v):
         if expert_fn is not None:
             return expert_fn(p[name], v, f"moe/{name}")
         return torch.einsum("...eck,ekf->...ecf", v, p[name])
+    if cfg.mlp_type == "gelu":
+        return mm("w_down", F.gelu(mm("w_up", xin), approximate="tanh"))
     gate = mm("w_gate", xin)
     g = (F.silu(gate) if cfg.mlp_type == "swiglu"
          else F.gelu(gate, approximate="tanh"))

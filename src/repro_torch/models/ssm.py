@@ -1,5 +1,6 @@
-"""Mamba2 state-space (SSD) block for the serving path: decode, the exact
-per-token chunk and the parallel SSD chunk.
+"""Mamba2 state-space (SSD) block for the serving path (mamba2's layers,
+and jamba's SSM layers at N = 16, 128 heads): decode, the exact per-token
+chunk and the parallel SSD chunk.
 
 Port of the serving half of ``repro.models.ssm`` (arXiv:2405.21060):
 inputs are projected to per-head x, a scalar decay A per head and B/C

@@ -43,21 +43,40 @@ def per_call(cfg, token_steps: int = 1) -> dict:
     """{name: launches} of one serving step call of ``cfg``'s joint-mode
     path: the joint kernel once per packed projection and layer (a MoE
     expert projection once per expert: mixtral-8x7b 32 x (4 + 3 x 8) =
-    896), row_attention once per attention layer, row_norm once per layer
-    for norm1, once more per layer for the MLP's or MoE's norm2 or the
-    SSM's gated norm, and once for the final norm. An SSM layer of an
-    exact chunk walks ``token_steps`` token steps, each projecting and
-    gating once."""
+    896; jamba-v0.1-52b 16 x 16 x 3 + 16 x 3 + 28 x 2 + 4 x 4 = 888;
+    whisper-base's decoder 6 x (4 + 4 + 2) = 60), row_attention once per
+    self- and once per cross-attention layer, row_norm once per layer for
+    norm1, once more for the cross-attention's norm, the MLP's or MoE's
+    norm2 and the SSM's gated norm each, and once for the final norm
+    (jamba 32 x 2 + 28 + 1 = 93, whisper 6 x 3 + 1 = 19). An SSM layer of
+    an exact chunk walks ``token_steps`` token steps, each projecting
+    (in_proj, out_proj) and gating once; its FFN runs once a call."""
     from ..models.segments import packable_projections
     segs = cfg.serving_capabilities().segments
 
     def steps(s):
         return token_steps if s.mixer == "ssm" else 1
 
-    def launches(name):
-        return cfg.n_experts if name.startswith("moe/") else 1
+    def launches(s, name):
+        if name.startswith("moe/"):
+            return cfg.n_experts
+        return steps(s) if name in ("in_proj", "out_proj") else 1
     return {"joint_sparse_matmul": sum(
-                sum(map(launches, packable_projections(s, cfg)))
-                * s.length * steps(s) for s in segs),
-            "row_attention": sum(s.length for s in segs if s.mixer == "attn"),
-            "row_norm": 1 + sum(s.length * (1 + steps(s)) for s in segs)}
+                sum(launches(s, n) for n in packable_projections(s, cfg))
+                * s.length for s in segs),
+            "row_attention": sum(s.length * (1 + s.cross) for s in segs
+                                 if s.mixer == "attn"),
+            "row_norm": 1 + sum(s.length * (1 + s.cross
+                                            + (s.ffn != "none")
+                                            + (s.mixer == "ssm") * steps(s))
+                                for s in segs)}
+
+
+def encoder_per_call(cfg) -> dict:
+    """{name: launches} of one ``models.encode`` call (whisper's encoder,
+    unpacked: plain matmuls): row_attention once per layer, row_norm twice
+    per layer and once for the final norm, no joint launch (whisper-base
+    0 / 6 / 13)."""
+    L = cfg.encoder_layers
+    return {"joint_sparse_matmul": 0, "row_attention": L,
+            "row_norm": 2 * L + 1}

@@ -19,6 +19,10 @@ with all scheduling on the host and all math in two fixed-shape steps
   * slot reset    zeroes a freed slot's cache slice and position before
     admission (models.decode.reset_slots_).
 
+An enc-dec model (whisper) takes ``enc_out``, the encoder's output with
+one row per slot, into the cache: every step reads it, and it stays with
+its slot whatever request the slot serves (the reference's rule).
+
 Each step is compiled once (``launch.steps.compile_step``, the
 reference's ``jax.jit`` with the cache donated): on the card one CUDA
 graph per step kind, captured at its first call and replayed after, with
@@ -99,7 +103,8 @@ class ServeEngine:
     def __init__(self, cfg, params, *, n_slots: int = 4, max_len: int = 64,
                  prefill_chunk: int = 16, prefill_mode: str = "chunked",
                  schedule: str = "fifo",
-                 stacked_tables=None, max_ticks: int = 100_000,
+                 stacked_tables=None, enc_out=None,
+                 max_ticks: int = 100_000,
                  device="cuda", paged: bool = False, fault_plan=None,
                  journal=None, snapshot_dir: Optional[str] = None,
                  tracer=None, deadline_slack: Optional[float] = None,
@@ -131,7 +136,13 @@ class ServeEngine:
         self.max_ticks = max_ticks
         self.params = params
 
-        cache = init_cache(cfg, n_slots, max_len, device=self.device)
+        if cfg.is_encdec and (enc_out is None
+                              or enc_out.shape[0] != n_slots):
+            raise ValueError(f"{cfg.name} is enc-dec: pass enc_out, the "
+                             f"encoder's output with one row per slot "
+                             f"({n_slots}, Se, D) (models.encode)")
+        cache = init_cache(cfg, n_slots, max_len, device=self.device,
+                           enc_out=enc_out)
         # per-slot positions from the start
         cache["pos"] = torch.zeros((n_slots,), dtype=torch.int32,
                                    device=self.device)

@@ -633,14 +633,17 @@ def test_serve_cli_runs_mamba2_on_cpu(capsys, exact):
 # --------------------------------------------------- what is refused ------
 
 @pytest.mark.parametrize("arch,kw", [
-    ("mixtral-8x7b", {"mlp_type": "gelu"}), ("jamba-v0.1-52b", {}),
-    ("whisper-base", {}), ("tinyllama-1.1b", {"mlp_type": "gelu"})])
+    ("mixtral-8x7b", {"frontend": "vision_stub"}),
+    ("jamba-v0.1-52b", {"frontend": "vision_stub"}),
+    ("whisper-base", {"frontend": "vision_stub"}),
+    ("tinyllama-1.1b", {"frontend": "vision_stub", "mlp_type": "gelu"})])
 def test_check_supported_still_refuses(arch, kw):
-    """Hybrid stacks, enc-dec and plain gelu MLPs (dense or expert) wait
-    for later slices (MoE and sliding windows are served since the MoE
-    slice)."""
+    """The vision frontend (pixtral's stub) waits for the full-sequence
+    forward's slice, whatever the stack under it (hybrid stacks, enc-dec
+    and plain gelu MLPs are served since the hybrid and enc-dec slice:
+    tests/test_torch_hybrid.py, tests/test_torch_encdec.py)."""
     cfg = get_config(arch, reduced=True).scaled(**kw)
-    with pytest.raises(NotImplementedError, match="later slices"):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         _check_supported(cfg)
 
 
