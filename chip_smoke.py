@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Phases, each printed on its own lines (each line after the seconds since
-the run started), run in the order 1, 2, 3, 4, 4b, 4c, 4d, 5, 6, 7, 8;
-any failure raises and exits non-zero (no phase catches its own failure):
+the run started), run in the order 1, 2, 3, 4, 4b, 4c, 4d, 4e, 5, 6, 7,
+8; any failure raises and exits non-zero (no phase catches its own
+failure):
 
   1. build  — nvcc builds the six kernels (joint_sparse_matmul,
               block_sparse_matmul, fta_int8_matmul, dbmu_matmul, and the
@@ -20,10 +21,11 @@ any failure raises and exits non-zero (no phase catches its own failure):
               and expert), of jamba-v0.1-52b's new shapes (in_proj 4096 x
               16544: 130 N tiles, the last holding 32 real columns;
               out_proj 8192 x 4096; its attention, dense MLP and expert
-              shapes are mixtral's) and of whisper-base's (512 x 512
-              self- and cross-attention, 512 x 2048, 2048 x 512), the
-              joint pack made on the card is byte-identical to the CPU
-              pack.
+              shapes are mixtral's), of whisper-base's (512 x 512
+              self- and cross-attention, 512 x 2048, 2048 x 512) and of
+              pixtral-12b's (5120 x 4096, 5120 x 1024, 4096 x 5120,
+              5120 x 14336, 14336 x 5120), the joint pack made on the
+              card is byte-identical to the CPU pack.
   3. kernel — each kernel against its plain PyTorch version at every
               projection shape of the path, M in {4, 256}: f32 output within
               1e-5 * max|ref|, bf16 output within one bf16 ulp of max|ref|,
@@ -35,7 +37,8 @@ any failure raises and exits non-zero (no phase catches its own failure):
               at whisper's with M in {4, 8, 64, 256, 6000} (6000: the
               cross-attention's k/v over 4 x 1,500 encoder rows; rows of
               M=4 bitwise equal to the same rows of the others), at
-              mamba2's two shapes,
+              pixtral's with M in {4, 1024} (1,024: the prefill call's
+              2 x 512 positions), at mamba2's two shapes,
               and in f32 and bf16
               activations with its fp32 accumulators, rows of an M=4 call
               bitwise equal to the same rows of an M=256 call, and the bf16
@@ -58,7 +61,15 @@ any failure raises and exits non-zero (no phase catches its own failure):
               to the same query (row) in the chunk. row_attention also at
               caches past its resident logits (bf16 A = 32768, f32 A =
               65536): the streaming path, within the same tolerances and
-              row-stable.
+              row-stable. Its lower key bound (the sliding window: keys
+              at or below qpos - window dead) in all four kernels at
+              pixtral's and mixtral's head layout (32 / 8 heads of 128):
+              bf16 and f32 resident at 2 x 512 causal queries over their
+              own keys, window 64, and streaming at 64 queries at the end
+              of 32,768 (bf16) and 65,536 (f32) keys, window 4,096; within
+              the same tolerances of the plain version at the same window,
+              window 0 bitwise equal to the call without one, and every
+              query bitwise equal alone and in the call.
   4. serve  — tinyllama-1.1b at full width in joint mode, bf16, random
               weights from a seed, through repro_torch.launch.serve's
               engine, whose decode, prefill-chunk and reset steps are each
@@ -162,8 +173,33 @@ any failure raises and exits non-zero (no phase catches its own failure):
               included), the encoder once over 4 x 1,500 frames (6
               row_attention and 13 row_norm launches and no joint launch
               from the device records, the engine's enc_out bitwise, its
-              output within 5e-2 x max|ref| of the plain path) and a
-              profiled decode and prefill window.
+              output within 5e-2 x max|ref| of the plain path), a
+              profiled decode and prefill window, and its forward (4e).
+  4e. forward — the full-sequence forward (``models.forward``,
+              ``models.prefill``, ``launch.steps.build_prefill_step``).
+              pixtral-12b at full width and depth (40 layers, d 5,120,
+              32 / 8 heads of 128, d_ff 14,336, vocab 131,072 untied, 256
+              stub patches) in joint mode, built on the card (the build's
+              peak under the dense weights + the packs + one float32 draw
+              of the largest projection stack and its scaled copy); its
+              prefill step on make_train_batch's 2 rows of 256 patches
+              and 256 tokens (S = 512; the joint kernel at M = 1,024): 280
+              joint, 40 row_attention and 81 row_norm launches from the
+              device records, the last-position logits within 5e-2 x
+              max|ref| of the plain path's, and row 0's tokens without
+              patches, forward's last logits within 5e-2 x max|ref| of the
+              engine's stepwise decode of them; then phase 4's checks on
+              its trace, text-only (compiled == eager bitwise, chunk ==
+              stepwise op by op, 280 / 40 / 81 launches a call, the
+              sentinel, first-token logits against the plain path).
+              Reduced mixtral (window 32) in float32, forward over 2 x 96
+              tokens past its window: every logit within 1e-4 x max|ref|
+              of the plain path's. forward(last_only) over 2 x 256 tokens
+              on the resident params and tables of tinyllama, mamba2 and
+              whisper (its engine's enc_out; run at the end of 4d), with
+              obs.per_call's launches, within phase 4's bounds of the
+              plain path (mamba2: past the tied embedding's echo, and the
+              layers' output).
   5. modes  — one full-width tinyllama-1.1b decoder layer (norms, chunked
               attention, MLP) with random weights, its projections packed by
               build_kernel_tables in mode "value" (vs = 0.6) and in mode
@@ -230,14 +266,23 @@ any failure raises and exits non-zero (no phase catches its own failure):
               at M=4) and whisper's cross-attention k/v (12 launches at
               M=6000), each with torch.matmul on the dense shapes beside
               it; row_attention's whisper encoder call (6 launches of 4 x
-              1,500 queries against 1,500 keys) with SDPA beside it.
+              1,500 queries against 1,500 keys) with SDPA beside it; the
+              forward phase's units: the joint kernel at one pixtral
+              prefill call (280 launches, M = 1,024) and one pixtral decode
+              step (280 launches, M = 4), each with torch.matmul on the
+              dense shapes beside it; row_attention at pixtral's forward
+              call (40 launches of 2 x 512 causal queries over 512 keys)
+              with SDPA (is_causal) beside it, and at the windowed
+              streaming case (64 queries at the end of 32,768 keys,
+              window 4,096, 32 launches) with SDPA under the mask.
 
 The launch counts of the JSON record come from the main paths: phases 4,
-4c and 4d for the joint, row_attention and row_norm kernels (the device's
-records of the compiled serve runs, tinyllama's, mamba2's, mixtral's,
-arctic's, jamba's and whisper's, and of whisper's encoder, added), phase
-5 for block-sparse and FTA/INT8, phase 6 for DBMU, each counted from zero
-just before the path runs. The wall time of the run is printed before
+4c, 4d and 4e for the joint, row_attention and row_norm kernels (the
+device's records of the compiled serve runs, tinyllama's, mamba2's,
+mixtral's, arctic's, jamba's, whisper's and pixtral's, of whisper's
+encoder and of pixtral's prefill step, and the wrappers' counts of the
+eager forward calls, added), phase 5 for block-sparse and FTA/INT8,
+phase 6 for DBMU, each counted from zero just before the path runs. The wall time of the run is printed before
 the card's line. The line before
 the last holds the kernels' JSON record, the one before it the card's
 name and power limit; the last line is the device record. Exits
@@ -374,6 +419,36 @@ WHISPER_ENCODER_PER_CALL = {"joint_sparse_matmul": 0, "row_attention": 6,
 JOINT_JAMBA_UNIT = "joint_sparse_matmul jamba decode call"
 JOINT_XATTN_UNIT = "joint_sparse_matmul whisper cross K/V"
 ATTN_ENCODER_UNIT = "row_attention whisper encoder call"
+
+#: the forward phase: pixtral-12b at full width and depth on the serve
+#: phase's trace (text-only), and its prefill step on make_train_batch's
+#: batch of 2 rows of 256 patches and 256 tokens (S = 512, the joint
+#: kernel at M = 1,024)
+PIXTRAL_SERVE_ARGS = ["--arch", "pixtral-12b"] + SERVE_ARGS[2:]
+PIXTRAL_BATCH, PIXTRAL_TOKENS = 2, 256
+#: launches of one pixtral prefill (forward) call: 40 layers x 7
+#: projections, 40 attention layers, 2 norms a layer and the final norm
+PIXTRAL_PER_CALL = {"joint_sparse_matmul": 280, "row_attention": 40,
+                    "row_norm": 81}
+#: the window bound in row_attention: 512 causal queries over their own
+#: 512 keys with a window of 64 (resident logits), and 64 queries at the
+#: end of a long sequence with mixtral's window of 4,096 (streaming)
+WINDOW_S, WINDOW_RESIDENT, WINDOW_STREAM = 512, 64, 4096
+#: reduced mixtral (window 32) in float32 on the card, past its window:
+#: the kernel path's forward against the plain path's (fp32 sums in
+#: other orders through 2 layers)
+MIXTRAL_FWD_S, MIXTRAL_F32_REL = 96, 1e-4
+#: tokens per row of the resident families' forward checks (a multiple
+#: of mamba2's SSD chunk of 256)
+FAMILY_FWD_S = 256
+#: the times phase's units of the forward phase
+ATTN_FWD_UNIT = "row_attention pixtral forward"
+#: the joint kernel's rows per launch at pixtral's shapes: a decode step,
+#: and the prefill call's 2 rows of 512 positions
+PIXTRAL_KERNEL_M = (4, 1024)
+ATTN_WINDOW_UNIT = "row_attention windowed streaming"
+JOINT_PIXTRAL_PREFILL_UNIT = "joint_sparse_matmul pixtral prefill"
+JOINT_PIXTRAL_DECODE_UNIT = "joint_sparse_matmul pixtral decode"
 
 
 _T0 = time.monotonic()
@@ -972,11 +1047,13 @@ def _counted_run(engine, trace, fresh):
 
 
 def phase_serve(dev, serve_args=SERVE_ARGS,
-                prefill_kind="prefill_chunk_exact", tag="serve"):
+                prefill_kind="prefill_chunk_exact", tag="serve", built=None):
     """One model served at full width through the compiled engine and an
     eager one on the same trace (``serve_args``: tinyllama-1.1b, or
     mamba2-1.3b with its parallel SSD chunks, ``prefill_kind``; or
-    whisper-base, whose engines share the encoder's output). Returns
+    whisper-base, whose engines share the encoder's output; or
+    pixtral-12b, text-only). ``built``: the serve CLI's (engine, trace,
+    tables) for ``serve_args``, when the caller has built them. Returns
     (device launches per kernel over the compiled run, the two engines,
     the stacked tables)."""
     from repro_torch.configs import get_config
@@ -988,10 +1065,12 @@ def phase_serve(dev, serve_args=SERVE_ARGS,
     cfg = get_config(args.arch, reduced=args.reduced,
                      dbpim_mode=args.dbpim_mode)
     t0 = time.monotonic()
-    engine, trace, tables = serve.build_engine_and_trace(args, cfg)
+    engine, trace, tables = built or serve.build_engine_and_trace(args, cfg)
     torch.cuda.synchronize()
-    log(f"[{tag}] params + stacked tables on the card in "
-        f"{time.monotonic() - t0:.2f} s ({cfg.name}, {cfg.n_layers} layers, "
+    log(f"[{tag}] params + stacked tables on the card "
+        + ("(built before) " if built else
+           f"in {time.monotonic() - t0:.2f} s ")
+        + f"({cfg.name}, {cfg.n_layers} layers, "
         f"d={cfg.d_model}, d_ff={cfg.d_ff}, dtype={cfg.dtype}); resident "
         f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.3f} GiB")
     # the same trace through the same params and tables with the in-place
@@ -1570,7 +1649,7 @@ def _memory_bound(cfg, tables):
         else:
             non_expert += size * L * k * n
     return (_nbytes(tables.arrays) / gib, non_expert / gib,
-            max(expert_layer.values()) / gib, experts / gib)
+            max(expert_layer.values(), default=0) / gib, experts / gib)
 
 
 def _moe_build(args, cfg, dev, tag="moe"):
@@ -2153,7 +2232,319 @@ def phase_whisper(dev):
         f"output bitwise; kernel vs plain path max|d|={d:.3e} (tol "
         f"{tol:.3e} = {LOGIT_REL_TOL} x max|ref|)")
     phase_profile([("whisper compiled", engine)])
+    fwd = family_forward(engine, tables, "fwd")
+    return {k: launches.get(k, 0) + device.get(k, 0) + fwd[k]
+            for k in launches}
+
+
+# ---------------------------------------------------------------------------
+# The forward phase: the window bound, pixtral-12b, the windowed forward and
+# the resident families' forward
+# ---------------------------------------------------------------------------
+
+def _window_inputs(cfg, dev, dtype, gen, B, A, Sq):
+    """Sq queries per row at the end of a sequence of A keys (positions A
+    - Sq .. A - 1), at ``cfg``'s head layout, and the sequence's keys."""
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = torch.randn((B, Sq, H, hd), generator=gen).to(dtype).to(dev)
+    k = torch.randn((B, A, Hkv, hd), generator=gen).to(dtype).to(dev)
+    v = torch.randn((B, A, Hkv, hd), generator=gen).to(dtype).to(dev)
+    pos = (A - Sq + torch.arange(Sq, dtype=torch.int32)).expand(B, Sq)
+    return q, k, v, pos.contiguous().to(dev)
+
+
+def phase_kernel_window(cfg, dev):
+    """row_attention's lower key bound (keys at or below qpos - window are
+    dead) in all four of its kernels, at ``cfg``'s head layout (pixtral's
+    and mixtral's: 32 / 8 heads of 128): bf16 and f32 resident at 2 x 512
+    causal queries over their own 512 keys, window 64; bf16 streaming at
+    64 queries at the end of 32,768 keys and f32 streaming at the end of
+    65,536, window 4,096. Each within its tolerance of the plain version
+    at the same window; window 0 bitwise equal to the call without one;
+    a query alone bitwise equal to the same query in the call (every one
+    of the 512). Returns the worst bf16 error."""
+    from repro_torch.kernels import row_attention as rak
+    gen = torch.Generator().manual_seed(20)
+    worst = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        A_stream = STREAM_A_BF16 if dt == torch.bfloat16 else STREAM_A_F32
+        for what, B, A, Sq, window in (
+                ("resident", 2, WINDOW_S, WINDOW_S, WINDOW_RESIDENT),
+                ("streaming", 1, A_stream, STREAM_C, WINDOW_STREAM)):
+            assert rak.streams(A, cfg.hd, dt) == (what == "streaming")
+            q, k, v, pos = _window_inputs(cfg, dev, dt, gen, B, A, Sq)
+            y = rak.row_attention(q, k, v, pos, window)
+            torch.cuda.synchronize()
+            ref = rak.row_attention_plain(q, k, v, pos, window)
+            peak = ref.float().abs().max().item()
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = (F32_TOL if dt == torch.float32 else ATTN_REL_TOL) * peak
+            assert torch.isfinite(y).all() and err <= tol, \
+                ("row_attention window", what, dt, err, tol)
+            if dt == torch.bfloat16:
+                worst = max(worst, err)
+            del ref
+            assert torch.equal(rak.row_attention(q, k, v, pos, 0),
+                               rak.row_attention(q, k, v, pos)), \
+                ("window 0", what, dt)
+            for t in range(Sq):
+                one = rak.row_attention(q[:, t:t + 1].contiguous(), k, v,
+                                        pos[:, t:t + 1].contiguous(), window)
+                assert torch.equal(one, y[:, t:t + 1]), \
+                    ("window rows", what, dt, t)
+            log(f"[fwd] row_attention {what} {str(dt)[6:]}, window "
+                f"{window}: {tuple(q.shape)} queries at the end of "
+                f"{tuple(k.shape)} keys, max|d|={err:.3e} vs the plain "
+                f"version at the same window (tol {tol:.3e}); window 0 "
+                f"bitwise the call without one; all {Sq} queries alone "
+                f"bitwise equal to the same queries in the {Sq}-query call")
+            del q, k, v, y
+    return worst
+
+
+@contextlib.contextmanager
+def _forward_final_norm_inputs(params):
+    """Records the input of ``transformer.forward``'s final norm (the
+    residual stream after the last layer) into the list it yields."""
+    from repro_torch.models import transformer
+    rows, norm = [], transformer.apply_norm
+
+    def f(p, x, cfg):
+        if p is params["final_norm"]:
+            rows.append(x)
+        return norm(p, x, cfg)
+    transformer.apply_norm = f
+    try:
+        yield rows
+    finally:
+        transformer.apply_norm = norm
+
+
+def _counted_forward(fn, want, tag, what):
+    """``fn()`` (one forward call) under torch.profiler: its launches from
+    the device records must be ``want`` of each kernel (the port's others
+    0) and equal the wrappers' host counts (eager: every launch is a host
+    launch). Up to 3 windows (the profiler now and then loses records).
+    Returns (fn's result, the launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import device_launches
+    recorded = {name: mod for name, mod in _kernel_modules().items()
+                if name != "block_sparse_matmul"}
+    for attempt in range(3):
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _pad()
+            out = fn()
+            _pad()
+        device = device_launches(prof, recorded)
+        if all(device[k] == want.get(k, 0) for k in device):
+            break
+        log(f"[{tag}] {what} run {attempt + 1}: the profiler's device "
+            f"records count {device}, not {want}; taken again")
+    else:
+        raise AssertionError(f"{what} launches {device} != {want}")
+    counts = read_launches()
+    assert all(counts[k] == want.get(k, 0) for k in counts), counts
+    return out, device
+
+
+def _pixtral_build(args, cfg, dev):
+    """The serve CLI's engine, trace and tables for pixtral-12b
+    (``init_stacked_serving``: every stacked projection drawn whole, in
+    float32, cast to bf16, packed layer by layer and stripped); prints and
+    bounds the build's peak device memory: the dense weights + the packs
+    + one float32 draw of the largest projection stack and its scaled
+    copy. Returns (engine, trace, tables)."""
+    from repro_torch.launch import serve
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    gib = 2 ** 30
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    engine, trace, tables = serve.build_engine_and_trace(args, cfg)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / gib
+    resident = (torch.cuda.memory_allocated(dev) - base) / gib
+    packs, dense, _, _ = _memory_bound(cfg, tables)
+    dense += 2 * cfg.d_model ** 2 / gib                      # patch_proj
+    stack = max(t["w_blocks"].shape[0] * tables.static[name][0]
+                * tables.static[name][1]
+                for name, t in tables.arrays.items())
+    draw = 2 * 4 * stack / gib
+    bound = dense + packs + draw
+    log(f"[fwd] {cfg.name} ({cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd}, d_ff="
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}): params + tables built on the "
+        f"card in {secs:.2f} s; packs {packs:.3f} GiB; build peak "
+        f"{peak:.3f} GiB over what was resident before (bound: dense "
+        f"weights {dense:.3f} + packs + the float32 draw of the largest "
+        f"stack and its scaled copy {draw:.3f} = {bound:.3f}); resident "
+        f"after {resident:.3f} GiB (card total "
+        f"{torch.cuda.memory_allocated(dev) / gib:.3f})")
+    assert peak <= bound, (peak, bound)
+    return engine, trace, tables
+
+
+def phase_pixtral(dev):
+    """pixtral-12b at full width and depth (40 layers, d 5,120, 32 / 8
+    heads of 128, d_ff 14,336, vocab 131,072 untied, 256 stub patches) in
+    joint mode, built on the card (peak under its bound). Its prefill step
+    (``launch.steps.build_prefill_step``, ``models.prefill``) on
+    ``make_train_batch(cfg, 2, 256, seed)``, 256 patches and 256 tokens a
+    row (the joint kernel at M = 1,024): launches per call from the
+    device records (280 joint, 40 row_attention, 81 row_norm); the
+    last-position logits within LOGIT_REL_TOL x max|ref| of the same call
+    through the plain versions; row 0's tokens without patches, forward's
+    last logits within LOGIT_REL_TOL x max|ref| of the engine's stepwise
+    decode of them. Then phase_serve's checks on the serve phase's trace,
+    text-only. Returns the prefill call's and the serve run's device
+    launches."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import forward
+    from repro_torch.models.inputs import make_train_batch
+    args = serve.build_parser().parse_args(PIXTRAL_SERVE_ARGS)
+    cfg = get_config(args.arch, dbpim_mode=args.dbpim_mode)
+    engine, trace, tables = _pixtral_build(args, cfg, dev)
+    assert obs.per_call(cfg) == PIXTRAL_PER_CALL, obs.per_call(cfg)
+    batch = make_train_batch(cfg, PIXTRAL_BATCH, PIXTRAL_TOKENS,
+                             seed=args.seed, device=dev)
+    assert batch["frontend"].shape == (PIXTRAL_BATCH, cfg.n_patches,
+                                       cfg.d_model)
+    step = build_prefill_step(cfg, stacked_tables=tables)
+    got, device = _counted_forward(lambda: step(engine.params, batch),
+                                   PIXTRAL_PER_CALL, "fwd", "prefill")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    step(engine.params, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.monotonic() - t0)
+    with plain_versions():
+        ref = step(engine.params, batch).float()
+    assert got.shape == (PIXTRAL_BATCH, 1, cfg.vocab_size)
+    assert got.dtype == torch.bfloat16
+    d, tol = _logit_gap(got, ref)
+    assert d <= tol, (d, tol)
+    log(f"[fwd] {cfg.name} prefill step on make_train_batch (2 rows x "
+        f"({cfg.n_patches} patches + {PIXTRAL_TOKENS} tokens), S = "
+        f"{cfg.n_patches + PIXTRAL_TOKENS}): device launches "
+        + ", ".join(f"{k} {v}" for k, v in device.items())
+        + f" (== {PIXTRAL_PER_CALL}); {ms:.2f} ms eager; last-position "
+        f"logits (2, 1, V) bf16, kernel vs plain max|d|={d:.3e} (tol "
+        f"{tol:.3e} = {LOGIT_REL_TOL} x max|ref|)")
+    del ref
+    prompt = batch["tokens"][0].tolist()
+    last = forward(engine.params, batch["tokens"][:1], cfg, last_only=True,
+                   tables=tables)[0, 0].cpu()
+    step_ref = _stepwise_run(engine, tables, prompt)[0]
+    d, tol = _logit_gap(last, step_ref)
+    assert d <= tol, (d, tol)
+    log(f"[fwd] {cfg.name} row 0's {len(prompt)} tokens without patches: "
+        f"forward's last logits vs the engine's stepwise decode of them "
+        f"(kernel path, batch 1) max|d|={d:.3e} (tol {tol:.3e} = "
+        f"{LOGIT_REL_TOL} x max|ref|)")
+    launches = phase_serve(dev, PIXTRAL_SERVE_ARGS, tag="fwd",
+                           built=(engine, trace, tables))[0]
     return {k: launches.get(k, 0) + device.get(k, 0) for k in launches}
+
+
+def phase_window_forward(dev):
+    """Reduced mixtral (window 32) in float32 on the card, built with its
+    joint tables by ``init_stacked_serving``: forward over 2 x 96 tokens
+    (past the window), every position's logits through the kernels within
+    MIXTRAL_F32_REL x max|ref| of the plain path's. Returns the host
+    launches (eager: every launch is one)."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward
+    from repro_torch.sparsity.sparse_linear import init_stacked_serving
+    cfg = get_config("mixtral-8x7b", reduced=True,
+                     dbpim_mode="joint").scaled(dtype="float32")
+    assert cfg.window and MIXTRAL_FWD_S > cfg.window
+    params, tables = init_stacked_serving(cfg, seed=0, device=dev)
+    gen = torch.Generator().manual_seed(22)
+    toks = torch.randint(0, cfg.vocab_size, (2, MIXTRAL_FWD_S),
+                         generator=gen).to(dev)
+    reset_launches()
+    got = forward(params, toks, cfg, tables=tables)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    want = obs.per_call(cfg)
+    assert all(counts[k] == want.get(k, 0) for k in counts), counts
+    with plain_versions():
+        ref = forward(params, toks, cfg, tables=tables)
+    peak = ref.abs().max().item()
+    d = (got - ref).abs().max().item()
+    assert torch.isfinite(got).all() and d <= MIXTRAL_F32_REL * peak, \
+        (d, peak)
+    log(f"[fwd] reduced {cfg.name} (window {cfg.window}) float32, forward "
+        f"over (2, {MIXTRAL_FWD_S}) tokens: all logits kernel vs plain "
+        f"max|d|={d:.3e} (tol {MIXTRAL_F32_REL} x {peak:.3f}); launches "
+        + ", ".join(f"{k} {counts[k]}" for k in want))
+    return counts
+
+
+def family_forward(engine, tables, tag):
+    """``forward(last_only=True)`` on a served family's resident params and
+    tables (an enc-dec engine's encoder output for its first rows) over 2
+    rows of FAMILY_FWD_S tokens: launches per call obs.per_call's, and the
+    last logits against the plain path's within the serve phase's bounds
+    (LOGIT_REL_TOL of the peak; with a tied embedding, of the peak past the
+    echo of each row's last token, and the layers' output within
+    LOGIT_REL_TOL of its own peak). Returns the host launches."""
+    from repro_torch import obs
+    from repro_torch.models import forward
+    from repro_torch.models.layers import embed_tokens
+    cfg, dev = engine.cfg, engine.device
+    gen = torch.Generator().manual_seed(23)
+    toks = torch.randint(1, cfg.vocab_size, (2, FAMILY_FWD_S),
+                         generator=gen).to(dev)
+    enc = engine.cache.get("enc_out")
+    enc = None if enc is None else enc[:2]
+
+    def run():
+        with _forward_final_norm_inputs(engine.params) as rows:
+            lg = forward(engine.params, toks, cfg, enc_out=enc,
+                         last_only=True, tables=tables)
+        emb = embed_tokens(engine.params["embed"], toks[:, -1:], cfg)
+        return lg[:, 0].float(), (rows[0][:, -1:] - emb).float()[:, 0]
+
+    reset_launches()
+    got, stack = run()
+    torch.cuda.synchronize()
+    counts = read_launches()
+    want = obs.per_call(cfg)
+    assert all(counts[k] == want.get(k, 0) for k in counts), counts
+    with plain_versions():
+        ref, ref_stack = run()
+    assert torch.isfinite(got).all()
+    others = torch.ones_like(ref, dtype=torch.bool)
+    if cfg.tie_embeddings:
+        others[torch.arange(2, device=dev), toks[:, -1].long()] = False
+    d = (got - ref).abs().max().item()
+    peak = ref[others].abs().max().item()
+    assert d <= LOGIT_REL_TOL * peak, (cfg.name, d, peak)
+    msg = (f"[{tag}] {cfg.name} forward(last_only) over (2, {FAMILY_FWD_S}) "
+           f"tokens" + (" with the engine's enc_out" if enc is not None
+                        else "") + f" on its resident params and tables: "
+           f"launches " + ", ".join(f"{k} {counts[k]}" for k in want)
+           + f"; last logits kernel vs plain max|d|={d:.3e} (tol "
+           f"{LOGIT_REL_TOL} x {peak:.3f}, max|ref|"
+           + (" past the echo of the last tokens)" if cfg.tie_embeddings
+              else ")"))
+    if cfg.tie_embeddings:
+        sd = (stack - ref_stack).abs().max().item()
+        speak = ref_stack.abs().max().item()
+        assert sd <= LOGIT_REL_TOL * speak, (cfg.name, sd, speak)
+        msg += (f"; the layers' output max|d|={sd:.3e} (tol "
+                f"{LOGIT_REL_TOL} x {speak:.3f})")
+    log(msg)
+    return counts
 
 
 def _full_width_layer(cfg, dev):
@@ -2680,7 +3071,7 @@ def _joint_case(name, K, N, p, rows, repeat, gen, dev):
 
 
 def _time_cases(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs,
-                moe_cfg, moe_packs, seg, n_slots=4, M=256):
+                moe_cfg, moe_packs, seg, fwd, n_slots=4, M=256):
     """Per work unit, one case per launch: the kernel, its plain version
     and the library call as closures, with the bytes and operations the
     launch needs. The joint kernel at the decode shapes (M = n_slots) and,
@@ -2689,8 +3080,11 @@ def _time_cases(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs,
     (JOINT_MOE_UNIT: one decode call's 768 expert launches at its
     capacity of 8 rows), at jamba's (one decode call, 888 launches) and
     at whisper's cross-attention k/v over 4 x 1,500 encoder rows (``seg``:
-    jamba's and whisper's configs and packs); row_attention also at the
-    whisper encoder's shape; the block-sparse and FTA/INT8 kernels over phase
+    jamba's and whisper's configs and packs), and at pixtral's prefill
+    call (M = 1,024) and decode step (``fwd``: pixtral's config and
+    packs); row_attention also at the whisper encoder's shape, at
+    pixtral's forward call and at the windowed streaming case; the
+    block-sparse and FTA/INT8 kernels over phase
     5's layer tables and the DBMU kernel over the four projection shapes
     (M rows); row_norm also at mamba2's gated norm (d = 4096)."""
     from repro_torch.core import dyadic, pruning
@@ -2780,7 +3174,67 @@ def _time_cases(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs,
         for name in ("xattn/wk", "xattn/wv")]
     cases[ATTN_ENCODER_UNIT] = [_encoder_attention_case(whisper_cfg, dev,
                                                         gen, n_slots)]
+    px_cfg, px_packs = fwd
+    for unit, rows in ((JOINT_PIXTRAL_PREFILL_UNIT,
+                        PIXTRAL_BATCH * (px_cfg.n_patches + PIXTRAL_TOKENS)),
+                       (JOINT_PIXTRAL_DECODE_UNIT, n_slots)):
+        cases[unit] = [_joint_case(name, K, N, px_packs[(K, N)], rows,
+                                   px_cfg.n_layers, gen, dev)
+                       for name, K, N in _path_shapes(px_cfg)]
+    cases[ATTN_FWD_UNIT], cases[ATTN_WINDOW_UNIT] = \
+        _forward_attention_cases(px_cfg, moe_cfg, dev, gen)
     return cases
+
+
+def _forward_attention_cases(cfg, moe_cfg, dev, gen):
+    """row_attention at pixtral's forward call (2 x 512 causal queries
+    over their own 512 keys, 40 layers) with SDPA (is_causal) beside it,
+    and at the windowed streaming case (one slot, 64 queries at the end
+    of 32,768 keys, mixtral's window of 4,096, its 32 layers) with SDPA
+    under an explicit mask beside it. Bytes: q, the output and the
+    positions once, and each slot's K/V rows that some query reaches
+    once; operations: 4 * hd per live key and query head."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import row_attention as rak
+    out = []
+    S = cfg.n_patches + PIXTRAL_TOKENS
+    for c, B, A, Sq, window in (
+            (cfg, PIXTRAL_BATCH, S, S, cfg.window),
+            (moe_cfg, 1, STREAM_A_BF16, STREAM_C, moe_cfg.window)):
+        q, k, v, pos = _window_inputs(c, dev, torch.bfloat16, gen, B, A, Sq)
+        Hkv, hd = c.n_kv_heads, c.hd
+        rep = c.n_heads // Hkv
+        qh = q.transpose(1, 2)
+        kh = torch.repeat_interleave(k, rep, dim=2).transpose(1, 2)
+        vh = torch.repeat_interleave(v, rep, dim=2).transpose(1, 2)
+        kpos = torch.arange(A, device=dev)[None, None]
+        live = kpos <= pos[:, :, None]
+        if window:
+            live &= kpos > pos[:, :, None] - window
+        reached = int(live.any(dim=1).sum())          # K/V rows read
+        if window:
+            mask = live[:, None]
+
+            def library(qh=qh, kh=kh, vh=vh, mask=mask):
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=mask)
+        else:
+            def library(qh=qh, kh=kh, vh=vh):
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      is_causal=True)
+        out.append([dict(
+            name="windowed streaming" if window else "forward",
+            K=tuple(q.shape), N=tuple(k.shape),
+            kernel=lambda q=q, k=k, v=v, pos=pos, w=window: rak.row_attention(
+                q, k, v, pos, w),
+            plain=lambda q=q, k=k, v=v, pos=pos, w=window:
+                rak.row_attention_plain(q, k, v, pos, w),
+            library=library,
+            bytes=(2 * q.numel() * 2 + pos.numel() * 4
+                   + 2 * reached * Hkv * hd * 2),
+            ops=4 * hd * c.n_heads * int(live.sum()), peak=BF16_FLOPS,
+            repeat=c.n_layers)])
+    return out
 
 
 def _jamba_decode_cases(cfg, packs, n_slots, gen, dev):
@@ -2901,7 +3355,7 @@ def _row_norm_cases(cfg, dev, gen, D=None, rows=(4, 256, LONG_B * LONG_C),
 
 
 def phase_times(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs,
-                moe_cfg, moe_packs, seg):
+                moe_cfg, moe_packs, seg, fwd):
     """Each kernel, its plain version and its library yardstick, launch by
     launch over its work unit, beside the bound; the joint kernel's
     decode-step totals count each projection once per layer. Returns
@@ -2915,7 +3369,7 @@ def phase_times(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs,
     out = {}
     for kname, rows in _time_cases(cfg, packs, tables_by_mode, dev,
                                    ssm_cfg, ssm_packs, moe_cfg, moe_packs,
-                                   seg).items():
+                                   seg, fwd).items():
         tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
                    library_device_ms=0.0, bytes=0, ops=0, host_us=0.0)
         per_shape = []
@@ -2983,12 +3437,14 @@ def main() -> int:
         n_layers=ARCTIC_LAYERS)
     jamba_cfg = get_config("jamba-v0.1-52b", dbpim_mode="joint")
     whisper_cfg = get_config("whisper-base", dbpim_mode="joint")
+    pixtral_cfg = get_config("pixtral-12b", dbpim_mode="joint")
     packs = phase_pack(cfg, dev)
     ssm_packs = phase_pack(ssm_cfg, dev)
     moe_packs = phase_pack(moe_cfg, dev)
     arctic_packs = phase_pack(arctic_cfg, dev)
     jamba_packs = phase_pack(jamba_cfg, dev, have=moe_packs)
     whisper_packs = phase_pack(whisper_cfg, dev)
+    pixtral_packs = phase_pack(pixtral_cfg, dev)
     worst = {"joint_sparse_matmul": max(
                  phase_kernel(cfg, packs, dev),
                  phase_kernel(ssm_cfg, ssm_packs, dev),
@@ -2997,7 +3453,9 @@ def main() -> int:
                  phase_kernel(jamba_cfg, jamba_packs, dev, MOE_KERNEL_M,
                               have=moe_packs),
                  phase_kernel(whisper_cfg, whisper_packs, dev,
-                              WHISPER_KERNEL_M)),
+                              WHISPER_KERNEL_M),
+                 phase_kernel(pixtral_cfg, pixtral_packs, dev,
+                              PIXTRAL_KERNEL_M)),
              **phase_kernel_value_bit_dbmu(cfg, dev)}
     del arctic_packs
     worst.update(phase_kernel_rows(
@@ -3006,7 +3464,8 @@ def main() -> int:
                    jamba_cfg.ssm_expand * jamba_cfg.d_model)))
     worst["row_attention"] = max(worst["row_attention"],
                                  phase_seg_kernel_rows(jamba_cfg,
-                                                       whisper_cfg, dev))
+                                                       whisper_cfg, dev),
+                                 phase_kernel_window(pixtral_cfg, dev))
     # every counted serve run comes before the profile phase, the small
     # ones first: late in a process that has run many profiled windows
     # and counted runs (mixtral's records ~2 M kernels), the profiler has
@@ -3027,9 +3486,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     whisper_launches = phase_whisper(dev)
     torch.cuda.empty_cache()
+    pixtral_launches = phase_pixtral(dev)
+    torch.cuda.empty_cache()
+    fwd_launches = [family_forward(engine, tables, "fwd"),
+                    family_forward(ssm_engine, ssm_tables, "fwd"),
+                    phase_window_forward(dev)]
+    torch.cuda.empty_cache()
     mode_launches, tables_by_mode = phase_modes(dev)
     launches = {k: n + ssm_launches[k] + moe_launches[k] + arctic_launches[k]
                 + jamba_launches[k] + whisper_launches[k]
+                + pixtral_launches[k] + sum(f[k] for f in fwd_launches)
                 for k, n in serve_launches.items()}
     launches.update(mode_launches, dbmu_matmul=phase_dbmu(cfg, dev))
     phase_profile_long(engine, tables, phase_profile(
@@ -3040,7 +3506,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     times = phase_times(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs,
                         moe_cfg, moe_packs,
-                        (jamba_cfg, jamba_packs, whisper_cfg, whisper_packs))
+                        (jamba_cfg, jamba_packs, whisper_cfg, whisper_packs),
+                        (pixtral_cfg, pixtral_packs))
 
     kernels = []
     for name, replaces, work in (
@@ -3088,7 +3555,12 @@ def main() -> int:
              "attention at M=4), bf16", JOINT_JAMBA_UNIT),
             ("whisper-base's cross-attention K/V of one decode call: 6 "
              "layers x (xattn/wk, xattn/wv), M=6000 (4 slots x 1500 "
-             "encoder rows), bf16", JOINT_XATTN_UNIT)],
+             "encoder rows), bf16", JOINT_XATTN_UNIT),
+            ("one pixtral-12b prefill call: 40 layers x 7 projections, "
+             "M=1024 (2 rows x (256 patches + 256 tokens)), bf16",
+             JOINT_PIXTRAL_PREFILL_UNIT),
+            ("one pixtral-12b decode step: 40 layers x 7 projections, M=4, "
+             "bf16", JOINT_PIXTRAL_DECODE_UNIT)],
             "row_attention": [
                 ("one long-context prefill-chunk call: 22 launches, batch 16 "
                  "x 256 queries, 2048-slot cache, bf16", ATTN_LONG_UNIT),
@@ -3096,7 +3568,13 @@ def main() -> int:
                  "the end of a 32768-slot cache, bf16", ATTN_STREAM_UNIT),
                 ("one whisper-base encoder call: 6 launches, batch 4 x 1500 "
                  "queries against 1500 keys, non-causal, hd 64, bf16",
-                 ATTN_ENCODER_UNIT)],
+                 ATTN_ENCODER_UNIT),
+                ("one pixtral-12b forward call: 40 launches, 2 x 512 causal "
+                 "queries over their own 512 keys, hd 128, group 4, bf16",
+                 ATTN_FWD_UNIT),
+                ("the window bound streaming: 32 launches (mixtral's "
+                 "layers), one slot, 64 queries at the end of 32768 keys, "
+                 "window 4096, hd 128, group 4, bf16", ATTN_WINDOW_UNIT)],
             "row_norm": [
                 ("one long-context prefill-chunk call: 45 launches, 4096 "
                  "rows, d=2048, bf16", NORM_LONG_UNIT),

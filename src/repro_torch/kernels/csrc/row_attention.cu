@@ -9,7 +9,8 @@
 // paths would part in the last bits. Same function as the reference:
 //
 //   l[j]   = cast_T( sum_d q[d] * k[j, d] ) * scale      (fp32 sum)
-//   l[j]   = -1e30 where j > qpos                        (causal mask)
+//   l[j]   = -1e30 where j > qpos or j <= qpos - window  (causal mask,
+//                                                        sliding window)
 //   p[j]   = cast_T( softmax(l)[j] )                     (fp32 softmax)
 //   out[d] = cast_T( sum_j p[j] * v[j, d] )              (fp32 sum)
 //
@@ -18,8 +19,12 @@
 // in the cache; out (B, Sq, Hq, hd) in q's dtype. Query head h reads KV
 // head h / (Hq / Hkv), as the reference's repeat of the KV heads does.
 // Keys past qpos add exp(-1e30 - max) = 0 to the softmax and 0 * v to the
-// output; they are skipped. A negative qpos masks every key, and the
-// softmax then spreads evenly over all A of them, as the reference's does.
+// output; they are skipped. So are keys at or below qpos - window when
+// window > 0 (0: no lower bound), the reference's sliding-window mask
+// `kpos > qpos - window`. A row's live keys are [lo, n): lo = max(0, qpos -
+// window + 1), n = min(qpos, A - 1) + 1. A row with none (a negative qpos,
+// or lo >= n) masks every key, and the softmax then spreads evenly over
+// all A of them, as the reference's does.
 //
 // Bound. At the serving shapes the work is small: a decode call reads each
 // live K/V row once per KV head (0.2 us of HBM time at batch 4), a 64-query
@@ -62,6 +67,16 @@
 //   qpos. A row's dead keys add exact zeros (a zero probability times a
 //   finite v leaves an MMA accumulator as it was), so the row comes out the
 //   same whichever rows share its tile and call.
+//   * The window. A block works on the key tiles [first, live) that hold a
+//     live key of one of its rows; tiles below every row's lower bound are
+//     skipped, and so are the cluster ranks that hold only such tiles (the
+//     ranks' partials are then added from the first live rank on). A
+//     skipped tile, or a skipped rank, would only have added exact zeros
+//     to each of the block's rows: every live key is added at the same
+//     place in the same order as without the skip, and with window 0 the
+//     kernel is the one without a window. The f32 kernels mask instead: a
+//     key below the bound gets a -inf logit, so its probability is an
+//     exact zero and the sums see the same live terms in the same order.
 //
 // Caches whose logits do not fit a block's shared memory take streaming
 // kernels of their own (chosen from (A, hd) alone): they recompute the
@@ -163,7 +178,7 @@ struct Args {
   const int32_t* qpos;
   __nv_bfloat16* out;
   long long k_bstride, v_bstride;
-  int Sq, Hq, Hkv, G, A, hd, row_blocks, tiles_per_rank, splits, vec;
+  int Sq, Hq, Hkv, G, A, hd, window, row_blocks, tiles_per_rank, splits, vec;
   float scale;
 };
 
@@ -232,12 +247,28 @@ __device__ __forceinline__ float quotient(float e, float sum, float r) {
   return __fmaf_rn(__fmaf_rn(-q, sum, e), r, q);
 }
 
+// The live keys [lo, n) of a query at position pos in a cache of A rows
+// (window 0: no lower bound); a query with none masks every key, and then
+// takes all A of them with lo = -1 (its logits are all -1e30).
+__device__ __forceinline__ void live_keys(int pos, int A, int window, int& lo, int& n) {
+  n = min(pos, A - 1) + 1;
+  lo = window > 0 ? max(0, pos - window + 1) : 0;
+  if (pos < 0 || lo >= n) {
+    n = A;
+    lo = -1;
+  }
+}
+
+__device__ __forceinline__ bool is_live(int key, int lo, int n) { return key >= lo && key < n; }
+
 // bf16(e / sum) of two neighbouring keys at e, 0 for a dead key, packed
 // as an A-fragment register
-__device__ __forceinline__ uint32_t probs(const float* e, int key, int n, float sum, float r) {
-  if (key >= n) return 0u;
+__device__ __forceinline__ uint32_t probs(const float* e, int key, int lo, int n, float sum,
+                                          float r) {
+  if (key >= n || key + 1 < lo) return 0u;
   const float2 v = *reinterpret_cast<const float2*>(e);
-  return pack_bf16(quotient(v.x, sum, r), key + 1 < n ? quotient(v.y, sum, r) : 0.f);
+  return pack_bf16(key >= lo ? quotient(v.x, sum, r) : 0.f,
+                   is_live(key + 1, lo, n) ? quotient(v.y, sum, r) : 0.f);
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -266,8 +297,8 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_tc_kernel(con
   float* ls = reinterpret_cast<float*>(ring + 2 * STAGE);       // ROWS x lld logits
   float4* ocomb = reinterpret_cast<float4*>(body);  // after pass 3: the warps' outputs
   int* rown = reinterpret_cast<int*>(body + body_bytes(HDP, TR));
-  int* rnone = rown + ROWS;
-  float* wred = reinterpret_cast<float*>(rnone + ROWS);         // WARPS x ROWS
+  int* rlo = rown + ROWS;
+  float* wred = reinterpret_cast<float*>(rlo + ROWS);           // WARPS x ROWS
   float* pmax = wred + WARPS * ROWS;
   float* psum = pmax + ROWS;
   float* gmax = psum + ROWS;
@@ -280,17 +311,14 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_tc_kernel(con
   const int A = a.A, G = a.G, Sq = a.Sq, hd = a.hd;
   const bool vec = a.vec != 0;
 
-  // each row's live keys: 0 for rows past the call's, A when all masked
+  // each row's live keys [max(rlo, 0), rown): none for rows past the
+  // call's, all A (rlo = -1) when all are masked
   if (tid < ROWS) {
     const int s = (rb * ROWS + tid) / G;
-    int n = 0, none = 0;
-    if (s < Sq) {
-      const int pos = a.qpos[b * Sq + s];
-      none = pos < 0;
-      n = none ? A : min(pos, A - 1) + 1;
-    }
+    int n = 0, lo = 0;
+    if (s < Sq) live_keys(a.qpos[b * Sq + s], A, a.window, lo, n);
     rown[tid] = n;
-    rnone[tid] = none;
+    rlo[tid] = lo;
   }
   // the stages' columns past hd stay zero (loads write [0, hd) only)
   if (hd < HDP)
@@ -300,17 +328,23 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_tc_kernel(con
     }
   __syncthreads();
 
-  int bn = 0;                             // live keys of the block's rows
-  for (int r = 0; r < ROWS; ++r) bn = max(bn, rown[r]);
-  // key tiles [0, live) hold a live key of the block; the ranks below L
-  // hold one of them (the same L in every rank: the rows are the same)
+  int bn = 0, blo = A;                    // live keys of the block's rows
+  for (int r = 0; r < ROWS; ++r)
+    if (rown[r] > 0) {
+      bn = max(bn, rown[r]);
+      blo = min(blo, max(rlo[r], 0));
+    }
+  // key tiles [first, live) hold a live key of the block; the ranks [L0,
+  // L) hold one of them (the same in every rank: the rows are the same);
+  // the rank's live tiles start at ts
   const int T = (A + BK - 1) / BK, t0 = rank * TR, t1 = min(T, t0 + TR);
-  const int live = (bn + BK - 1) / BK;
-  const int L = min(C, (live + TR - 1) / TR);
-  const int ntiles = max(0, min(t1, live) - t0);
+  const int live = (bn + BK - 1) / BK, first = min(blo, bn) / BK;
+  const int L0 = first / TR, L = min(C, (live + TR - 1) / TR);
+  const int ts = max(t0, first), ntiles = max(0, min(t1, live) - ts);
   const int r0 = gq, r1 = gq + 8;
   const int n0 = rown[r0], n1 = rown[r1];
-  const bool none0 = rnone[r0] != 0, none1 = rnone[r1] != 0;
+  const int lo0 = max(rlo[r0], 0), lo1 = max(rlo[r1], 0);
+  const bool none0 = rlo[r0] < 0, none1 = rlo[r1] < 0;
   const int kw = warp * KW;               // the warp's keys in every tile
 
   const long long kv_stride = static_cast<long long>(a.Hkv) * hd;
@@ -322,7 +356,7 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_tc_kernel(con
     if (i >= 2 * ntiles) return;
     const bool is_v = i >= ntiles;
     load_rows<LD>(ring + (i & 1) * STAGE, is_v ? vb : kb, kv_stride,
-                  (t0 + (is_v ? i - ntiles : i)) * BK, A, hd, vec, tid);
+                  (ts + (is_v ? i - ntiles : i)) * BK, A, hd, vec, tid);
   };
   auto wait = [&](int i) {
     if (i + 1 < 2 * ntiles)
@@ -377,15 +411,15 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_tc_kernel(con
       }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const int kc = i * BK + kw + j * 8 + 2 * cq, key = t0 * BK + kc;
+        const int kc = i * BK + kw + j * 8 + 2 * cq, key = ts * BK + kc;
         const float2 l0 = logits(s[j][0], s[j][1], none0, a.scale);
         const float2 l1 = logits(s[j][2], s[j][3], none1, a.scale);
         *reinterpret_cast<float2*>(ls + r0 * lld + kc) = l0;
         *reinterpret_cast<float2*>(ls + r1 * lld + kc) = l1;
-        if (key < n0) m0 = fmaxf(m0, l0.x);
-        if (key + 1 < n0) m0 = fmaxf(m0, l0.y);
-        if (key < n1) m1 = fmaxf(m1, l1.x);
-        if (key + 1 < n1) m1 = fmaxf(m1, l1.y);
+        if (is_live(key, lo0, n0)) m0 = fmaxf(m0, l0.x);
+        if (is_live(key + 1, lo0, n0)) m0 = fmaxf(m0, l0.y);
+        if (is_live(key, lo1, n1)) m1 = fmaxf(m1, l1.x);
+        if (is_live(key + 1, lo1, n1)) m1 = fmaxf(m1, l1.y);
       }
       __syncthreads();                    // the stage is free to refill
       issue(i + 2);
@@ -408,7 +442,7 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_tc_kernel(con
   if (C > 1) cluster.sync(); else __syncthreads();
   if (tid < ROWS && ntiles > 0) {
     float m = pmax[tid];
-    for (int r = 0; r < L; ++r)
+    for (int r = L0; r < L; ++r)
       if (r != rank) m = fmaxf(m, *cluster.map_shared_rank(pmax + tid, r));
     gmax[tid] = m;
   }
@@ -418,23 +452,23 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_tc_kernel(con
   // thread's keys in key order (a row's tiles past its live keys skipped:
   // they add nothing), the quad, the warps in order, the ranks in order
   const float M0 = gmax[r0], M1 = gmax[r1];
-  auto row_sum = [&](int row, int n, float m) {
+  auto row_sum = [&](int row, int lo, int n, float m) {
     float sum = 0.f;
-    for (int i = 0; i < ntiles && (t0 + i) * BK < n; ++i)
+    for (int i = 0; i < ntiles && (ts + i) * BK < n; ++i)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const int kc = i * BK + kw + j * 8 + 2 * cq, key = t0 * BK + kc;
+        const int kc = i * BK + kw + j * 8 + 2 * cq, key = ts * BK + kc;
         float2* p = reinterpret_cast<float2*>(ls + row * lld + kc);
         float2 e = *p;
         e.x = expf(__fsub_rn(e.x, m));
         e.y = expf(__fsub_rn(e.y, m));
         *p = e;
-        if (key < n) sum += e.x;
-        if (key + 1 < n) sum += e.y;
+        if (is_live(key, lo, n)) sum += e.x;
+        if (is_live(key + 1, lo, n)) sum += e.y;
       }
     return quad_sum(sum);
   };
-  const float s0 = row_sum(r0, n0, M0), s1 = row_sum(r1, n1, M1);
+  const float s0 = row_sum(r0, lo0, n0, M0), s1 = row_sum(r1, lo1, n1, M1);
   __syncthreads();                        // wred is read: reuse it
   if (cq == 0) {
     wred[warp * ROWS + r0] = s0;
@@ -449,8 +483,8 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_tc_kernel(con
   }
   if (C > 1) cluster.sync(); else __syncthreads();
   if (tid < ROWS && ntiles > 0) {
-    float s = rank == 0 ? psum[tid] : *cluster.map_shared_rank(psum + tid, 0);
-    for (int r = 1; r < L; ++r)
+    float s = rank == L0 ? psum[tid] : *cluster.map_shared_rank(psum + tid, L0);
+    for (int r = L0 + 1; r < L; ++r)
       s += r == rank ? psum[tid] : *cluster.map_shared_rank(psum + tid, r);
     gsum[tid] = s;
   }
@@ -466,12 +500,12 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_tc_kernel(con
   for (int i = 0; i < ntiles; ++i) {
     wait(ntiles + i);
     const __nv_bfloat16* vt = ring + ((ntiles + i) & 1) * STAGE;
-    const int kc = i * BK + kw + 2 * cq, key = t0 * BK + kc;
+    const int kc = i * BK + kw + 2 * cq, key = ts * BK + kc;
     uint32_t pa[4];
-    pa[0] = probs(ls + r0 * lld + kc, key, n0, S0, R0);
-    pa[1] = probs(ls + r1 * lld + kc, key, n1, S1, R1);
-    pa[2] = probs(ls + r0 * lld + kc + 8, key + 8, n0, S0, R0);
-    pa[3] = probs(ls + r1 * lld + kc + 8, key + 8, n1, S1, R1);
+    pa[0] = probs(ls + r0 * lld + kc, key, lo0, n0, S0, R0);
+    pa[1] = probs(ls + r1 * lld + kc, key, lo1, n1, S1, R1);
+    pa[2] = probs(ls + r0 * lld + kc + 8, key + 8, lo0, n0, S0, R0);
+    pa[3] = probs(ls + r1 * lld + kc + 8, key + 8, lo1, n1, S1, R1);
 #pragma unroll
     for (int np = 0; np < NO / 2; ++np) {
       uint32_t bf[4];
@@ -527,8 +561,8 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_tc_kernel(con
     return;
   }
   // element f belongs to rank f / per; a live rank puts it in that rank's
-  // park at [rank][f - owner * per]. A rank past L holds only zeros and
-  // sends nothing.
+  // park at [rank][f - owner * per]. A rank outside [L0, L) holds only
+  // zeros and sends nothing.
   const int per = NO * 32 / C;
   if (ntiles > 0)
     for (int f = tid; f < NO * 32; f += NT) {
@@ -537,8 +571,8 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_tc_kernel(con
     }
   cluster.sync();                         // every partial has arrived
   for (int e = tid; e < per; e += NT) {
-    float4 t = park[e];
-    for (int r = 1; r < L; ++r) {
+    float4 t = park[L0 * per + e];
+    for (int r = L0 + 1; r < L; ++r) {
       const float4 u = park[r * per + e];
       t.x += u.x;
       t.y += u.y;
@@ -583,11 +617,12 @@ int launch_tc(const Args& a, int B, const Plan& p, cudaStream_t stream) {
 
 // probs() from two recomputed logits: the same e = exp(l - max) as pass 2
 // adds, the same correctly rounded quotient
-__device__ __forceinline__ uint32_t probs_of(float2 l, int key, int n, float m, float sum,
-                                             float r) {
-  if (key >= n) return 0u;
-  const float px = quotient(expf(__fsub_rn(l.x, m)), sum, r);
-  return pack_bf16(px, key + 1 < n ? quotient(expf(__fsub_rn(l.y, m)), sum, r) : 0.f);
+__device__ __forceinline__ uint32_t probs_of(float2 l, int key, int lo, int n, float m,
+                                             float sum, float r) {
+  if (key >= n || key + 1 < lo) return 0u;
+  const float px = key >= lo ? quotient(expf(__fsub_rn(l.x, m)), sum, r) : 0.f;
+  return pack_bf16(px, is_live(key + 1, lo, n) ? quotient(expf(__fsub_rn(l.y, m)), sum, r)
+                                                : 0.f);
 }
 
 template <int HDP>
@@ -605,8 +640,8 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_stream_kernel
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(body);  // NS K/V stages
   float4* ocomb = reinterpret_cast<float4*>(body);  // after pass 3: the warps' outputs
   int* rown = reinterpret_cast<int*>(body + stream_body_bytes(HDP));
-  int* rnone = rown + ROWS;
-  float* wred = reinterpret_cast<float*>(rnone + ROWS);         // WARPS x ROWS
+  int* rlo = rown + ROWS;
+  float* wred = reinterpret_cast<float*>(rlo + ROWS);           // WARPS x ROWS
   float* pmax = wred + WARPS * ROWS;
   float* psum = pmax + ROWS;
   float* gmax = psum + ROWS;
@@ -619,17 +654,14 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_stream_kernel
   const int A = a.A, G = a.G, Sq = a.Sq, hd = a.hd;
   const bool vec = a.vec != 0;
 
-  // each row's live keys: 0 for rows past the call's, A when all masked
+  // each row's live keys [max(rlo, 0), rown): none for rows past the
+  // call's, all A (rlo = -1) when all are masked
   if (tid < ROWS) {
     const int s = (rb * ROWS + tid) / G;
-    int n = 0, none = 0;
-    if (s < Sq) {
-      const int pos = a.qpos[b * Sq + s];
-      none = pos < 0;
-      n = none ? A : min(pos, A - 1) + 1;
-    }
+    int n = 0, lo = 0;
+    if (s < Sq) live_keys(a.qpos[b * Sq + s], A, a.window, lo, n);
     rown[tid] = n;
-    rnone[tid] = none;
+    rlo[tid] = lo;
   }
   // the stages' columns past hd stay zero (loads write [0, hd) only)
   if (hd < HDP)
@@ -639,15 +671,20 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_stream_kernel
     }
   __syncthreads();
 
-  int bn = 0;                             // live keys of the block's rows
-  for (int r = 0; r < ROWS; ++r) bn = max(bn, rown[r]);
+  int bn = 0, blo = A;                    // live keys of the block's rows
+  for (int r = 0; r < ROWS; ++r)
+    if (rown[r] > 0) {
+      bn = max(bn, rown[r]);
+      blo = min(blo, max(rlo[r], 0));
+    }
   const int T = (A + BK - 1) / BK, t0 = rank * TR, t1 = min(T, t0 + TR);
-  const int live = (bn + BK - 1) / BK;
-  const int L = min(C, (live + TR - 1) / TR);
-  const int ntiles = max(0, min(t1, live) - t0);
+  const int live = (bn + BK - 1) / BK, first = min(blo, bn) / BK;
+  const int L0 = first / TR, L = min(C, (live + TR - 1) / TR);
+  const int ts = max(t0, first), ntiles = max(0, min(t1, live) - ts);
   const int r0 = gq, r1 = gq + 8;
   const int n0 = rown[r0], n1 = rown[r1];
-  const bool none0 = rnone[r0] != 0, none1 = rnone[r1] != 0;
+  const int lo0 = max(rlo[r0], 0), lo1 = max(rlo[r1], 0);
+  const bool none0 = rlo[r0] < 0, none1 = rlo[r1] < 0;
   const int kw = warp * KW;               // the warp's keys in every tile
 
   const long long kv_stride = static_cast<long long>(a.Hkv) * hd;
@@ -662,7 +699,7 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_stream_kernel
     const int j = i - 2 * ntiles;
     const bool is_v = j >= 0 && (j & 1);
     const int tile = j >= 0 ? j >> 1 : i < ntiles ? i : i - ntiles;
-    load_rows<LD>(ring + (i % NS) * STAGE, is_v ? vb : kb, kv_stride, (t0 + tile) * BK, A, hd,
+    load_rows<LD>(ring + (i % NS) * STAGE, is_v ? vb : kb, kv_stride, (ts + tile) * BK, A, hd,
                   vec, tid);
   };
   // item i has landed, items [0, issued) having been issued
@@ -721,13 +758,13 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_stream_kernel
     scores(ring + (i % NS) * STAGE, s);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const int key = (t0 + i) * BK + kw + j * 8 + 2 * cq;
+      const int key = (ts + i) * BK + kw + j * 8 + 2 * cq;
       const float2 l0 = logits(s[j][0], s[j][1], none0, a.scale);
       const float2 l1 = logits(s[j][2], s[j][3], none1, a.scale);
-      if (key < n0) m0 = fmaxf(m0, l0.x);
-      if (key + 1 < n0) m0 = fmaxf(m0, l0.y);
-      if (key < n1) m1 = fmaxf(m1, l1.x);
-      if (key + 1 < n1) m1 = fmaxf(m1, l1.y);
+      if (is_live(key, lo0, n0)) m0 = fmaxf(m0, l0.x);
+      if (is_live(key + 1, lo0, n0)) m0 = fmaxf(m0, l0.y);
+      if (is_live(key, lo1, n1)) m1 = fmaxf(m1, l1.x);
+      if (is_live(key + 1, lo1, n1)) m1 = fmaxf(m1, l1.y);
     }
     __syncthreads();                      // the stage is free to refill
     issue(i + NS);
@@ -749,7 +786,7 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_stream_kernel
   if (C > 1) cluster.sync(); else __syncthreads();
   if (tid < ROWS && ntiles > 0) {
     float m = pmax[tid];
-    for (int r = 0; r < L; ++r)
+    for (int r = L0; r < L; ++r)
       if (r != rank) m = fmaxf(m, *cluster.map_shared_rank(pmax + tid, r));
     gmax[tid] = m;
   }
@@ -765,21 +802,22 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_stream_kernel
     wait(it, it + NS);
     float s[2][4];
     scores(ring + (it % NS) * STAGE, s);
-    const bool live0 = (t0 + i) * BK < n0, live1 = (t0 + i) * BK < n1;
+    const int k0 = (ts + i) * BK;       // the tile's first key
+    const bool live0 = k0 < n0 && k0 + BK > lo0, live1 = k0 < n1 && k0 + BK > lo1;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const int key = (t0 + i) * BK + kw + j * 8 + 2 * cq;
+      const int key = k0 + kw + j * 8 + 2 * cq;
       if (live0) {
         const float2 l = logits(s[j][0], s[j][1], none0, a.scale);
         const float ex = expf(__fsub_rn(l.x, M0)), ey = expf(__fsub_rn(l.y, M0));
-        if (key < n0) s0 += ex;
-        if (key + 1 < n0) s0 += ey;
+        if (is_live(key, lo0, n0)) s0 += ex;
+        if (is_live(key + 1, lo0, n0)) s0 += ey;
       }
       if (live1) {
         const float2 l = logits(s[j][2], s[j][3], none1, a.scale);
         const float ex = expf(__fsub_rn(l.x, M1)), ey = expf(__fsub_rn(l.y, M1));
-        if (key < n1) s1 += ex;
-        if (key + 1 < n1) s1 += ey;
+        if (is_live(key, lo1, n1)) s1 += ex;
+        if (is_live(key + 1, lo1, n1)) s1 += ey;
       }
     }
     __syncthreads();                      // the stage is free to refill
@@ -800,8 +838,8 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_stream_kernel
   }
   if (C > 1) cluster.sync(); else __syncthreads();
   if (tid < ROWS && ntiles > 0) {
-    float s = rank == 0 ? psum[tid] : *cluster.map_shared_rank(psum + tid, 0);
-    for (int r = 1; r < L; ++r)
+    float s = rank == L0 ? psum[tid] : *cluster.map_shared_rank(psum + tid, L0);
+    for (int r = L0 + 1; r < L; ++r)
       s += r == rank ? psum[tid] : *cluster.map_shared_rank(psum + tid, r);
     gsum[tid] = s;
   }
@@ -820,12 +858,12 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_stream_kernel
     float s[2][4];
     scores(ring + (it % NS) * STAGE, s);
     const __nv_bfloat16* vt = ring + ((it + 1) % NS) * STAGE;
-    const int key = (t0 + i) * BK + kw + 2 * cq;
+    const int key = (ts + i) * BK + kw + 2 * cq;
     uint32_t pa[4];
-    pa[0] = probs_of(logits(s[0][0], s[0][1], none0, a.scale), key, n0, M0, S0, R0);
-    pa[1] = probs_of(logits(s[0][2], s[0][3], none1, a.scale), key, n1, M1, S1, R1);
-    pa[2] = probs_of(logits(s[1][0], s[1][1], none0, a.scale), key + 8, n0, M0, S0, R0);
-    pa[3] = probs_of(logits(s[1][2], s[1][3], none1, a.scale), key + 8, n1, M1, S1, R1);
+    pa[0] = probs_of(logits(s[0][0], s[0][1], none0, a.scale), key, lo0, n0, M0, S0, R0);
+    pa[1] = probs_of(logits(s[0][2], s[0][3], none1, a.scale), key, lo1, n1, M1, S1, R1);
+    pa[2] = probs_of(logits(s[1][0], s[1][1], none0, a.scale), key + 8, lo0, n0, M0, S0, R0);
+    pa[3] = probs_of(logits(s[1][2], s[1][3], none1, a.scale), key + 8, lo1, n1, M1, S1, R1);
 #pragma unroll
     for (int np = 0; np < NO / 2; ++np) {
       uint32_t bf[4];
@@ -886,8 +924,8 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_stream_kernel
     }
   cluster.sync();                         // every partial has arrived
   for (int e = tid; e < per; e += NT) {
-    float4 t = park[e];
-    for (int r = 1; r < L; ++r) {
+    float4 t = park[L0 * per + e];
+    for (int r = L0 + 1; r < L; ++r) {
       const float4 u = park[r * per + e];
       t.x += u.x;
       t.y += u.y;
@@ -958,7 +996,7 @@ __global__ void __launch_bounds__(F32_NT)
 attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const int32_t* __restrict__ qpos,
                      float* __restrict__ out, int Sq, int Hq, int Hkv, int A, int hd,
-                     long long k_bstride, long long v_bstride, float scale) {
+                     int window, long long k_bstride, long long v_bstride, float scale) {
   extern __shared__ float fsmem[];
   __shared__ float red[F32_WARPS];
   float* p = fsmem;                       // A: logits, then probabilities
@@ -967,9 +1005,11 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int h = blockIdx.x % Hq, s = blockIdx.x / Hq, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int hk = h / (Hq / Hkv);
-  const int pos = qpos[b * Sq + s];
-  const bool none = pos < 0;
-  const int n = none ? A : min(pos, A - 1) + 1;
+  int lo, n;
+  live_keys(qpos[b * Sq + s], A, window, lo, n);
+  // keys below lo are masked: their logits are -inf, so they add exact
+  // zeros to the softmax sum and to the output, and every live key is
+  // added by the same thread, warp and lane in the same order
 
   const float* qrow = q + ((static_cast<size_t>(b) * Sq + s) * Hq + h) * hd;
   float qv[NDL];
@@ -982,7 +1022,7 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * k_bstride + static_cast<size_t>(hk) * hd;
   const size_t krow = static_cast<size_t>(Hkv) * hd;
   float m = -FLT_MAX;
-#pragma unroll 4
+#pragma unroll 2
   for (int j = warp; j < n; j += F32_WARPS) {
     const float* kr = kb + j * krow;
     float acc = 0.f;
@@ -992,7 +1032,7 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (d < hd) acc = fmaf(qv[i], kr[d], acc);
     }
     acc = warp_sum(acc);
-    const float l = none ? -1e30f : acc * scale;
+    const float l = lo < 0 ? -1e30f : j < lo ? -INFINITY : acc * scale;
     if (lane == 0) p[j] = l;
     m = fmaxf(m, l);
   }
@@ -1043,7 +1083,7 @@ __host__ size_t f32_smem(int A, int hd) {
 
 template <int NDL>
 int launch_f32(const void* q, const void* k, const void* v, const void* qpos, void* out, int B,
-               int Sq, int Hq, int Hkv, int A, int hd, long long k_bstride,
+               int Sq, int Hq, int Hkv, int A, int hd, int window, long long k_bstride,
                long long v_bstride, float scale, cudaStream_t stream) {
   const size_t smem = f32_smem(A, hd);
   if (smem + sizeof(float) * F32_WARPS > 48 * 1024) {
@@ -1054,17 +1094,18 @@ int launch_f32(const void* q, const void* k, const void* v, const void* qpos, vo
   }
   attention_f32_kernel<NDL><<<dim3(Hq * Sq, B), F32_NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const int32_t*>(qpos), static_cast<float*>(out), Sq, Hq, Hkv, A, hd,
+      static_cast<const int32_t*>(qpos), static_cast<float*>(out), Sq, Hq, Hkv, A, hd, window,
       k_bstride, v_bstride, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The logit of one key row kr, as the resident f32 kernel computes it:
+// The logit of key j (row kr), as the resident f32 kernel computes it:
 // lane l's in-order partial dot over head dims l, l + 32, ..., then the
-// xor butterfly.
+// xor butterfly; -1e30 when the query has no live key (lo < 0), -inf for a
+// key below the window's bound lo.
 template <int NDL>
 __device__ __forceinline__ float f32_logit(const float (&qv)[NDL], const float* kr, int lane,
-                                           int hd, bool none, float scale) {
+                                           int hd, int j, int lo, float scale) {
   float acc = 0.f;
 #pragma unroll
   for (int i = 0; i < NDL; ++i) {
@@ -1072,7 +1113,7 @@ __device__ __forceinline__ float f32_logit(const float (&qv)[NDL], const float* 
     if (d < hd) acc = fmaf(qv[i], kr[d], acc);
   }
   acc = warp_sum(acc);
-  return none ? -1e30f : acc * scale;
+  return lo < 0 ? -1e30f : j < lo ? -INFINITY : acc * scale;
 }
 
 // The f32 kernel's streamed form, for caches whose A logits do not fit a
@@ -1087,7 +1128,8 @@ __global__ void __launch_bounds__(F32_NT)
 attention_f32_stream_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v, const int32_t* __restrict__ qpos,
                             float* __restrict__ out, int Sq, int Hq, int Hkv, int A, int hd,
-                            long long k_bstride, long long v_bstride, float scale) {
+                            int window, long long k_bstride, long long v_bstride,
+                            float scale) {
   extern __shared__ float fsmem[];
   __shared__ float red[F32_WARPS];
   float* p = fsmem;                       // F32_NT: a chunk's logits, then probabilities
@@ -1096,9 +1138,10 @@ attention_f32_stream_kernel(const float* __restrict__ q, const float* __restrict
   const int h = blockIdx.x % Hq, s = blockIdx.x / Hq, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int hk = h / (Hq / Hkv);
-  const int pos = qpos[b * Sq + s];
-  const bool none = pos < 0;
-  const int n = none ? A : min(pos, A - 1) + 1;
+  int lo, n;
+  live_keys(qpos[b * Sq + s], A, window, lo, n);
+  // keys below lo are masked (f32_logit gives them -inf), as in the
+  // resident kernel
 
   const float* qrow = q + ((static_cast<size_t>(b) * Sq + s) * Hq + h) * hd;
   float qv[NDL];
@@ -1114,13 +1157,13 @@ attention_f32_stream_kernel(const float* __restrict__ q, const float* __restrict
   float m = -FLT_MAX;
 #pragma unroll 4
   for (int j = warp; j < n; j += F32_WARPS)
-    m = fmaxf(m, f32_logit<NDL>(qv, kb + j * krow, lane, hd, none, scale));
+    m = fmaxf(m, f32_logit<NDL>(qv, kb + j * krow, lane, hd, j, lo, scale));
   m = block_reduce<true>(m, red);
 
   float sum = 0.f;
   for (int c0 = 0; c0 < n; c0 += F32_NT) {
     for (int j = c0 + warp; j < min(n, c0 + F32_NT); j += F32_WARPS) {
-      const float l = f32_logit<NDL>(qv, kb + j * krow, lane, hd, none, scale);
+      const float l = f32_logit<NDL>(qv, kb + j * krow, lane, hd, j, lo, scale);
       if (lane == 0) p[j - c0] = l;
     }
     __syncthreads();
@@ -1136,7 +1179,7 @@ attention_f32_stream_kernel(const float* __restrict__ q, const float* __restrict
   for (int c0 = 0; c0 < n; c0 += F32_NT) {
     const int c1 = min(n, c0 + F32_NT);
     for (int j = c0 + warp; j < c1; j += F32_WARPS) {
-      const float l = f32_logit<NDL>(qv, kb + j * krow, lane, hd, none, scale);
+      const float l = f32_logit<NDL>(qv, kb + j * krow, lane, hd, j, lo, scale);
       if (lane == 0) p[j - c0] = l;
     }
     __syncthreads();
@@ -1171,12 +1214,13 @@ attention_f32_stream_kernel(const float* __restrict__ q, const float* __restrict
 
 template <int NDL>
 int launch_f32_stream(const void* q, const void* k, const void* v, const void* qpos, void* out,
-                      int B, int Sq, int Hq, int Hkv, int A, int hd, long long k_bstride,
-                      long long v_bstride, float scale, cudaStream_t stream) {
+                      int B, int Sq, int Hq, int Hkv, int A, int hd, int window,
+                      long long k_bstride, long long v_bstride, float scale,
+                      cudaStream_t stream) {
   const size_t smem = sizeof(float) * (F32_NT + static_cast<size_t>(F32_WARPS) * hd);
   attention_f32_stream_kernel<NDL><<<dim3(Hq * Sq, B), F32_NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const int32_t*>(qpos), static_cast<float*>(out), Sq, Hq, Hkv, A, hd,
+      static_cast<const int32_t*>(qpos), static_cast<float*>(out), Sq, Hq, Hkv, A, hd, window,
       k_bstride, v_bstride, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1185,17 +1229,19 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 }  // namespace
 
-// C entry point, loaded with ctypes. q, k, v and out share `dtype`.
+// C entry point, loaded with ctypes. q, k, v and out share `dtype`;
+// `window` > 0 masks the keys at or below qpos - window (0: none).
 // Launches on `stream` and returns a CUDA error code, 0 on success
 // (cudaErrorInvalidValue for shapes or dtypes the kernel does not take:
-// hd > 256, B > 65535, more blocks than a grid holds). A cache whose
-// logits do not fit a block's shared memory takes the streaming kernel.
+// hd > 256, B > 65535, a negative window, more blocks than a grid holds).
+// A cache whose logits do not fit a block's shared memory takes the
+// streaming kernel.
 extern "C" int row_attention_launch(const void* q, const void* k, const void* v, const void* qpos,
                                     void* out, int B, int Sq, int Hq, int Hkv, int A, int hd,
-                                    long long k_bstride, long long v_bstride, float scale,
-                                    int dtype, void* stream) {
+                                    int window, long long k_bstride, long long v_bstride,
+                                    float scale, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || A <= 0 || hd <= 0 || hd > 256 ||
-      B > 65535)
+      B > 65535 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == F32) {
@@ -1203,28 +1249,28 @@ extern "C" int row_attention_launch(const void* q, const void* k, const void* v,
       return static_cast<int>(cudaErrorInvalidValue);
     if (f32_smem(A, hd) + sizeof(float) * F32_WARPS > SMEM_MAX) {
       if (hd <= 32)
-        return launch_f32_stream<1>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, k_bstride,
+        return launch_f32_stream<1>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, window, k_bstride,
                                     v_bstride, scale, s);
       if (hd <= 64)
-        return launch_f32_stream<2>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, k_bstride,
+        return launch_f32_stream<2>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, window, k_bstride,
                                     v_bstride, scale, s);
       if (hd <= 128)
-        return launch_f32_stream<4>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, k_bstride,
+        return launch_f32_stream<4>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, window, k_bstride,
                                     v_bstride, scale, s);
-      return launch_f32_stream<8>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, k_bstride,
+      return launch_f32_stream<8>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, window, k_bstride,
                                   v_bstride, scale, s);
     }
     if (hd <= 32)
-      return launch_f32<1>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, k_bstride, v_bstride,
+      return launch_f32<1>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, window, k_bstride, v_bstride,
                            scale, s);
     if (hd <= 64)
-      return launch_f32<2>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, k_bstride, v_bstride,
+      return launch_f32<2>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, window, k_bstride, v_bstride,
                            scale, s);
     if (hd <= 128)
-      return launch_f32<4>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, k_bstride, v_bstride,
+      return launch_f32<4>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, window, k_bstride, v_bstride,
                            scale, s);
-    return launch_f32<8>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, k_bstride, v_bstride, scale,
-                         s);
+    return launch_f32<8>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, window, k_bstride, v_bstride,
+                         scale, s);
   }
   if (dtype != BF16) return static_cast<int>(cudaErrorInvalidValue);
   const Plan p = plan(A, hd);
@@ -1247,6 +1293,7 @@ extern "C" int row_attention_launch(const void* q, const void* k, const void* v,
   a.G = G;
   a.A = A;
   a.hd = hd;
+  a.window = window;
   a.row_blocks = static_cast<int>(row_blocks);
   a.tiles_per_rank = p.tiles_per_rank;
   a.splits = p.splits;

@@ -8,9 +8,12 @@ prefill chunk then agree bit for bit, the invariant chunked prefill rests
 on. A batched matmul and torch's softmax pick their summation order from
 the whole shape, so the plain version does not keep it on the card.
 
-  q    : (B, Sq, Hq, hd)   queries, f32 or bf16
-  k, v : (B, A, Hkv, hd)   the cache, in q's dtype; Hq % Hkv == 0
-  qpos : (B, Sq) int       each query's position: keys 0..qpos are live
+  q      : (B, Sq, Hq, hd)   queries, f32 or bf16
+  k, v   : (B, A, Hkv, hd)   the cache, in q's dtype; Hq % Hkv == 0
+  qpos   : (B, Sq) int       each query's position: keys 0..qpos are live
+  window : int >= 0          a sliding window: keys at or below qpos -
+                             window are dead too (0: no lower bound), the
+                             reference's ``kpos > qpos - window``
 
 Three things live here:
 
@@ -56,15 +59,19 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
 
 
-def row_attention_plain(q, k, v, qpos):
+def row_attention_plain(q, k, v, qpos, window: int = 0):
     """(B, Sq, Hq, hd) attention output in q's dtype, in plain PyTorch."""
+    _check_window(window)
     rep = q.shape[2] // k.shape[2]
     if rep > 1:
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
     A = k.shape[1]
-    kpos = torch.arange(A, device=q.device)
-    mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None]     # (B,1,Sq,A)
+    kpos = torch.arange(A, device=q.device)[None, None, :]
+    live = kpos <= qpos[:, :, None]
+    if window:
+        live &= kpos > qpos[:, :, None] - window
+    mask = live[:, None]                                          # (B,1,Sq,A)
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     logits = torch.where(mask, logits, -1e30)
@@ -78,7 +85,7 @@ def _library():
     if _LIB is None:
         lib = build.load("row_attention")
         fn = lib.row_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                        + [ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_int,
                                                     ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -131,7 +138,14 @@ def smem_bytes(A: int, hd: int, dtype) -> int:
     return _plan_bytes(A, hd, dtype, streams(A, hd, dtype))
 
 
-def _check(q, k, v, qpos):
+def _check_window(window):
+    if window < 0:
+        raise ValueError(f"window must be >= 0 (0: no lower bound), got "
+                         f"{window}")
+
+
+def _check(q, k, v, qpos, window: int = 0):
+    _check_window(window)
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B, Sq, Hq, hd), k and v (B, A, Hkv, hd); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -162,16 +176,18 @@ def _check(q, k, v, qpos):
                         f"{q.dtype}")
 
 
-def row_attention(q, k, v, qpos):
-    """Masked GQA attention, (B, Sq, Hq, hd) in q's dtype. CPU tensors run
-    the plain version; CUDA tensors launch the kernel on the current
-    stream or raise."""
+def row_attention(q, k, v, qpos, window: int = 0):
+    """Masked GQA attention, (B, Sq, Hq, hd) in q's dtype: each query
+    attends to the keys in (qpos - window, qpos] (window 0: [0, qpos]).
+    CPU tensors run the plain version; CUDA tensors launch the kernel on
+    the current stream or raise."""
     global LAUNCHES
+    window = int(window)
     if q.device.type == "cpu":
-        return row_attention_plain(q, k, v, qpos)
+        return row_attention_plain(q, k, v, qpos, window)
     if q.device.type != "cuda":
         raise ValueError(f"row_attention runs on cuda or cpu, not {q.device}")
-    _check(q, k, v, qpos)
+    _check(q, k, v, qpos, window)
     B, Sq, Hq, hd = q.shape
     A, Hkv = k.shape[1], k.shape[2]
     q = q.contiguous()
@@ -185,12 +201,12 @@ def row_attention(q, k, v, qpos):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.row_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
-            out.data_ptr(), B, Sq, Hq, Hkv, A, hd, k.stride(0), v.stride(0),
-            hd ** -0.5, _DTYPE_CODE[q.dtype], stream)
+            out.data_ptr(), B, Sq, Hq, Hkv, A, hd, window, k.stride(0),
+            v.stride(0), hd ** -0.5, _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"row_attention launch failed: CUDA error {rc} "
                            f"(B={B}, Sq={Sq}, Hq={Hq}, Hkv={Hkv}, A={A}, "
-                           f"hd={hd})")
+                           f"hd={hd}, window={window})")
     if not torch.cuda.is_current_stream_capturing():
         LAUNCHES += 1
     return out

@@ -1,8 +1,9 @@
-"""Fixed-shape serving steps, tagged with their call kind, and their
-compiled form.
+"""Fixed-shape serving steps, tagged with their call kind, their compiled
+form, and the full-forward prefill step.
 
-Port of the serving half of ``repro.launch.steps.build_step`` and of the
-engine's ``jax.jit(..., donate_argnums=...)``. ``build_step`` returns a
+Port of the serving half of ``repro.launch.steps`` (``build_step``,
+``build_prefill_step``) and of the engine's ``jax.jit(...,
+donate_argnums=...)``. ``build_step`` returns a
 plain callable; its ``call_kind`` tag is what the engine meters device
 calls and latencies under, and the recompile sentinel keys its budget on.
 ``compile_step`` compiles one: on the card each input signature is
@@ -14,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import decode_chunk_, decode_step_, reset_slots_
+from repro_torch.models import (decode_chunk_, decode_step_, prefill,
+                                reset_slots_)
 from repro_torch.models.config import ModelConfig
 
 SERVE_CALL_KINDS = ("decode", "prefill_chunk", "reset")
@@ -71,6 +73,25 @@ def build_step(cfg: ModelConfig, call_kind: str, *, stacked_tables=None):
         step_fn.call_kind = "reset"
     step_fn.arch = cfg.name
     return step_fn
+
+
+def build_prefill_step(cfg: ModelConfig, stacked_tables=None):
+    """``prefill_step(params, batch)``: the last-position logits (B, 1, V)
+    of the full forward over ``batch["tokens"]`` (``models.prefill``),
+    with ``batch.get("frames")`` encoded first (whisper) and
+    ``batch.get("frontend")`` prepended (pixtral's patch embeddings), as
+    ``models.inputs.make_train_batch`` makes them. Eager; tagged
+    "prefill". stacked_tables route every projection of every layer
+    through the joint kernel. (The reference's ``build_prefill_step`` also
+    returns its shardings; one card has none.)"""
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        return prefill(params, batch["tokens"], cfg,
+                       frames=batch.get("frames"), tables=stacked_tables,
+                       frontend=batch.get("frontend"))
+    prefill_step.call_kind = "prefill"
+    prefill_step.arch = cfg.name
+    return prefill_step
 
 
 def _leaves(tree, path=()):

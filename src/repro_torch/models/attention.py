@@ -1,7 +1,8 @@
-"""Attention for the serving path: GQA with RoPE and qk-norm against a
-contiguous static-shape KV cache, a ring of ``window`` rows for
-sliding-window archs (mixtral); the whisper encoder's non-causal
-attention and the decoder's cross-attention.
+"""Attention: GQA with RoPE and qk-norm against a contiguous static-shape
+KV cache, a ring of ``window`` rows for sliding-window archs (mixtral);
+the full-sequence attention of ``transformer.forward`` (causal, with the
+sliding window as a lower key bound) and of the whisper encoder
+(non-causal); the decoder's cross-attention.
 
 Port of the contiguous branches of ``repro.models.attention``, with the
 same -1e30 masking and the fp32 softmax cast back to the activation dtype.
@@ -19,11 +20,16 @@ is. That is ``row_attention`` with the query's position clamped to A - 1:
 the same kernel serves it. Windowed archs prefill stepwise; the chunk
 (``prefill_attention``) refuses them, as the reference does.
 
-Attention without a cache attends every query to every key through the
-same kernel, with each query's position at the last key: the encoder's
-full-sequence ``attention(causal=False)`` (whisper) and the decoder's
-``cross_attention`` over the encoder output, whose k/v are projected from
-it at every call, as in the reference.
+Attention without a cache runs the same kernel over the sequence's own
+keys. Causal ``attention`` (the full-sequence forward) puts query i at
+position i, with ``cfg.window`` as the kernel's lower key bound
+(``kpos > qpos - window``, the reference's ``causal_mask``); its
+resident and streaming kernels never hold the (S, S) logits, so the card
+needs no counterpart of the reference's ``_chunked_sdpa``, which the CPU
+takes where the reference does. Non-causal ``attention(causal=False)``
+(the whisper encoder) and the decoder's ``cross_attention`` over the
+encoder output (whose k/v are projected from it at every call, as in the
+reference) put each query's position at the last key.
 
 Each attention takes the cache functionally (new k/v come back, as in
 JAX) or, for the serving engine's compiled steps, writes its rows into the
@@ -62,10 +68,68 @@ def _split_heads(x, n, hd):
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
-def _sdpa(q, k, v, qpos):
+def _sdpa(q, k, v, qpos, window: int = 0):
     """q (B,Sq,Hq,hd), k/v (B,A,Hkv,hd) the cache, qpos (B,Sq) each
-    query's position: it attends to cache rows 0..qpos."""
-    return row_attention.row_attention(q, k, v, qpos)
+    query's position: it attends to cache rows qpos - window < j <= qpos
+    (window 0: 0..qpos)."""
+    return row_attention.row_attention(q, k, v, qpos, window)
+
+
+#: the sequence length from which the reference's full-sequence causal
+#: attention takes ``_chunked_sdpa`` (with S % 2048 == 0)
+CHUNKED_ATTN_THRESHOLD = 16384
+
+
+def causal_mask(sq: int, skv: int, window: int = 0, device=None):
+    """(1, 1, sq, skv) bool; offsets assume q positions are the last sq of
+    skv (prefill: sq == skv). The reference's ``causal_mask``."""
+    qpos = torch.arange(sq, device=device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=device)[None, :]
+    m = kpos <= qpos
+    if window:
+        m &= kpos > qpos - window
+    return m[None, None]
+
+
+def _chunked_sdpa(q, k, v, cfg: ModelConfig, dtype, chunk: int = 2048):
+    """Flash-style two-level blocked attention with online softmax, in
+    plain torch: the reference's ``_chunked_sdpa``, in its order of
+    operations and rounding points. q/k/v (B, S, H, hd), the KV heads
+    already repeated to H. Never holds (S, S): an outer loop over query
+    chunks, an inner one over key chunks with a running (max, sum, acc);
+    causal (and window) masking at element level inside each block,
+    upper-triangular blocks masked, not skipped."""
+    B, S, H, hd = q.shape
+    nq = S // chunk
+    scale = hd ** -0.5
+    base = torch.arange(chunk, device=q.device)
+    blocks = []
+    for qi in range(nq):
+        qb = q[:, qi * chunk:(qi + 1) * chunk]
+        qpos = qi * chunk + base
+        m = torch.full((B, H, chunk), -1e30, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, H, chunk), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, H, chunk, hd), dtype=dtype, device=q.device)
+        for kj in range(nq):
+            kb = k[:, kj * chunk:(kj + 1) * chunk]
+            vb = v[:, kj * chunk:(kj + 1) * chunk]
+            kpos = kj * chunk + base
+            s = torch.einsum("bqhd,bkhd->bhqk", qb, kb).float() * scale
+            mask = kpos[None, :] <= qpos[:, None]
+            if cfg.window:
+                mask &= kpos[None, :] > qpos[:, None] - cfg.window
+            s = torch.where(mask[None, None], s, -1e30)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bhqk,bkhd->bhqd", p.to(dtype), vb)
+            acc = acc * corr[..., None].to(dtype) + pv
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None].to(dtype)
+        blocks.append(out.transpose(1, 2))               # (B, chunk, H, hd)
+    return torch.cat(blocks, dim=1)
 
 
 def _all_keys(x, n_keys: int):
@@ -77,18 +141,28 @@ def _all_keys(x, n_keys: int):
 
 def attention(p, x, cfg: ModelConfig, positions, causal: bool = True,
               dense_fn=None):
-    """Full-sequence attention without a cache. x (B, S, D); positions (B,
-    S) for RoPE. ``causal=False`` (the whisper encoder): every query
-    attends to all S keys."""
-    if causal:
-        raise NotImplementedError(
-            "causal full-sequence attention (transformer.forward) is not "
-            "ported yet: it needs row_attention's lower key bound for "
-            "sliding windows (ROADMAP Queue 1 item 4b)")
+    """Full-sequence attention without a cache (the forward / prefill,
+    and the whisper encoder). x (B, S, D); positions (B, S) for RoPE.
+    Causal: query i attends to keys i - window < j <= i (``cfg.window``;
+    0: 0..i), the reference's ``causal_mask(S, S, cfg.window)``; on the
+    CPU a long sequence (S >= CHUNKED_ATTN_THRESHOLD, S % 2048 == 0) takes
+    ``_chunked_sdpa``, as the reference does. ``causal=False`` (the
+    whisper encoder): every query attends to all S keys."""
     mm = dense_fn or (lambda w, v, name: v @ w)
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, positions, cfg, mm)
-    out = _sdpa(q, k, v, _all_keys(x, S))
+    if not causal:
+        out = _sdpa(q, k, v, _all_keys(x, S))
+    elif (x.device.type == "cpu" and S >= CHUNKED_ATTN_THRESHOLD
+          and S % 2048 == 0):
+        rep = cfg.n_heads // cfg.n_kv_heads
+        out = _chunked_sdpa(q, torch.repeat_interleave(k, rep, dim=2),
+                            torch.repeat_interleave(v, rep, dim=2), cfg,
+                            x.dtype)
+    else:
+        qpos = torch.arange(S, dtype=torch.int32,
+                            device=x.device).expand(B, S)
+        out = _sdpa(q, k, v, qpos, cfg.window)
     return mm(p["wo"], out.reshape(B, S, cfg.q_dim), "wo")
 
 

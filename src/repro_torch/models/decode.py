@@ -1,5 +1,6 @@
-"""Serving path: cache init, single-token decode, chunked prefill and
-per-slot cache surgery, for every segment layout the port serves
+"""Serving path: cache init, single-token decode, chunked prefill, the
+full-forward prefill and per-slot cache surgery, for every segment
+layout the port serves
 (attention with an MLP or MoE FFN, SSM, hybrid interleavings of both, the
 whisper decoder with cross-attention) on a contiguous cache (a ring of
 ``window`` rows for sliding-window archs, which prefill stepwise).
@@ -39,7 +40,7 @@ from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import apply_norm, embed_tokens, logits_from_hidden
 from .transformer import (_block_tail, _check_supported, _sinusoidal_at,
-                          layer_slice, segment_tables)
+                          encode, forward, layer_slice, segment_tables)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -245,6 +246,20 @@ def _chunk(params, cache, tokens, n_valid, cfg, tables, inplace):
     last = torch.clamp(n_valid - 1, 0, C - 1).long()
     x_last = x[torch.arange(B, device=x.device), last][:, None]   # (B, 1, D)
     return logits_from_hidden(params["embed"], x_last, cfg), new_cache
+
+
+def prefill(params, tokens, cfg: ModelConfig, frames=None, tables=None,
+            frontend=None):
+    """Last-position logits (B, 1, V) of the full forward over a prompt
+    batch, the reference's ``prefill``: an enc-dec config encodes
+    ``frames`` (B, Se, D) first (``encode``, unpacked); ``frontend``
+    (pixtral's patch embeddings, B x n_patches x D) is prepended, which the
+    reference's ``prefill`` does not pass on (its ``forward`` takes them).
+    Fills no cache: the engine fills caches through chunked or stepwise
+    decode."""
+    enc_out = encode(params, frames, cfg) if cfg.is_encdec else None
+    return forward(params, tokens, cfg, frontend_embeds=frontend,
+                   enc_out=enc_out, last_only=True, tables=tables)
 
 
 # ---------------------------------------------------------------------------

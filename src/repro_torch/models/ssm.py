@@ -1,8 +1,8 @@
-"""Mamba2 state-space (SSD) block for the serving path (mamba2's layers,
-and jamba's SSM layers at N = 16, 128 heads): decode, the exact per-token
-chunk and the parallel SSD chunk.
+"""Mamba2 state-space (SSD) block (mamba2's layers, and jamba's SSM layers
+at N = 16, 128 heads): the full-sequence forward (``apply_ssm``), decode,
+the exact per-token chunk and the parallel SSD chunk.
 
-Port of the serving half of ``repro.models.ssm`` (arXiv:2405.21060):
+Port of ``repro.models.ssm`` (arXiv:2405.21060):
 inputs are projected to per-head x, a scalar decay A per head and B/C
 shared across heads (n_groups = 1), with a depthwise causal conv on (x, B,
 C) and a gated RMSNorm before the output projection. The reference's SSD
@@ -17,9 +17,10 @@ Each serving function takes the cache functionally (the new conv window
 and state come back, as in JAX) or, for the engine's compiled steps,
 writes them into the given cache slices in place (``active`` for decode,
 ``inplace`` for a chunk) through device masks only, bitwise what the
-functional function followed by ``merge_slots`` leaves. The training
-forward (``apply_ssm``, ``_causal_conv``) waits for the port's
-``transformer.forward``.
+functional function followed by ``merge_slots`` leaves. The forward
+(``apply_ssm``) runs the sequence in chunks of ``cfg.ssm_chunk`` through
+the same ``_ssd_chunk`` as the parallel prefill, after a causal conv over
+the whole sequence (``_causal_conv``).
 """
 
 from __future__ import annotations
@@ -84,6 +85,16 @@ def _split_proj(proj, cfg: ModelConfig):
     return z, xbc, dt
 
 
+def _causal_conv(xbc, w, b):
+    """Depthwise causal conv along time, then silu. xbc (B, L, C); w (W,
+    C); b (C,). The reference's ``_causal_conv``: the W shifted products
+    added in order 0..W-1."""
+    W = w.shape[0]
+    pad = F.pad(xbc, (0, 0, W - 1, 0))
+    out = sum(pad[:, i:i + xbc.shape[1], :] * w[i] for i in range(W))
+    return F.silu(out + b)
+
+
 def _gated_norm(y, z, scale, eps=1e-6):
     """RMSNorm of y * silu(z) in float32, cast back to y's dtype: the
     reference's ``_gated_norm``, which is ``rms_head_norm`` of the gated
@@ -119,6 +130,40 @@ def _ssd_chunk(state, xq, bq, cq, dtq, A):
     contrib = torch.einsum("bqh,bqn,bqhp->bhpn", decT * dtq, bf, xf)
     new_state = state * torch.exp(cum[:, -1, :])[:, :, None, None] + contrib
     return new_state, y
+
+
+def apply_ssm(p, x, cfg: ModelConfig, dense_fn=None):
+    """The full-sequence forward. x (B, L, D) -> (B, L, D).
+
+    dense_fn(w, x, name) intercepts the in/out projections (the joint
+    kernel's hook); the chunked state scan between them is projection-free
+    torch math, in the reference's order: the in-projection over the whole
+    sequence, the causal conv, then chunks of Q = min(cfg.ssm_chunk, L)
+    tokens through ``_ssd_chunk`` carrying the (B, nh, P, N) float32
+    state from zero, the D skip and the gated norm."""
+    mm = dense_fn or (lambda w, v, name: v @ w)
+    Bsz, L, _ = x.shape
+    d_in, nh, N, P = ssm_dims(cfg)
+    Q = min(cfg.ssm_chunk, L)
+    assert L % Q == 0, f"seq {L} not divisible by chunk {Q}"
+
+    z, xbc, dt_raw = _split_proj(mm(p["in_proj"], x, "in_proj"), cfg)
+    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    xs, Bmat, Cmat = torch.split(xbc, [d_in, N, N], dim=-1)
+    xs = xs.reshape(Bsz, L, nh, P)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])                # (B,L,nh)
+    A = -torch.exp(p["A_log"])                                     # (nh,)
+    state = torch.zeros((Bsz, nh, P, N), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for c in range(0, L, Q):
+        state, y = _ssd_chunk(state, xs[:, c:c + Q], Bmat[:, c:c + Q],
+                              Cmat[:, c:c + Q], dt[:, c:c + Q], A)
+        ys.append(y)
+    y = torch.cat(ys, dim=1)
+    y = y + xs.float() * p["D"][None, None, :, None]
+    y = y.reshape(Bsz, L, d_in).to(x.dtype)
+    return mm(p["out_proj"], _gated_norm(y, z, p["norm_scale"]), "out_proj")
 
 
 def _put_slots_(cache, new, keep):

@@ -1,17 +1,20 @@
-"""Parameter construction, the whisper encoder and the shared block tail.
+"""Parameter construction, the whisper encoder, the full-sequence forward
+and the shared block tail.
 
-Port of ``repro.models.transformer`` for serving: every decoder the
-segment layout describes (``models.segments``): dense-attention stacks
-(full causal or sliding-window attention), attention + MoE stacks
-(mixtral, arctic), attention-free SSM stacks (mamba2), hybrid stacks of
-interleaved SSM, attention, MLP and MoE layers (jamba), and the whisper
-decoder with cross-attention, beside its encoder (``encode``). Layer
-stacks are parameter-stacked with a leading layer axis, as in the JAX
-package; the decode loops in ``models.decode`` walk them layer by layer
-where JAX scans. Params come from a ``torch.Generator`` on the device,
-with the JAX package's shapes and scales (its numbers differ: the tests
-feed JAX-initialised params through ``repro_torch.weights`` instead).
-The full-sequence forward (``forward``, training) is not ported yet.
+Port of ``repro.models.transformer``: every decoder the segment layout
+describes (``models.segments``): dense-attention stacks (full causal or
+sliding-window attention), attention + MoE stacks (mixtral, arctic),
+attention-free SSM stacks (mamba2), hybrid stacks of interleaved SSM,
+attention, MLP and MoE layers (jamba), the whisper decoder with
+cross-attention beside its encoder (``encode``), and pixtral's vision
+stub (precomputed patch embeddings projected by ``patch_proj`` and
+prepended to the tokens; ``forward`` only). Layer stacks are
+parameter-stacked with a leading layer axis, as in the JAX package;
+``forward`` and the decode loops in ``models.decode`` walk them layer by
+layer where JAX scans. Params come from a ``torch.Generator`` on the
+device, with the JAX package's shapes and scales (its numbers differ: the
+tests feed JAX-initialised params through ``repro_torch.weights``
+instead). The training loss (``loss_fn``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,19 +28,25 @@ from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
-from .layers import apply_mlp, apply_norm, init_embeddings, init_mlp, init_norm
+from .layers import (_normal, apply_mlp, apply_norm, dtype_of, embed_tokens,
+                     init_embeddings, init_mlp, init_norm,
+                     logits_from_hidden)
 from .segments import Segment, decoder_layout, encoder_layout
+
+#: the frontends of the configs: none, whisper's stub frames (the encoder's
+#: input) and pixtral's stub patch embeddings (``forward``'s
+#: ``frontend_embeds``; decode and prefill chunks serve pixtral text-only,
+#: as the reference does)
+FRONTENDS = ("none", "audio_stub", "vision_stub")
 
 
 def _check_supported(cfg: ModelConfig):
-    """The decoder's segments; raises for the one frontend the port does
-    not serve (every mixer / FFN / cross-attention composition of the
-    segment layout is served)."""
-    if cfg.frontend == "vision_stub":
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the vision frontend (pixtral) "
-            f"enters only through the full-sequence forward, which is not "
-            f"ported yet (ROADMAP Queue 1 item 4b and the pixtral stub)")
+    """The decoder's segments (every mixer / FFN / cross-attention
+    composition of the segment layout is served); raises for a frontend
+    no config has."""
+    if cfg.frontend not in FRONTENDS:
+        raise ValueError(f"{cfg.name}: frontend {cfg.frontend!r} not in "
+                         f"{FRONTENDS}")
     return decoder_layout(cfg)
 
 
@@ -75,8 +84,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     stacks are drawn one (layer, expert) slice at a time; with
     ``expert_sink(seg, name, l, e, w)`` each slice goes there instead and
     the stack is a placeholder
-    (``sparsity.sparse_linear.init_stacked_serving``). On the meta device:
-    the tree, shapes and dtypes only, allocating nothing."""
+    (``sparsity.sparse_linear.init_stacked_serving``). A vision-stub
+    config (pixtral) also has ``patch_proj`` (d, d) in cfg.dtype, drawn
+    last. On the meta device: the tree, shapes and dtypes only, allocating
+    nothing."""
     dev = resolve_device(device)
     segs = _check_supported(cfg)
     gen = None                 # the meta device makes shapes, no numbers
@@ -92,6 +103,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
         enc = encoder_layout(cfg)[0]
         params["enc_blocks"] = _init_block(cfg, gen, dev, enc, (enc.length,))
         params["enc_final_norm"] = init_norm(cfg, cfg.d_model, dev)
+    if cfg.frontend == "vision_stub":
+        # projection of precomputed patch embeddings into the LM stream
+        params["patch_proj"] = (_normal(gen, (cfg.d_model, cfg.d_model), dev)
+                                * cfg.d_model ** -0.5).to(dtype_of(cfg))
     return params
 
 
@@ -142,6 +157,58 @@ def encode(params, frames, cfg: ModelConfig):
                                    causal=False)
         x = x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x, cfg), cfg)
     return apply_norm(params["enc_final_norm"], x, cfg)
+
+
+@torch.no_grad()
+def forward(params, tokens, cfg: ModelConfig, frontend_embeds=None,
+            enc_out=None, last_only: bool = False, tables=None):
+    """Full-sequence forward to logits: the reference's ``forward``.
+
+    tokens (B, S) int. frontend_embeds: pixtral's patch embeddings (B,
+    n_patches, D), projected by ``patch_proj`` (a plain matmul, as in the
+    reference) and prepended to the token stream; logits come for the
+    token positions only. enc_out: the whisper encoder's output (B, Se,
+    D) for cross-attention. last_only: unembed the last position only
+    (prefill). tables (sparsity.sparse_linear.SegmentedKernelTables):
+    every packed projection of every layer runs on the joint kernel, each
+    segment's layers with their slices of its stacked tables; None keeps
+    plain matmuls. Attention is causal over the sequence's own keys, with
+    ``cfg.window`` as a lower key bound; SSM layers run ``apply_ssm``
+    (S % min(cfg.ssm_chunk, S) == 0); MoE layers dispatch the whole
+    sequence at once, as the reference's forward does. Returns (B, S, V)
+    logits, or (B, 1, V) with ``last_only``."""
+    B, S = tokens.shape
+    x = embed_tokens(params["embed"], tokens, cfg)
+    n_front = 0
+    if cfg.frontend == "vision_stub" and frontend_embeds is not None:
+        fe = torch.matmul(frontend_embeds, params["patch_proj"])
+        x = torch.cat([fe.to(x.dtype), x], dim=1)
+        n_front = frontend_embeds.shape[1]
+    if cfg.rope_pct == 0:
+        x = x + _sinusoidal(x.shape[1], cfg.d_model, x.dtype, x.device)
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=x.device).expand(B, -1)
+    segs = _check_supported(cfg)
+    seg_tables = segment_tables(tables, segs, cfg)
+    for seg in segs:
+        st = seg_tables.get(seg.name)
+        for l in range(seg.length):
+            p = layer_slice(params[seg.name], l)
+            mm = (st.dense_fn(layer_slice(st.arrays, l))
+                  if st is not None else None)
+            hn = apply_norm(p["norm1"], x, cfg)
+            if seg.mixer == "attn":
+                x = x + attn_mod.attention(p["attn"], hn, cfg, positions,
+                                           dense_fn=mm)
+            else:
+                x = x + ssm_mod.apply_ssm(p["ssm"], hn, cfg, dense_fn=mm)
+            x = _block_tail(seg, p, x, cfg, mm, enc_out)
+    x = apply_norm(params["final_norm"], x, cfg)
+    if n_front:
+        x = x[:, n_front:]
+    if last_only:
+        x = x[:, -1:]
+    return logits_from_hidden(params["embed"], x, cfg)
 
 
 def _block_tail(seg: Segment, p, h, cfg: ModelConfig, mm=None,

@@ -223,11 +223,13 @@ def test_merge_and_reset_slots():
     assert (r["attn"]["k"][:, 2] == 1).all()
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma-7b", "stablelm-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "gemma-7b", "stablelm-1.6b",
+                                  "pixtral-12b"])
 def test_dense_variants_decode_step_match_jax(arch):
     """qk-norm (qwen3), (1 + w) norm / geglu / embed scale / tied
-    embeddings (gemma), layernorm / partial RoPE (stablelm): one decode
-    step with tables against JAX."""
+    embeddings (gemma), layernorm / partial RoPE (stablelm), a
+    vision-stub config decoding text-only (pixtral: its patch_proj rides
+    in the params, unread): one decode step with tables against JAX."""
     jcfg, jparams, jt, cfg, params, t = _setup(arch, bk=None)
     tok = np.array([[3], [17]], np.int32)
     jl, jcache = jax_decode_step(jparams, jax_init_cache(jcfg, 2, 8),

@@ -41,6 +41,7 @@ from repro_torch.models import attention, layers, moe
 from repro_torch.models.decode import _sinusoidal_at
 from repro_torch.models.inputs import (make_decode_token, make_train_batch,
                                        stub_frames)
+from repro_torch.models.segments import decoder_layout
 from repro_torch.models.transformer import _check_supported, _sinusoidal
 from repro_torch.models.transformer import layer_slice
 from repro_torch.obs import RecompileSentinel, encoder_per_call, per_call
@@ -207,13 +208,15 @@ def test_gelu_mlp_matches_jax(where):
 
 
 def test_check_supported_accepts_every_layout_but_the_vision_stub():
-    """Hybrid stacks, enc-dec and the gelu MLP are served; pixtral's vision
-    frontend (forward-only) is refused, naming its slice."""
-    for arch in (ARCH, "jamba-v0.1-52b", "mamba2-1.3b", "arctic-480b"):
-        _check_supported(get_config(arch, reduced=True))
+    """Hybrid stacks, enc-dec and the gelu MLP are served, and since the
+    full-sequence forward's slice so is pixtral's vision stub (its patch
+    embeddings enter through forward; decode serves it text-only): every
+    config's decoder layout comes back."""
+    for arch in (ARCH, "jamba-v0.1-52b", "mamba2-1.3b", "arctic-480b",
+                 "pixtral-12b"):
+        cfg = get_config(arch, reduced=True)
+        assert _check_supported(cfg) == decoder_layout(cfg)
     _check_supported(get_config("tinyllama-1.1b").scaled(mlp_type="gelu"))
-    with pytest.raises(NotImplementedError, match="4b"):
-        _check_supported(get_config("pixtral-12b", reduced=True))
 
 
 # ------------------------------------------------- params and packs ------
@@ -296,7 +299,8 @@ def test_encode_matches_jax(model):
 def test_cross_attention_matches_jax(model, tables):
     """cross_attention of layer 0 (wq on x, wk and wv on enc_out at every
     call) against the JAX function, plain and through the joint tables'
-    hook; the non-causal encoder attention too."""
+    hook; the encoder's non-causal attention and the full-sequence causal
+    attention too."""
     jcfg, jparams, jt, jenc, cfg, params, t, enc = model
     jp = jax.tree_util.tree_map(lambda a: a[0], jparams["blocks"])
     p = layer_slice(params["blocks"], 0)
@@ -320,9 +324,12 @@ def test_cross_attention_matches_jax(model, tables):
                               torch.zeros((3, 5), dtype=torch.int32),
                               causal=False)
     _close(got, ref, "non-causal attention")
-    with pytest.raises(NotImplementedError, match="4b"):
-        attention.attention(p["attn"], torch.from_numpy(x), cfg,
-                            torch.zeros((3, 5), dtype=torch.int32))
+    # causal attention (the full-sequence forward's) no longer raises
+    pos = jnp.broadcast_to(jnp.arange(5, dtype=jnp.int32), (3, 5))
+    ref = jax_attention.attention(jp["attn"], jnp.asarray(x), jcfg, pos)
+    got = attention.attention(p["attn"], torch.from_numpy(x), cfg,
+                              torch.from_numpy(np.asarray(pos)))
+    _close(got, ref, "causal attention")
 
 
 # ------------------------------------------------------ decode, chunks ---

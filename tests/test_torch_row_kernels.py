@@ -273,6 +273,41 @@ def test_row_attention_kernel_shapes_and_row_stability(cuda, hd, group, A,
             assert torch.equal(part, got[:, s0:s0 + n]), (n, s0)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("A,window", [(100, 1), (100, 17), (2048, 64),
+                                      (2048, 700), (2048, 2048),
+                                      (32768, 4096), (65536, 4096)])
+def test_row_attention_window_bound_on_card(cuda, A, window, dtype):
+    """The lower key bound (keys at or below qpos - window are dead, the
+    reference's sliding-window mask) at hd 128, group 4: within tolerance
+    of the plain version at the same window, with fully masked queries and
+    queries past the cache's end (all of whose keys the window then
+    masks); window 0 bitwise equal to the call without one; every query
+    bitwise equal alone and in 7- and 64-query calls. 32,768 keys take
+    the bf16 streaming path, 65,536 both streaming paths."""
+    tdt = getattr(torch, dtype)
+    q, k, v, qpos = _long_attn_inputs(128, 4, A, tdt, cuda, Sq=64)
+    before = rak.LAUNCHES
+    got = rak.row_attention(q, k, v, qpos, window)
+    torch.cuda.synchronize()
+    assert rak.LAUNCHES == before + 1
+    want = rak.row_attention_plain(q, k, v, qpos, window)
+    peak = want.float().abs().max().item()
+    tol = (ATTN_BF16_RTOL if dtype == "bfloat16" else F32_RTOL) * peak
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(rak.row_attention(q, k, v, qpos, 0),
+                       rak.row_attention(q, k, v, qpos))
+    for t in range(q.shape[1]):
+        one = rak.row_attention(q[:, t:t + 1].contiguous(), k, v,
+                                qpos[:, t:t + 1].contiguous(), window)
+        assert torch.equal(one, got[:, t:t + 1]), t
+    for n in (7, 64):
+        part = rak.row_attention(q[:, :n].contiguous(), k, v,
+                                 qpos[:, :n].contiguous(), window)
+        assert torch.equal(part, got[:, :n]), n
+
+
 @pytest.mark.parametrize("dtype,hd,A", [("bfloat16", 64, 32768),
                                         ("bfloat16", 128, 32768),
                                         ("float32", 64, 65536)])

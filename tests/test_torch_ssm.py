@@ -638,13 +638,14 @@ def test_serve_cli_runs_mamba2_on_cpu(capsys, exact):
     ("whisper-base", {"frontend": "vision_stub"}),
     ("tinyllama-1.1b", {"frontend": "vision_stub", "mlp_type": "gelu"})])
 def test_check_supported_still_refuses(arch, kw):
-    """The vision frontend (pixtral's stub) waits for the full-sequence
-    forward's slice, whatever the stack under it (hybrid stacks, enc-dec
-    and plain gelu MLPs are served since the hybrid and enc-dec slice:
-    tests/test_torch_hybrid.py, tests/test_torch_encdec.py)."""
+    """The vision frontend (pixtral's stub) is served on any stack under it
+    since the full-sequence forward's slice (hybrid stacks, enc-dec and
+    plain gelu MLPs since the hybrid and enc-dec slice); what is still
+    refused is a frontend no config has."""
     cfg = get_config(arch, reduced=True).scaled(**kw)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _check_supported(cfg)
+    assert _check_supported(cfg) == cfg.serving_capabilities().segments
+    with pytest.raises(ValueError, match="frontend"):
+        _check_supported(cfg.scaled(frontend="video_stub"))
 
 
 # ---------------------------------------------------- the weight bridge ---
