@@ -78,17 +78,18 @@ def build_step(cfg: ModelConfig, call_kind: str, *, stacked_tables=None):
 def build_prefill_step(cfg: ModelConfig, stacked_tables=None):
     """``prefill_step(params, batch)``: the last-position logits (B, 1, V)
     of the full forward over ``batch["tokens"]`` (``models.prefill``),
-    with ``batch.get("frames")`` encoded first (whisper) and
-    ``batch.get("frontend")`` prepended (pixtral's patch embeddings), as
-    ``models.inputs.make_train_batch`` makes them. Eager; tagged
-    "prefill". stacked_tables route every projection of every layer
-    through the joint kernel. (The reference's ``build_prefill_step`` also
-    returns its shardings; one card has none.)"""
+    with ``batch.get("frames")`` encoded first (whisper), as
+    ``models.inputs.make_train_batch`` makes them. Text only, as the
+    reference's step: it does not pass ``batch["frontend"]`` (pixtral's
+    patch embeddings) on; ``models.forward(frontend_embeds=...)`` takes
+    them. Eager; tagged "prefill". stacked_tables route every projection
+    of every layer through the joint kernel. (The reference's
+    ``build_prefill_step`` also returns its shardings; one card has
+    none.)"""
     @torch.no_grad()
     def prefill_step(params, batch):
         return prefill(params, batch["tokens"], cfg,
-                       frames=batch.get("frames"), tables=stacked_tables,
-                       frontend=batch.get("frontend"))
+                       frames=batch.get("frames"), tables=stacked_tables)
     prefill_step.call_kind = "prefill"
     prefill_step.arch = cfg.name
     return prefill_step

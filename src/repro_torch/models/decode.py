@@ -248,18 +248,16 @@ def _chunk(params, cache, tokens, n_valid, cfg, tables, inplace):
     return logits_from_hidden(params["embed"], x_last, cfg), new_cache
 
 
-def prefill(params, tokens, cfg: ModelConfig, frames=None, tables=None,
-            frontend=None):
+def prefill(params, tokens, cfg: ModelConfig, frames=None, tables=None):
     """Last-position logits (B, 1, V) of the full forward over a prompt
     batch, the reference's ``prefill``: an enc-dec config encodes
-    ``frames`` (B, Se, D) first (``encode``, unpacked); ``frontend``
-    (pixtral's patch embeddings, B x n_patches x D) is prepended, which the
-    reference's ``prefill`` does not pass on (its ``forward`` takes them).
-    Fills no cache: the engine fills caches through chunked or stepwise
-    decode."""
+    ``frames`` (B, Se, D) first (``encode``, unpacked). Text only, as the
+    reference's: pixtral's patch embeddings enter through
+    ``forward(frontend_embeds=...)``. Fills no cache: the engine fills
+    caches through chunked or stepwise decode."""
     enc_out = encode(params, frames, cfg) if cfg.is_encdec else None
-    return forward(params, tokens, cfg, frontend_embeds=frontend,
-                   enc_out=enc_out, last_only=True, tables=tables)
+    return forward(params, tokens, cfg, enc_out=enc_out, last_only=True,
+                   tables=tables)
 
 
 # ---------------------------------------------------------------------------

@@ -126,10 +126,13 @@ def init_embeddings(cfg: ModelConfig, gen, device):
 
 
 def embed_tokens(p, tokens, cfg: ModelConfig):
+    """The token rows of ``p["tok"]``; with ``cfg.embed_scale`` (gemma)
+    times sqrt(d_model) rounded to their dtype, as the reference's. The
+    scale is a host number: a tensor made on the card would be a copy
+    from the host, which a CUDA graph capture refuses."""
     x = p["tok"][tokens]
     if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
-                             device=x.device)
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
     return x
 
 

@@ -47,10 +47,13 @@ def per_call(cfg, token_steps: int = 1) -> dict:
     whisper-base's decoder 6 x (4 + 4 + 2) = 60), row_attention once per
     self- and once per cross-attention layer, row_norm once per layer for
     norm1, once more for the cross-attention's norm, the MLP's or MoE's
-    norm2 and the SSM's gated norm each, and once for the final norm
-    (jamba 32 x 2 + 28 + 1 = 93, whisper 6 x 3 + 1 = 19). An SSM layer of
-    an exact chunk walks ``token_steps`` token steps, each projecting
-    (in_proj, out_proj) and gating once; its FFN runs once a call."""
+    norm2 and the SSM's gated norm each, twice more per attention layer of
+    a ``cfg.qk_norm`` config (q and k), and once for the final norm
+    (jamba 32 x 2 + 28 + 1 = 93, whisper 6 x 3 + 1 = 19, qwen3-8b 36 x 7
+    = 252 joint, 36 row_attention, 36 x 4 + 1 = 145 row_norm). An SSM
+    layer of an exact chunk walks ``token_steps`` token steps, each
+    projecting (in_proj, out_proj) and gating once; its FFN runs once a
+    call."""
     from ..models.segments import packable_projections
     segs = cfg.serving_capabilities().segments
 
@@ -68,7 +71,9 @@ def per_call(cfg, token_steps: int = 1) -> dict:
                                  if s.mixer == "attn"),
             "row_norm": 1 + sum(s.length * (1 + s.cross
                                             + (s.ffn != "none")
-                                            + (s.mixer == "ssm") * steps(s))
+                                            + (s.mixer == "ssm") * steps(s)
+                                            + 2 * (s.mixer == "attn"
+                                                   and cfg.qk_norm))
                                 for s in segs)}
 
 

@@ -5,7 +5,8 @@ _sdpa, the SSM's _causal_conv and apply_ssm, forward (tinyllama, qwen3,
 gemma, stablelm, mixtral past its window, mamba2, jamba, whisper with
 enc_out, pixtral with its patch embeddings) with and without stacked
 joint tables, decode.prefill (whisper with frames) and build_prefill_step
-on a make_train_batch batch; pixtral served text-only by the engine
+on a make_train_batch batch against the reference's prefill (text only:
+pixtral's patches enter through forward); pixtral served text-only by the engine
 against JAX stepwise decode, and by the serve CLI; and, in the port
 alone, forward's logits against stepwise decode's at every position. The
 same JAX-initialised params go to both packages through
@@ -307,30 +308,54 @@ def test_prefill_matches_jax():
         _close(got, ref, F32_RTOL)
 
 
-@pytest.mark.parametrize("arch", ["pixtral-12b", "whisper-base",
-                                  "tinyllama-1.1b"])
-def test_prefill_step_on_a_train_batch_matches_jax(arch):
-    """build_prefill_step on make_train_batch (the same draws as the
-    reference's: pixtral's patches, whisper's frames) against the
-    reference's forward(last_only=True) on its own batch, with joint
-    tables."""
+def _train_batches(arch):
+    """The JAX package's and the port's make_train_batch (the same draws:
+    pixtral's patches, whisper's frames) and the reduced model of
+    ``arch`` with its joint tables on both sides."""
     jcfg, jparams, cfg, params = _model(arch)
     jb = jax_train_batch(jcfg, 2, 24, seed=3)
     b = make_train_batch(cfg, 2, 24, seed=3, device="cpu")
     assert set(b) == set(jb)
     for key in jb:
         np.testing.assert_array_equal(_np(b[key]), _np(jb[key]), key)
-    jt = jax_tables(jparams, jcfg, bk=32, bn=32)
-    enc = jax_encode(jparams, jb["frames"], jcfg) if cfg.is_encdec else None
-    ref = jax_forward(jparams, jb["tokens"], jcfg,
-                      frontend_embeds=jb.get("frontend"), enc_out=enc,
-                      last_only=True, tables=jt)
-    step = build_prefill_step(
-        cfg, stacked_tables=build_stacked_tables(params, cfg, bk=32, bn=32))
+    return (jcfg, jparams, jax_tables(jparams, jcfg, bk=32, bn=32), jb,
+            cfg, params, build_stacked_tables(params, cfg, bk=32, bn=32), b)
+
+
+@pytest.mark.parametrize("arch", ["pixtral-12b", "whisper-base",
+                                  "tinyllama-1.1b"])
+def test_prefill_step_on_a_train_batch_matches_jax(arch):
+    """build_prefill_step on make_train_batch against what the reference's
+    build_prefill_step calls on its own batch, with joint tables:
+    ``prefill(params, batch["tokens"], cfg, frames=batch.get("frames"))``
+    (text only: pixtral's patches are not passed on)."""
+    jcfg, jparams, jt, jb, cfg, params, tables, b = _train_batches(arch)
+    ref = jax_prefill(jparams, jb["tokens"], jcfg, frames=jb.get("frames"),
+                      tables=jt)
+    step = build_prefill_step(cfg, stacked_tables=tables)
     assert step.call_kind == "prefill"
     got = step(params, b)
     assert tuple(got.shape) == (2, 1, cfg.vocab_size)
     _close(got, ref, F32_RTOL)
+
+
+def test_prefill_step_leaves_pixtral_patches_to_forward():
+    """On a pixtral batch with patches, the port's prefill step equals the
+    reference's (text only), and so parts from forward(frontend_embeds=...),
+    which the patch path is held to against the reference's own."""
+    jcfg, jparams, jt, jb, cfg, params, tables, b = _train_batches(
+        "pixtral-12b")
+    assert b["frontend"].shape == (2, cfg.n_patches, cfg.d_model)
+    step = build_prefill_step(cfg, stacked_tables=tables)(params, b)
+    _close(step, jax_prefill(jparams, jb["tokens"], jcfg, tables=jt),
+           F32_RTOL)
+    patched = forward(params, b["tokens"], cfg, frontend_embeds=b["frontend"],
+                      last_only=True, tables=tables)
+    _close(patched, jax_forward(jparams, jb["tokens"], jcfg,
+                                frontend_embeds=jb["frontend"],
+                                last_only=True, tables=jt), F32_RTOL)
+    gap = (step - patched).abs().max().item()
+    assert gap > 100 * F32_RTOL * patched.abs().max().item(), gap
 
 
 # ------------------------------------------------- forward == decoding ---

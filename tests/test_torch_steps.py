@@ -25,8 +25,8 @@ from repro_torch.kernels import (block_sparse_matmul, dbmu_sim,
                                  row_attention, row_norm)
 from repro_torch.launch.steps import build_step, compile_step
 from repro_torch.models import (decode_chunk, decode_chunk_, decode_step,
-                                init_cache, init_params, merge_slots,
-                                reset_slots)
+                                decode_step_, init_cache, init_params,
+                                merge_slots, reset_slots)
 from repro_torch.obs import RecompileSentinel, device_launches, per_call
 from repro_torch.serving import ServeEngine, WorkloadSpec, make_trace
 from repro_torch.sparsity.sparse_linear import (build_stacked_tables,
@@ -205,16 +205,55 @@ def test_engine_streams_equal_jax_stepwise_one_compile_per_step():
 @pytest.mark.parametrize("arch,token_steps,want", [
     ("tinyllama-1.1b", 1, (154, 22, 45)),
     ("mamba2-1.3b", 1, (96, 0, 97)),
-    ("mamba2-1.3b", 8, (768, 0, 433))])
+    ("mamba2-1.3b", 8, (768, 0, 433)),
+    ("qwen3-8b", 1, (252, 36, 145)),
+    ("gemma-7b", 1, (196, 28, 57)),
+    ("stablelm-1.6b", 1, (168, 24, 49))])
 def test_per_call_counts_the_full_width_paths(arch, token_steps, want):
     """Launches per step call at full width: tinyllama's 22 layers x 7
     projections, an attention and two norms each, and the final norm;
     mamba2's 48 layers x 2 projections and two norms, no attention; an
-    exact chunk of 8 tokens projects and gates once per token step."""
+    exact chunk of 8 tokens projects and gates once per token step;
+    qwen3's qk-norm adds two norms (q and k) per attention layer."""
     cfg = get_config(arch, dbpim_mode="joint")
     got = per_call(cfg, token_steps)
     assert got == dict(zip(("joint_sparse_matmul", "row_attention",
                             "row_norm"), want))
+
+
+def test_per_call_counts_what_a_qwen3_step_launches(monkeypatch):
+    """The kernel wrappers' calls of one reduced qwen3 decode step and one
+    prefill-chunk call, counted by spies on the CPU, equal per_call: the
+    qk-norm's two row_norm calls per layer included."""
+    from repro_torch.kernels import ops
+    cfg, params, tables = _model(arch="qwen3-8b")
+    assert cfg.qk_norm
+    calls = dict.fromkeys(("joint_sparse_matmul", "row_attention",
+                           "row_norm"), 0)
+
+    def spy(mod, name):
+        fn = getattr(mod, name)
+
+        def counted(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        monkeypatch.setattr(mod, name, counted)
+    spy(ops, "joint_sparse_matmul")
+    spy(row_attention, "row_attention")
+    spy(row_norm, "row_norm")
+    cache = _filled_cache(cfg, params, tables, "cpu")
+    toks = torch.ones((B, C), dtype=torch.int32)
+    for what, run in (
+            ("decode", lambda: decode_step_(
+                params, cache, toks[:, :1], torch.ones(B, dtype=torch.bool),
+                cfg, tables=tables)),
+            ("chunk", lambda: decode_chunk_(
+                params, cache, toks, torch.full((B,), 2, dtype=torch.int32),
+                cfg, tables=tables))):
+        calls.update(dict.fromkeys(calls, 0))
+        run()
+        assert calls == per_call(cfg), (what, calls)
+    assert per_call(cfg)["row_norm"] == 4 * cfg.n_layers + 1
 
 
 # --------------------------------------------------------- on the card --
