@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 Phases, each printed on its own lines (each line after the seconds since
-the run started), run in the order 1, 2, 3, 4, 4b, 4c, 4d, 4e, 4f, 5, 6,
-7, 8; any failure raises and exits non-zero (no phase catches its own
-failure):
+the run started), run in the order 1, 2, 3, 4, 4b, 4g, 4c, 4d, 4e, 4f, 5,
+6, 7, 8; any failure raises and exits non-zero (no phase catches its own
+failure; phase 4g catches the one EngineStuckError it provokes):
 
   1. build  — nvcc builds the six kernels (joint_sparse_matmul,
               block_sparse_matmul, fta_int8_matmul, dbmu_matmul, and the
@@ -123,6 +123,38 @@ failure):
               phase_ssm_exact for the tolerances), the first layer's conv
               window bitwise; an exact-mode engine (2
               requests, chunks of 8) compiled == eager bitwise.
+  4g. admit — admission, SLO shedding and fault containment through the
+              compiled engine, on phase 4's full-width tinyllama-1.1b
+              params and tables (batch 4, max-len 512, chunks of 64; 12
+              requests at t = 0, prompts of 32 or 256, 32 generated).
+              FIFO, then SPF with age cap 2: streams and first-token
+              logits bitwise equal, skips <= the cap, another admission
+              order. SLO (deadlines 62 ticks after arrival, queue cap 8,
+              two NaN-logits faults on one slot): every request done, shed
+              or rejected, at least one shed from the queue, one from a
+              slot and one rejection; served streams FIFO's, a slot-shed
+              one a prefix; the per-request ticks and outcomes equal a
+              reduced tinyllama engine's on the CPU over the same lengths.
+              Chaos (FaultPlan.generate seed 0, rate 0.25, over the FIFO
+              run's ticks; 2 retries, 3 replays): streams bitwise FIFO's
+              (a prefix for a fault-budget shed); the faults by kind equal
+              the plan's events that landed, read from the trace
+              (``_fault_audit``: every NaN explained by the plan); device
+              launches == obs.per_call x calls; one signature a step. The
+              same plan traced: the same streams and device launches, the
+              trace validates, renders and converts to Chrome's format;
+              the tracer's host µs a tick. FaultPlan.none(): the streams
+              and launches of no plan. A NaN-logits fault on slot 0 at
+              tick 10 and a corruption of the reset slot at tick 11: the
+              streams, and the fault and replay counts of the CPU engine
+              (whose attention reads every key, as the reference's does);
+              the quarantine ticks of both printed (the card reads the
+              poison late: ROADMAP Queue 3). mamba2-1.3b with exact chunks
+              of 8 (phase 4's params and tables, 6 requests): the seed 0
+              plan and a corruption of a decoding slot's state, streams
+              bitwise the fault-free run's, every corrupted state read at
+              its next call. max_ticks=3: EngineStuckError with its
+              outputs, slot log, summary and dumped trace.
   4c. moe   — the MoE family. Grouped packs: each reduced mixtral and
               arctic expert stack packed on the card equals the CPU's
               byte for byte, and the slice-by-slice build
@@ -311,8 +343,9 @@ failure):
               4, 512-slot cache, hd 256, group 1) with SDPA beside it.
 
 The launch counts of the JSON record come from the main paths: phases 4,
-4c, 4d, 4e and 4f for the joint, row_attention and row_norm kernels (the
-device's records of the compiled serve runs, tinyllama's, mamba2's,
+4g, 4c, 4d, 4e and 4f for the joint, row_attention and row_norm kernels
+(the device's records of the compiled serve runs, tinyllama's (phase 4g's
+four counted runs among them), mamba2's,
 mixtral's, arctic's, jamba's, whisper's, pixtral's, qwen3's, gemma's and
 stablelm's, of whisper's encoder and of pixtral's patch forward and
 prefill step, and the wrappers' counts of the eager forward calls,
@@ -504,6 +537,36 @@ DENSE_FWD_S = 64
 #: the times phase's units of gemma-7b's decode call
 JOINT_GEMMA_DECODE_UNIT = "joint_sparse_matmul gemma decode"
 ATTN_GEMMA_DECODE_UNIT = "row_attention gemma decode"
+#: phase 4g: admission, SLO shedding and fault containment, on the serve
+#: phase's full-width tinyllama-1.1b params and tables: 12 requests all at
+#: t = 0, prompts of 32 or 256 tokens (bimodal), 32 generated each
+ADMIT_SPEC = dict(n_requests=12, arrival_rate=0.0, prompt_len=(32, 256),
+                  gen_len=(32, 32), dist="bimodal", seed=0)
+ADMIT_GEOMETRY = dict(n_slots=4, max_len=512, prefill_chunk=64)
+SPF_AGE_CAP = 2
+#: the SLO run: deadlines 62 ticks after arrival and a queue of 8 (the
+#: last 4 requests are rejected). Requests 6 and 7 cannot make it from the
+#: queue and are shed there; request 4 is admitted at tick 31 with no tick
+#: to spare, and two NaN-logits faults on its slot (its decode at tick 40,
+#: then its replay's chunk) cost it the tick that sheds it from its slot
+SLO_SLACK, SLO_QUEUE_CAP = 62.0, 8
+SLO_EVENTS = (dict(tick=40, kind="nan_logits", call="decode", slot=1),
+              dict(tick=41, kind="nan_logits", call="prefill", slot=1))
+#: the chaos run: FaultPlan.generate over the fault-free run's ticks
+CHAOS = dict(seed=0, rate=0.25)
+CHAOS_RETRIES, CHAOS_REPLAYS = 2, 3
+#: a cache corruption of a slot reset the tick before: request 0 (prompt
+#: 256) decodes in slot 0 at tick 10, a NaN-logits fault quarantines it,
+#: and the poison of tick 11 lands on the zeroed slot
+DEAD_KEY_EVENTS = (dict(tick=10, kind="nan_logits", call="decode", slot=0),
+                   dict(tick=11, kind="cache_corruption", slot=0))
+#: mamba2's exact-chunk chaos run: 6 requests, prompts 20-40 in chunks of
+#: SSM_EXACT_CHUNK, 8 generated, 4 slots; a cache corruption of slot 1 at
+#: tick 6 (decoding) joins the generated plan
+SSM_CHAOS_SPEC = dict(n_requests=6, arrival_rate=0.0, prompt_len=(20, 40),
+                      gen_len=(8, 8), seed=5)
+SSM_CHAOS_EVENT = dict(tick=6, kind="cache_corruption", slot=1)
+STUCK_TICKS = 3
 
 
 _T0 = time.monotonic()
@@ -2422,6 +2485,418 @@ def _counted_forward(fn, want, tag, what):
     return out, device
 
 
+class _CpuTwin:
+    """The reduced tinyllama-1.1b engine on the CPU (float32, plain
+    matmuls, phase 4g's geometry) over a trace's lengths and ticks, its
+    token ids folded into the reduced vocabulary: the schedule (admission,
+    first token, done, shed, faults landed) depends on lengths and ticks
+    only, and its plain attention reads every key, as the reference's
+    does."""
+
+    def __init__(self):
+        from repro_torch.configs import get_config
+        from repro_torch.models import init_params
+        self.cfg = get_config("tinyllama-1.1b", reduced=True).scaled(
+            dtype="float32")
+        self.params = init_params(self.cfg, device="cpu")
+
+    def run(self, trace, plan=None, tracer=None, **kw):
+        from repro_torch.serving import Request, ServeEngine
+        V = self.cfg.vocab_size
+        folded = [Request(r.rid, tuple(t % V for t in r.prompt), r.gen_len,
+                          r.arrival, r.deadline) for r in trace]
+        engine = ServeEngine(self.cfg, self.params, **{**ADMIT_GEOMETRY,
+                                                       **kw},
+                             fault_plan=plan, tracer=tracer, device="cpu")
+        engine.run(folded)
+        return engine
+
+
+def _schedule(engine):
+    """Per request (admitted, first token, done ticks, skips, faults,
+    replays, outcome and reason) and the slot audit log."""
+    return (engine.metrics.per_request(),
+            [(iv.slot, iv.rid, iv.admit_tick, iv.release_tick)
+             for iv in engine.slot_log])
+
+
+def _quarantines(records):
+    return [(r["tick"], r["attrs"]["slot"], r["attrs"]["kind"])
+            for r in records if r.get("name") == "quarantine"]
+
+
+def _fault_audit(plan, records, max_step_retries):
+    """The faults a traced run should have counted, from its plan and the
+    trace's schedule: every step exception the plan raised into a call the
+    run issued (each call span's failed attempts, plus one fault a
+    quarantined participant of a call whose retries ran out); every cache
+    corruption aimed at a slot occupied when its tick began; every
+    NaN-logits event aimed at a participant of a call that returned. A
+    quarantine for non-finite logits that no such event explains must
+    follow a landed corruption of its slot with no reset of the slot
+    between (detection by propagation); any other is "unexplained": a NaN
+    the plan did not put there. Returns the counts by kind, the NaN-logits
+    events landed, the landed corruptions by fate ("detected"; "superseded"
+    when a quarantine for another reason reset the slot first; "unread"
+    when the slot was freed or taken by another request first), and the
+    unexplained quarantines (tick, slot)."""
+    counts = {"step_exception": 0, "cache_corruption": 0,
+              "nonfinite_logits": 0}
+    occupied, poisoned, nan, call = set(), set(), set(), None
+    fate = {"detected": 0, "superseded": 0, "unread": 0}
+    unexplained = []
+
+    def clear(s, how):
+        if s in poisoned:
+            poisoned.discard(s)
+            fate[how] += 1
+    for r in records:
+        name, a = r.get("name"), r.get("attrs", {})
+        if r.get("type") == "span" and name == "tick":
+            for s in plan.cache_slots(r["tick"]):
+                if s in occupied:
+                    counts["cache_corruption"] += 1
+                    poisoned.add(s)
+        elif r.get("type") == "span" and name == "call":
+            call = r
+            reps = [e.repeat for e in plan.events
+                    if e.kind == "step_exception" and e.tick == r["tick"]
+                    and e.call in ("any", a["phase"])]
+            counts["step_exception"] += min(max(reps, default=0),
+                                            max_step_retries + 1)
+            if not a["ok"]:
+                counts["step_exception"] += len(a["participants"])
+                continue
+            for s in set(plan.logit_slots(r["tick"], a["phase"])):
+                if s in a["participants"]:
+                    nan.add((r["tick"], a["phase"], s))
+        elif name == "admit":
+            occupied.add(a["slot"])
+            clear(a["slot"], "unread")
+        elif name in ("release", "shed") and "slot" in a:
+            occupied.discard(a["slot"])
+            clear(a["slot"], "unread")
+        elif name == "quarantine":
+            s = a["slot"]
+            explained = (a["kind"] != "nonfinite_logits" or (
+                call["tick"], call["attrs"]["phase"], s) in nan)
+            counts["nonfinite_logits"] += a["kind"] == "nonfinite_logits"
+            if not explained and s not in poisoned:
+                unexplained.append((r["tick"], s))
+            clear(s, "superseded" if explained else "detected")
+    return {"counts": counts, "landed_nan": len(nan), **fate,
+            "unexplained": unexplained}
+
+
+def _streams_hold(outputs, engine, ref):
+    """Each request's stream is its fault-free stream, or a prefix of it
+    for a request shed after acceptance; returns the shed rids."""
+    shed = []
+    for rid, toks in outputs.items():
+        row = engine.metrics.requests[rid]
+        if row.outcome == "shed":
+            assert toks == ref[rid][:len(toks)], rid
+            shed.append(rid)
+        else:
+            assert row.outcome == "done" and toks == ref[rid], rid
+    return shed
+
+
+def phase_admission(engine, tables, ssm_engine, ssm_tables):
+    """Phase 4g: admission, SLO shedding and fault containment through the
+    compiled engine, at tinyllama-1.1b's full width on the serve phase's
+    params and tables, then on mamba2-1.3b's with exact chunks. Returns the
+    device launches of its counted runs (the fault-free, zero-plan and two
+    chaos runs), per kernel."""
+    import statistics
+    import tempfile
+
+    from repro_torch.launch.report import render
+    from repro_torch.obs import (RecompileSentinel, Tracer, load,
+                                 to_chrome_trace, validate)
+    from repro_torch.serving import (EngineStuckError, FaultEvent, FaultPlan,
+                                     ServeEngine, WorkloadSpec, make_trace)
+    t_phase = time.monotonic()
+    cfg, dev = engine.cfg, engine.device
+    trace = make_trace(WorkloadSpec(**ADMIT_SPEC), cfg.vocab_size)
+    twin = _CpuTwin()
+    keys = {RecompileSentinel.key(k, cfg.name): 1
+            for k in ("decode", "prefill_chunk_exact", "reset")}
+
+    class TimedTracer(Tracer):
+        """A tracer that keeps the host time spent in its own methods."""
+        spent = 0.0
+
+        def _timed(self, fn, *a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            self.spent += time.perf_counter() - t
+            return out
+
+        def begin(self, *a, **kw):
+            return self._timed(super().begin, *a, **kw)
+
+        def end(self, *a, **kw):
+            return self._timed(super().end, *a, **kw)
+
+        def event(self, *a, **kw):
+            return self._timed(super().event, *a, **kw)
+
+        def interval(self, *a, **kw):
+            return self._timed(super().interval, *a, **kw)
+
+    def build(plan=None, tracer=None, ticks=None, **kw):
+        e = ServeEngine(cfg, engine.params, **{**ADMIT_GEOMETRY, **kw},
+                        stacked_tables=tables, fault_plan=plan,
+                        tracer=tracer, device=dev)
+        if ticks is not None:
+            # each tick's wall µs and the tracer's own µs in it
+            tick = e.tick
+
+            def timed():
+                t, spent = time.perf_counter(), getattr(tracer, "spent", 0)
+                tick()
+                ticks.append((1e6 * (time.perf_counter() - t),
+                              1e6 * (getattr(tracer, "spent", 0) - spent)))
+            e.tick = timed
+        return e
+
+    def counted(plan=None, traced=False, **engine_kw):
+        """One run of ``trace`` through a new engine under the profiler
+        (``_counted_run``: device launches == obs.per_call x calls);
+        returns (engine, outputs, device launches, tick times)."""
+        box = {}
+
+        def fresh():
+            box["ticks"] = []
+            tracer = TimedTracer(arch=cfg.name) if traced else None
+            return build(plan, tracer, box["ticks"], **engine_kw)
+        e, out, device, _, _ = _counted_run(fresh(), trace, fresh)
+        assert e.sentinel.counts() == keys, e.sentinel.counts()
+        return e, out, device, box["ticks"]
+
+    # -- SPF against FIFO ----------------------------------------------
+    fifo, out_f, dev_f, _ = counted()
+    s_f = fifo.metrics.summary()
+    T = s_f["engine_ticks"]
+    spf = build(schedule="spf", spf_age_cap=SPF_AGE_CAP)
+    out_s = spf.run(trace)
+    assert out_s == out_f and set(out_f) == {r.rid for r in trace}
+    assert all(torch.equal(row, fifo.first_logits[rid])
+               for rid, row in spf.first_logits.items())
+    skips = [r.skips for r in spf.metrics.requests.values()]
+    order = {e: [iv.rid for iv in sorted(e.slot_log, key=lambda iv: (
+        iv.admit_tick, iv.slot))] for e in (fifo, spf)}
+    assert max(skips) <= SPF_AGE_CAP and order[spf] != order[fifo]
+    log(f"[admit] FIFO {T} ticks, {s_f['device_calls']} calls "
+        f"(admission order {order[fifo]}); SPF (age cap {SPF_AGE_CAP}) "
+        f"{spf.metrics.summary()['engine_ticks']} ticks, admission order "
+        f"{order[spf]}, skips max {max(skips)}: all 12 streams and "
+        f"first-token logits bitwise FIFO's")
+    del spf
+
+    # -- SLO --------------------------------------------------------------
+    slo_trace = make_trace(WorkloadSpec(**ADMIT_SPEC,
+                                        deadline_slack=SLO_SLACK),
+                           cfg.vocab_size)
+    slo_plan = FaultPlan(events=tuple(FaultEvent(**e) for e in SLO_EVENTS))
+    slo = build(slo_plan, queue_cap=SLO_QUEUE_CAP)
+    out_slo = slo.run(slo_trace)
+    rows = slo.metrics.requests
+    assert all(r.outcome in ("done", "shed", "rejected")
+               for r in rows.values()) and len(rows) == len(slo_trace)
+    shed_q = [r.rid for r in rows.values()
+              if r.outcome == "shed" and r.admitted_tick is None]
+    shed_s = [r.rid for r in rows.values()
+              if r.outcome == "shed" and r.admitted_tick is not None]
+    rejected = [r.rid for r in rows.values() if r.outcome == "rejected"]
+    assert shed_q and shed_s and rejected, (shed_q, shed_s, rejected)
+    assert sorted(_streams_hold(out_slo, slo, out_f)) == sorted(shed_s)
+    cpu = twin.run(slo_trace, slo_plan, queue_cap=SLO_QUEUE_CAP)
+    assert _schedule(slo) == _schedule(cpu), "SLO schedule vs the CPU's"
+    log(f"[admit] SLO (deadlines {SLO_SLACK:g} ticks after arrival, queue "
+        f"cap {SLO_QUEUE_CAP}, faults on request 4's slot at ticks 40 and "
+        f"41): done {sorted(out_slo.keys() - set(shed_s))}, shed from the "
+        f"queue {shed_q}, shed from a slot {shed_s} (partial streams "
+        f"{[len(out_slo[r]) for r in shed_s]} tokens, prefixes of FIFO's), "
+        f"rejected {rejected}; served streams FIFO's; per-request ticks "
+        f"(admitted, first token, done), outcomes and slot log equal the "
+        f"reduced CPU engine's on the same lengths")
+    del slo
+
+    # -- chaos ------------------------------------------------------------
+    plan = FaultPlan.generate(n_ticks=T, n_slots=ADMIT_GEOMETRY["n_slots"],
+                              **CHAOS)
+    chaos_kw = dict(max_step_retries=CHAOS_RETRIES,
+                    max_replays=CHAOS_REPLAYS)
+    chaos, out_c, dev_c, ticks_c = counted(plan, **chaos_kw)
+    traced, out_t, dev_t, ticks_t = counted(plan, traced=True, **chaos_kw)
+    s_c, s_t = chaos.metrics.summary(), traced.metrics.summary()
+    assert out_t == out_c and dev_t == dev_c, (dev_t, dev_c)
+    for key in ("engine_ticks", "calls_by_kind", "faults", "retries",
+                "replays", "n_shed"):
+        assert s_t[key] == s_c[key], key
+    shed_c = _streams_hold(out_c, chaos, out_f)
+    assert all(chaos.metrics.requests[r].reason == "fault_budget"
+               for r in shed_c)
+    records = traced.tracer.records
+    audit = _fault_audit(plan, records, CHAOS_RETRIES)
+    assert not audit["unexplained"], audit
+    assert s_c["faults"] == {k: n for k, n in audit["counts"].items() if n}, \
+        (s_c["faults"], audit)
+    assert s_c["device_calls"] == sum(s_c["calls_by_kind"].values())
+    spans = [r for r in records if r.get("type") == "span"]
+    assert sum(r["name"] == "call" and r["attrs"]["ok"]
+               for r in spans) == s_c["device_calls"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "chaos.jsonl")
+        traced.tracer.dump(path)
+        loaded = load(path)
+    stats = validate(loaded)
+    report = render(loaded)
+    chrome = to_chrome_trace(loaded)["traceEvents"]
+    assert "== FAULTS / RECOVERY ==" in report and chrome
+    cpu = twin.run(trace, plan, **chaos_kw)
+    s_cpu = cpu.metrics.summary()
+    by_kind = {k: s_c["calls_by_kind"].get(k, 0) - s_f["calls_by_kind"].get(
+        k, 0) for k in s_c["calls_by_kind"]}
+    log(f"[admit] chaos (FaultPlan.generate seed {CHAOS['seed']}, rate "
+        f"{CHAOS['rate']}, {T} ticks: {len(plan.events)} events; retries "
+        f"{CHAOS_RETRIES}, replays {CHAOS_REPLAYS}): {s_c['engine_ticks']} "
+        f"ticks, {s_c['device_calls']} device calls "
+        f"({s_c['calls_by_kind']}; fault-free {s_f['device_calls']}, "
+        f"+{s_c['device_calls'] - s_f['device_calls']} by kind {by_kind}: "
+        f"the replay prefills, and the calls of the "
+        f"{s_c['engine_ticks'] - T} ticks the replays added; a retry "
+        f"re-issues a call that never ran), faults {s_c['faults']} == the "
+        f"plan's "
+        f"landed events (NaN logits {audit['landed_nan']}; corruptions "
+        f"detected {audit['detected']}, reset first by another quarantine "
+        f"{audit['superseded']}, freed unread {audit['unread']}; no "
+        f"quarantine unexplained), retries "
+        f"{s_c['retries']}, replays {s_c['replays']}, shed {s_c['n_shed']} "
+        f"(fault budget), rejected {s_c['n_rejected']}; every stream bitwise "
+        f"the fault-free one{' or a prefix' if shed_c else ''}; device "
+        f"launches " + ", ".join(f"{k} {n}" for k, n in dev_c.items() if n)
+        + f" == obs.per_call x {s_c['device_calls']} calls; one signature "
+        f"per step")
+    log(f"[admit] the reduced CPU engine (plain attention, the reference's "
+        f"reading of dead keys) under the same plan: {s_cpu['engine_ticks']} "
+        f"ticks, {s_cpu['device_calls']} calls, faults {s_cpu['faults']}, "
+        f"replays {s_cpu['replays']}; schedule "
+        f"{'equal' if _schedule(cpu) == _schedule(chaos) else 'DIFFERS'}")
+    med = {name: (statistics.median(w for w, _ in ts),
+                  statistics.median(t for _, t in ts))
+           for name, ts in (("untraced", ticks_c), ("traced", ticks_t))}
+    log(f"[admit] traced run == untraced: streams, device launches, ticks, "
+        f"calls by kind and faults equal; the trace validates ({stats}), "
+        f"renders ({len(report.splitlines())} lines) and converts "
+        f"({len(chrome)} Chrome events); host µs a tick (median, under the "
+        f"profiler): untraced {med['untraced'][0]:.1f}, traced "
+        f"{med['traced'][0]:.1f}, the tracer's own {med['traced'][1]:.1f} "
+        f"(mean {1e6 * traced.tracer.spent / s_t['engine_ticks']:.1f})")
+    del chaos, traced
+
+    # -- the zero plan ----------------------------------------------------
+    zero, out_z, dev_z, _ = counted(FaultPlan.none())
+    s_z = zero.metrics.summary()
+    assert out_z == out_f and dev_z == dev_f, (dev_z, dev_f)
+    for key in ("engine_ticks", "device_calls", "calls_by_kind"):
+        assert s_z[key] == s_f[key], key
+    assert s_z["n_faults"] == s_z["retries"] == s_z["replays"] == 0
+    log(f"[admit] FaultPlan.none(): streams, {s_z['device_calls']} calls "
+        f"and device launches equal the run without a plan")
+    del zero
+
+    # -- a corruption of a slot reset the tick before ---------------------
+    dk_plan = FaultPlan(events=tuple(FaultEvent(**e)
+                                     for e in DEAD_KEY_EVENTS))
+    dk = build(dk_plan, Tracer())
+    out_dk = dk.run(trace)
+    cpu = twin.run(trace, dk_plan, tracer=Tracer())
+    assert out_dk == out_f, "dead-key plan streams"
+    got = (dk.metrics.summary()["faults"], dk.metrics.summary()["replays"])
+    want = (cpu.metrics.summary()["faults"], cpu.metrics.summary()["replays"])
+    # the card's bf16 attention skips the key tiles past a row's last live
+    # one: the replay reads the poison only at the call whose last tile
+    # still holds a poisoned row, so the quarantine comes later than the
+    # reference's (ROADMAP Queue 3); the counts must agree
+    log(f"[admit] NaN logits on slot 0 at tick 10, then a corruption of the "
+        f"reset slot at tick 11: streams bitwise FIFO's; faults and replays "
+        f"card {got[0]}, {got[1]}, CPU (the reference's reading) {want[0]}, "
+        f"{want[1]}; quarantines (tick, slot) card "
+        f"{[q[:2] for q in _quarantines(dk.tracer.records)]}, CPU "
+        f"{[q[:2] for q in _quarantines(cpu.tracer.records)]}; "
+        f"{dk.metrics.summary()['engine_ticks']} vs "
+        f"{cpu.metrics.summary()['engine_ticks']} ticks")
+    assert got == want, (got, want)
+    del dk
+
+    # -- mamba2 with exact chunks -----------------------------------------
+    exact = ssm_engine.cfg.scaled(prefill_exact=True)
+    ssm_trace = make_trace(WorkloadSpec(**SSM_CHAOS_SPEC), exact.vocab_size)
+
+    def ssm_build(plan=None, tracer=None):
+        return ServeEngine(exact, ssm_engine.params, n_slots=4,
+                           max_len=ssm_engine.max_len,
+                           prefill_chunk=SSM_EXACT_CHUNK,
+                           stacked_tables=ssm_tables, fault_plan=plan,
+                           tracer=tracer, device=dev, **chaos_kw)
+    ref_e = ssm_build()
+    ssm_ref = ref_e.run(ssm_trace)
+    T_ssm = ref_e.metrics.summary()["engine_ticks"]
+    ssm_plan = FaultPlan(events=FaultPlan.generate(
+        n_ticks=T_ssm, n_slots=4, **CHAOS).events
+        + (FaultEvent(**SSM_CHAOS_EVENT),))
+    ssm = ssm_build(ssm_plan, Tracer())
+    out_m = ssm.run(ssm_trace)
+    s_m = ssm.metrics.summary()
+    shed_m = _streams_hold(out_m, ssm, ssm_ref)
+    audit_m = _fault_audit(ssm_plan, ssm.tracer.records, CHAOS_RETRIES)
+    assert not audit_m["unexplained"], audit_m
+    assert s_m["faults"] == {k: n for k, n in audit_m["counts"].items()
+                             if n}, (s_m["faults"], audit_m)
+    assert audit_m["counts"]["cache_corruption"] >= 1
+    assert audit_m["unread"] == 0, audit_m
+    assert ssm.prefill_kind == "prefill_chunk_exact"
+    assert set(ssm.sentinel.counts().values()) == {1}
+    log(f"[admit] mamba2-1.3b, exact chunks of {SSM_EXACT_CHUNK}: "
+        f"{len(ssm_trace)} requests, {T_ssm} ticks fault-free; the seed "
+        f"{CHAOS['seed']} plan ({len(ssm_plan.events)} events, a corruption "
+        f"of slot {SSM_CHAOS_EVENT['slot']} at tick "
+        f"{SSM_CHAOS_EVENT['tick']} among them): {s_m['engine_ticks']} "
+        f"ticks, faults {s_m['faults']} == landed (every corrupted state read "
+        f"at its slot's next call: {audit_m['detected']} detected, "
+        f"{audit_m['superseded']} reset first by another quarantine), "
+        f"retries {s_m['retries']}, replays "
+        f"{s_m['replays']}, shed {shed_m}; streams bitwise the fault-free "
+        f"exact run's")
+    del ref_e, ssm
+
+    # -- EngineStuckError -------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "stuck.jsonl")
+        stuck = build(tracer=Tracer(arch=cfg.name, path=path),
+                      max_ticks=STUCK_TICKS)
+        try:
+            stuck.run(trace)
+        except EngineStuckError as e:
+            err = e
+        else:
+            raise AssertionError("max_ticks did not stop the engine")
+        assert err.outputs == stuck.outputs and err.outputs
+        assert [iv.admit_tick for iv in err.slot_log] == [0] * 4
+        assert err.summary["engine_ticks"] == STUCK_TICKS + 1
+        assert err.trace_path == path
+        stuck_stats = validate(load(path))
+    log(f"[admit] max_ticks={STUCK_TICKS}: EngineStuckError after "
+        f"{err.summary['engine_ticks']} ticks with {len(err.outputs)} "
+        f"partial streams, {len(err.slot_log)} slot intervals, the summary "
+        f"and the trace dumped to its path ({stuck_stats})")
+    log(f"[admit] phase 4g took {time.monotonic() - t_phase:.1f} s")
+    return {k: dev_f[k] + dev_z[k] + dev_c[k] + dev_t[k] for k in dev_f}
+
+
 def _stack_build(args, cfg, dev, tag):
     """The serve CLI's engine, trace and tables for a dense-MLP config at
     full width (``init_stacked_serving``: every stacked projection drawn
@@ -3655,6 +4130,7 @@ def main() -> int:
     ssm_launches, ssm_engine, ssm_eager, ssm_tables = phase_serve(
         dev, SSM_SERVE_ARGS, "prefill_parallel")
     phase_ssm_exact(ssm_engine, ssm_tables)
+    admit_launches = phase_admission(engine, tables, ssm_engine, ssm_tables)
     phase_moe_pack(dev)
     moe_launches = phase_moe_serve(dev)
     torch.cuda.empty_cache()
@@ -3677,7 +4153,7 @@ def main() -> int:
     launches = {k: n + ssm_launches[k] + moe_launches[k] + arctic_launches[k]
                 + jamba_launches[k] + whisper_launches[k]
                 + pixtral_launches[k] + dense_launches[k]
-                + sum(f[k] for f in fwd_launches)
+                + admit_launches[k] + sum(f[k] for f in fwd_launches)
                 for k, n in serve_launches.items()}
     launches.update(mode_launches, dbmu_matmul=phase_dbmu(cfg, dev))
     phase_profile_long(engine, tables, phase_profile(

@@ -1,1 +1,2 @@
-"""Entry points of the port: fixed-shape serving steps and the serve CLI."""
+"""Entry points of the port: fixed-shape serving steps, the serve CLI and
+the trace report CLI."""

@@ -39,7 +39,27 @@ attention's k/v from its output, as the reference does.
 
 Load is a deterministic trace (serving.workload): Poisson arrivals at
 ``--arrival-rate`` requests/tick, prompt lengths from ``--prompt-len LO
-HI`` under ``--dist``, fixed ``--seed``.
+HI`` under ``--dist``, generation lengths under ``--gen-dist``, fixed
+``--seed``.
+
+Admission and SLOs: ``--schedule spf`` admits the shortest arrived
+prompt first (``--spf-age-cap`` bounds how often a request is passed
+over); ``--deadline-slack`` gives every request a deadline that many
+ticks after its arrival, and the engine sheds what cannot meet it;
+``--queue-cap`` bounds the queue; ``--strict-admission`` raises on an
+oversized request instead of recording its rejection.
+
+Faults: ``--fault-rate`` installs a seeded fault plan
+(serving.faults.FaultPlan.generate over ``--fault-ticks`` ticks from
+``--fault-seed``): step exceptions, NaN logits and NaN-poisoned slot
+caches, contained by bounded retry (``--max-step-retries``), quarantine
+and replay, with ``--max-replays`` replays a request. ``--trace-out``
+writes the engine's two-clock trace as JSONL; render it with
+``python -m repro_torch.launch.report PATH``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+        tinyllama-1.1b --reduced --dbpim-mode joint --device cpu \
+        --fault-rate 0.25 --trace-out trace.jsonl
 """
 
 from __future__ import annotations
@@ -53,7 +73,9 @@ from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import encode
 from repro_torch.models.inputs import stub_frames
-from repro_torch.serving import ServeEngine, WorkloadSpec, make_trace
+from repro_torch.obs import Tracer
+from repro_torch.serving import (FaultPlan, ServeEngine, WorkloadSpec,
+                                 make_trace)
 from repro_torch.sparsity.sparse_linear import init_stacked_serving
 
 
@@ -92,6 +114,45 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["uniform", "bimodal", "fixed", "lognormal",
                              "zipf"],
                     help="prompt-length distribution")
+    ap.add_argument("--gen-dist", default="uniform",
+                    choices=["uniform", "bimodal", "fixed", "lognormal",
+                             "zipf"],
+                    help="generation-length distribution over --gen-len")
+    ap.add_argument("--schedule", default="fifo", choices=["fifo", "spf"],
+                    help="admission order: fifo, or shortest-prompt-first "
+                         "(spf; starvation bounded by --spf-age-cap)")
+    ap.add_argument("--spf-age-cap", type=int, default=8,
+                    help="spf: max times a request may be queue-jumped "
+                         "before it becomes urgent")
+    ap.add_argument("--deadline-slack", type=float, default=None,
+                    help="SLO: every request must complete within this "
+                         "many ticks of its arrival or be shed (recorded "
+                         "in metrics, never raised); default: no SLO")
+    ap.add_argument("--queue-cap", type=int, default=None,
+                    help="bounded admission queue: submissions beyond the "
+                         "cap are rejected (recorded load shedding)")
+    ap.add_argument("--strict-admission", action="store_true",
+                    help="raise ValueError on an oversized or duplicate "
+                         "request instead of recording a rejection")
+    ap.add_argument("--fault-rate", type=float, default=0.0,
+                    help="inject a deterministic fault schedule: per-tick "
+                         "probability of one fault (step exception, NaN "
+                         "logits, or a corrupted slot cache); faulted "
+                         "slots quarantine and recover by replay")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the injected fault schedule")
+    ap.add_argument("--fault-ticks", type=int, default=1000,
+                    help="horizon (ticks) the fault schedule covers")
+    ap.add_argument("--max-step-retries", type=int, default=2,
+                    help="bounded retry of a failed device call before "
+                         "every participating slot quarantines")
+    ap.add_argument("--max-replays", type=int, default=3,
+                    help="per-request fault budget: past it the request "
+                         "is shed instead of replayed again")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="dump the structured two-clock trace (spans, "
+                         "events, slot intervals) as JSONL; render with "
+                         "python -m repro_torch.launch.report")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without a card)")
@@ -133,16 +194,39 @@ def build_engine_and_trace(args, cfg):
     enc_out = None
     if cfg.is_encdec:
         enc_out = encode_frames(params, cfg, args.batch, args.seed, dev)
+    fault_plan = None
+    if args.fault_rate > 0:
+        fault_plan = FaultPlan.generate(
+            seed=args.fault_seed, n_ticks=args.fault_ticks,
+            rate=args.fault_rate, n_slots=args.batch)
+        print(f"[serve] fault plan: {len(fault_plan.events)} events over "
+              f"{args.fault_ticks} ticks (seed={args.fault_seed}, "
+              f"rate={args.fault_rate})")
+    tracer = None
+    if args.trace_out:
+        # path=: EngineStuckError dumps the trace there before it raises
+        tracer = Tracer(arch=cfg.name, meta={
+            "n_slots": args.batch, "prefill_chunk": args.prefill_chunk,
+            "schedule": args.schedule, "seed": args.seed},
+            path=args.trace_out)
     engine = ServeEngine(cfg, params, n_slots=args.batch,
                          max_len=args.max_len,
                          prefill_chunk=args.prefill_chunk,
                          prefill_mode=args.prefill_mode,
-                         stacked_tables=tables, enc_out=enc_out, device=dev)
+                         schedule=args.schedule,
+                         spf_age_cap=args.spf_age_cap,
+                         stacked_tables=tables, enc_out=enc_out,
+                         strict=args.strict_admission,
+                         queue_cap=args.queue_cap, fault_plan=fault_plan,
+                         max_step_retries=args.max_step_retries,
+                         max_replays=args.max_replays, tracer=tracer,
+                         device=dev)
     spec = WorkloadSpec(n_requests=args.requests,
                         arrival_rate=args.arrival_rate,
                         prompt_len=tuple(args.prompt_len),
                         gen_len=(args.gen_len, args.gen_len),
-                        dist=args.dist, seed=args.seed)
+                        dist=args.dist, gen_dist=args.gen_dist,
+                        seed=args.seed, deadline_slack=args.deadline_slack)
     return engine, make_trace(spec, cfg.vocab_size), tables
 
 
@@ -162,13 +246,23 @@ def main(argv=None):
           f"{s['device_calls']} device calls "
           f"({s['decode_calls']} decode + {s['prefill_calls']} prefill, "
           f"prefill {engine.prefill_mode}, kind {engine.prefill_kind})")
-    if s["ttft_ticks_mean"] is not None:
-        print(f"[serve] tokens/step={s['tokens_per_step']:.3f}  ttft_ticks "
-              f"mean={s['ttft_ticks_mean']:.1f} p95={s['ttft_ticks_p95']}")
+    ttft = (f"mean={s['ttft_ticks_mean']:.1f} p95={s['ttft_ticks_p95']}"
+            if s["ttft_ticks_mean"] is not None else "n/a")
+    print(f"[serve] tokens/step={s['tokens_per_step']:.3f}  ttft_ticks "
+          f"{ttft}  queue_depth mean={s['queue_depth_mean']:.2f} "
+          f"max={s['queue_depth_max']}  schedule={engine.schedule}")
     if s["tokens_per_sec"]:
         print(f"[serve] wall {s['wall_s']:.2f}s  "
               f"{s['tokens_per_sec']:.1f} tok/s  "
               f"{s['per_token_latency_ms']:.2f} ms/token")
+    if s["n_faults"] or s["n_rejected"] or s["n_shed"]:
+        print(f"[serve] goodput {s['goodput']:.2f}  faults {s['faults']}  "
+              f"retries {s['retries']}  replays {s['replays']}  "
+              f"rejected {s['n_rejected']}  shed {s['n_shed']}  "
+              f"straggler_ticks {s['straggler_ticks']}")
+    if s["slot_busy_frac"] is not None:
+        print(f"[serve] slot_busy_frac {s['slot_busy_frac']:.2f}  per-slot "
+              f"{[round(o, 2) for o in s['slot_occupancy']]}")
     for kind, h in s["call_latency_ms"].items():
         print(f"[serve] latency {kind}: p50={h['p50_ms']:.2f} "
               f"p95={h['p95_ms']:.2f} p99={h['p99_ms']:.2f} ms "
@@ -180,6 +274,11 @@ def main(argv=None):
         print(f"[serve] peak device memory "
               f"{torch.cuda.max_memory_allocated(engine.device) / 2**30:.2f}"
               f" GiB")
+    if engine.tracer is not None:
+        engine.tracer.dump(args.trace_out)
+        print(f"[serve] trace: {len(engine.tracer.records)} records -> "
+              f"{args.trace_out} (render: python -m "
+              f"repro_torch.launch.report {args.trace_out})")
     for rid in sorted(outputs):
         print(f"  req{rid}: {outputs[rid][:8]}...")
     return outputs

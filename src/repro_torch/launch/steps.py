@@ -21,6 +21,17 @@ from repro_torch.models.config import ModelConfig
 
 SERVE_CALL_KINDS = ("decode", "prefill_chunk", "reset")
 
+#: Call-kind tag suffix for recovery traffic: a quarantined slot's replay
+#: re-prefills through the one compiled prefill step, and the engine
+#: meters those calls under "<call_kind>+replay"
+#: (``metrics.calls_by_kind``), as the reference does.
+REPLAY_TAG = "+replay"
+
+#: The same for warm-restart traffic, "<call_kind>+restore" (the restore
+#: path comes with the durability slice; the tag is the metrics'
+#: vocabulary already).
+RESTORE_TAG = "+restore"
+
 
 def build_step(cfg: ModelConfig, call_kind: str, *, stacked_tables=None):
     """One serving step, updating the cache where it lies (the counterpart

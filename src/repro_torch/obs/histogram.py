@@ -11,8 +11,8 @@ relative resolution is constant (``growth - 1``, ~9% at the default
 Percentiles are nearest-rank over the bucket counts and report the
 GEOMETRIC MIDPOINT of the selected bucket — the estimate's relative
 error is bounded by half a bucket width. Port of
-``repro.obs.histogram`` (recording and percentiles; merging and the
-JSON round trip come with the tracer and snapshot slices).
+``repro.obs.histogram`` (recording, percentiles and the JSON round trip
+``metrics.state_dict`` carries; merging comes with the snapshot slice).
 """
 
 from __future__ import annotations
@@ -77,3 +77,18 @@ class LogHistogram:
             "p95_ms": 1e3 * self.percentile(0.95),
             "p99_ms": 1e3 * self.percentile(0.99),
         }
+
+    def to_dict(self) -> dict:
+        """JSON-safe snapshot (bucket keys stringified for JSONL)."""
+        return {"min_value": self.min_value, "growth": self.growth,
+                "count": self.count, "total": self.total,
+                "buckets": {str(i): n for i, n in
+                            sorted(self.buckets.items())}}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "LogHistogram":
+        h = cls(min_value=d["min_value"], growth=d["growth"])
+        h.count = int(d["count"])
+        h.total = float(d["total"])
+        h.buckets = {int(i): int(n) for i, n in d["buckets"].items()}
+        return h

@@ -1,9 +1,10 @@
 """Request-level serving engine: admission queue + per-slot state machine
 + fixed-shape steps.
 
-Port of the FIFO, contiguous-cache subset of ``repro.serving.engine``,
-with both prefill modes. The engine owns a static batch of ``n_slots``
-cache slots; each request moves through
+Port of ``repro.serving.engine`` over a contiguous cache, with both
+prefill modes, both admission orders, SLO shedding, fault containment
+and tracing. The engine owns a static batch of ``n_slots`` cache slots;
+each request moves through
 
     QUEUED -> PREFILLING -> DECODING -> DONE
 
@@ -16,8 +17,8 @@ with all scheduling on the host and all math in two fixed-shape steps
     in prefill_mode "chunked" only: in "full" mode (and for
     sliding-window archs, which cannot chunk) prompt tokens ride the
     decode step one at a time and no chunk step is built;
-  * slot reset    zeroes a freed slot's cache slice and position before
-    admission (models.decode.reset_slots_).
+  * slot reset    zeroes a slot's cache slice and position before
+    admission and at a quarantine (models.decode.reset_slots_).
 
 An enc-dec model (whisper) takes ``enc_out``, the encoder's output with
 one row per slot, into the cache: every step reads it, and it stays with
@@ -30,13 +31,52 @@ the cache updated in place; on the CPU the same in-place steps run
 eagerly. The recompile sentinel (``obs.sentinel``) holds each step to one
 compiled signature and is checked at the end of every tick.
 
-One engine TICK = admit -> (prefill chunk, if any slot is prefilling and
-the mode is "chunked") -> (decode step, if any slot is decoding, or
-prefilling in "full" mode): prefilling a new request never stalls
-in-flight decodes. Tick accounting and the slot state machine are
-the reference's; its fault tolerance, tracing, journal, snapshots,
-paging, SPF admission and SLO shedding are not ported yet and the
-constructor refuses them.
+One engine TICK = (cache faults of the fault plan) -> (slot shedding) ->
+admit -> (prefill chunk, if any slot is prefilling and the mode is
+"chunked") -> (decode step, if any slot is decoding, or prefilling in
+"full" mode): prefilling a new request never stalls in-flight decodes.
+
+Admission (``schedule``): "fifo" admits in arrival order; "spf" admits
+the shortest ARRIVED prompt first, with starvation bounded by
+``spf_age_cap``: every shortest-first pick raises the skip count of each
+arrived request it passed over, and a request at the cap is urgent and
+goes first (oldest arrival first; urgent picks raise no counts), so
+``skips <= spf_age_cap`` always.
+
+SLO shedding and admission control, all RECORDED (metrics.on_reject /
+on_shed), never raised mid-trace (``strict=True`` raises ValueError for
+an oversized or duplicate request instead): a bounded queue
+(``queue_cap``) rejects at submit; a queued request whose optimistic
+completion estimate overshoots its ``Request.deadline`` is shed before
+it takes a slot; an in-flight one is shed the tick its deadline becomes
+unreachable.
+
+Fault containment (``fault_plan``, serving.faults; blast radius <= one
+tick, recovery bitwise):
+
+  * every device call runs under bounded retry (``max_step_retries``);
+    past the budget every slot of the call is quarantined. With no plan
+    installed a step's exception propagates unchanged;
+  * a finite guard checks each participating slot's logits row on the
+    host and fails only that slot (a NaN-poisoned cache surfaces there:
+    detection by propagation);
+  * a quarantined slot's token is dropped, its cache slices are zeroed
+    by the compiled reset step, and it re-prefills its durable record
+    (prompt + tokens emitted so far) in chunks: chunk == stepwise decode
+    (bitwise on the card, within 1e-6 on the CPU; ``cfg.prefill_exact``
+    for SSM stacks) makes the replayed stream the fault-free one. A
+    request that faults more than ``max_replays`` times is shed
+    ("fault_budget").
+
+Every tick's wall time feeds a ``runtime.fault.StragglerMonitor``;
+outlier ticks are counted in metrics ("straggler_ticks").
+
+Tracing (``tracer=obs.Tracer()``) is PASSIVE: two-clock spans ("tick"
+per tick, "call" per device call, closed after the host copy of the
+call's logits), slot lifecycle events and the closed slot intervals;
+with it on, the engine issues the same device calls and kernel launches
+as with it off. Journal, snapshots and paging are not ported yet: the
+constructor refuses their keywords.
 
 The host-side argmax of every call's logits synchronises the device each
 tick, as the reference's ``np.asarray`` does; per-call latencies are
@@ -48,6 +88,7 @@ the host before that.
 from __future__ import annotations
 
 import enum
+import math
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -60,6 +101,10 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.steps import build_step, compile_step
 from repro_torch.models import init_cache
 from repro_torch.obs.sentinel import RecompileSentinel
+from repro_torch.obs.trace import Tracer
+from repro_torch.runtime.fault import StragglerMonitor
+from repro_torch.serving.faults import (EngineCrash, FaultPlan, corrupt_cache,
+                                       corrupt_logits)
 from repro_torch.serving.metrics import MetricsRecorder
 from repro_torch.serving.prefill import PREFILL_MODES, assemble_chunk
 from repro_torch.serving.workload import Request
@@ -75,10 +120,16 @@ class SlotState(enum.Enum):
 class _Slot:
     state: SlotState = SlotState.FREE
     rid: Optional[int] = None
-    prompt: Optional[np.ndarray] = None
+    prompt: Optional[np.ndarray] = None  # current prefill target (the
+    #                                      replay record after a fault)
+    durable: Optional[np.ndarray] = None  # original prompt, never mutated
     cursor: int = 0                      # prompt tokens already in cache
     gen_len: int = 0
     pending_token: int = 0               # next decode input
+    deadline: Optional[float] = None
+    fault_count: int = 0                 # quarantines charged to this slot
+    replay: bool = False                 # prefilling a post-fault record
+    #                                      (no first-token metrics again)
 
 
 @dataclass
@@ -91,6 +142,22 @@ class SlotInterval:
     release_tick: Optional[int] = None
 
 
+class EngineStuckError(RuntimeError):
+    """max_ticks exceeded: the scheduler wedged. Carries what a post-mortem
+    needs: the outputs so far, the slot audit log, the metrics summary and,
+    when the tracer knows its dump path, the trace dumped there before the
+    raise."""
+
+    def __init__(self, msg: str, *, outputs: Dict[int, List[int]],
+                 slot_log: List[SlotInterval], summary: dict,
+                 trace_path: Optional[str] = None):
+        super().__init__(msg)
+        self.outputs = outputs
+        self.slot_log = slot_log
+        self.summary = summary
+        self.trace_path = trace_path
+
+
 class ServeEngine:
     """See module docstring. Typical use:
 
@@ -100,29 +167,36 @@ class ServeEngine:
         print(engine.metrics.summary())
     """
 
+    SCHEDULES = ("fifo", "spf")
+    #: the reference's keywords of the durability and paging slices, with
+    #: their defaults: any other value is refused until they are ported
+    UNPORTED = {"paged": False, "page_size": 16, "n_pages": None,
+                "journal": None, "snapshot_dir": None, "snapshot_every": 0,
+                "snapshot_keep": 2}
+
     def __init__(self, cfg, params, *, n_slots: int = 4, max_len: int = 64,
                  prefill_chunk: int = 16, prefill_mode: str = "chunked",
-                 schedule: str = "fifo",
+                 schedule: str = "fifo", spf_age_cap: int = 8,
                  stacked_tables=None, enc_out=None,
-                 max_ticks: int = 100_000,
-                 device="cuda", paged: bool = False, fault_plan=None,
-                 journal=None, snapshot_dir: Optional[str] = None,
-                 tracer=None, deadline_slack: Optional[float] = None,
+                 max_ticks: int = 100_000, strict: bool = False,
                  queue_cap: Optional[int] = None,
-                 recompile_sentinel: bool = True, cuda_graphs: bool = True):
-        unported = {"paged": paged, "fault_plan": fault_plan,
-                    "journal": journal, "snapshot_dir": snapshot_dir,
-                    "tracer": tracer, "deadline_slack": deadline_slack,
-                    "queue_cap": queue_cap}
-        for name, val in unported.items():
-            if val:
+                 fault_plan: Optional[FaultPlan] = None,
+                 max_step_retries: int = 2, max_replays: int = 3,
+                 tracer: Optional[Tracer] = None,
+                 recompile_sentinel: bool = True,
+                 device="cuda", cuda_graphs: bool = True, **later):
+        for name, val in later.items():
+            if name not in self.UNPORTED:
+                raise TypeError(f"ServeEngine got an unexpected keyword "
+                                f"argument {name!r}")
+            if val != self.UNPORTED[name]:
                 raise NotImplementedError(f"{name} is not ported yet")
-        if schedule != "fifo":
-            raise NotImplementedError(f"schedule={schedule!r} is not ported "
-                                      f"yet (fifo only)")
         if prefill_mode not in PREFILL_MODES:
             raise ValueError(f"prefill_mode {prefill_mode!r} not in "
                              f"{PREFILL_MODES}")
+        if schedule not in self.SCHEDULES:
+            raise ValueError(f"schedule {schedule!r} not in "
+                             f"{self.SCHEDULES}")
         if prefill_mode == "chunked" and \
                 not cfg.serving_capabilities().chunked_prefill:
             # sliding-window archs: the ring cache needs stepwise writes
@@ -133,7 +207,15 @@ class ServeEngine:
         self.n_slots = n_slots
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
+        self.schedule = schedule
+        self.spf_age_cap = spf_age_cap
         self.max_ticks = max_ticks
+        self.strict = strict
+        self.queue_cap = queue_cap
+        self.fault_plan = fault_plan
+        self.max_step_retries = max_step_retries
+        self.max_replays = max_replays
+        self.tracer = tracer
         self.params = params
 
         if cfg.is_encdec and (enc_out is None
@@ -167,7 +249,8 @@ class ServeEngine:
                              if self._prefill is not None else None)
 
         # the fixed-shape no-recompile contract, enforced: each compiled
-        # step gets ONE signature; check() runs every tick (obs.sentinel)
+        # step gets ONE signature (quarantine resets reuse the reset
+        # step's); check() runs every tick (obs.sentinel)
         self.sentinel = None
         if recompile_sentinel:
             self.sentinel = RecompileSentinel()
@@ -177,6 +260,8 @@ class ServeEngine:
                         RecompileSentinel.key(step.call_kind, cfg.name), step)
 
         self.queue: deque = deque()
+        self.skips: Dict[int, int] = {}   # QUEUED rid -> times jumped (spf);
+        #                                   entries die at admission
         self.slots = [_Slot() for _ in range(n_slots)]
         self.tick_count = 0
         self.outputs: Dict[int, List[int]] = {}
@@ -184,82 +269,169 @@ class ServeEngine:
         #: the model's logits dtype (the reference keeps np.asarray of the
         #: same row; numpy has no bf16)
         self.first_logits: Dict[int, torch.Tensor] = {}
-        self.rejected: Dict[int, str] = {}
+        self.rejected: Dict[int, str] = {}   # rid -> rejection reason
+        self.duplicate_rids: List[int] = []  # re-submitted rids (rejected
+        #                                      without touching the
+        #                                      original's row or outputs)
         self.slot_log: List[SlotInterval] = []
         self._open_interval: Dict[int, SlotInterval] = {}
+        self._has_deadlines = False
+        self.straggler = StragglerMonitor()
         self.metrics = MetricsRecorder()
 
     # ------------------------------------------------------------------ API
 
     def submit(self, request: Request) -> bool:
         """Queue a request; returns False if it was REJECTED instead
-        (oversized or a duplicate rid; recorded, never raised)."""
-        if request.deadline is not None:
-            raise NotImplementedError("request deadlines (SLO shedding) are "
-                                      "not ported yet")
-        reason = None
+        (a duplicate rid, oversized, or the bounded queue is full).
+        Rejections are recorded (metrics.on_reject, ``self.rejected`` /
+        ``self.duplicate_rids``), never raised; ``strict=True`` raises
+        ValueError for a duplicate or oversized request."""
         if request.rid in self.metrics.requests:
-            reason = "duplicate_rid"
-        elif request.prompt_len + request.gen_len > self.max_len:
-            reason = "oversized"
-        if reason is not None:
-            if reason != "duplicate_rid":
-                self.rejected[request.rid] = reason
-            self.metrics.on_reject(request.rid, request.prompt_len,
-                                   request.gen_len, request.arrival, reason)
-            return False
+            if self.strict:
+                raise ValueError(f"request {request.rid}: duplicate rid "
+                                 f"(already submitted)")
+            return self._reject(request, "duplicate_rid")
+        if request.prompt_len + request.gen_len > self.max_len:
+            if self.strict:
+                raise ValueError(
+                    f"request {request.rid}: prompt {request.prompt_len} + "
+                    f"gen {request.gen_len} exceeds capacity {self.max_len}")
+            return self._reject(request, "oversized")
+        if self.queue_cap is not None and len(self.queue) >= self.queue_cap:
+            return self._reject(request, "queue_full")
         self.queue.append(request)
+        self.skips[request.rid] = 0
+        if request.deadline is not None:
+            self._has_deadlines = True
         self.metrics.on_submit(request.rid, request.prompt_len,
-                               request.gen_len, request.arrival)
+                               request.gen_len, request.arrival,
+                               deadline=request.deadline)
         return True
 
+    def _reject(self, request: Request, reason: str) -> bool:
+        if reason == "duplicate_rid":
+            # the rid's original request keeps its results entry
+            self.duplicate_rids.append(request.rid)
+        else:
+            self.rejected[request.rid] = reason
+        self.metrics.on_reject(request.rid, request.prompt_len,
+                               request.gen_len, request.arrival, reason,
+                               deadline=request.deadline)
+        if self.tracer is not None:
+            self.tracer.event("reject", self.tick_count, rid=request.rid,
+                              reason=reason)
+        return False
+
     def run(self, requests: List[Request]):
-        """Serve a trace to completion; returns {rid: generated tokens}."""
+        """Serve a trace to completion; returns {rid: generated tokens} for
+        every request that held a slot (rejected ones appear in
+        ``self.rejected`` / metrics instead)."""
         for r in sorted(requests, key=lambda r: (r.arrival, r.rid)):
             self.submit(r)
+        return self._serve_loop()
+
+    def _serve_loop(self):
         self.metrics.start()
         while self.queue or any(s.state is not SlotState.FREE
                                 for s in self.slots):
             self.tick()
+            if self.fault_plan is not None and \
+                    self.fault_plan.crash_at(self.tick_count - 1):
+                if self.tracer is not None:
+                    self.tracer.event("crash", self.tick_count - 1)
+                raise EngineCrash(f"injected engine crash after tick "
+                                  f"{self.tick_count - 1}",
+                                  tick=self.tick_count - 1)
             if self.tick_count > self.max_ticks:
-                raise RuntimeError(f"engine exceeded max_ticks="
-                                   f"{self.max_ticks}; scheduler stuck?")
+                self._record_slot_log()
+                self.metrics.stop()
+                trace_path = None
+                if self.tracer is not None and self.tracer.path:
+                    self.tracer.dump(self.tracer.path)
+                    trace_path = self.tracer.path
+                raise EngineStuckError(
+                    f"engine exceeded max_ticks={self.max_ticks}; "
+                    f"scheduler stuck?", outputs=dict(self.outputs),
+                    slot_log=list(self.slot_log),
+                    summary=self.metrics.summary(), trace_path=trace_path)
+        self._record_slot_log()
+        self.metrics.stop()
+        return self.outputs
+
+    def _record_slot_log(self):
         self.metrics.record_slot_log(
             [(iv.slot, iv.admit_tick, iv.release_tick)
              for iv in self.slot_log], self.n_slots)
-        self.metrics.stop()
-        return self.outputs
 
     # ------------------------------------------------------------- one tick
 
     def tick(self):
+        t0 = time.monotonic()
         tick = self.tick_count
-        self._admit(tick)
+        span = (self.tracer.begin("tick", tick)
+                if self.tracer is not None else None)
         calls = 0
+        if self.fault_plan is not None:
+            self._inject_cache_faults(tick)
+        if self._has_deadlines:
+            self._shed_hopeless_slots(tick)
+        self._admit(tick)
         if self.prefill_mode == "chunked":
             calls += self._prefill_phase(tick)
         calls += self._decode_phase(tick)
-        self.metrics.on_tick(
-            tick, queue_depth=len(self.queue),
-            n_prefilling=sum(s.state is SlotState.PREFILLING
-                             for s in self.slots),
-            n_decoding=sum(s.state is SlotState.DECODING for s in self.slots),
-            device_calls=calls)
+        qd = len(self.queue)
+        n_pre = sum(s.state is SlotState.PREFILLING for s in self.slots)
+        n_dec = sum(s.state is SlotState.DECODING for s in self.slots)
+        self.metrics.on_tick(tick, queue_depth=qd, n_prefilling=n_pre,
+                             n_decoding=n_dec, device_calls=calls)
+        if span is not None:
+            self.tracer.end(span, queue_depth=qd, n_prefilling=n_pre,
+                            n_decoding=n_dec, device_calls=calls)
         self.tick_count += 1
+        if self.straggler.record(time.monotonic() - t0):
+            self.metrics.on_straggler(tick)
         if self.sentinel is not None:
             self.sentinel.check()
 
     # -------------------------------------------------------------- phases
 
     def _pop_next(self, tick: int):
-        """FIFO: the queue head once it has arrived, else None."""
-        if self.queue and self.queue[0].arrival <= tick:
-            return self.queue.popleft()
-        return None
+        """Next request to admit, or None. "fifo" pops the head once it
+        has arrived. "spf" picks the shortest ARRIVED prompt, unless a
+        request has been passed over ``spf_age_cap`` times: the oldest
+        such urgent request goes first. Every non-urgent pick raises the
+        skip count of every other arrived request; urgent picks raise
+        none. The queue is arrival-sorted, so the arrived set is a
+        prefix."""
+        arrived = []
+        for i, r in enumerate(self.queue):
+            if r.arrival > tick:
+                break
+            arrived.append((i, r))
+        if not arrived:
+            return None
+        if self.schedule == "fifo":
+            idx, req = arrived[0]
+        else:
+            urgent = [(i, r) for i, r in arrived
+                      if self.skips[r.rid] >= self.spf_age_cap]
+            if urgent:
+                idx, req = urgent[0]      # oldest urgent arrival
+            else:
+                idx, req = min(arrived, key=lambda ir: (
+                    ir[1].prompt_len, ir[1].arrival, ir[1].rid))
+                for _, r in arrived:
+                    if r is not req:
+                        self.skips[r.rid] += 1
+        del self.queue[idx]
+        return req
 
     def _admit(self, tick: int):
         """QUEUED -> PREFILLING: pop arrived requests into free slots and
         zero the slots' stale cache slices."""
+        if self._has_deadlines:
+            self._shed_hopeless_queue(tick)
         mask = np.zeros((self.n_slots,), bool)
         for s, slot in enumerate(self.slots):
             if slot.state is not SlotState.FREE:
@@ -267,12 +439,17 @@ class ServeEngine:
             req = self._pop_next(tick)
             if req is None:
                 break
+            prompt = np.asarray(req.prompt, np.int32)
             self.slots[s] = _Slot(state=SlotState.PREFILLING, rid=req.rid,
-                                  prompt=np.asarray(req.prompt, np.int32),
-                                  gen_len=req.gen_len)
+                                  prompt=prompt, durable=prompt,
+                                  gen_len=req.gen_len, deadline=req.deadline)
             mask[s] = True
             self.outputs[req.rid] = []
-            self.metrics.on_admit(req.rid, tick)
+            skips = self.skips.pop(req.rid, 0)
+            self.metrics.on_admit(req.rid, tick, skips=skips)
+            if self.tracer is not None:
+                self.tracer.event("admit", tick, rid=req.rid, slot=s,
+                                  wait=tick - req.arrival, skips=skips)
             iv = SlotInterval(slot=s, rid=req.rid, admit_tick=tick)
             self.slot_log.append(iv)
             self._open_interval[s] = iv
@@ -282,10 +459,6 @@ class ServeEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    def _host_logits(self, logits) -> np.ndarray:
-        """Host-side (B, V) f32 logits for argmax and the finite check."""
-        return logits[:, 0, :].float().cpu().numpy()
-
     def _prefill_phase(self, tick: int) -> int:
         prefilling = {s: slot.prompt for s, slot in enumerate(self.slots)
                       if slot.state is SlotState.PREFILLING}
@@ -294,26 +467,47 @@ class ServeEngine:
         cursors = {s: self.slots[s].cursor for s in prefilling}
         tokens, n_valid = assemble_chunk(prefilling, cursors, self.n_slots,
                                          self.prefill_chunk)
+        replaying = any(self.slots[s].replay for s in prefilling)
+        span = (self.tracer.begin(
+                    "call", tick, phase="prefill", kind=self.prefill_kind,
+                    arch=self.cfg.name, participants=sorted(prefilling),
+                    occupancy=len(prefilling) / self.n_slots,
+                    replay=replaying)
+                if self.tracer is not None else None)
         c0 = time.monotonic()
-        logits, self.cache = self._prefill(
-            self.params, self.cache, self._tensor(tokens),
-            self._tensor(n_valid))
-        lg = self._host_logits(logits)
+        res = self._device_call("prefill", self.prefill_kind, self._prefill,
+                                self.params, self.cache,
+                                self._tensor(tokens), self._tensor(n_valid))
+        if res is None:                   # persistent step failure:
+            if span is not None:          # quarantine every participant
+                self.tracer.end(span, ok=False)
+            for s in prefilling:
+                self._quarantine(s, tick, "step_exception")
+            return 0
+        logits, self.cache = res
+        lg = self._host_logits(logits, tick, "prefill")
+        dur_s = time.monotonic() - c0
+        if span is not None:
+            self.tracer.end(span, ok=True)
         self.metrics.on_device_call("prefill", kind=self.prefill_kind,
-                                    dur_s=time.monotonic() - c0)
+                                    replay=replaying, dur_s=dur_s)
         nxt = lg.argmax(axis=-1)
         for s in prefilling:
             if not np.isfinite(lg[s]).all():
-                raise FloatingPointError(f"slot {s}: non-finite logits in "
-                                         f"prefill at tick {tick}")
+                self._quarantine(s, tick, "nonfinite_logits")
+                continue
             slot = self.slots[s]
             slot.cursor += int(n_valid[s])
             self.metrics.on_prefill_step(slot.rid)
+            if self.tracer is not None:
+                self.tracer.event("prefill", tick, rid=slot.rid, slot=s,
+                                  cursor=slot.cursor,
+                                  prompt_len=len(slot.prompt),
+                                  replay=slot.replay)
             if slot.cursor >= len(slot.prompt):
                 # the chunk holding the last prompt token yields the first
                 # generated token: TTFT lands here
-                self._finish_prefill(s, int(nxt[s]),
-                                    logits[s].to("cpu", copy=True), tick)
+                self._finish_prefill(s, int(nxt[s]), logits, tick)
         return 1
 
     def _decode_phase(self, tick: int) -> int:
@@ -331,26 +525,47 @@ class ServeEngine:
                 active[s] = True
         if not active.any():
             return 0
+        span = (self.tracer.begin(
+                    "call", tick, phase="decode", kind="decode",
+                    arch=self.cfg.name,
+                    participants=[s for s in range(self.n_slots)
+                                  if active[s]],
+                    occupancy=float(active.mean()))
+                if self.tracer is not None else None)
         c0 = time.monotonic()
-        logits, self.cache = self._decode(
-            self.params, self.cache, self._tensor(tokens),
-            self._tensor(active))
-        lg = self._host_logits(logits)
-        self.metrics.on_device_call("decode", kind="decode",
-                                    dur_s=time.monotonic() - c0)
+        res = self._device_call("decode", "decode", self._decode,
+                                self.params, self.cache,
+                                self._tensor(tokens), self._tensor(active))
+        if res is None:
+            if span is not None:
+                self.tracer.end(span, ok=False)
+            for s in range(self.n_slots):
+                if active[s]:
+                    self._quarantine(s, tick, "step_exception")
+            return 0
+        logits, self.cache = res
+        lg = self._host_logits(logits, tick, "decode")
+        dur_s = time.monotonic() - c0
+        if span is not None:
+            self.tracer.end(span, ok=True)
+        self.metrics.on_device_call("decode", kind="decode", dur_s=dur_s)
         nxt = lg.argmax(axis=-1)
         for s, slot in enumerate(self.slots):
             if not active[s]:
                 continue
             if not np.isfinite(lg[s]).all():
-                raise FloatingPointError(f"slot {s}: non-finite logits in "
-                                         f"decode at tick {tick}")
+                self._quarantine(s, tick, "nonfinite_logits")
+                continue
             if slot.state is SlotState.PREFILLING:
                 slot.cursor += 1
                 self.metrics.on_prefill_step(slot.rid)
+                if self.tracer is not None:
+                    self.tracer.event("prefill", tick, rid=slot.rid,
+                                      slot=s, cursor=slot.cursor,
+                                      prompt_len=len(slot.prompt),
+                                      replay=slot.replay)
                 if slot.cursor >= len(slot.prompt):
-                    self._finish_prefill(s, int(nxt[s]),
-                                         logits[s].to("cpu", copy=True), tick)
+                    self._finish_prefill(s, int(nxt[s]), logits, tick)
                 continue
             tok = int(nxt[s])
             self.outputs[slot.rid].append(tok)
@@ -360,24 +575,188 @@ class ServeEngine:
                 self._release(s, tick)
         return 1
 
+    # ----------------------------------------------- fault containment ----
+
+    def _device_call(self, call: str, kind: str, fn, *args):
+        """Run a device call under the fault contract: an exception gets
+        ``max_step_retries`` re-issues (an injected one is raised before
+        the step runs, so the cache is intact for the retry); past the
+        budget, returns None and the caller quarantines every slot of the
+        call. With no fault plan installed an exception propagates
+        unchanged: containment never hides a programming error, or a
+        kernel's, in a plain run.
+
+        ``call`` is the fault plan's phase key ("prefill" / "decode");
+        ``kind`` the step's call_kind retries are counted under."""
+        attempt = 0
+        while True:
+            try:
+                if self.fault_plan is not None:
+                    self.fault_plan.check_step(self.tick_count, call,
+                                               attempt)
+                return fn(*args)
+            except Exception as e:  # noqa: BLE001 — any step failure
+                if self.fault_plan is None:
+                    raise
+                self.metrics.on_fault("step_exception", None,
+                                      self.tick_count)
+                if self.tracer is not None:
+                    self.tracer.event("fault", self.tick_count,
+                                      kind="step_exception", call=kind,
+                                      attempt=attempt, error=str(e))
+                attempt += 1
+                if attempt > self.max_step_retries:
+                    return None
+                self.metrics.on_retry(kind)
+                if self.tracer is not None:
+                    self.tracer.event("retry", self.tick_count, call=kind,
+                                      attempt=attempt)
+
+    def _host_logits(self, logits, tick: int, call: str) -> np.ndarray:
+        """Host-side (B, V) f32 logits for argmax and the finite guard; the
+        fault plan's nan_logits events poison rows of this copy (the
+        corruption a real device would hand back)."""
+        lg = logits[:, 0, :].float().cpu().numpy()
+        if self.fault_plan is not None:
+            bad = self.fault_plan.logit_slots(tick, call)
+            if bad:
+                lg = corrupt_logits(lg, bad)
+        return lg
+
+    def _inject_cache_faults(self, tick: int):
+        slots = [s for s in self.fault_plan.cache_slots(tick)
+                 if self.slots[s].state is not SlotState.FREE]
+        if not slots:
+            return
+        corrupt_cache(self.cache, slots, self.n_slots)
+        for s in slots:
+            self.metrics.on_fault("cache_corruption", self.slots[s].rid,
+                                  tick)
+            if self.tracer is not None:
+                self.tracer.event("fault", tick, kind="cache_corruption",
+                                  rid=self.slots[s].rid, slot=s)
+
+    def _quarantine(self, s: int, tick: int, kind: str):
+        """Contain a fault to slot ``s`` and schedule recovery by replay:
+        zero the slot's cache with the compiled reset step and re-prefill
+        its durable record (prompt + tokens emitted so far). Past
+        ``max_replays`` the request is shed ("fault_budget")."""
+        slot = self.slots[s]
+        rid = slot.rid
+        self.metrics.on_fault(kind, rid, tick)
+        slot.fault_count += 1
+        if self.tracer is not None:
+            self.tracer.event("quarantine", tick, rid=rid, slot=s,
+                              kind=kind, fault_count=slot.fault_count)
+        if slot.fault_count > self.max_replays:
+            self.metrics.on_shed(rid, tick, "fault_budget")
+            if self.tracer is not None:
+                self.tracer.event("shed", tick, rid=rid, slot=s,
+                                  reason="fault_budget")
+            self._close_interval(s, tick)
+            self.slots[s] = _Slot()
+            return
+        self.metrics.on_replay(rid)
+        emitted = self.outputs[rid]
+        record = (np.concatenate([slot.durable,
+                                  np.asarray(emitted, np.int32)])
+                  if emitted else slot.durable)
+        slot.prompt = record
+        slot.cursor = 0
+        slot.pending_token = 0
+        slot.replay = bool(emitted)
+        slot.state = SlotState.PREFILLING
+        if self.tracer is not None:
+            self.tracer.event("replay", tick, rid=rid, slot=s,
+                              record_len=int(len(record)))
+        mask = np.zeros((self.n_slots,), bool)
+        mask[s] = True
+        self.cache = self._reset(self.cache, self._tensor(mask))
+
+    # ------------------------------------------------------ SLO shedding --
+
+    def _min_ticks_to_done(self, prompt_left: int, gen_left: int) -> int:
+        """OPTIMISTIC ticks (the current one included) until the request
+        finishes: the last prefill chunk emits the first of the remaining
+        tokens, then one token a tick. A lower bound, so a request is shed
+        only when its deadline is provably out of reach."""
+        if prompt_left <= 0:
+            return max(gen_left, 1)
+        return ((math.ceil(prompt_left / self.prefill_chunk)
+                 if self.prefill_mode == "chunked" else prompt_left)
+                + max(gen_left - 1, 0))
+
+    def _shed_hopeless_queue(self, tick: int):
+        """Drop arrived queued requests whose deadline is out of reach even
+        if admitted now, before they take a slot."""
+        kept = []
+        while self.queue and self.queue[0].arrival <= tick:
+            r = self.queue.popleft()
+            est = self._min_ticks_to_done(r.prompt_len, r.gen_len)
+            if r.deadline is not None and tick + est - 1 > r.deadline:
+                self.skips.pop(r.rid, None)
+                self.metrics.on_shed(r.rid, tick, "deadline")
+                if self.tracer is not None:
+                    self.tracer.event("shed", tick, rid=r.rid,
+                                      reason="deadline", where="queue")
+            else:
+                kept.append(r)
+        self.queue.extendleft(reversed(kept))
+
+    def _shed_hopeless_slots(self, tick: int):
+        """Free the slot of an in-flight request the tick its deadline
+        becomes unreachable."""
+        for s, slot in enumerate(self.slots):
+            if slot.state is SlotState.FREE or slot.deadline is None:
+                continue
+            gen_left = slot.gen_len - len(self.outputs[slot.rid])
+            prompt_left = (len(slot.prompt) - slot.cursor
+                           if slot.state is SlotState.PREFILLING else 0)
+            if tick + self._min_ticks_to_done(prompt_left, gen_left) - 1 \
+                    > slot.deadline:
+                self.metrics.on_shed(slot.rid, tick, "deadline")
+                if self.tracer is not None:
+                    self.tracer.event("shed", tick, rid=slot.rid, slot=s,
+                                      reason="deadline", where="slot")
+                self._close_interval(s, tick)
+                self.slots[s] = _Slot()   # cache zeroed at next admit
+
     # ------------------------------------------------------------- helpers
 
     def _finish_prefill(self, s: int, token: int, logits: torch.Tensor,
                         tick: int):
+        """The chunk or step that took the last token of slot ``s``'s
+        prefill record: its argmax ``token`` is the next generated token;
+        ``logits`` are the call's (B, 1, V) logits."""
         slot = self.slots[s]
         slot.state = SlotState.DECODING
         slot.pending_token = token
         self.outputs[slot.rid].append(token)
-        self.first_logits[slot.rid] = logits
-        self.metrics.on_first_token(slot.rid, tick)
+        if not slot.replay:
+            # a replayed record's last chunk yields the next token of a
+            # started stream: first_logits and TTFT were recorded before
+            self.first_logits[slot.rid] = logits[s].to("cpu", copy=True)
+            self.metrics.on_first_token(slot.rid, tick)
+            if self.tracer is not None:
+                self.tracer.event("first_token", tick, rid=slot.rid, slot=s)
+        slot.replay = False
         self.metrics.on_token(slot.rid)
         if len(self.outputs[slot.rid]) >= slot.gen_len:
             self._release(s, tick)
 
-    def _release(self, s: int, tick: int):
-        slot = self.slots[s]
-        self.metrics.on_done(slot.rid, tick)
+    def _close_interval(self, s: int, tick: int):
         iv = self._open_interval.pop(s, None)
         if iv is not None:
             iv.release_tick = tick + 1
+            if self.tracer is not None:
+                self.tracer.interval(iv.slot, iv.rid, iv.admit_tick,
+                                     iv.release_tick)
+
+    def _release(self, s: int, tick: int):
+        slot = self.slots[s]
+        self.metrics.on_done(slot.rid, tick)
+        if self.tracer is not None:
+            self.tracer.event("release", tick, rid=slot.rid, slot=s,
+                              tokens=len(self.outputs[slot.rid]))
+        self._close_interval(s, tick)
         self.slots[s] = _Slot()           # FREE; cache zeroed at next admit

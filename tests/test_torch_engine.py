@@ -163,10 +163,8 @@ def test_no_kernel_launches_on_cpu(served):
 
 def test_engine_refuses_unported_features():
     cfg = get_config("tinyllama-1.1b", reduced=True)
-    for kw in (dict(paged=True), dict(schedule="spf"),
-               dict(tracer=object()), dict(journal="j.log"),
-               dict(snapshot_dir="snap"), dict(queue_cap=4),
-               dict(deadline_slack=3.0), dict(fault_plan=object())):
+    for kw in (dict(paged=True), dict(journal="j.log"),
+               dict(snapshot_dir="snap")):
         with pytest.raises(NotImplementedError):
             ServeEngine(cfg, {}, device="cpu", **kw)
 

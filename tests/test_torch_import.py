@@ -28,8 +28,9 @@ assert not leaked, leaked
 """
 
 #: modules of the per-layer kernel-mode and DB-PIM pipeline slice, the
-#: row-stable kernels, the compiled steps, the SSM and the MoE families;
-#: the probe imports every module of the package, these among them
+#: row-stable kernels, the compiled steps, the SSM and the MoE families,
+#: fault injection and tracing; the probe imports every module of the
+#: package, these among them
 SLICE_MODULES = {
     "repro_torch.core.dyadic", "repro_torch.core.pim_model",
     "repro_torch.core.pruning", "repro_torch.core.qat",
@@ -38,7 +39,10 @@ SLICE_MODULES = {
     "repro_torch.kernels.row_attention", "repro_torch.kernels.row_norm",
     "repro_torch.quickstart", "repro_torch.obs.sentinel",
     "repro_torch.obs.launches", "repro_torch.launch.steps",
-    "repro_torch.models.ssm", "repro_torch.models.moe"}
+    "repro_torch.models.ssm", "repro_torch.models.moe",
+    "repro_torch.serving.faults", "repro_torch.obs.trace",
+    "repro_torch.obs.chrome", "repro_torch.launch.report",
+    "repro_torch.runtime.fault"}
 
 
 def test_port_and_chip_smoke_import_no_jax():
