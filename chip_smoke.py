@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Phases, each printed on its own lines (each line after the seconds since
-the run started), run in the order 1, 2, 3, 4, 4b, 4g, 4c, 4d, 4e, 4f, 5,
-6, 7, 8; any failure raises and exits non-zero (no phase catches its own
+the run started), run in the order 1, 2, 3, 4, 4b, 4g, 4h, 4c, 4d, 4e, 4f,
+5, 6, 7, 8; any failure raises and exits non-zero (no phase catches its own
 failure; phase 4g catches the one EngineStuckError it provokes):
 
   1. build  — nvcc builds the six kernels (joint_sparse_matmul,
@@ -140,21 +140,39 @@ failure; phase 4g catches the one EngineStuckError it provokes):
               (a prefix for a fault-budget shed); the faults by kind equal
               the plan's events that landed, read from the trace
               (``_fault_audit``: every NaN explained by the plan); device
-              launches == obs.per_call x calls; one signature a step. The
+              launches == obs.per_call x calls; one signature a step; its
+              ticks, calls, faults by kind and replays equal the CPU
+              engine's under the same plan. The
               same plan traced: the same streams and device launches, the
               trace validates, renders and converts to Chrome's format;
               the tracer's host µs a tick. FaultPlan.none(): the streams
               and launches of no plan. A NaN-logits fault on slot 0 at
               tick 10 and a corruption of the reset slot at tick 11: the
-              streams, and the fault and replay counts of the CPU engine
-              (whose attention reads every key, as the reference's does);
-              the quarantine ticks of both printed (the card reads the
-              poison late: ROADMAP Queue 3). mamba2-1.3b with exact chunks
+              streams, the fault and replay counts and the quarantine
+              ticks of the CPU engine (whose attention reads every key, as
+              the reference's does; row_attention reads the dead keys'
+              non-finite values the same way). mamba2-1.3b with exact chunks
               of 8 (phase 4's params and tables, 6 requests): the seed 0
               plan and a corruption of a decoding slot's state, streams
               bitwise the fault-free run's, every corrupted state read at
               its next call. max_ticks=3: EngineStuckError with its
               outputs, slot log, summary and dumped trace.
+  4h. dur   — durability and paging through the compiled engine, on phase
+              4's full-width tinyllama-1.1b params, tables and trace.
+              The journal and snapshots (every 16 ticks) are passive: the
+              same streams, calls and device launches as without them, and
+              the journal folds to the streams. Killed (EngineCrash) after
+              ticks 20 and 45 and restored twice from the snapshots and
+              the journal: streams bitwise the uninterrupted run's,
+              replayed prefill tokens <= 16 x slots restored, one
+              signature per step kind in each engine. An ample paged pool
+              (128 pages of 16): streams, first-token logits and device
+              launches of the contiguous run, one signature a step. A
+              tight pool (64 pages): at least one preemption, streams
+              bitwise; killed and restored as above: bitwise. mamba2-1.3b
+              with exact chunks of 8 (phase 4g's SSM trace) killed after
+              ticks 6 and 11 and restored through its conv-window and
+              state leaves: bitwise.
   4c. moe   — the MoE family. Grouped packs: each reduced mixtral and
               arctic expert stack packed on the card equals the CPU's
               byte for byte, and the slice-by-slice build
@@ -343,9 +361,9 @@ failure; phase 4g catches the one EngineStuckError it provokes):
               4, 512-slot cache, hd 256, group 1) with SDPA beside it.
 
 The launch counts of the JSON record come from the main paths: phases 4,
-4g, 4c, 4d, 4e and 4f for the joint, row_attention and row_norm kernels
+4g, 4h, 4c, 4d, 4e and 4f for the joint, row_attention and row_norm kernels
 (the device's records of the compiled serve runs, tinyllama's (phase 4g's
-four counted runs among them), mamba2's,
+four counted runs and phase 4h's three among them), mamba2's,
 mixtral's, arctic's, jamba's, whisper's, pixtral's, qwen3's, gemma's and
 stablelm's, of whisper's encoder and of pixtral's patch forward and
 prefill step, and the wrappers' counts of the eager forward calls,
@@ -364,6 +382,7 @@ import contextlib
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -567,6 +586,16 @@ SSM_CHAOS_SPEC = dict(n_requests=6, arrival_rate=0.0, prompt_len=(20, 40),
                       gen_len=(8, 8), seed=5)
 SSM_CHAOS_EVENT = dict(tick=6, kind="cache_corruption", slot=1)
 STUCK_TICKS = 3
+#: phase 4h (durability and paging) on the serve phase's trace (73 ticks):
+#: a snapshot every 16 ticks, the engine killed after ticks 20 and 45 (both
+#: past the first snapshot); a tight pool of 64 pages of 16 (the serve
+#: geometry holds 128), which preempts once on this trace (found with the
+#: reduced CPU engine, whose schedule depends on lengths and ticks only)
+DUR_SNAPSHOT_EVERY, DUR_CRASH_TICKS = 16, (20, 45)
+PAGE_SIZE, TIGHT_PAGES = 16, 64
+#: mamba2's exact-chunk kill-and-restore: phase 4g's SSM trace, a snapshot
+#: every 4 ticks, killed after ticks 6 and 11
+SSM_DUR_SNAPSHOT_EVERY, SSM_DUR_CRASH_TICKS = 4, (6, 11)
 
 
 _T0 = time.monotonic()
@@ -2389,6 +2418,77 @@ def _window_inputs(cfg, dev, dtype, gen, B, A, Sq):
     return q, k, v, pos.contiguous().to(dev)
 
 
+def _nan_pattern(v, pos, window):
+    """(B, Sq, Hkv, hd) bool: the outputs the reference makes NaN, its
+    0 * v summed over every key of the cache: column d of query (b, s) at
+    KV head h is NaN when a key outside the query's live range (pos -
+    window, pos] has a non-finite v[b, key, h, d], or a live key a NaN one
+    (a live Inf gives Inf)."""
+    B, A = v.shape[:2]
+    kpos = torch.arange(A, device=v.device)
+    qp = pos[:, :, None].long()
+    dead = kpos > qp
+    if window:
+        dead |= kpos <= qp - window
+    hit = (torch.einsum("bsa,bahd->bshd", dead.float(),
+                        (~torch.isfinite(v.float())).float())
+           + torch.einsum("bsa,bahd->bshd", (~dead).float(),
+                          torch.isnan(v.float()).float()))
+    return hit > 0
+
+
+def _plant_dead(k, v, pos, window, gen):
+    """Copies of k and v with NaN, +Inf and -Inf planted at random columns
+    of V rows dead to every query of their batch row (past the last
+    query's position, below the first query's window: in key tiles a
+    kernel block multiplies and in tiles it skips), NaN in the V row of
+    the last query's position (live to it alone), and NaN in whole dead K
+    rows."""
+    B, A, Hkv, hd = v.shape
+    kp, vp = k.clone(), v.clone()
+    vals = (float("nan"), float("inf"), float("-inf"))
+    for b in range(B):
+        top = int(pos[b].max())
+        rows = [r for r in (top + 1, top + 2, top + 70, A - 1) if r < A]
+        if window:
+            bottom = int(pos[b].min()) - window
+            rows += [r for r in (0, bottom // 2, bottom) if 0 <= r <= bottom]
+        for i, r in enumerate(rows + [top]):
+            h = int(torch.randint(Hkv, (1,), generator=gen))
+            for c in torch.randperm(hd, generator=gen)[:3].tolist():
+                vp[b, r, h, c] = vals[i % 3] if r != top else float("nan")
+            if r != top:
+                kp[b, r, (h + 1) % Hkv, :] = float("nan")
+    return kp, vp
+
+
+def _check_dead_keys(rak, q, k, v, pos, window, gen, what, dt):
+    """The reference's reading of dead keys, at query positions A / 8 below
+    ``pos`` (so that keys past every query exist): with non-finite values
+    planted in dead V rows and NaN in dead K rows (``_plant_dead``), the
+    kernel's NaN outputs are exactly ``_nan_pattern``'s and the plain
+    version's, and every other output is bitwise the clean call's. Returns
+    the number of NaN outputs the plant made."""
+    pos = (pos - k.shape[1] // 8).clamp(min=0).contiguous()
+    clean = rak.row_attention(q, k, v, pos, window)
+    kp, vp = _plant_dead(k, v, pos, window, gen)
+    got = rak.row_attention(q, kp, vp, pos, window)
+    torch.cuda.synchronize()
+    G = q.shape[2] // k.shape[2]
+    want = torch.repeat_interleave(_nan_pattern(vp, pos, window), G, dim=2)
+    plain = torch.isnan(rak.row_attention_plain(q, kp, vp, pos, window))
+    nan = torch.isnan(got)
+    assert want.any() and torch.equal(plain, want), \
+        ("dead keys: plain version", what, dt, window,
+         int((plain != want).sum()))
+    assert torch.equal(nan, want), \
+        ("dead keys: NaN pattern", what, dt, window,
+         int((nan & ~want).sum()), int((want & ~nan).sum()))
+    assert torch.equal(got[~nan], clean[~nan]), \
+        ("dead keys: finite outputs moved", what, dt, window)
+    return int(want.sum())
+
+
 def phase_kernel_window(cfg, dev):
     """row_attention's lower key bound (keys at or below qpos - window are
     dead) in all four of its kernels, at ``cfg``'s head layout (pixtral's
@@ -2398,7 +2498,12 @@ def phase_kernel_window(cfg, dev):
     65,536, window 4,096. Each within its tolerance of the plain version
     at the same window; window 0 bitwise equal to the call without one;
     a query alone bitwise equal to the same query in the call (every one
-    of the 512). Returns the worst bf16 error."""
+    of the 512). The reference's reading of dead keys at windows w and 0
+    (``_check_dead_keys``): NaN and Inf planted in V rows past every query
+    and below every query's window, NaN in dead K rows; the NaN outputs
+    equal the plain version's, every other output is bitwise the clean
+    call's; also in the resident bf16 kernel with its keys split over a
+    cluster (2,048 keys). Returns the worst bf16 error."""
     from repro_torch.kernels import row_attention as rak
     gen = torch.Generator().manual_seed(20)
     worst = 0.0
@@ -2420,9 +2525,17 @@ def phase_kernel_window(cfg, dev):
             if dt == torch.bfloat16:
                 worst = max(worst, err)
             del ref
-            assert torch.equal(rak.row_attention(q, k, v, pos, 0),
-                               rak.row_attention(q, k, v, pos)), \
+            y0 = rak.row_attention(q, k, v, pos)
+            assert torch.equal(rak.row_attention(q, k, v, pos, 0), y0), \
                 ("window 0", what, dt)
+            planted = [_check_dead_keys(rak, q, k, v, pos, w, gen, what, dt)
+                       for w in (window, 0)]
+            log(f"[fwd] row_attention {what} {str(dt)[6:]}: NaN and Inf in "
+                f"dead V rows, NaN in dead K rows, windows {window} and 0: "
+                f"the NaN outputs ({planted[0]}, {planted[1]}) are the "
+                f"reference's 0 * v, every other output bitwise the clean "
+                f"call's")
+            del y0
             for t in range(Sq):
                 one = rak.row_attention(q[:, t:t + 1].contiguous(), k, v,
                                         pos[:, t:t + 1].contiguous(), window)
@@ -2435,6 +2548,17 @@ def phase_kernel_window(cfg, dev):
                 f"bitwise the call without one; all {Sq} queries alone "
                 f"bitwise equal to the same queries in the {Sq}-query call")
             del q, k, v, y
+    # the resident bf16 kernel with its keys split over a cluster (4 ranks
+    # at 2,048 keys): the ranks' column masks meet through distributed
+    # shared memory
+    q, k, v, pos = _window_inputs(cfg, dev, torch.bfloat16, gen, 2, LONG_A,
+                                  STREAM_C)
+    planted = [_check_dead_keys(rak, q, k, v, pos, w, gen, "resident split",
+                                torch.bfloat16) for w in (256, 0)]
+    log(f"[fwd] row_attention resident bf16, keys split over a cluster: "
+        f"{tuple(q.shape)} queries, {tuple(k.shape)} keys, windows 256 and "
+        f"0: the NaN outputs ({planted[0]}, {planted[1]}) are the "
+        f"reference's 0 * v, every other output bitwise the clean call's")
     return worst
 
 
@@ -2783,8 +2907,12 @@ def phase_admission(engine, tables, ssm_engine, ssm_tables):
     log(f"[admit] the reduced CPU engine (plain attention, the reference's "
         f"reading of dead keys) under the same plan: {s_cpu['engine_ticks']} "
         f"ticks, {s_cpu['device_calls']} calls, faults {s_cpu['faults']}, "
-        f"replays {s_cpu['replays']}; schedule "
+        f"replays {s_cpu['replays']}: equal; schedule "
         f"{'equal' if _schedule(cpu) == _schedule(chaos) else 'DIFFERS'}")
+    # row_attention reads dead keys' non-finite values as the reference
+    # does, so the card's chaos run keeps the CPU twin's schedule
+    for key in ("engine_ticks", "device_calls", "faults", "replays"):
+        assert s_c[key] == s_cpu[key], (key, s_c[key], s_cpu[key])
     med = {name: (statistics.median(w for w, _ in ts),
                   statistics.median(t for _, t in ts))
            for name, ts in (("untraced", ticks_c), ("traced", ticks_t))}
@@ -2817,19 +2945,18 @@ def phase_admission(engine, tables, ssm_engine, ssm_tables):
     assert out_dk == out_f, "dead-key plan streams"
     got = (dk.metrics.summary()["faults"], dk.metrics.summary()["replays"])
     want = (cpu.metrics.summary()["faults"], cpu.metrics.summary()["replays"])
-    # the card's bf16 attention skips the key tiles past a row's last live
-    # one: the replay reads the poison only at the call whose last tile
-    # still holds a poisoned row, so the quarantine comes later than the
-    # reference's (ROADMAP Queue 3); the counts must agree
+    # row_attention reads the poisoned rows past the replay's live keys as
+    # the reference's 0 * v does: quarantined at the same ticks as the CPU
+    q_card = [q[:2] for q in _quarantines(dk.tracer.records)]
+    q_cpu = [q[:2] for q in _quarantines(cpu.tracer.records)]
     log(f"[admit] NaN logits on slot 0 at tick 10, then a corruption of the "
         f"reset slot at tick 11: streams bitwise FIFO's; faults and replays "
         f"card {got[0]}, {got[1]}, CPU (the reference's reading) {want[0]}, "
-        f"{want[1]}; quarantines (tick, slot) card "
-        f"{[q[:2] for q in _quarantines(dk.tracer.records)]}, CPU "
-        f"{[q[:2] for q in _quarantines(cpu.tracer.records)]}; "
+        f"{want[1]}; quarantines (tick, slot) card {q_card}, CPU {q_cpu}; "
         f"{dk.metrics.summary()['engine_ticks']} vs "
         f"{cpu.metrics.summary()['engine_ticks']} ticks")
     assert got == want, (got, want)
+    assert q_card == q_cpu, (q_card, q_cpu)
     del dk
 
     # -- mamba2 with exact chunks -----------------------------------------
@@ -2895,6 +3022,225 @@ def phase_admission(engine, tables, ssm_engine, ssm_tables):
         f"and the trace dumped to its path ({stuck_stats})")
     log(f"[admit] phase 4g took {time.monotonic() - t_phase:.1f} s")
     return {k: dev_f[k] + dev_z[k] + dev_c[k] + dev_t[k] for k in dev_f}
+
+
+def _kill_chaos(build, restore, trace, crash_ticks, bound):
+    """``trace`` through ``build(plan)`` killed after each of
+    ``crash_ticks`` (EngineCrash), each time brought back by
+    ``restore(plan)`` and resumed. Returns (outputs, the engines); asserts
+    each restore's replayed prefill tokens <= ``bound(restore_stats)``,
+    one compiled signature per step kind in every engine, and a journal
+    that tells the streams whole."""
+    from repro_torch.serving import EngineCrash, FaultEvent, FaultPlan
+    from repro_torch.serving.journal import fold_records, read_journal
+    plan = FaultPlan(events=tuple(FaultEvent(tick=t, kind="engine_crash")
+                                  for t in crash_ticks))
+    engine = build(plan)
+    engines, restored, outputs = [engine], [], None
+    try:
+        outputs = engine.run(trace)
+    except EngineCrash as e:
+        last = e.tick
+    while outputs is None:
+        engine = restore(plan)
+        assert engine.tick_count > last, (engine.tick_count, last)
+        st = engine.restore_stats
+        assert st["replayed_prefill_tokens"] <= bound(st), st
+        engines.append(engine)
+        restored.append(st)
+        try:
+            outputs = engine.resume()
+        except EngineCrash as e:
+            last = e.tick
+    assert len(restored) == len(crash_ticks), restored
+    for e in engines:
+        assert max(e.sentinel.counts().values()) == 1, e.sentinel.counts()
+    recs, _, torn = read_journal(engines[-1].journal.path)
+    assert not torn and fold_records(recs)["tokens"] == outputs
+    return outputs, engines
+
+
+def phase_durability(engine, tables, ssm_engine, ssm_tables):
+    """Phase 4h: the write-ahead journal, engine snapshots with
+    kill-and-restore and the paged KV cache through the compiled engine, at
+    tinyllama-1.1b's full width on the serve phase's params, tables and
+    trace (batch 4, max-len 512, chunks of 64), then mamba2-1.3b's exact
+    chunks. Returns the device launches of its counted runs (without and
+    with the journal and snapshots, and the ample paged pool), per
+    kernel."""
+    import tempfile
+
+    from repro_torch.launch import serve
+    from repro_torch.obs import RecompileSentinel
+    from repro_torch.serving import ServeEngine, WorkloadSpec, make_trace
+    from repro_torch.serving.journal import fold_records, read_journal
+    t_phase = time.monotonic()
+    cfg, dev = engine.cfg, engine.device
+    args = serve.build_parser().parse_args(SERVE_ARGS)
+    trace = serve.trace_from_args(args, cfg.vocab_size)
+    geometry = dict(n_slots=args.batch, max_len=args.max_len,
+                    prefill_chunk=args.prefill_chunk)
+    keys = {RecompileSentinel.key(k, cfg.name): 1
+            for k in ("decode", "prefill_chunk_exact", "reset")}
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+
+    def build(plan=None, **kw):
+        return ServeEngine(cfg, engine.params, **geometry,
+                           stacked_tables=tables, fault_plan=plan,
+                           device=dev, **kw)
+
+    def durable(tag):
+        """Journal and snapshot keywords into fresh paths under ``tag``."""
+        d = root / tag
+        if d.exists():
+            shutil.rmtree(d)
+        d.mkdir(parents=True)
+        return dict(journal=str(d / "journal.jsonl"),
+                    snapshot_dir=str(d / "snaps"),
+                    snapshot_every=DUR_SNAPSHOT_EVERY)
+
+    def counted(**kw):
+        e, out, device, _, _ = _counted_run(build(**kw), trace,
+                                            lambda: build(**kw))
+        assert e.sentinel.counts() == keys, e.sentinel.counts()
+        return e, out, device
+
+    def restorer(tag, **kw):
+        d = root / tag
+        return lambda plan: ServeEngine.restore(
+            cfg, engine.params, snapshot_dir=str(d / "snaps"),
+            journal_path=str(d / "journal.jsonl"), stacked_tables=tables,
+            fault_plan=plan, device=dev, **kw)
+
+    # -- passivity ----------------------------------------------------------
+    plain, out_p, dev_p = counted()
+    s_p = plain.metrics.summary()
+    jour, out_j, dev_j = counted(**durable("passive"))
+    s_j = jour.metrics.summary()
+    assert out_j == out_p and dev_j == dev_p, (dev_j, dev_p)
+    for key in ("engine_ticks", "device_calls", "calls_by_kind"):
+        assert s_j[key] == s_p[key], key
+    recs, _, torn = read_journal(jour.journal.path)
+    fold = fold_records(recs)
+    assert not torn and fold["tokens"] == out_p and set(fold["done"]) == \
+        set(out_p)
+    first = plain.first_logits
+    snaps = sorted(p.name for p in Path(jour.snapshot_dir).glob("step_*"))
+    log(f"[dur] journal and snapshots (every {DUR_SNAPSHOT_EVERY} ticks): "
+        f"streams, {s_j['device_calls']} device calls and device launches "
+        f"({', '.join(f'{k} {n}' for k, n in dev_j.items() if n)}) equal "
+        f"the run without them; {len(recs)} journal records fold to the "
+        f"streams; snapshots kept {snaps}")
+    del plain, jour
+
+    # -- kill-and-restore ---------------------------------------------------
+    def cadence(st):
+        # the reference's bound: a slot re-enters at most one token for
+        # each tick since the snapshot
+        return DUR_SNAPSHOT_EVERY * max(st["slots_restored"], 1)
+    out_k, engines = _kill_chaos(
+        lambda plan: build(plan, **durable("kill")), restorer("kill"), trace,
+        DUR_CRASH_TICKS, cadence)
+    assert out_k == out_p, "kill-and-restore streams"
+    stats = [e.restore_stats for e in engines[1:]]
+    kinds = engines[1].metrics.summary()["calls_by_kind"]
+    assert any(k.endswith("+restore") for k in kinds), kinds
+    log(f"[dur] killed after ticks {list(DUR_CRASH_TICKS)}, restored "
+        f"twice: all {len(out_k)} streams bitwise the uninterrupted run's; "
+        f"restores " + "; ".join(
+            f"from step {st['from_step']} at tick {st['resume_tick']}, "
+            f"{st['slots_restored']} slots, {st['replayed_prefill_tokens']} "
+            f"replayed <= {DUR_SNAPSHOT_EVERY} x {st['slots_restored']}, "
+            f"{st['fresh_prefill_tokens']} fresh, "
+            f"{st['journal_tail_records']} tail records" for st in stats)
+        + f"; one signature per step kind in each of the {len(engines)} "
+        f"engines; calls {kinds}")
+    del engines
+
+    # -- the paged cache ----------------------------------------------------
+    paged = dict(paged=True, page_size=PAGE_SIZE)
+    ample, out_a, dev_a = counted(**paged)
+    s_a = ample.metrics.summary()
+    assert out_a == out_p and dev_a == dev_p, (dev_a, dev_p)
+    assert s_a["n_preemptions"] == 0 and \
+        s_a["engine_ticks"] == s_p["engine_ticks"]
+    assert all(torch.equal(ample.first_logits[r], first[r]) for r in first)
+    log(f"[dur] ample paged pool ({ample.n_pages} pages of {PAGE_SIZE}): "
+        f"streams, first-token logits, ticks and device launches equal the "
+        f"contiguous run's, "
+        f"one signature per step kind (the page table a copied operand), "
+        f"pages used max {s_a['pages_used_max']}")
+    del ample
+    tight = build(**paged, n_pages=TIGHT_PAGES)
+    out_t = tight.run(trace)
+    s_t = tight.metrics.summary()
+    assert out_t == out_p and s_t["n_preemptions"] >= 1, s_t["n_preemptions"]
+    assert s_t["pages_used_max"] <= TIGHT_PAGES
+    assert tight.page_alloc.free_pages == TIGHT_PAGES
+    assert tight.sentinel.counts() == keys, tight.sentinel.counts()
+    log(f"[dur] tight pool ({TIGHT_PAGES} pages): {s_t['n_preemptions']} "
+        f"preemptions, {s_t['page_alloc_failures']} allocation waits, "
+        f"{s_t['engine_ticks']} ticks (contiguous {s_p['engine_ticks']}); "
+        f"every stream bitwise the contiguous run's")
+    del tight
+    out_pk, engines = _kill_chaos(
+        lambda plan: build(plan, **paged, n_pages=TIGHT_PAGES,
+                           **durable("paged")), restorer("paged"), trace,
+        DUR_CRASH_TICKS, cadence)
+    assert out_pk == out_p, "paged kill-and-restore streams"
+    assert all(e.paged and e.n_pages == TIGHT_PAGES for e in engines)
+    log(f"[dur] the tight pool killed after ticks {list(DUR_CRASH_TICKS)} "
+        f"and restored twice (page tables, admission ages and the preempted "
+        f"queue from the snapshot and the journal): streams bitwise; "
+        f"replayed " + ", ".join(
+            str(e.restore_stats["replayed_prefill_tokens"])
+            for e in engines[1:]))
+    del engines
+
+    # -- mamba2, exact chunks -----------------------------------------------
+    exact = ssm_engine.cfg.scaled(prefill_exact=True)
+    ssm_trace = make_trace(WorkloadSpec(**SSM_CHAOS_SPEC), exact.vocab_size)
+    ssm_kw = dict(n_slots=4, max_len=ssm_engine.max_len,
+                  prefill_chunk=SSM_EXACT_CHUNK, stacked_tables=ssm_tables,
+                  device=dev)
+    ssm_ref = ServeEngine(exact, ssm_engine.params, **ssm_kw).run(ssm_trace)
+    d = root / "ssm"
+
+    def ssm_build(plan):
+        d.mkdir()
+        return ServeEngine(exact, ssm_engine.params, fault_plan=plan,
+                           journal=str(d / "journal.jsonl"),
+                           snapshot_dir=str(d / "snaps"),
+                           snapshot_every=SSM_DUR_SNAPSHOT_EVERY, **ssm_kw)
+
+    def ssm_restore(plan):
+        return ServeEngine.restore(
+            exact, ssm_engine.params, snapshot_dir=str(d / "snaps"),
+            journal_path=str(d / "journal.jsonl"), stacked_tables=ssm_tables,
+            fault_plan=plan, device=dev)
+    def chunks(st):
+        # a slot that was prefilling at the snapshot moved a whole chunk a
+        # tick: the ticks lost times a chunk, a slot
+        return ((st["resume_tick"] - st["from_step"]) * SSM_EXACT_CHUNK
+                * max(st["slots_restored"], 1))
+    out_m, engines = _kill_chaos(ssm_build, ssm_restore, ssm_trace,
+                                 SSM_DUR_CRASH_TICKS, chunks)
+    assert out_m == ssm_ref, "mamba2 kill-and-restore streams"
+    assert engines[0].prefill_kind == "prefill_chunk_exact"
+    log(f"[dur] mamba2-1.3b, exact chunks of {SSM_EXACT_CHUNK}, killed after "
+        f"ticks {list(SSM_DUR_CRASH_TICKS)} (snapshots every "
+        f"{SSM_DUR_SNAPSHOT_EVERY}): the conv windows and SSM states come "
+        f"back through the snapshot, streams bitwise; restores "
+        + "; ".join(f"{e.restore_stats['slots_restored']} slots, "
+                    f"{e.restore_stats['replayed_prefill_tokens']} replayed "
+                    f"in {e.restore_stats['resume_tick']} - "
+                    f"{e.restore_stats['from_step']} lost ticks of chunks of "
+                    f"{SSM_EXACT_CHUNK}" for e in engines[1:]))
+    del engines
+    tmp.cleanup()
+    log(f"[dur] phase 4h took {time.monotonic() - t_phase:.1f} s")
+    return {k: dev_p[k] + dev_j[k] + dev_a[k] for k in dev_p}
 
 
 def _stack_build(args, cfg, dev, tag):
@@ -3586,12 +3932,14 @@ def _pad():
     profiler drops the records of a window's first and last kernels (on
     an H100: arctic's last dense-MLP launches and final norm, the first 2
     to 4 port launches of every profile window), so 64 spin kernels
-    (``torch.cuda._sleep``, ~10 µs each) run before the window's own work
+    (``torch.cuda._sleep``, ~0.2 ms each) run before the window's own work
     starts and after it has finished. Readings leave their records out
-    (``PAD_SYMBOL``)."""
+    (``PAD_SYMBOL``). With spins of ~10 µs, two of four counted chaos runs
+    of phase 4g lost one or more whole calls' records; with ~0.2 ms, none
+    of four (H100 80GB HBM3, 700 W)."""
     torch.cuda.synchronize()
     for _ in range(64):
-        torch.cuda._sleep(20000)
+        torch.cuda._sleep(400000)
     torch.cuda.synchronize()
 
 
@@ -4131,6 +4479,7 @@ def main() -> int:
         dev, SSM_SERVE_ARGS, "prefill_parallel")
     phase_ssm_exact(ssm_engine, ssm_tables)
     admit_launches = phase_admission(engine, tables, ssm_engine, ssm_tables)
+    dur_launches = phase_durability(engine, tables, ssm_engine, ssm_tables)
     phase_moe_pack(dev)
     moe_launches = phase_moe_serve(dev)
     torch.cuda.empty_cache()
@@ -4153,7 +4502,8 @@ def main() -> int:
     launches = {k: n + ssm_launches[k] + moe_launches[k] + arctic_launches[k]
                 + jamba_launches[k] + whisper_launches[k]
                 + pixtral_launches[k] + dense_launches[k]
-                + admit_launches[k] + sum(f[k] for f in fwd_launches)
+                + admit_launches[k] + dur_launches[k]
+                + sum(f[k] for f in fwd_launches)
                 for k, n in serve_launches.items()}
     launches.update(mode_launches, dbmu_matmul=phase_dbmu(cfg, dev))
     phase_profile_long(engine, tables, phase_profile(

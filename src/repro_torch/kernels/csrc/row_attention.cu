@@ -26,6 +26,15 @@
 // or lo >= n) masks every key, and the softmax then spreads evenly over
 // all A of them, as the reference's does.
 //
+// Dead keys and non-finite values. The reference multiplies every dead
+// key's v by its zero probability, and 0 * NaN = 0 * Inf = NaN: a
+// non-finite v[j, d] at a dead key j makes column d of the row's output
+// NaN. A dead k stays hidden (its logit is replaced by the mask). So the
+// kernels read the V rows they skip without adding them: each block takes
+// the columns in which a skipped row holds a non-finite value and writes
+// NaN there. A finite output is bitwise what it is without the check, and
+// the live keys' sums keep their order.
+//
 // Bound. At the serving shapes the work is small: a decode call reads each
 // live K/V row once per KV head (0.2 us of HBM time at batch 4), a 64-query
 // chunk does ~0.27 GFLOP. A launch is bound by latency: load round trips,
@@ -72,11 +81,22 @@
 //     skipped, and so are the cluster ranks that hold only such tiles (the
 //     ranks' partials are then added from the first live rank on). A
 //     skipped tile, or a skipped rank, would only have added exact zeros
-//     to each of the block's rows: every live key is added at the same
-//     place in the same order as without the skip, and with window 0 the
-//     kernel is the one without a window. The f32 kernels mask instead: a
-//     key below the bound gets a -inf logit, so its probability is an
-//     exact zero and the sums see the same live terms in the same order.
+//     to each of the block's rows for finite values: every live key is
+//     added at the same place in the same order as without the skip, and
+//     with window 0 the kernel is the one without a window. The f32
+//     kernels mask instead: a key below the bound gets a -inf logit, so
+//     its probability is an exact zero and the sums see the same live
+//     terms in the same order.
+//   * Dead keys' non-finite values. Inside the tiles a block multiplies, a
+//     dead key's zero probability meets its v in the MMA, which gives NaN
+//     for a non-finite v as the reference's product does. The V rows of
+//     the rank's tiles it skips are read once (16-byte loads, eight in
+//     flight a thread, overlapping the first K tiles' arrival), their
+//     non-finite columns OR-ed into a bit mask in every rank of the
+//     cluster (distributed shared memory), and the stores write NaN in
+//     those columns. Every skipped key is dead for every row of the block,
+//     so one mask serves the block. The f32 kernels add 0 * v for the rows
+//     past n, after the live keys.
 //
 // Caches whose logits do not fit a block's shared memory take streaming
 // kernels of their own (chosen from (A, hd) alone): they recompute the
@@ -280,6 +300,85 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// Bit i set when bf16 i of the eight in x (little-endian, element 0 in the
+// low half of x.x) is Inf or NaN: its exponent is all ones.
+__device__ __forceinline__ uint32_t nonfinite2(uint32_t x) {
+  return ((x & 0x7f80u) == 0x7f80u ? 1u : 0u) | ((x & 0x7f800000u) == 0x7f800000u ? 2u : 0u);
+}
+__device__ __forceinline__ uint32_t nonfinite8(const uint4& x) {
+  return nonfinite2(x.x) | nonfinite2(x.y) << 2 | nonfinite2(x.z) << 4 | nonfinite2(x.w) << 6;
+}
+
+// Eight bf16 at src (cols of them real, zeros past), one 16-byte load when
+// the row is aligned and whole
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* src, int cols, bool vec) {
+  if (vec && cols == 8) return __ldg(reinterpret_cast<const uint4*>(src));
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  const uint16_t* h = reinterpret_cast<const uint16_t*>(src);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    if (i < cols) w[i >> 1] |= static_cast<uint32_t>(h[i]) << (16 * (i & 1));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The non-finite columns of V rows [k0, k1) (row stride `stride`, hd
+// columns): thread tid reads the column chunk c = tid % (HDP / 8), columns
+// 8c .. 8c + 7, of every (NT / (HDP / 8))-th row, eight rows in flight, and
+// returns bit i set when column 8c + i is non-finite in one of them.
+template <int HDP>
+__device__ __forceinline__ uint32_t dead_nonfinite(const __nv_bfloat16* vb, long long stride,
+                                                   int k0, int k1, int hd, bool vec, int tid) {
+  constexpr int CH = HDP / 8, STEP = NT / CH, U = 8;
+  const int c = tid % CH, cols = min(8, hd - 8 * c);
+  uint32_t bad = 0;
+  if (cols <= 0) return 0;
+  for (int k = k0 + tid / CH; k < k1; k += U * STEP) {
+    uint4 x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int kk = k + u * STEP;
+      x[u] = kk < k1 ? load8(vb + kk * stride + 8 * c, cols, vec) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) bad |= nonfinite8(x[u]);
+  }
+  return bad;
+}
+
+// The V rows of the rank's key tiles [t0, t1) that it does not multiply:
+// all of them when it has no live tile, else those outside [ts, ts +
+// ntiles)
+template <int HDP>
+__device__ __forceinline__ uint32_t skipped_nonfinite(const __nv_bfloat16* vb, long long stride,
+                                                      int t0, int t1, int ts, int ntiles, int A,
+                                                      int hd, bool vec, int tid) {
+  const int end = min(A, t1 * BK);
+  if (ntiles <= 0) return dead_nonfinite<HDP>(vb, stride, t0 * BK, end, hd, vec, tid);
+  return dead_nonfinite<HDP>(vb, stride, t0 * BK, ts * BK, hd, vec, tid) |
+         dead_nonfinite<HDP>(vb, stride, (ts + ntiles) * BK, end, hd, vec, tid);
+}
+
+// OR a thread's mask of dead_nonfinite into the block's column mask, in
+// every rank of the cluster
+template <int HDP>
+__device__ __forceinline__ void publish_nonfinite(uint32_t bad, uint32_t* mask, int C, int tid,
+                                                  cooperative_groups::cluster_group& cluster) {
+  if (!bad) return;
+  const int col = 8 * (tid % (HDP / 8));
+  uint32_t* w = mask + (col >> 5);
+  const uint32_t bits = bad << (col & 31);
+  if (C == 1) {
+    atomicOr(w, bits);
+    return;
+  }
+  for (int r = 0; r < C; ++r) atomicOr(cluster.map_shared_rank(w, r), bits);
+}
+
+// Column col of the output is NaN: a dead key's v there is non-finite
+__device__ __forceinline__ bool nan_column(const uint32_t* mask, int col) {
+  return (mask[col >> 5] >> (col & 31)) & 1u;
+}
+
 template <int HDP>
 __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_tc_kernel(const Args a) {
   constexpr int LD = HDP + 8;             // padded rows: conflict-free ldmatrix
@@ -303,6 +402,9 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_tc_kernel(con
   float* psum = pmax + ROWS;
   float* gmax = psum + ROWS;
   float* gsum = gmax + ROWS;
+  // rown and rlo are dead once read into registers: their room holds the
+  // column mask of non-finite dead V values, zeroed after pass 1
+  uint32_t* nanmask = reinterpret_cast<uint32_t*>(rown);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, cq = lane & 3;
@@ -385,6 +487,8 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_tc_kernel(con
     issue(0);
     issue(1);
   }
+  const uint32_t bad =
+      skipped_nonfinite<HDP>(vb, kv_stride, t0, t1, ts, ntiles, A, hd, vec, tid);
 
   // ---- pass 1: logits l = bf16(q.k) * scale of the warp's keys of the
   // rank's live tiles (fp32 in shared memory), row maxima
@@ -432,6 +536,7 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_tc_kernel(con
     wred[warp * ROWS + r1] = m1;
   }
   __syncthreads();
+  if (tid < (HDP + 31) / 32) nanmask[tid] = 0u;
   if (tid < ROWS) {
     float m = wred[tid];
 #pragma unroll
@@ -440,6 +545,7 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_tc_kernel(con
   }
   cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
   if (C > 1) cluster.sync(); else __syncthreads();
+  publish_nonfinite<HDP>(bad, nanmask, C, tid, cluster);
   if (tid < ROWS && ntiles > 0) {
     float m = pmax[tid];
     for (int r = L0; r < L; ++r)
@@ -534,7 +640,9 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_tc_kernel(con
     for (int h = 0; h < 2; ++h) {
       const int ff = rb * ROWS + (l >> 2) + 8 * h, s = ff / G, g = ff - s * G;
       if (s >= Sq) continue;
-      const float x = h ? t.z : t.x, y = h ? t.w : t.y;
+      float x = h ? t.z : t.x, y = h ? t.w : t.y;
+      if (nan_column(nanmask, col)) x = NAN;
+      if (nan_column(nanmask, col + 1)) y = NAN;
       __nv_bfloat16* dst = a.out + ((static_cast<size_t>(b) * Sq + s) * a.Hq + hk * G + g) * hd;
       if (col + 1 < hd && (hd & 1) == 0) {
         *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(x, y);
@@ -646,6 +754,9 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_stream_kernel
   float* psum = pmax + ROWS;
   float* gmax = psum + ROWS;
   float* gsum = gmax + ROWS;
+  // rown and rlo are dead once read into registers: their room holds the
+  // column mask of non-finite dead V values, zeroed after pass 1
+  uint32_t* nanmask = reinterpret_cast<uint32_t*>(rown);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, cq = lane & 3;
@@ -749,6 +860,8 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_stream_kernel
     }
     for (int i = 0; i < NS; ++i) issue(i);
   }
+  const uint32_t bad =
+      skipped_nonfinite<HDP>(vb, kv_stride, t0, t1, ts, ntiles, A, hd, vec, tid);
 
   // ---- pass 1: row maxima of l = bf16(q.k) * scale over live keys
   float m0 = -INFINITY, m1 = -INFINITY;
@@ -776,6 +889,7 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_stream_kernel
     wred[warp * ROWS + r1] = m1;
   }
   __syncthreads();
+  if (tid < (HDP + 31) / 32) nanmask[tid] = 0u;
   if (tid < ROWS) {
     float m = wred[tid];
 #pragma unroll
@@ -784,6 +898,7 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_stream_kernel
   }
   cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
   if (C > 1) cluster.sync(); else __syncthreads();
+  publish_nonfinite<HDP>(bad, nanmask, C, tid, cluster);
   if (tid < ROWS && ntiles > 0) {
     float m = pmax[tid];
     for (int r = L0; r < L; ++r)
@@ -890,7 +1005,9 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_stream_kernel
     for (int h = 0; h < 2; ++h) {
       const int ff = rb * ROWS + (l >> 2) + 8 * h, s = ff / G, g = ff - s * G;
       if (s >= Sq) continue;
-      const float x = h ? t.z : t.x, y = h ? t.w : t.y;
+      float x = h ? t.z : t.x, y = h ? t.w : t.y;
+      if (nan_column(nanmask, col)) x = NAN;
+      if (nan_column(nanmask, col + 1)) y = NAN;
       __nv_bfloat16* dst = a.out + ((static_cast<size_t>(b) * Sq + s) * a.Hq + hk * G + g) * hd;
       if (col + 1 < hd && (hd & 1) == 0) {
         *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(x, y);
@@ -985,6 +1102,28 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
   return r;
 }
 
+// The V rows past the live keys, [n, A): the reference multiplies them by
+// their zero probability, and so does this loop, after the live keys (keys
+// below the window's bound are in the main loop with their zero
+// probability already). For a finite v the product is an exact zero and
+// the accumulator keeps its bits (it is never -0: it starts at +0, and
+// +0 + -0 = +0); a NaN or Inf v makes its column NaN, as in the
+// reference. Warp w reads rows n + w, n + w + 4, ...; lane l columns l,
+// l + 32, ...
+template <int NDL>
+__device__ __forceinline__ void nonfinite_past(const float* vb, size_t krow, int n, int A,
+                                               int hd, int lane, int warp, float (&acc)[NDL]) {
+#pragma unroll 4
+  for (int j = n + warp; j < A; j += F32_WARPS) {
+    const float* vr = vb + j * krow;
+#pragma unroll
+    for (int i = 0; i < NDL; ++i) {
+      const int d = lane + 32 * i;
+      if (d < hd) acc[i] = fmaf(0.f, vr[d], acc[i]);
+    }
+  }
+}
+
 // One block per (query head, query, batch row): logits in shared memory (A
 // floats); warp w takes keys w, w + 4, ...; lane l holds head dims l, l +
 // 32, ... (NDL of them). A logit is lane l's in-order partial dot, then an
@@ -1062,6 +1201,7 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (d < hd) acc[i] = fmaf(pj, vr[d], acc[i]);
     }
   }
+  nonfinite_past<NDL>(vb, krow, n, A, hd, lane, warp, acc);
 #pragma unroll
   for (int i = 0; i < NDL; ++i) {
     const int d = lane + 32 * i;
@@ -1197,6 +1337,7 @@ attention_f32_stream_kernel(const float* __restrict__ q, const float* __restrict
     }
     __syncthreads();
   }
+  nonfinite_past<NDL>(vb, krow, n, A, hd, lane, warp, acc);
 #pragma unroll
   for (int i = 0; i < NDL; ++i) {
     const int d = lane + 32 * i;

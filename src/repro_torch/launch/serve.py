@@ -60,6 +60,28 @@ writes the engine's two-clock trace as JSONL; render it with
     PYTHONPATH=src python -m repro_torch.launch.serve --arch \
         tinyllama-1.1b --reduced --dbpim-mode joint --device cpu \
         --fault-rate 0.25 --trace-out trace.jsonl
+
+Durability: ``--journal PATH`` writes the write-ahead request journal
+(CRC-framed JSONL, fsync'd once a tick) and ``--snapshot-dir DIR
+--snapshot-every N`` an atomic engine snapshot every N ticks
+(``--snapshot-keep`` of them kept). ``--restore`` brings the engine back
+from the latest snapshot in ``--snapshot-dir`` and the ``--journal``
+tail and resumes every stream bitwise (nothing is submitted again: the
+trace is in the journal); the geometry and policy come from the
+snapshot.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+        tinyllama-1.1b --reduced --dbpim-mode joint --device cpu \
+        --journal /tmp/j.jsonl --snapshot-dir /tmp/snaps --snapshot-every 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+        tinyllama-1.1b --reduced --dbpim-mode joint --device cpu \
+        --journal /tmp/j.jsonl --snapshot-dir /tmp/snaps --restore
+
+Paging: ``--paged --page-size P --n-pages N`` serves from a shared pool
+of N pages of P positions (P must divide ``--max-len``; default N: the
+full static capacity). Admission waits for free pages, and a pool
+smaller than batch x max-len / P preempts the youngest request under
+page pressure, which resumes later bitwise.
 """
 
 from __future__ import annotations
@@ -153,6 +175,35 @@ def build_parser() -> argparse.ArgumentParser:
                     help="dump the structured two-clock trace (spans, "
                          "events, slot intervals) as JSONL; render with "
                          "python -m repro_torch.launch.report")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache: slots borrow fixed-size pages "
+                         "from a shared pool (admission gated on free "
+                         "pages, decode bitwise the contiguous path)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (must divide --max-len)")
+    ap.add_argument("--n-pages", type=int, default=None,
+                    help="pool size in pages; fewer than batch * max_len / "
+                         "page_size oversubscribes (page pressure preempts "
+                         "the youngest request, resumed bitwise later); "
+                         "default: the full static capacity")
+    ap.add_argument("--journal", default=None, metavar="PATH",
+                    help="write-ahead request journal (CRC-framed JSONL, "
+                         "fsync'd once a tick); with --restore, the "
+                         "journal to fold over the snapshot")
+    ap.add_argument("--snapshot-dir", default=None, metavar="DIR",
+                    help="directory of periodic atomic engine snapshots "
+                         "(cache, state machine, queue, metrics)")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="snapshot cadence in ticks (0 = never); bounds the "
+                         "work redone after a crash to this many tokens a "
+                         "slot")
+    ap.add_argument("--snapshot-keep", type=int, default=2,
+                    help="published snapshots kept on disk")
+    ap.add_argument("--restore", action="store_true",
+                    help="warm restart: rebuild from the latest snapshot in "
+                         "--snapshot-dir and the --journal tail, and resume "
+                         "every stream bitwise (submits nothing: the trace "
+                         "is in the journal)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without a card)")
@@ -209,25 +260,46 @@ def build_engine_and_trace(args, cfg):
             "n_slots": args.batch, "prefill_chunk": args.prefill_chunk,
             "schedule": args.schedule, "seed": args.seed},
             path=args.trace_out)
-    engine = ServeEngine(cfg, params, n_slots=args.batch,
-                         max_len=args.max_len,
-                         prefill_chunk=args.prefill_chunk,
-                         prefill_mode=args.prefill_mode,
-                         schedule=args.schedule,
-                         spf_age_cap=args.spf_age_cap,
-                         stacked_tables=tables, enc_out=enc_out,
-                         strict=args.strict_admission,
-                         queue_cap=args.queue_cap, fault_plan=fault_plan,
-                         max_step_retries=args.max_step_retries,
-                         max_replays=args.max_replays, tracer=tracer,
-                         device=dev)
+    if args.restore:
+        if not args.snapshot_dir:
+            raise SystemExit("--restore requires --snapshot-dir")
+        engine = ServeEngine.restore(
+            cfg, params, snapshot_dir=args.snapshot_dir,
+            journal_path=args.journal, stacked_tables=tables,
+            enc_out=enc_out, fault_plan=fault_plan, tracer=tracer,
+            device=dev)
+        print(f"[serve] restored from snapshot step "
+              f"{engine.restore_stats['from_step']}: "
+              f"{engine.restore_stats}")
+    else:
+        engine = ServeEngine(cfg, params, n_slots=args.batch,
+                             max_len=args.max_len,
+                             prefill_chunk=args.prefill_chunk,
+                             prefill_mode=args.prefill_mode,
+                             schedule=args.schedule,
+                             spf_age_cap=args.spf_age_cap,
+                             stacked_tables=tables, enc_out=enc_out,
+                             strict=args.strict_admission,
+                             queue_cap=args.queue_cap, fault_plan=fault_plan,
+                             max_step_retries=args.max_step_retries,
+                             max_replays=args.max_replays, tracer=tracer,
+                             paged=args.paged, page_size=args.page_size,
+                             n_pages=args.n_pages, journal=args.journal,
+                             snapshot_dir=args.snapshot_dir,
+                             snapshot_every=args.snapshot_every,
+                             snapshot_keep=args.snapshot_keep, device=dev)
+    return engine, trace_from_args(args, cfg.vocab_size), tables
+
+
+def trace_from_args(args, vocab_size: int):
+    """The request trace the parsed args describe (serving.workload)."""
     spec = WorkloadSpec(n_requests=args.requests,
                         arrival_rate=args.arrival_rate,
                         prompt_len=tuple(args.prompt_len),
                         gen_len=(args.gen_len, args.gen_len),
                         dist=args.dist, gen_dist=args.gen_dist,
                         seed=args.seed, deadline_slack=args.deadline_slack)
-    return engine, make_trace(spec, cfg.vocab_size), tables
+    return make_trace(spec, vocab_size)
 
 
 def main(argv=None):
@@ -239,7 +311,7 @@ def main(argv=None):
     if engine.prefill_mode != args.prefill_mode:
         print(f"[serve] {cfg.name}: chunked prefill unsupported (sliding-"
               f"window ring cache); falling back to stepwise (full) prefill")
-    outputs = engine.run(trace)
+    outputs = engine.resume() if args.restore else engine.run(trace)
     s = engine.metrics.summary()
     print(f"[serve] {s['n_completed']}/{s['n_requests']} requests, "
           f"{s['generated_tokens']} tokens in {s['engine_ticks']} ticks / "
@@ -260,6 +332,16 @@ def main(argv=None):
               f"retries {s['retries']}  replays {s['replays']}  "
               f"rejected {s['n_rejected']}  shed {s['n_shed']}  "
               f"straggler_ticks {s['straggler_ticks']}")
+    if engine.paged:
+        pu = (f"{s['pages_used_mean']:.2f}"
+              if s["pages_used_mean"] is not None else "n/a")
+        print(f"[serve] page pool: {engine.n_pages} x {engine.page_size}-"
+              f"token pages  used mean={pu} max={s['pages_used_max']}  "
+              f"preemptions {s['n_preemptions']}  alloc_failures "
+              f"{s['page_alloc_failures']}")
+    if engine.snapshot_dir is not None:
+        print(f"[serve] snapshots: {args.snapshot_dir} (every "
+              f"{engine.snapshot_every} ticks); journal: {args.journal}")
     if s["slot_busy_frac"] is not None:
         print(f"[serve] slot_busy_frac {s['slot_busy_frac']:.2f}  per-slot "
               f"{[round(o, 2) for o in s['slot_occupancy']]}")

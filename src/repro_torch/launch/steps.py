@@ -27,9 +27,8 @@ SERVE_CALL_KINDS = ("decode", "prefill_chunk", "reset")
 #: (``metrics.calls_by_kind``), as the reference does.
 REPLAY_TAG = "+replay"
 
-#: The same for warm-restart traffic, "<call_kind>+restore" (the restore
-#: path comes with the durability slice; the tag is the metrics'
-#: vocabulary already).
+#: The same for warm-restart traffic: a slot re-prefilling its record after
+#: ``ServeEngine.restore`` is metered under "<call_kind>+restore".
 RESTORE_TAG = "+restore"
 
 
@@ -56,6 +55,11 @@ def build_step(cfg: ModelConfig, call_kind: str, *, stacked_tables=None):
     the one passed in; bitwise what the functional ``decode_step`` +
     ``merge_slots``, ``decode_chunk`` and ``reset_slots`` return.
 
+    A paged cache (pools "pk" / "pv") takes one more trailing operand in
+    each step, the page table ``ptab`` (n_slots, max_pages) int32: a
+    per-call input like the tokens, so the compiled step copies it into
+    its static buffer and keeps one signature.
+
     stacked_tables (sparsity.sparse_linear.build_stacked_tables) route every
     projection of every layer through the joint kernel."""
     if call_kind not in SERVE_CALL_KINDS:
@@ -63,15 +67,15 @@ def build_step(cfg: ModelConfig, call_kind: str, *, stacked_tables=None):
                          f"{SERVE_CALL_KINDS}")
     if call_kind == "decode":
         @torch.no_grad()
-        def step_fn(params, cache, token, active):
+        def step_fn(params, cache, token, active, ptab=None):
             return decode_step_(params, cache, token, active, cfg,
-                                tables=stacked_tables)
+                                tables=stacked_tables, ptab=ptab)
         step_fn.call_kind = "decode"
     elif call_kind == "prefill_chunk":
         @torch.no_grad()
-        def step_fn(params, cache, tokens, n_valid):
+        def step_fn(params, cache, tokens, n_valid, ptab=None):
             return decode_chunk_(params, cache, tokens, n_valid, cfg,
-                                 tables=stacked_tables)
+                                 tables=stacked_tables, ptab=ptab)
         step_fn.call_kind = (
             "prefill_parallel"
             if (cfg.serving_capabilities().parallel_prefill
@@ -79,8 +83,8 @@ def build_step(cfg: ModelConfig, call_kind: str, *, stacked_tables=None):
             else "prefill_chunk_exact")
     else:
         @torch.no_grad()
-        def step_fn(cache, slot_mask):
-            return reset_slots_(cache, slot_mask, cfg)
+        def step_fn(cache, slot_mask, ptab=None):
+            return reset_slots_(cache, slot_mask, cfg, ptab=ptab)
         step_fn.call_kind = "reset"
     step_fn.arch = cfg.name
     return step_fn

@@ -35,6 +35,21 @@ Each attention takes the cache functionally (new k/v come back, as in
 JAX) or, for the serving engine's compiled steps, writes its rows into the
 given cache slices in place (``active`` for decode, ``inplace`` for a
 chunk): the counterpart of the reference's donated cache.
+
+The paged cache (``init_paged_cache``; ``ptab`` given to the decode and
+chunk attentions): a layer's k/v live in a pool of pages shared by every
+slot, and the page table (B, MP) int32 maps each slot's positions to pages
+(-1: unallocated). A write scatters through the table; a read gathers each
+slot's pages into a contiguous (B, MP * PS, Hkv, hd) view (plain torch
+indexing, as the reference's is plain jnp) and hands it to row_attention.
+When MP * PS equals the contiguous cache's A, the kernel sees exactly the
+contiguous input, so paged attention is bitwise the contiguous one. The
+reference drops the writes it routes out of range (``mode="drop"``, to
+page NP): inactive slots', invalid chunk tokens' and unallocated pages'.
+Torch has no such scatter, and a boolean-mask index is a data-dependent
+shape no CUDA graph can capture, so the port's pools carry one spare page
+past the reference's NP, which takes those writes and which no table
+names: it is never read, and snapshots and fault injection leave it out.
 """
 
 from __future__ import annotations
@@ -195,6 +210,50 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
+                     n_layers: int, device):
+    """Paged KV pool for a layer stack: ``{"pk", "pv"}`` of shape
+    (n_layers, n_pages + 1, page_size, Hkv, hd), the reference's pool and
+    the spare page that takes dropped writes (module docstring). No batch
+    axis: a slot's cache is the pages its page-table row names. The table
+    is host state (``serving.paging.PageAllocator``) passed into each step.
+    Sliding-window archs keep the ring cache: ValueError."""
+    if cfg.window:
+        raise ValueError(f"paged KV cache does not support sliding-window "
+                         f"ring caches ({cfg.name}); serve contiguous")
+    dt = dtype_of(cfg)
+    shape = (n_layers, n_pages + 1, page_size, cfg.n_kv_heads, cfg.hd)
+    return {"pk": torch.zeros(shape, dtype=dt, device=device),
+            "pv": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _paged_view(pool, ptab, n_kv: int, hd: int):
+    """A per-slot contiguous view (B, MP * PS, Hkv, hd) gathered from one
+    layer's pool (NP + 1, PS, Hkv, hd) through the page table (B, MP).
+    Unallocated entries (-1) clamp to page 0, as in the reference: their
+    rows lie past every query's position, dead keys."""
+    gid = ptab.long().clamp(0, pool.shape[0] - 2)
+    view = pool[gid]                                    # (B, MP, PS, H, hd)
+    B, MP, PS = view.shape[:3]
+    return view.reshape(B, MP * PS, n_kv, hd)
+
+
+def _paged_put(pool, ptab, wpos, new, live, inplace: bool):
+    """Write ``new`` (B, C, Hkv, hd) at positions ``wpos`` (B, C) of each
+    slot's pages where ``live`` (B, C) and the page is allocated; every
+    other write goes to the spare page (the reference's dropped write).
+    Returns ``pool`` written in place, or a written copy."""
+    PS = pool.shape[1]
+    pid = torch.gather(ptab.long(), 1, wpos // PS)                 # (B, C)
+    ok = pid >= 0
+    if live is not None:
+        ok &= live
+    pid = torch.where(ok, pid, pool.shape[0] - 1)
+    out = pool if inplace else pool.clone()
+    out[pid, wpos % PS] = new
+    return out
+
+
 def _per_slot_pos(pos, B: int, device=None):
     """A cache position, scalar (lock-step batch) or (B,) (per-slot
     depths), as a (B,) int32 vector: both shapes flow through the same
@@ -226,7 +285,7 @@ def _project_qkv(p, x, positions, cfg: ModelConfig, mm):
 
 
 def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
-                     dense_fn=None, active=None):
+                     dense_fn=None, active=None, ptab=None, write_mask=None):
     """Single-token decode against one layer's cache slice. x (B, 1, D);
     cache_k/v (B, A, Hkv, hd); pos = tokens already in the cache, scalar
     or (B,). Returns (out, new_k, new_v). A windowed arch's cache is the
@@ -236,11 +295,32 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
     active (B,) bool writes the new rows into cache_k/v in place, for the
     active slots only (inactive slots' slices keep their bits; their
     outputs then attend to their old row and are not meant to be read),
-    and returns them as new_k/v; None leaves cache_k/v as they are."""
+    and returns them as new_k/v; None leaves cache_k/v as they are.
+
+    Paged (ptab (B, MP) int32 given): cache_k/v are one layer's pools (NP
+    + 1, PS, Hkv, hd), the new row goes through the table to position
+    min(pos, MP * PS - 1) of the slot's pages, and the query attends to
+    the gathered view. ``write_mask`` (B,) drops the writes of the slots it
+    leaves out, functionally (the reference's in-step drop); ``active``
+    does the same in place."""
     mm = dense_fn or (lambda w, v, name: v @ w)
     B = x.shape[0]
     posv = _per_slot_pos(pos, B, x.device)                         # (B,)
     q, k, v = _project_qkv(p, x, posv[:, None], cfg, mm)
+    if ptab is not None:
+        if cfg.window:
+            raise ValueError("paged attention does not support "
+                             "sliding-window ring caches; serve contiguous")
+        A = ptab.shape[1] * cache_k.shape[1]
+        wpos = torch.clamp(posv, max=A - 1).long()[:, None]        # (B, 1)
+        live = active if active is not None else write_mask
+        live = None if live is None else live[:, None]
+        new_k = _paged_put(cache_k, ptab, wpos, k, live, active is not None)
+        new_v = _paged_put(cache_v, ptab, wpos, v, live, active is not None)
+        out = _sdpa(q, _paged_view(new_k, ptab, cfg.n_kv_heads, cfg.hd),
+                    _paged_view(new_v, ptab, cfg.n_kv_heads, cfg.hd),
+                    posv[:, None])
+        return mm(p["wo"], out.reshape(B, 1, cfg.q_dim), "wo"), new_k, new_v
     A = cache_k.shape[1]
     slot = (torch.remainder(posv, A) if cfg.window
             else torch.clamp(posv, max=A - 1)).long()
@@ -260,7 +340,8 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
 
 
 def prefill_attention(p, x, cache_k, cache_v, pos, n_valid,
-                      cfg: ModelConfig, dense_fn=None, inplace=False):
+                      cfg: ModelConfig, dense_fn=None, inplace=False,
+                      ptab=None):
     """Chunked cache-filling attention: C prompt tokens in one step.
 
     x (B, C, D); pos (B,) tokens already cached per slot; n_valid (B,) in
@@ -272,18 +353,32 @@ def prefill_attention(p, x, cache_k, cache_v, pos, n_valid,
     other row keeps its bits) and returns them.
 
     Requires cfg.window == 0: a sliding-window ring overwrites rows within
-    the chunk, which only a sequential walk reproduces."""
+    the chunk, which only a sequential walk reproduces.
+
+    Paged (ptab (B, MP) given): cache_k/v are the layer's pools (NP + 1,
+    PS, Hkv, hd); the valid tokens' rows go through the table, invalid
+    tokens' and unallocated pages' to the spare page, and the queries
+    attend to the gathered view; bitwise the contiguous chunk when MP * PS
+    is its A."""
     if cfg.window:
         raise ValueError("chunked prefill does not support sliding-window "
                          "ring caches; use stepwise (full-forward) prefill")
     mm = dense_fn or (lambda w, v, name: v @ w)
     B, C, _ = x.shape
-    A = cache_k.shape[1]
+    A = (cache_k.shape[1] if ptab is None
+         else ptab.shape[1] * cache_k.shape[1])
     posv = _per_slot_pos(pos, B, x.device)                         # (B,)
     qpos = posv[:, None] + torch.arange(C, dtype=torch.int32,
                                         device=x.device)[None, :]    # (B,C)
     q, k, v = _project_qkv(p, x, qpos, cfg, mm)
     tok_valid = torch.arange(C, device=x.device)[None, :] < n_valid[:, None]
+    if ptab is not None:
+        wpos = torch.clamp(qpos, max=A - 1).long()
+        new_k = _paged_put(cache_k, ptab, wpos, k, tok_valid, inplace)
+        new_v = _paged_put(cache_v, ptab, wpos, v, tok_valid, inplace)
+        out = _sdpa(q, _paged_view(new_k, ptab, cfg.n_kv_heads, cfg.hd),
+                    _paged_view(new_v, ptab, cfg.n_kv_heads, cfg.hd), qpos)
+        return mm(p["wo"], out.reshape(B, C, cfg.q_dim), "wo"), new_k, new_v
     b_idx = torch.arange(B, device=x.device)[:, None].expand(B, C)
     if inplace:
         # an invalid token writes its row back onto itself at qpos mod A:

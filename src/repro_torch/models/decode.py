@@ -18,6 +18,13 @@ enc-dec cache also holds "enc_out" (B, Se, D), the encoder's output,
 which every step reads and no step or slot surgery writes. Functions
 return new caches, as in JAX.
 
+Paged (``init_cache(n_pages=, page_size=)``): attention segments hold a
+pool {"pk", "pv"} (L_seg, n_pages + 1, page_size, Hkv, hd) with no batch
+axis (``attention.init_paged_cache``: the last page is the spare that
+takes dropped writes), shared by every slot through the page table
+``ptab`` (B, max_pages) int32 that the decode, chunk and reset steps take
+as an operand; SSM state and "pos" stay slot-resident.
+
 The serving engine's compiled steps use the in-place forms
 (``decode_step_``, ``decode_chunk_``, ``reset_slots_``): the same code,
 with each layer's k/v rows (conv window and state) written into the cache
@@ -44,17 +51,29 @@ from .transformer import (_block_tail, _check_supported, _sinusoidal_at,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device="cuda", enc_out=None) -> Dict:
+               device="cuda", enc_out=None, *, n_pages=None,
+               page_size=None) -> Dict:
     """Per-segment caches: {"pos": scalar, seg.cache: {"k", "v" (L_seg, B,
     A, Hkv, hd), "pos"} for attention, {"conv", "state"} for SSM};
     multi-segment stacks track one global "pos". An enc-dec config given
-    ``enc_out`` (B, Se, D) keeps it under "enc_out", as it is."""
+    ``enc_out`` (B, Se, D) keeps it under "enc_out", as it is. With
+    ``n_pages`` and ``page_size`` attention segments hold the paged pool
+    {"pk", "pv"} instead (``attention.init_paged_cache``), every segment
+    indexing the same page ids."""
     dev = resolve_device(device)
+    paged = n_pages is not None
+    if paged and page_size is None:
+        raise ValueError("paged init_cache needs both n_pages and "
+                         "page_size")
     cache: Dict = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
     for seg in _check_supported(cfg):
         if seg.mixer == "ssm":
             cache[seg.cache] = ssm_mod.init_ssm_cache(cfg, batch, seg.length,
                                                       dev)
+            continue
+        if paged:
+            cache[seg.cache] = attn_mod.init_paged_cache(
+                cfg, n_pages, page_size, seg.length, dev)
             continue
         c = attn_mod.init_cache(cfg, batch, max_len, seg.length, dev)
         if seg.cache != "attn":
@@ -83,7 +102,7 @@ def _run_segments(params, cache, x, cfg, tables, layer_fn, new_pos,
     for seg in segs:
         st = seg_tables.get(seg.name)
         c = cache[seg.cache]
-        ka, kb = _CACHE_KEYS[seg.mixer]
+        ka, kb = ("pk", "pv") if "pk" in c else _CACHE_KEYS[seg.mixer]
         outs_a, outs_b = [], []
         for l in range(seg.length):
             p = layer_slice(params[seg.name], l)
@@ -123,29 +142,41 @@ def _check_inplace(cache, B: int):
                              f"shape ({B},), got {tuple(pos.shape)}")
 
 
-def decode_step(params, cache, token, cfg: ModelConfig, tables=None):
+def decode_step(params, cache, token, cfg: ModelConfig, tables=None,
+                ptab=None, write_mask=None):
     """token (B, 1) int -> (logits (B, 1, V), new cache).
 
     ``tables`` (sparsity.sparse_linear.SegmentedKernelTables) routes every
     projection of every layer through the joint kernel; None keeps plain
-    matmuls."""
-    return _decode(params, cache, token, cfg, tables, None)
+    matmuls. A paged cache takes ``ptab`` (B, max_pages), and
+    ``write_mask`` (B,) drops the pool writes of the slots it leaves out
+    (``merge_slots`` cannot select per slot on a pool)."""
+    return _decode(params, cache, token, cfg, tables, None, ptab, write_mask)
 
 
 def decode_step_(params, cache, token, active, cfg: ModelConfig,
-                 tables=None):
+                 tables=None, ptab=None):
     """``decode_step`` followed by ``merge_slots(new, cache, active)``, in
     place: the active slots' k/v rows (conv windows and states) are written
     into ``cache`` and their positions advanced; inactive slots keep their
     slices and positions. Returns (logits (B, 1, V), cache). The active
     slots' logits and the whole cache equal the functional pair's bitwise;
     inactive slots' logits may differ (their attention reads their old
-    row) and are not meant to be read. Positions must be (B,) vectors."""
+    row) and are not meant to be read. Positions must be (B,) vectors. A
+    paged cache takes ``ptab``."""
     _check_inplace(cache, token.shape[0])
-    return _decode(params, cache, token, cfg, tables, active)
+    return _decode(params, cache, token, cfg, tables, active, ptab)
 
 
-def _decode(params, cache, token, cfg, tables, active):
+def _check_paged(cache, ptab):
+    if ptab is None and any(isinstance(c, dict) and "pk" in c
+                            for c in cache.values()):
+        raise ValueError("paged cache requires a page table (ptab) operand")
+
+
+def _decode(params, cache, token, cfg, tables, active, ptab=None,
+            write_mask=None):
+    _check_paged(cache, ptab)
     pos = cache["pos"]
     x = embed_tokens(params["embed"], token, cfg)
     if cfg.rope_pct == 0:
@@ -158,7 +189,8 @@ def _decode(params, cache, token, cfg, tables, active):
         if seg.mixer == "attn":
             y, a, b = attn_mod.decode_attention(p["attn"], hn, a, b, pos,
                                                 cfg, dense_fn=mm,
-                                                active=active)
+                                                active=active, ptab=ptab,
+                                                write_mask=write_mask)
         else:
             y, a, b = ssm_mod.decode_ssm(p["ssm"], hn, a, b, cfg,
                                          dense_fn=mm, active=active)
@@ -175,7 +207,7 @@ def _decode(params, cache, token, cfg, tables, active):
 
 
 def decode_chunk(params, cache, tokens, n_valid, cfg: ModelConfig,
-                 tables=None):
+                 tables=None, ptab=None):
     """Chunked cache-filling prefill: C prompt tokens per slot in one step.
 
     tokens (B, C) int; n_valid (B,) int in [0, C] real tokens per slot
@@ -194,26 +226,28 @@ def decode_chunk(params, cache, tokens, n_valid, cfg: ModelConfig,
 
     Requires full causal attention (cfg.window == 0): a sliding-window
     ring overwrites rows within a chunk, which only a sequential walk
-    reproduces."""
-    return _chunk(params, cache, tokens, n_valid, cfg, tables, False)
+    reproduces. A paged cache takes ``ptab`` (B, max_pages): n_valid
+    already keeps idle slots' writes out of their pages."""
+    return _chunk(params, cache, tokens, n_valid, cfg, tables, False, ptab)
 
 
 def decode_chunk_(params, cache, tokens, n_valid, cfg: ModelConfig,
-                  tables=None):
+                  tables=None, ptab=None):
     """``decode_chunk`` in place: the valid tokens' k/v rows are written
     into ``cache`` (the conv windows and states of the slots with n_valid
     > 0) and its positions advanced by n_valid; rows n_valid excludes are
     not written. Returns (logits (B, 1, V), cache), bitwise the functional
     step's. Positions must be (B,) vectors."""
     _check_inplace(cache, tokens.shape[0])
-    return _chunk(params, cache, tokens, n_valid, cfg, tables, True)
+    return _chunk(params, cache, tokens, n_valid, cfg, tables, True, ptab)
 
 
-def _chunk(params, cache, tokens, n_valid, cfg, tables, inplace):
+def _chunk(params, cache, tokens, n_valid, cfg, tables, inplace, ptab=None):
     if cfg.window:
         raise ValueError(f"chunked prefill is not supported for {cfg.name}"
                          f": sliding-window ring caches need stepwise "
                          f"prefill")
+    _check_paged(cache, ptab)
     B, C = tokens.shape
     pos = attn_mod._per_slot_pos(cache["pos"], B, tokens.device)
     n_valid = torch.as_tensor(n_valid, dtype=torch.int32,
@@ -233,7 +267,7 @@ def _chunk(params, cache, tokens, n_valid, cfg, tables, inplace):
         if seg.mixer == "attn":
             y, a, b = attn_mod.prefill_attention(p["attn"], hn, a, b, pos,
                                                  n_valid, cfg, dense_fn=mm,
-                                                 inplace=inplace)
+                                                 inplace=inplace, ptab=ptab)
         else:
             y, a, b = ssm_prefill(p["ssm"], hn, a, b, n_valid, cfg,
                                   dense_fn=mm, inplace=inplace)
@@ -269,13 +303,15 @@ def merge_slots(new_cache, old_cache, keep_mask, cfg: ModelConfig):
     updated cache, the rest keep their previous contents and position.
     Every k/v, conv and state leaf carries the batch on axis 1; "pos"
     leaves come out as (B,) vectors whatever shape they came in;
-    "enc_out" passes through as the new cache has it."""
+    "enc_out" and the paged pools "pk" / "pv" (no batch axis: their
+    writes were gated in the step) pass through as the new cache has
+    them."""
     B = keep_mask.shape[0]
 
     def visit(key, new, old):
         if isinstance(new, dict):
             return {k: visit(k, new[k], old[k]) for k in new}
-        if key == "enc_out":
+        if key in ("enc_out", "pk", "pv"):
             return new
         if key == "pos":
             return torch.where(keep_mask,
@@ -288,25 +324,44 @@ def merge_slots(new_cache, old_cache, keep_mask, cfg: ModelConfig):
     return visit(None, new_cache, old_cache)
 
 
-def reset_slots(cache, slot_mask, cfg: ModelConfig):
+def _slot_pages(slot_mask, ptab, pool):
+    """(B * MP,) page ids of the masked slots' table rows; the rest (and
+    unallocated entries) name the pool's spare page."""
+    sel = slot_mask[:, None] & (ptab >= 0)
+    return torch.where(sel, ptab.long(), pool.shape[1] - 1).reshape(-1)
+
+
+def reset_slots(cache, slot_mask, cfg: ModelConfig, ptab=None):
     """Zero the KV / SSM cache slices and position of the slots where
     slot_mask (B,) is True: the admission step before a freed slot takes a
     new request (without it an SSM state would carry the previous
     request's activations into the new one). "enc_out" is the slots'
-    encoder output, not a request's: it stays as it is."""
+    encoder output, not a request's: it stays as it is. A paged cache
+    takes ``ptab`` (B, max_pages): the pages the masked slots' table rows
+    name are zeroed, and no other slot's."""
     def zeros(tree):
         if isinstance(tree, dict):
             return {k: (v if k == "enc_out" else zeros(v))
                     for k, v in tree.items()}
         return torch.zeros_like(tree)
-    return merge_slots(cache, zeros(cache), ~slot_mask, cfg)
+    out = merge_slots(cache, zeros(cache), ~slot_mask, cfg)
+    if ptab is None:
+        return out
+
+    def surgery(key, tree):
+        if isinstance(tree, dict):
+            return {k: surgery(k, v) for k, v in tree.items()}
+        if key in ("pk", "pv"):
+            return tree.index_fill(1, _slot_pages(slot_mask, ptab, tree), 0)
+        return tree
+    return surgery(None, out)
 
 
-def reset_slots_(cache, slot_mask, cfg: ModelConfig):
+def reset_slots_(cache, slot_mask, cfg: ModelConfig, ptab=None):
     """``reset_slots`` in place: the masked slots' cache slices and
-    positions are zeroed where they lie ("enc_out" untouched). Returns
-    ``cache``, bitwise the functional result. Positions must be (B,)
-    vectors."""
+    positions (and, paged, their pages) are zeroed where they lie
+    ("enc_out" untouched). Returns ``cache``, bitwise the functional
+    result. Positions must be (B,) vectors."""
     B = slot_mask.shape[0]
     _check_inplace(cache, B)
 
@@ -316,6 +371,9 @@ def reset_slots_(cache, slot_mask, cfg: ModelConfig):
                 visit(k, v)
         elif key == "enc_out":
             return
+        elif key in ("pk", "pv"):
+            if ptab is not None:
+                tree.index_fill_(1, _slot_pages(slot_mask, ptab, tree), 0)
         elif key == "pos":
             tree.masked_fill_(slot_mask, 0)
         else:

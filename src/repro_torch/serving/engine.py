@@ -1,9 +1,10 @@
 """Request-level serving engine: admission queue + per-slot state machine
 + fixed-shape steps.
 
-Port of ``repro.serving.engine`` over a contiguous cache, with both
-prefill modes, both admission orders, SLO shedding, fault containment
-and tracing. The engine owns a static batch of ``n_slots`` cache slots;
+Port of ``repro.serving.engine``, whole: a contiguous or paged cache,
+both prefill modes, both admission orders, SLO shedding, fault
+containment, tracing, the write-ahead journal and snapshots with
+kill-and-restore. The engine owns a static batch of ``n_slots`` cache slots;
 each request moves through
 
     QUEUED -> PREFILLING -> DECODING -> DONE
@@ -75,8 +76,39 @@ Tracing (``tracer=obs.Tracer()``) is PASSIVE: two-clock spans ("tick"
 per tick, "call" per device call, closed after the host copy of the
 call's logits), slot lifecycle events and the closed slot intervals;
 with it on, the engine issues the same device calls and kernel launches
-as with it off. Journal, snapshots and paging are not ported yet: the
-constructor refuses their keywords.
+as with it off.
+
+Durability (serving.journal, serving.snapshot), passive like the tracer:
+
+  * ``journal=<path>`` appends a CRC-framed record for every
+    request-visible transition (submit, admit, token, done, shed, reject,
+    preempt), fsync'd once per tick; ``snapshot_dir`` + ``snapshot_every``
+    write periodic atomic snapshots (the cache, the state machine, the
+    queue, the metrics) through the checkpoint layer's tmp dir + fsync +
+    ``os.replace``. Neither issues a device call.
+  * ``ServeEngine.restore(cfg, params, snapshot_dir=..., journal_path=...)``
+    rebuilds from the latest snapshot, copying its cache into the new
+    engine's cache tensors, folds the journal tail over it and
+    re-prefills each active slot's durable record on the replay path;
+    ``resume()`` then continues the streams bitwise where the dead
+    process left them (chunk == stepwise). Redone work is at most
+    ``snapshot_every`` journal-evidenced tokens per active slot
+    (``restore_stats["replayed_prefill_tokens"]``), metered under
+    "<kind>+restore".
+  * a FaultPlan ``engine_crash`` event kills the engine (EngineCrash)
+    between ticks, after the tick's journal commit.
+
+Paging (``paged=True``, serving.paging): the attention segments' k/v
+live in a shared pool of ``n_pages`` pages of ``page_size`` positions,
+and each step takes the allocator's page table as an operand (copied into
+the compiled step's static buffer). Admission is gated on free pages for
+the whole prompt (preempted requests first, FIFO); before the device
+calls of a tick every slot grows to the pages its writes need, oldest
+admission first, and page pressure preempts the youngest slot, which
+re-enters later with its record (prompt + tokens so far) through the
+replay path, bitwise. ``max_len % page_size`` must be 0, so a slot's
+pages make the contiguous cache's length and paged attention is bitwise
+the contiguous one.
 
 The host-side argmax of every call's logits synchronises the device each
 tick, as the reference's ``np.asarray`` does; per-call latencies are
@@ -105,7 +137,9 @@ from repro_torch.obs.trace import Tracer
 from repro_torch.runtime.fault import StragglerMonitor
 from repro_torch.serving.faults import (EngineCrash, FaultPlan, corrupt_cache,
                                        corrupt_logits)
+from repro_torch.serving.journal import Journal
 from repro_torch.serving.metrics import MetricsRecorder
+from repro_torch.serving.paging import PageAllocator
 from repro_torch.serving.prefill import PREFILL_MODES, assemble_chunk
 from repro_torch.serving.workload import Request
 
@@ -130,6 +164,23 @@ class _Slot:
     fault_count: int = 0                 # quarantines charged to this slot
     replay: bool = False                 # prefilling a post-fault record
     #                                      (no first-token metrics again)
+    restore: bool = False                # prefilling a warm-restart record
+    #                                      (calls metered "+restore")
+    admit_seq: int = -1                  # admission order: page pressure
+    #                                      preempts the youngest by this
+
+
+@dataclass
+class _Preempted:
+    """A request evicted from its slot under page pressure, waiting to
+    re-enter. Its emitted tokens stay in ``engine.outputs``: re-admitted,
+    it re-prefills ``durable + outputs[rid]`` and its stream continues
+    bitwise."""
+    rid: int
+    durable: np.ndarray
+    gen_len: int
+    deadline: Optional[float]
+    fault_count: int
 
 
 @dataclass
@@ -144,17 +195,19 @@ class SlotInterval:
 
 class EngineStuckError(RuntimeError):
     """max_ticks exceeded: the scheduler wedged. Carries what a post-mortem
-    needs: the outputs so far, the slot audit log, the metrics summary and,
-    when the tracer knows its dump path, the trace dumped there before the
-    raise."""
+    needs: the outputs so far, the slot audit log, the metrics summary and
+    the on-disk artifacts: the journal's path (committed before the raise)
+    and, when the tracer knows its dump path, the trace dumped there."""
 
     def __init__(self, msg: str, *, outputs: Dict[int, List[int]],
                  slot_log: List[SlotInterval], summary: dict,
+                 journal_path: Optional[str] = None,
                  trace_path: Optional[str] = None):
         super().__init__(msg)
         self.outputs = outputs
         self.slot_log = slot_log
         self.summary = summary
+        self.journal_path = journal_path
         self.trace_path = trace_path
 
 
@@ -168,11 +221,6 @@ class ServeEngine:
     """
 
     SCHEDULES = ("fifo", "spf")
-    #: the reference's keywords of the durability and paging slices, with
-    #: their defaults: any other value is refused until they are ported
-    UNPORTED = {"paged": False, "page_size": 16, "n_pages": None,
-                "journal": None, "snapshot_dir": None, "snapshot_every": 0,
-                "snapshot_keep": 2}
 
     def __init__(self, cfg, params, *, n_slots: int = 4, max_len: int = 64,
                  prefill_chunk: int = 16, prefill_mode: str = "chunked",
@@ -184,13 +232,11 @@ class ServeEngine:
                  max_step_retries: int = 2, max_replays: int = 3,
                  tracer: Optional[Tracer] = None,
                  recompile_sentinel: bool = True,
-                 device="cuda", cuda_graphs: bool = True, **later):
-        for name, val in later.items():
-            if name not in self.UNPORTED:
-                raise TypeError(f"ServeEngine got an unexpected keyword "
-                                f"argument {name!r}")
-            if val != self.UNPORTED[name]:
-                raise NotImplementedError(f"{name} is not ported yet")
+                 journal=None, snapshot_dir: Optional[str] = None,
+                 snapshot_every: int = 0, snapshot_keep: int = 2,
+                 paged: bool = False, page_size: int = 16,
+                 n_pages: Optional[int] = None,
+                 device="cuda", cuda_graphs: bool = True):
         if prefill_mode not in PREFILL_MODES:
             raise ValueError(f"prefill_mode {prefill_mode!r} not in "
                              f"{PREFILL_MODES}")
@@ -217,6 +263,41 @@ class ServeEngine:
         self.max_replays = max_replays
         self.tracer = tracer
         self.params = params
+        # -- the paged cache: n_pages defaults to the full static capacity
+        # (no oversubscription); fewer pages make page pressure preempt
+        self.paged = bool(paged)
+        if self.paged:
+            if max_len % page_size != 0:
+                raise ValueError(
+                    f"paged engine needs max_len % page_size == 0 (got "
+                    f"{max_len} % {page_size}): max_pages_per_slot * "
+                    f"page_size == max_len makes paged decode bitwise the "
+                    f"contiguous path")
+            self.page_size = int(page_size)
+            self.max_pages_per_slot = max_len // page_size
+            self.n_pages = (int(n_pages) if n_pages is not None
+                            else n_slots * self.max_pages_per_slot)
+            self.page_alloc: Optional[PageAllocator] = PageAllocator(
+                self.n_pages, n_slots, self.max_pages_per_slot,
+                self.page_size)
+        else:
+            self.page_size = self.max_pages_per_slot = self.n_pages = 0
+            self.page_alloc = None
+        self._ptab_cached = None
+        self._ptab_version = -1
+        self.preempted: deque = deque()   # _Preempted, FIFO re-admission
+        self._admit_seq = 0
+        # -- durability: host-side only, so a journal or snapshots change
+        # no device call and no stream
+        if snapshot_every and not snapshot_dir:
+            raise ValueError("snapshot_every set without snapshot_dir")
+        self.journal: Optional[Journal] = (
+            journal if isinstance(journal, Journal) or journal is None
+            else Journal(str(journal)))
+        self.snapshot_dir = snapshot_dir
+        self.snapshot_every = snapshot_every
+        self.snapshot_keep = snapshot_keep
+        self.restore_stats: Optional[dict] = None
 
         if cfg.is_encdec and (enc_out is None
                               or enc_out.shape[0] != n_slots):
@@ -224,7 +305,9 @@ class ServeEngine:
                              f"encoder's output with one row per slot "
                              f"({n_slots}, Se, D) (models.encode)")
         cache = init_cache(cfg, n_slots, max_len, device=self.device,
-                           enc_out=enc_out)
+                           enc_out=enc_out,
+                           n_pages=self.n_pages if self.paged else None,
+                           page_size=self.page_size if self.paged else None)
         # per-slot positions from the start
         cache["pos"] = torch.zeros((n_slots,), dtype=torch.int32,
                                    device=self.device)
@@ -292,11 +375,25 @@ class ServeEngine:
                 raise ValueError(f"request {request.rid}: duplicate rid "
                                  f"(already submitted)")
             return self._reject(request, "duplicate_rid")
-        if request.prompt_len + request.gen_len > self.max_len:
+        total = request.prompt_len + request.gen_len
+        # paged capacity: a slot backs at most max_pages_per_slot *
+        # page_size tokens, and no request may need more pages than the
+        # pool holds (admission could never satisfy it, and page-pressure
+        # preemption would livelock trying)
+        if self.paged:
+            cap = self.max_pages_per_slot * self.page_size
+            oversized = (total > cap or
+                         self.page_alloc.pages_for(total) > self.n_pages)
+        else:
+            cap = self.max_len
+            oversized = total > cap
+        if oversized:
             if self.strict:
                 raise ValueError(
                     f"request {request.rid}: prompt {request.prompt_len} + "
-                    f"gen {request.gen_len} exceeds capacity {self.max_len}")
+                    f"gen {request.gen_len} exceeds capacity {cap}"
+                    + (f" (page pool {self.n_pages} pages)"
+                       if self.paged else ""))
             return self._reject(request, "oversized")
         if self.queue_cap is not None and len(self.queue) >= self.queue_cap:
             return self._reject(request, "queue_full")
@@ -307,6 +404,14 @@ class ServeEngine:
         self.metrics.on_submit(request.rid, request.prompt_len,
                                request.gen_len, request.arrival,
                                deadline=request.deadline)
+        if self.journal is not None:
+            self.journal.append(
+                "submit", self.tick_count, rid=int(request.rid),
+                prompt=[int(t) for t in request.prompt],
+                gen_len=int(request.gen_len),
+                arrival=float(request.arrival),
+                deadline=(None if request.deadline is None
+                          else float(request.deadline)))
         return True
 
     def _reject(self, request: Request, reason: str) -> bool:
@@ -318,6 +423,14 @@ class ServeEngine:
         self.metrics.on_reject(request.rid, request.prompt_len,
                                request.gen_len, request.arrival, reason,
                                deadline=request.deadline)
+        if self.journal is not None:
+            self.journal.append(
+                "reject", self.tick_count, rid=int(request.rid),
+                reason=reason, prompt_len=int(request.prompt_len),
+                gen_len=int(request.gen_len),
+                arrival=float(request.arrival),
+                deadline=(None if request.deadline is None
+                          else float(request.deadline)))
         if self.tracer is not None:
             self.tracer.event("reject", self.tick_count, rid=request.rid,
                               reason=reason)
@@ -329,12 +442,22 @@ class ServeEngine:
         ``self.rejected`` / metrics instead)."""
         for r in sorted(requests, key=lambda r: (r.arrival, r.rid)):
             self.submit(r)
+        if self.journal is not None:
+            self.journal.commit()   # the accepted trace is durable before
+            #                         any serving work happens
+        return self._serve_loop()
+
+    def resume(self):
+        """Continue serving after ``ServeEngine.restore``: the loop of
+        run() without submitting anything (the queue and slots came from
+        the snapshot and the journal tail; run() on a restored engine
+        would reject every request as ``duplicate_rid``)."""
         return self._serve_loop()
 
     def _serve_loop(self):
         self.metrics.start()
-        while self.queue or any(s.state is not SlotState.FREE
-                                for s in self.slots):
+        while self.queue or self.preempted or \
+                any(s.state is not SlotState.FREE for s in self.slots):
             self.tick()
             if self.fault_plan is not None and \
                     self.fault_plan.crash_at(self.tick_count - 1):
@@ -346,7 +469,10 @@ class ServeEngine:
             if self.tick_count > self.max_ticks:
                 self._record_slot_log()
                 self.metrics.stop()
-                trace_path = None
+                journal_path = trace_path = None
+                if self.journal is not None:
+                    self.journal.commit()
+                    journal_path = self.journal.path
                 if self.tracer is not None and self.tracer.path:
                     self.tracer.dump(self.tracer.path)
                     trace_path = self.tracer.path
@@ -354,15 +480,76 @@ class ServeEngine:
                     f"engine exceeded max_ticks={self.max_ticks}; "
                     f"scheduler stuck?", outputs=dict(self.outputs),
                     slot_log=list(self.slot_log),
-                    summary=self.metrics.summary(), trace_path=trace_path)
+                    summary=self.metrics.summary(),
+                    journal_path=journal_path, trace_path=trace_path)
         self._record_slot_log()
         self.metrics.stop()
+        if self.journal is not None:
+            self.journal.commit()
         return self.outputs
 
     def _record_slot_log(self):
         self.metrics.record_slot_log(
             [(iv.slot, iv.admit_tick, iv.release_tick)
              for iv in self.slot_log], self.n_slots)
+
+    # ------------------------------------------------- durability layer
+
+    def save_snapshot(self) -> str:
+        """Write one atomic engine snapshot (serving.snapshot): called
+        every ``snapshot_every`` ticks, or by hand between ticks. A host
+        copy of the cache and host state only: no device call, so
+        snapshots never move a stream."""
+        from repro_torch.serving.snapshot import save_snapshot
+        path = save_snapshot(self)
+        if self.tracer is not None:
+            self.tracer.event("snapshot", self.tick_count,
+                              step=self.tick_count, path=path)
+        return path
+
+    @classmethod
+    def restore(cls, cfg, params, *, snapshot_dir: str,
+                journal_path: Optional[str] = None,
+                step: Optional[int] = None, stacked_tables=None,
+                enc_out=None, fault_plan: Optional[FaultPlan] = None,
+                tracer: Optional[Tracer] = None,
+                recompile_sentinel: bool = True, journal_fsync: bool = True,
+                device="cuda", cuda_graphs: bool = True,
+                **overrides) -> "ServeEngine":
+        """A replacement engine from the latest (or ``step``) snapshot
+        plus the journal tail: the warm restart after a crash.
+
+        Geometry and policy knobs come from the snapshot's manifest;
+        ``overrides`` may replace the policy ones, but the cache geometry
+        must match or restore refuses (SnapshotError). The caller gives
+        what is not durable state: cfg, params, tables, enc_out and the
+        runtime objects (fault plan, tracer). The journal reopens in
+        resume mode (its torn tail truncated) and appends after its last
+        good record. Call ``resume()`` on the engine to continue;
+        ``restore_stats`` carries the replay-work accounting."""
+        from repro_torch.serving.snapshot import (read_snapshot_meta,
+                                                  restore_engine_state)
+        step, extra = read_snapshot_meta(snapshot_dir, step)
+        kw = {k: extra["engine"][k] for k in
+              ("n_slots", "max_len", "prefill_chunk", "prefill_mode",
+               "schedule", "spf_age_cap", "max_ticks", "strict",
+               "queue_cap", "max_step_retries", "max_replays",
+               "snapshot_every", "snapshot_keep")}
+        # the paged keys came with snapshot version 2
+        kw["paged"] = extra["engine"].get("paged", False)
+        if kw["paged"]:
+            kw["page_size"] = extra["engine"]["page_size"]
+            kw["n_pages"] = extra["engine"]["n_pages"]
+        kw.update(overrides)
+        engine = cls(cfg, params, stacked_tables=stacked_tables,
+                     enc_out=enc_out, fault_plan=fault_plan, tracer=tracer,
+                     recompile_sentinel=recompile_sentinel, journal=None,
+                     snapshot_dir=snapshot_dir, device=device,
+                     cuda_graphs=cuda_graphs, **kw)
+        restore_engine_state(engine, snapshot_dir, step,
+                             journal_path=journal_path,
+                             journal_fsync=journal_fsync)
+        return engine
 
     # ------------------------------------------------------------- one tick
 
@@ -377,33 +564,60 @@ class ServeEngine:
         if self._has_deadlines:
             self._shed_hopeless_slots(tick)
         self._admit(tick)
+        if self.paged:
+            # every occupied slot owns the pages this tick's writes land in
+            # before the device calls go out; pressure preempts the
+            # youngest admission
+            self._page_growth(tick)
+            self.page_alloc.check()
         if self.prefill_mode == "chunked":
             calls += self._prefill_phase(tick)
         calls += self._decode_phase(tick)
         qd = len(self.queue)
         n_pre = sum(s.state is SlotState.PREFILLING for s in self.slots)
         n_dec = sum(s.state is SlotState.DECODING for s in self.slots)
+        pages_used = pages_total = None
+        if self.paged:
+            pages_used = self.page_alloc.used_pages
+            pages_total = self.n_pages
         self.metrics.on_tick(tick, queue_depth=qd, n_prefilling=n_pre,
-                             n_decoding=n_dec, device_calls=calls)
+                             n_decoding=n_dec, device_calls=calls,
+                             pages_used=pages_used, pages_total=pages_total)
         if span is not None:
-            self.tracer.end(span, queue_depth=qd, n_prefilling=n_pre,
-                            n_decoding=n_dec, device_calls=calls)
+            attrs = dict(queue_depth=qd, n_prefilling=n_pre,
+                         n_decoding=n_dec, device_calls=calls)
+            if self.paged:
+                attrs.update(pages_used=pages_used, pages_total=pages_total)
+            self.tracer.end(span, **attrs)
         self.tick_count += 1
+        if self.journal is not None:
+            # one write + fsync for the whole tick's records: a kill loses
+            # at most this tick's uncommitted tail, which restore re-derives
+            self.journal.commit()
         if self.straggler.record(time.monotonic() - t0):
             self.metrics.on_straggler(tick)
         if self.sentinel is not None:
             self.sentinel.check()
+        if self.snapshot_every and \
+                self.tick_count % self.snapshot_every == 0:
+            self.save_snapshot()
 
     # -------------------------------------------------------------- phases
 
-    def _pop_next(self, tick: int):
+    def _pop_next(self, tick: int, can_admit=None):
         """Next request to admit, or None. "fifo" pops the head once it
         has arrived. "spf" picks the shortest ARRIVED prompt, unless a
         request has been passed over ``spf_age_cap`` times: the oldest
         such urgent request goes first. Every non-urgent pick raises the
         skip count of every other arrived request; urgent picks raise
         none. The queue is arrival-sorted, so the arrived set is a
-        prefix."""
+        prefix.
+
+        ``can_admit(req) -> bool`` is the paged admission gate (free pages
+        for the prompt). A pick it refuses stays where it is with no side
+        effect (no skip counted, no reorder): a page wait blocks the head
+        of the line, so FIFO order survives page pressure and the spf skip
+        bound is untouched by it."""
         arrived = []
         for i, r in enumerate(self.queue):
             if r.arrival > tick:
@@ -421,32 +635,86 @@ class ServeEngine:
             else:
                 idx, req = min(arrived, key=lambda ir: (
                     ir[1].prompt_len, ir[1].arrival, ir[1].rid))
-                for _, r in arrived:
-                    if r is not req:
-                        self.skips[r.rid] += 1
+        if can_admit is not None and not can_admit(req):
+            return None
+        if self.schedule != "fifo" and \
+                self.skips[req.rid] < self.spf_age_cap:
+            for _, r in arrived:
+                if r is not req:
+                    self.skips[r.rid] += 1
         del self.queue[idx]
         return req
 
     def _admit(self, tick: int):
         """QUEUED -> PREFILLING: pop arrived requests into free slots and
-        zero the slots' stale cache slices."""
+        zero the slots' stale cache slices.
+
+        A paged engine admits preempted requests first (FIFO: they are the
+        oldest admitted work), then the queue, each gated on free pages
+        for its whole (re-)prefill record, not only a free slot. A gate
+        miss blocks the head of the line: nothing younger jumps it."""
         if self._has_deadlines:
             self._shed_hopeless_queue(tick)
         mask = np.zeros((self.n_slots,), bool)
         for s, slot in enumerate(self.slots):
             if slot.state is not SlotState.FREE:
                 continue
-            req = self._pop_next(tick)
+            if self.preempted:
+                ent = self.preempted[0]
+                emitted = self.outputs.get(ent.rid, [])
+                record = (np.concatenate([ent.durable,
+                                          np.asarray(emitted, np.int32)])
+                          if emitted else ent.durable)
+                need = self.page_alloc.pages_for(len(record))
+                if need > self.page_alloc.free_pages:
+                    self.metrics.on_alloc_failure()
+                    break                 # head of the line: wait for pages
+                self.preempted.popleft()
+                self.page_alloc.grow(s, need)
+                self.slots[s] = _Slot(
+                    state=SlotState.PREFILLING, rid=ent.rid, prompt=record,
+                    durable=ent.durable, gen_len=ent.gen_len,
+                    deadline=ent.deadline, fault_count=ent.fault_count,
+                    replay=bool(emitted), admit_seq=self._admit_seq)
+                self._admit_seq += 1
+                mask[s] = True
+                self.metrics.on_admit(ent.rid, tick, skips=0)
+                if self.journal is not None:
+                    self.journal.append("admit", tick, rid=int(ent.rid),
+                                        slot=s, skips=0)
+                if self.tracer is not None:
+                    self.tracer.event("admit", tick, rid=ent.rid, slot=s,
+                                      wait=0, skips=0, resumed=True)
+                iv = SlotInterval(slot=s, rid=ent.rid, admit_tick=tick)
+                self.slot_log.append(iv)
+                self._open_interval[s] = iv
+                continue
+            can_admit = None
+            if self.paged:
+                def can_admit(r):
+                    if self.page_alloc.pages_for(r.prompt_len) > \
+                            self.page_alloc.free_pages:
+                        self.metrics.on_alloc_failure()
+                        return False
+                    return True
+            req = self._pop_next(tick, can_admit)
             if req is None:
                 break
             prompt = np.asarray(req.prompt, np.int32)
             self.slots[s] = _Slot(state=SlotState.PREFILLING, rid=req.rid,
                                   prompt=prompt, durable=prompt,
-                                  gen_len=req.gen_len, deadline=req.deadline)
+                                  gen_len=req.gen_len, deadline=req.deadline,
+                                  admit_seq=self._admit_seq)
+            self._admit_seq += 1
+            if self.paged:
+                self.page_alloc.grow(s, self.page_alloc.pages_for(len(prompt)))
             mask[s] = True
             self.outputs[req.rid] = []
             skips = self.skips.pop(req.rid, 0)
             self.metrics.on_admit(req.rid, tick, skips=skips)
+            if self.journal is not None:
+                self.journal.append("admit", tick, rid=int(req.rid), slot=s,
+                                    skips=skips)
             if self.tracer is not None:
                 self.tracer.event("admit", tick, rid=req.rid, slot=s,
                                   wait=tick - req.arrival, skips=skips)
@@ -454,10 +722,93 @@ class ServeEngine:
             self.slot_log.append(iv)
             self._open_interval[s] = iv
         if mask.any():
-            self.cache = self._reset(self.cache, self._tensor(mask))
+            self.cache = self._reset_call(mask)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    # ------------------------------------------------------- page pressure
+
+    def _ptab(self) -> torch.Tensor:
+        """The allocator's page table on the device, copied again only when
+        the allocator changed (its version): the step operand."""
+        if self._ptab_version != self.page_alloc.version:
+            self._ptab_cached = self._tensor(self.page_alloc.table())
+            self._ptab_version = self.page_alloc.version
+        return self._ptab_cached
+
+    def _paged_args(self):
+        return (self._ptab(),) if self.paged else ()
+
+    def _reset_call(self, mask: np.ndarray):
+        return self._reset(self.cache, self._tensor(mask), *self._paged_args())
+
+    def _slot_pages_needed(self, s: int) -> int:
+        """Pages slot ``s`` must own before this tick's device calls: a
+        prefilling slot writes up to its next chunk's end, a decoding slot
+        one token at position len(durable) + len(outputs) - 1."""
+        slot = self.slots[s]
+        if slot.state is SlotState.PREFILLING:
+            step = (self.prefill_chunk if self.prefill_mode == "chunked"
+                    else 1)
+            tokens = min(slot.cursor + step, len(slot.prompt))
+            if self.prefill_mode == "chunked" and \
+                    tokens == len(slot.prompt):
+                # the chunk that ends the prompt turns the slot DECODING in
+                # this tick, and that first decode writes one position past
+                tokens += 1
+        else:                              # DECODING
+            tokens = len(slot.durable) + len(self.outputs[slot.rid])
+        return self.page_alloc.pages_for(tokens)
+
+    def _page_growth(self, tick: int):
+        """Grow each occupied slot to the pages this tick's writes need,
+        oldest admission first. Page pressure preempts the youngest
+        occupied slot younger than the needer (a needer with none younger
+        preempts itself: it never steals from its elders, so the oldest
+        admission always runs, and submit() made its whole need fit the
+        pool)."""
+        order = sorted((s for s in range(self.n_slots)
+                        if self.slots[s].state is not SlotState.FREE),
+                       key=lambda s: self.slots[s].admit_seq)
+        for s in order:
+            slot = self.slots[s]
+            if slot.state is SlotState.FREE:
+                continue                   # preempted earlier in the walk
+            need = self._slot_pages_needed(s)
+            while not self.page_alloc.grow(s, need):
+                self.metrics.on_alloc_failure()
+                younger = [v for v in range(self.n_slots)
+                           if v != s
+                           and self.slots[v].state is not SlotState.FREE
+                           and self.slots[v].admit_seq > slot.admit_seq]
+                if younger:
+                    self._preempt(max(younger,
+                                      key=lambda v: self.slots[v].admit_seq),
+                                  tick)
+                else:
+                    self._preempt(s, tick)
+                    break
+
+    def _preempt(self, s: int, tick: int):
+        """Evict slot ``s`` under page pressure: free its pages, queue it
+        on the FIFO re-admission deque and journal a "preempt" record. Its
+        emitted tokens stay in ``outputs``; re-admitted, it re-prefills
+        durable + outputs, and its stream continues bitwise."""
+        slot = self.slots[s]
+        rid = slot.rid
+        freed = self.page_alloc.release(s)
+        self.metrics.on_preempt(rid, tick)
+        if self.journal is not None:
+            self.journal.append("preempt", tick, rid=int(rid), slot=s)
+        if self.tracer is not None:
+            self.tracer.event("preempt", tick, rid=rid, slot=s,
+                              freed_pages=freed)
+        self._close_interval(s, tick)
+        self.preempted.append(_Preempted(
+            rid=rid, durable=slot.durable, gen_len=slot.gen_len,
+            deadline=slot.deadline, fault_count=slot.fault_count))
+        self.slots[s] = _Slot()
 
     def _prefill_phase(self, tick: int) -> int:
         prefilling = {s: slot.prompt for s, slot in enumerate(self.slots)
@@ -468,16 +819,18 @@ class ServeEngine:
         tokens, n_valid = assemble_chunk(prefilling, cursors, self.n_slots,
                                          self.prefill_chunk)
         replaying = any(self.slots[s].replay for s in prefilling)
+        restoring = any(self.slots[s].restore for s in prefilling)
         span = (self.tracer.begin(
                     "call", tick, phase="prefill", kind=self.prefill_kind,
                     arch=self.cfg.name, participants=sorted(prefilling),
                     occupancy=len(prefilling) / self.n_slots,
-                    replay=replaying)
+                    replay=replaying, restore=restoring)
                 if self.tracer is not None else None)
         c0 = time.monotonic()
         res = self._device_call("prefill", self.prefill_kind, self._prefill,
                                 self.params, self.cache,
-                                self._tensor(tokens), self._tensor(n_valid))
+                                self._tensor(tokens), self._tensor(n_valid),
+                                *self._paged_args())
         if res is None:                   # persistent step failure:
             if span is not None:          # quarantine every participant
                 self.tracer.end(span, ok=False)
@@ -490,7 +843,8 @@ class ServeEngine:
         if span is not None:
             self.tracer.end(span, ok=True)
         self.metrics.on_device_call("prefill", kind=self.prefill_kind,
-                                    replay=replaying, dur_s=dur_s)
+                                    replay=replaying, restore=restoring,
+                                    dur_s=dur_s)
         nxt = lg.argmax(axis=-1)
         for s in prefilling:
             if not np.isfinite(lg[s]).all():
@@ -535,7 +889,8 @@ class ServeEngine:
         c0 = time.monotonic()
         res = self._device_call("decode", "decode", self._decode,
                                 self.params, self.cache,
-                                self._tensor(tokens), self._tensor(active))
+                                self._tensor(tokens), self._tensor(active),
+                                *self._paged_args())
         if res is None:
             if span is not None:
                 self.tracer.end(span, ok=False)
@@ -571,6 +926,9 @@ class ServeEngine:
             self.outputs[slot.rid].append(tok)
             slot.pending_token = tok
             self.metrics.on_token(slot.rid)
+            if self.journal is not None:
+                self.journal.append("token", tick, rid=int(slot.rid),
+                                    token=tok)
             if len(self.outputs[slot.rid]) >= slot.gen_len:
                 self._release(s, tick)
         return 1
@@ -650,10 +1008,15 @@ class ServeEngine:
                               kind=kind, fault_count=slot.fault_count)
         if slot.fault_count > self.max_replays:
             self.metrics.on_shed(rid, tick, "fault_budget")
+            if self.journal is not None:
+                self.journal.append("shed", tick, rid=int(rid),
+                                    reason="fault_budget")
             if self.tracer is not None:
                 self.tracer.event("shed", tick, rid=rid, slot=s,
                                   reason="fault_budget")
             self._close_interval(s, tick)
+            if self.paged:
+                self.page_alloc.release(s)
             self.slots[s] = _Slot()
             return
         self.metrics.on_replay(rid)
@@ -665,26 +1028,37 @@ class ServeEngine:
         slot.cursor = 0
         slot.pending_token = 0
         slot.replay = bool(emitted)
+        slot.restore = False              # a fault replay, not restart work
         slot.state = SlotState.PREFILLING
         if self.tracer is not None:
             self.tracer.event("replay", tick, rid=rid, slot=s,
                               record_len=int(len(record)))
         mask = np.zeros((self.n_slots,), bool)
         mask[s] = True
-        self.cache = self._reset(self.cache, self._tensor(mask))
+        self.cache = self._reset_call(mask)
 
     # ------------------------------------------------------ SLO shedding --
 
-    def _min_ticks_to_done(self, prompt_left: int, gen_left: int) -> int:
+    def _min_ticks_to_done(self, prompt_left: int, gen_left: int,
+                           queued: bool = False) -> int:
         """OPTIMISTIC ticks (the current one included) until the request
         finishes: the last prefill chunk emits the first of the remaining
         tokens, then one token a tick. A lower bound, so a request is shed
-        only when its deadline is provably out of reach."""
-        if prompt_left <= 0:
-            return max(gen_left, 1)
-        return ((math.ceil(prompt_left / self.prefill_chunk)
+        only when its deadline is provably out of reach.
+
+        ``queued=True`` on a paged engine adds the page-wait floor: when
+        the free pool cannot hold the prompt's pages, admission cannot
+        happen this tick, so at least one more passes (exactly one keeps
+        the bound: one release could free all it needs)."""
+        est = (((math.ceil(prompt_left / self.prefill_chunk)
                  if self.prefill_mode == "chunked" else prompt_left)
                 + max(gen_left - 1, 0))
+               if prompt_left > 0 else max(gen_left, 1))
+        if queued and self.paged and \
+                self.page_alloc.pages_for(prompt_left) > \
+                self.page_alloc.free_pages:
+            est += 1
+        return est
 
     def _shed_hopeless_queue(self, tick: int):
         """Drop arrived queued requests whose deadline is out of reach even
@@ -692,10 +1066,14 @@ class ServeEngine:
         kept = []
         while self.queue and self.queue[0].arrival <= tick:
             r = self.queue.popleft()
-            est = self._min_ticks_to_done(r.prompt_len, r.gen_len)
+            est = self._min_ticks_to_done(r.prompt_len, r.gen_len,
+                                          queued=True)
             if r.deadline is not None and tick + est - 1 > r.deadline:
                 self.skips.pop(r.rid, None)
                 self.metrics.on_shed(r.rid, tick, "deadline")
+                if self.journal is not None:
+                    self.journal.append("shed", tick, rid=int(r.rid),
+                                        reason="deadline")
                 if self.tracer is not None:
                     self.tracer.event("shed", tick, rid=r.rid,
                                       reason="deadline", where="queue")
@@ -715,10 +1093,15 @@ class ServeEngine:
             if tick + self._min_ticks_to_done(prompt_left, gen_left) - 1 \
                     > slot.deadline:
                 self.metrics.on_shed(slot.rid, tick, "deadline")
+                if self.journal is not None:
+                    self.journal.append("shed", tick, rid=int(slot.rid),
+                                        reason="deadline")
                 if self.tracer is not None:
                     self.tracer.event("shed", tick, rid=slot.rid, slot=s,
                                       reason="deadline", where="slot")
                 self._close_interval(s, tick)
+                if self.paged:
+                    self.page_alloc.release(s)
                 self.slots[s] = _Slot()   # cache zeroed at next admit
 
     # ------------------------------------------------------------- helpers
@@ -740,7 +1123,11 @@ class ServeEngine:
             if self.tracer is not None:
                 self.tracer.event("first_token", tick, rid=slot.rid, slot=s)
         slot.replay = False
+        slot.restore = False
         self.metrics.on_token(slot.rid)
+        if self.journal is not None:
+            self.journal.append("token", tick, rid=int(slot.rid),
+                                token=int(token))
         if len(self.outputs[slot.rid]) >= slot.gen_len:
             self._release(s, tick)
 
@@ -755,8 +1142,12 @@ class ServeEngine:
     def _release(self, s: int, tick: int):
         slot = self.slots[s]
         self.metrics.on_done(slot.rid, tick)
+        if self.journal is not None:
+            self.journal.append("done", tick, rid=int(slot.rid))
         if self.tracer is not None:
             self.tracer.event("release", tick, rid=slot.rid, slot=s,
                               tokens=len(self.outputs[slot.rid]))
         self._close_interval(s, tick)
+        if self.paged:
+            self.page_alloc.release(s)
         self.slots[s] = _Slot()           # FREE; cache zeroed at next admit

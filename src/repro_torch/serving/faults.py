@@ -164,7 +164,12 @@ def corrupt_logits(logits: np.ndarray, slots: List[int]) -> np.ndarray:
 def corrupt_cache(cache, slots: List[int], n_slots: int):
     """NaN-poison, in place, every floating cache leaf's slices for
     ``slots`` (batch on axis 1); ``pos``, integer leaves and ``enc_out``
-    are left as they are. Returns ``cache``."""
+    are left as they are. Returns ``cache``.
+
+    A paged pool ("pk" / "pv") has no batch axis, and the reference's
+    ``merge_slots`` passes the poisoned pool through whole: every page is
+    poisoned, as there (the spare page past the reference's pool, which no
+    step reads, is left as it is)."""
     mask = torch.zeros((n_slots,), dtype=torch.bool)
     mask[list(slots)] = True
 
@@ -172,6 +177,8 @@ def corrupt_cache(cache, slots: List[int], n_slots: int):
         if isinstance(tree, dict):
             for k, v in tree.items():
                 visit(k, v)
+        elif key in ("pk", "pv"):
+            tree[:, :-1].fill_(float("nan"))
         elif key not in ("enc_out", "pos") and tree.is_floating_point():
             shape = [1] * tree.ndim
             shape[1] = n_slots

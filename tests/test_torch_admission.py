@@ -121,12 +121,13 @@ class _Sheds:
 def test_min_ticks_and_queue_shedding_decide_as_the_reference(
         prefill_mode, chunk):
     mine = _stub([], "fifo", 8, prefill_chunk=chunk,
-                 prefill_mode=prefill_mode, metrics=_Sheds(), tracer=None)
+                 prefill_mode=prefill_mode, metrics=_Sheds(), tracer=None,
+                 journal=None, paged=False)
     ref = _stub([], "fifo", 8, prefill_chunk=chunk,
                 prefill_mode=prefill_mode, metrics=_Sheds(), tracer=None,
                 journal=None, paged=False)
-    mine._min_ticks_to_done = lambda p, g: ServeEngine._min_ticks_to_done(
-        mine, p, g)
+    mine._min_ticks_to_done = lambda p, g, queued=False: \
+        ServeEngine._min_ticks_to_done(mine, p, g, queued)
     ref._min_ticks_to_done = lambda p, g, queued=False: \
         JaxEngine._min_ticks_to_done(ref, p, g, queued)
     for p in range(0, 40):

@@ -161,12 +161,25 @@ def test_no_kernel_launches_on_cpu(served):
     assert served[4] == 0
 
 
-def test_engine_refuses_unported_features():
+def test_engine_refuses_unported_features(tmp_path):
+    """Every keyword of the reference's ServeEngine is ported (one card has
+    no mesh): the durability and paging ones construct an engine, and an
+    unknown keyword is a TypeError."""
+    import inspect
+    from repro.serving.engine import ServeEngine as JaxEngine
+    from repro_torch.models import init_params
+    ref = set(inspect.signature(JaxEngine.__init__).parameters) - {"mesh"}
+    assert ref <= set(inspect.signature(ServeEngine.__init__).parameters)
     cfg = get_config("tinyllama-1.1b", reduced=True)
-    for kw in (dict(paged=True), dict(journal="j.log"),
-               dict(snapshot_dir="snap")):
-        with pytest.raises(NotImplementedError):
-            ServeEngine(cfg, {}, device="cpu", **kw)
+    params = init_params(cfg, device="cpu")
+    engine = ServeEngine(cfg, params, n_slots=2, max_len=16, device="cpu",
+                         paged=True, page_size=4, n_pages=6,
+                         journal=str(tmp_path / "j.log"),
+                         snapshot_dir=str(tmp_path / "snap"),
+                         snapshot_every=2, snapshot_keep=3)
+    assert engine.paged and engine.n_pages == 6 and engine.journal is not None
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        ServeEngine(cfg, params, device="cpu", pages=True)
 
 
 def test_oversized_request_is_rejected_not_served():

@@ -395,11 +395,11 @@ def test_dead_key_nan_reaches_the_output_as_in_the_reference():
 
 
 def test_corruption_of_a_reset_slot_is_detected_on_the_card(cuda):
-    """The same plan with the kernels on the card must quarantine where
-    the CPU path does. It does not: row_attention skips the keys past a
-    row's live range (f32 every one, bf16 every 64-key tile past the
-    row's last live one), so the poisoned rows of a slot at position 0
-    are overwritten before any call reads them (ROADMAP Queue 3)."""
+    """The same plan with the kernels on the card quarantines where the
+    CPU path does: row_attention skips the keys past a row's live range,
+    but reads their V rows for non-finite values and writes NaN where the
+    reference's 0 * v gives it, so the poisoned rows of a slot at
+    position 0 are read at the replay's first chunk, as on the CPU."""
     cfg = get_config("tinyllama-1.1b", reduced=True).scaled(dtype="float32")
     trace = make_trace(WorkloadSpec(**SPEC), cfg.vocab_size)
     params = init_params(cfg, device="cpu")

@@ -29,8 +29,8 @@ assert not leaked, leaked
 
 #: modules of the per-layer kernel-mode and DB-PIM pipeline slice, the
 #: row-stable kernels, the compiled steps, the SSM and the MoE families,
-#: fault injection and tracing; the probe imports every module of the
-#: package, these among them
+#: fault injection and tracing, durability and paging; the probe imports
+#: every module of the package, these among them
 SLICE_MODULES = {
     "repro_torch.core.dyadic", "repro_torch.core.pim_model",
     "repro_torch.core.pruning", "repro_torch.core.qat",
@@ -42,7 +42,9 @@ SLICE_MODULES = {
     "repro_torch.models.ssm", "repro_torch.models.moe",
     "repro_torch.serving.faults", "repro_torch.obs.trace",
     "repro_torch.obs.chrome", "repro_torch.launch.report",
-    "repro_torch.runtime.fault"}
+    "repro_torch.runtime.fault", "repro_torch.checkpoint.checkpoint",
+    "repro_torch.serving.journal", "repro_torch.serving.snapshot",
+    "repro_torch.serving.paging"}
 
 
 def test_port_and_chip_smoke_import_no_jax():

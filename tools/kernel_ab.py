@@ -26,8 +26,13 @@ seed):
   * row_attention (bf16): one layer's attention of a decode call (batch 4,
     512-slot cache), of a 64-query prefill-chunk call, and of a prefill
     call of the long-context cell (batch 16 x 256 queries, 2048-slot
-    cache), each counted once per layer (22 launches); the inputs of
-    ``chip_smoke.py``'s times phase.
+    cache), each counted once per layer (22 launches); the streaming case
+    (64 queries at the end of 32,768 keys, 22 launches); whisper-base's
+    encoder (4 x 1,500 non-causal queries, 6 launches); pixtral-12b's
+    forward (2 x 512 causal queries, 40 launches); gemma-7b's decode call
+    (hd 256, group 1, 28 launches); and the windowed streaming case
+    (mixtral's window of 4,096 at the end of 32,768 keys, 32 launches):
+    the inputs of ``chip_smoke.py``'s times phase.
   * row_norm (bf16 RMSNorm, d = 2048): 4, 256 and 4096 rows, each counted
     45 times (2 per layer and the final norm).
 
@@ -64,9 +69,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
-from chip_smoke import (ATTN_REL_TOL, LONG_B, LONG_C, _device_ms,  # noqa: E402
+from chip_smoke import (ATTN_REL_TOL, LONG_B, LONG_C,  # noqa: E402
+                        PIXTRAL_BATCH, PIXTRAL_TOKENS, STREAM_A_BF16,
+                        STREAM_C, _device_ms, _encoder_attention_inputs,
                         _host_us, _long_attention_inputs,
-                        _serve_attention_inputs, _time)
+                        _serve_attention_inputs, _stream_attention_inputs,
+                        _time, _window_inputs)
 
 LAYER = [("wq", 2048, 2048), ("wk", 2048, 256), ("wv", 2048, 256),
          ("wo", 2048, 2048), ("w_gate", 2048, 5632), ("w_up", 2048, 5632),
@@ -95,6 +103,16 @@ UNITS = [
      N_LAYERS, torch.bfloat16),
     ("row_attention", "long-context chunk call", None, [("long", 0, 0)],
      N_LAYERS, torch.bfloat16),
+    ("row_attention", "streaming, 32768 keys", None, [("stream", 0, 0)],
+     N_LAYERS, torch.bfloat16),
+    ("row_attention", "whisper-base encoder call", None,
+     [("encoder", 0, 0)], 6, torch.bfloat16),
+    ("row_attention", "pixtral-12b forward call", None, [("forward", 0, 0)],
+     40, torch.bfloat16),
+    ("row_attention", "gemma-7b decode call", None, [("gemma", 0, 0)], 28,
+     torch.bfloat16),
+    ("row_attention", "windowed streaming, window 4096", None,
+     [("window", 0, 0)], 32, torch.bfloat16),
     ("row_norm", "4 rows", 4, [("rms", 0, 2048)], 2 * N_LAYERS + 1,
      torch.bfloat16),
     ("row_norm", "256 rows", 256, [("rms", 0, 2048)], 2 * N_LAYERS + 1,
@@ -109,7 +127,7 @@ SIGNATURE = {"dbmu_matmul": [_P] * 3 + [_I] * 3,
              "fta_int8_matmul": [_P] * 4 + [_I] * 5,
              "joint_sparse_matmul": [_P] * 5 + [_I] * 9,
              "block_sparse_matmul": [_P] * 4 + [_I] * 7,
-             "row_attention": [_P] * 5 + [_I] * 6 + [_L, _L, _F, _I],
+             "row_attention": [_P] * 5 + [_I] * 7 + [_L, _L, _F, _I],
              "row_norm": [_P] * 4 + [_I, _I, _F, _I, _I]}
 ORDER = ("other", "this", "this", "other")
 ITERS = 20
@@ -171,20 +189,39 @@ def _row_case(name, what, M, dev, gen):
         return dict(ptrs=(x, scale, None, y), ints=(M, 2048, 1e-6, 0, 1),
                     y=y, want=rnk.row_norm_plain(x, scale),
                     wrapper=lambda: rnk.row_norm(x, scale))
-    cfg = get_config("tinyllama-1.1b")
-    make = _long_attention_inputs if what == "long" else \
-        _serve_attention_inputs
-    a = make(cfg, dev, torch.bfloat16, gen)
-    q, pos = a[what]
-    k, v = a["k"], a["v"]
+    bf16, window = torch.bfloat16, 0
+    if what in ("decode", "chunk", "long", "stream"):
+        cfg = get_config("tinyllama-1.1b")
+        a = (_long_attention_inputs(cfg, dev, bf16, gen) if what == "long"
+             else _stream_attention_inputs(cfg, dev, bf16, gen,
+                                           STREAM_A_BF16)
+             if what == "stream"
+             else _serve_attention_inputs(cfg, dev, bf16, gen))
+        (q, pos), k, v = a[what], a["k"], a["v"]
+    elif what == "gemma":
+        a = _serve_attention_inputs(get_config("gemma-7b"), dev, bf16, gen)
+        (q, pos), k, v = a["decode"], a["k"], a["v"]
+    elif what == "encoder":
+        cfg = get_config("whisper-base")
+        q, k, v, pos = _encoder_attention_inputs(cfg, dev, bf16, gen,
+                                                 cfg.encoder_seq)
+    else:
+        cfg = get_config("pixtral-12b" if what == "forward"
+                         else "mixtral-8x7b")
+        S = cfg.n_patches + PIXTRAL_TOKENS
+        q, k, v, pos = (_window_inputs(cfg, dev, bf16, gen, PIXTRAL_BATCH, S,
+                                       S) if what == "forward"
+                        else _window_inputs(cfg, dev, bf16, gen, 1,
+                                            STREAM_A_BF16, STREAM_C))
+        window = cfg.window
     B, Sq, Hq, hd = q.shape
     y = torch.empty_like(q)
     return dict(ptrs=(q, k, v, pos, y),
-                ints=(B, Sq, Hq, k.shape[2], k.shape[1], hd, k.stride(0),
-                      v.stride(0), hd ** -0.5, 1),
-                y=y, want=rak.row_attention_plain(q, k, v, pos),
+                ints=(B, Sq, Hq, k.shape[2], k.shape[1], hd, window,
+                      k.stride(0), v.stride(0), hd ** -0.5, 1),
+                y=y, want=rak.row_attention_plain(q, k, v, pos, window),
                 tol=ATTN_REL_TOL,
-                wrapper=lambda: rak.row_attention(q, k, v, pos))
+                wrapper=lambda: rak.row_attention(q, k, v, pos, window))
 
 
 def _case(name, K, N, M, xdt, dev, gen):
