@@ -2,10 +2,23 @@
 
     python3 chip_smoke.py
 
+Every full-width engine of phases 4 to 4f (the ten archs) and phase 4g's
+traced engine also passes check_waterfall: obs.engine_waterfall(engine)
+under torch.profiler launches nothing, allocates nothing and moves no
+wrapper count; in each call kind its rows sum to the weight bytes
+exactly, each packed table's rows are its w_blocks, idx and scales bytes
+times its reads a call (an exact chunk's SSM projections: C), and the
+other rows are the unembedding and the routers of the param tree; each
+kind's weight bytes, its bound at 3.35 TB/s and its measured p50 are
+printed, and mixtral's, jamba's and the dense variants' bytes bounds
+take their weight term from it (held to the hand sum of packs and
+unembedding). Phase 4g's traced run embeds one waterfall record a call
+kind, which validate counts and the report renders.
+
 Phases, each printed on its own lines (each line after the seconds since
 the run started), run in the order 1, 2, 3, 4, 4b, 4g, 4h, 4c, 4d, 4e, 4f,
-5, 6, 7, 8; any failure raises and exits non-zero (no phase catches its own
-failure; phase 4g catches the one EngineStuckError it provokes):
+5, 5b, 6, 7, 8; any failure raises and exits non-zero (no phase catches
+its own failure; phase 4g catches the one EngineStuckError it provokes):
 
   1. build  — nvcc builds the six kernels (joint_sparse_matmul,
               block_sparse_matmul, fta_int8_matmul, dbmu_matmul, and the
@@ -288,6 +301,19 @@ failure; phase 4g catches the one EngineStuckError it provokes):
               row_attention and two of row_norm), the output within
               2^-6 * max|ref| of the same layer through the plain versions; the launches of a 4-row decode call are printed (0
               by the reference's rule: rows % 128 != 0).
+  5b. compress — tinyllama-1.1b's full-width params (a seeded draw)
+              through sparsify_params on the card (154 slices, 1 x 8
+              block pruning at 0.6, one INT8 scale a slice, FTA), one
+              slice's q, mask, scale and pad byte for byte the host's;
+              pim_speedup_estimate printed; quantize_params_for_serving
+              on the card, one slice's q and per-filter scale byte for
+              byte the host's; the int8 "serve" step (INT8
+              projections with a per-filter scale, dequantized inside
+              the step) for 8 lock-step decode steps at batch 4, its
+              logits bitwise the dense "serve" step's over the
+              dequantized params, both steps' waterfalls printed (the
+              int8 step's INT8 weights charged at bf16 size in the
+              untagged dot row, as the reference's walker charges them).
   6. dbmu   — the DB-PIM compilation pipeline (block pruning at 0.6, alpha 8
               -> per-tensor INT8 -> FTA -> dyadic term packing) on the card
               for every projection shape: masks and packs byte-identical to
@@ -379,6 +405,7 @@ of the repository.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import re
@@ -391,6 +418,16 @@ from pathlib import Path
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+#: phase 5b: the seed of its tinyllama-1.1b draw, the projection slice it
+#: holds to the host's compression, and the int8 "serve" step's lock-step
+#: batch and decode steps
+COMPRESS_SEED = 7
+COMPRESS_SLICE = ("blocks/mlp/w_down", 1)
+INT8_SERVE_B, INT8_SERVE_STEPS = 4, 8
+#: the accounting and compression checks: each serve engine's waterfall
+#: ({arch: {call kind: {"total", "rows"}}}), and the seconds each part took
+WATERFALLS = {}
+COST_SECONDS = {}
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
 INT8_OPS = 1979e12                 # H100 SXM dense int8 tensor-core peak
 FP32_FLOPS = 67e12                 # H100 SXM fp32 peak outside tensor cores
@@ -1250,6 +1287,7 @@ def phase_serve(dev, serve_args=SERVE_ARGS,
     kind = prefill_kind
     assert engine.prefill_kind == eager.prefill_kind == kind, \
         engine.prefill_kind
+    check_waterfall(engine, tables, tag)
     keys = {RecompileSentinel.key(k, cfg.name): 1
             for k in ("decode", kind, "reset")}
     assert engine.sentinel.counts() == keys, engine.sentinel.counts()
@@ -1736,6 +1774,107 @@ def _nbytes(arrays) -> int:
                for a in t.values())
 
 
+def _dense_rows(params):
+    """The dense leaves a serving step multiplies, reckoned from the param
+    tree by path, each read once a call: the unembedding ("embed/out", or
+    the tied "embed/tok") and every MoE router. {path: bytes}."""
+    flat = {k[1:]: v for k, v in _flat(params).items()}
+    unembed = "embed/out" if "embed/out" in flat else "embed/tok"
+    return {k: v.numel() * v.element_size() for k, v in flat.items()
+            if k == unembed or k.endswith("moe/router")}
+
+
+def check_waterfall(engine, tables, tag):
+    """``obs.engine_waterfall(engine)`` on a full-width engine: under
+    torch.profiler no kernel record, no wrapper launch and no device
+    allocation (the peak stays at what was resident); in every call kind the rows sum to its
+    weight_bytes exactly, each "tables/<family>/<part>" row (w_blocks,
+    idx, scales) is that array's bytes times its reads a call (1; an
+    exact chunk's SSM in/out projections C, one per token), and the other
+    rows are ``_dense_rows`` of the params. Prints each kind's weight
+    bytes, its bytes bound at 3.35 TB/s and the engine's measured p50 of
+    that kind. Returns the waterfall (also in WATERFALLS)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import engine_waterfall
+    t0 = time.monotonic()
+    dev, cfg = engine.device, engine.cfg
+    # garbage from earlier runs may be freed during the call: the peak,
+    # not the end, shows whether it allocated
+    gc.collect()
+    torch.cuda.synchronize()
+    mem, launches = torch.cuda.memory_allocated(dev), read_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wf = engine_waterfall(engine)
+        torch.cuda.synchronize()
+    ran = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert not ran, ran[:8]
+    assert torch.cuda.max_memory_allocated(dev) == mem, \
+        (torch.cuda.max_memory_allocated(dev), mem)
+    assert read_launches() == launches
+    kinds = {"decode"} | ({engine.prefill_kind} if engine.prefill_kind
+                          else set())
+    assert set(wf) == kinds, (set(wf), kinds)
+    dense = _dense_rows(engine.params)
+    for kind, w in wf.items():
+        rows = w["rows"]
+        assert sum(rows.values()) == w["total"], kind
+        want = {}
+        for fam, parts in tables.arrays.items():
+            ssm = fam.rsplit("/", 1)[-1] in ("in_proj", "out_proj")
+            reads = (engine.prefill_chunk
+                     if kind == "prefill_chunk_exact" and ssm else 1)
+            for part in ("w_blocks", "idx", "scales"):
+                a = parts[part]
+                want[f"tables/{fam}/{part}"] = \
+                    reads * a.numel() * a.element_size()
+        got = {k: v for k, v in rows.items() if k.startswith("tables/")}
+        assert got == want, (kind, {k: (got.get(k), want.get(k))
+                                    for k in set(got) | set(want)
+                                    if got.get(k) != want.get(k)})
+        rest = {k: v for k, v in rows.items() if not k.startswith("tables/")}
+        assert rest == dense, (kind, rest, dense)
+    secs = time.monotonic() - t0
+    COST_SECONDS["waterfalls"] = COST_SECONDS.get("waterfalls", 0.0) + secs
+    WATERFALLS[cfg.name] = wf
+    lat = engine.metrics.summary()["call_latency_ms"]
+    for kind, w in wf.items():
+        p50 = lat.get(kind, {}).get("p50_ms")
+        tab = sum(v for k, v in w["rows"].items() if k.startswith("tables/"))
+        log(f"[{tag}] {cfg.name} {kind} waterfall: {w['total']:.0f} B of "
+            f"weights a call in {len(w['rows'])} rows (packed tables "
+            f"{tab:.0f}, dense {w['total'] - tab:.0f}: "
+            + ", ".join(sorted(dense)) + f"), summing to it exactly; bytes "
+            f"bound {1e3 * w['total'] / HBM_BYTES_PER_S:.3f} ms at 3.35 "
+            f"TB/s; measured p50 "
+            + ("n/a" if p50 is None else f"{p50:.3f} ms") + " a call")
+    log(f"[{tag}] {cfg.name} engine_waterfall: {secs:.2f} s of host time, "
+        f"no kernel record, no launch, no device allocation (peak == "
+        f"resident)")
+    return wf
+
+
+def _hand_terms(wf, tables, cfg):
+    """A decode waterfall held to the hand reckoning of the same leaves:
+    its table rows sum to every pack's w_blocks, idx and scales (the packs
+    less nblocks, which no kernel reads), its unembedding row is 2 d V
+    bytes, the rest are the routers. Returns (packs, unembedding,
+    routers) in bytes."""
+    rows = wf["rows"]
+    packs = _nbytes({k: {p: a for p, a in t.items() if p != "nblocks"}
+                     for k, t in tables.arrays.items()})
+    unembed = 2 * cfg.d_model * cfg.vocab_size
+    assert sum(v for k, v in rows.items() if k.startswith("tables/")) \
+        == packs
+    assert rows.get("embed/out", rows.get("embed/tok")) == unembed
+    routers = wf["total"] - packs - unembed
+    assert routers == sum(v for k, v in rows.items()
+                          if k.endswith("/router"))
+    return packs, unembed, routers
+
+
 def phase_moe_pack(dev):
     """Grouped packs on the card: each reduced mixtral expert stack packed
     by ``pack_joint_sparse_grouped`` on the card equals the CPU pack byte
@@ -1894,6 +2033,7 @@ def phase_moe_serve(dev):
                            max_len=args.max_len, stacked_tables=tables,
                            device=dev, cuda_graphs=graphs)
     engine, outputs, device, counts, peak = _counted_run(engine, trace, make)
+    wf = check_waterfall(engine, tables, "moe")["decode"]
     per_call = obs.per_call(cfg)
     s = engine.metrics.summary()
     calls = s["device_calls"]
@@ -1943,14 +2083,15 @@ def phase_moe_serve(dev):
             f"max|d|={d:.3e} (tol {tol:.3e} = {LOGIT_REL_TOL} x max|ref|)")
     del runs, comp, eag, e
     prof = phase_profile([("mixtral compiled", engine)])
-    bound_ms = 1e3 * (_nbytes(tables.arrays) + 2 * cfg.d_model
-                      * cfg.vocab_size) / HBM_BYTES_PER_S
+    packs, unembed, routers = _hand_terms(wf, tables, cfg)
+    bound_ms = 1e3 * wf["total"] / HBM_BYTES_PER_S
     wall, busy = prof[("mixtral compiled", "decode call")][:2]
     log(f"[moe] {cfg.name} compiled decode call: {wall:.3f} ms wall, "
         f"busy {'not measured' if busy is None else f'{busy:.3f} ms'}; "
-        f"bytes bound {bound_ms:.3f} ms (packs "
-        f"{_nbytes(tables.arrays) / 1e9:.2f} GB + unembedding "
-        f"{2 * cfg.d_model * cfg.vocab_size / 1e9:.2f} GB at 3.35 TB/s)")
+        f"bytes bound {bound_ms:.3f} ms (the decode waterfall's "
+        f"{wf['total'] / 1e9:.4f} GB at 3.35 TB/s: packs read "
+        f"{packs / 1e9:.4f} GB + unembedding {unembed / 1e9:.4f} GB + "
+        f"routers {routers / 1e9:.4f} GB, the first two the hand sum's)")
     return {name: device[name] for name in per_call}
 
 
@@ -2021,6 +2162,7 @@ def phase_arctic(dev):
     torch.cuda.synchronize()
     eager_counts = read_launches()
     engine, out_c, device, counts, peak = _counted_run(engine, trace, make)
+    check_waterfall(engine, tables, "moe")
     per_call = obs.per_call(cfg)
     calls = engine.metrics.summary()["device_calls"]
     assert per_call == {"joint_sparse_matmul": 782, "row_attention": 2,
@@ -2193,6 +2335,7 @@ def phase_jamba(dev):
                            stacked_tables=tables, device=dev,
                            cuda_graphs=graphs)
     engine, outputs, device, counts, peak = _counted_run(engine, trace, make)
+    wf = check_waterfall(engine, tables, "seg")["decode"]
     per_call = obs.per_call(cfg)
     assert per_call == JAMBA_PER_CALL, per_call
     s = engine.metrics.summary()
@@ -2272,20 +2415,23 @@ def phase_jamba(dev):
         f"{g['state_rel_d']:.3e} of their layer's peak (measured, not a "
         f"bound: held in float32 below)")
     prof = phase_profile([("jamba compiled", engine)])
-    packs = _nbytes(tables.arrays)
-    unembed = 2 * cfg.d_model * cfg.vocab_size
+    packs, unembed, routers = _hand_terms(wf, tables, cfg)
+    # the walker charges weights only: the SSM states stay a term apart
     state = 2 * sum(v.numel() * v.element_size()
                     for path, v in _flat(engine.cache).items()
                     if path.endswith("/state"))
-    experts = _nbytes({k: v for k, v in tables.arrays.items()
-                       if "moe/" in k})
-    bound_ms = 1e3 * (packs + unembed + state) / HBM_BYTES_PER_S
+    experts = _nbytes({k: {p: a for p, a in v.items() if p != "nblocks"}
+                       for k, v in tables.arrays.items() if "moe/" in k})
+    bound_ms = 1e3 * (wf["total"] + state) / HBM_BYTES_PER_S
     wall, busy = prof[("jamba compiled", "decode call")][:2]
     log(f"[seg] {cfg.name} compiled decode call: {wall:.3f} ms wall, busy "
         f"{'not measured' if busy is None else f'{busy:.3f} ms'}; bytes "
-        f"bound {bound_ms:.3f} ms (packs {packs / 1e9:.2f} GB, of which "
-        f"experts {experts / 1e9:.2f}; unembedding {unembed / 1e9:.2f} GB; "
-        f"SSM states read and written {state / 1e9:.3f} GB; at 3.35 TB/s)")
+        f"bound {bound_ms:.3f} ms (the decode waterfall's "
+        f"{wf['total'] / 1e9:.4f} GB: packs read {packs / 1e9:.4f} GB, of "
+        f"which experts {experts / 1e9:.4f}; unembedding "
+        f"{unembed / 1e9:.4f} GB; routers {routers / 1e9:.6f} GB; beside "
+        f"it the SSM states read and written {state / 1e9:.3f} GB; at "
+        f"3.35 TB/s)")
     launches = {name: device[name] for name in per_call}
     del engine, tables, prof
     torch.cuda.empty_cache()
@@ -2872,6 +3018,10 @@ def phase_admission(engine, tables, ssm_engine, ssm_tables):
     spans = [r for r in records if r.get("type") == "span"]
     assert sum(r["name"] == "call" and r["attrs"]["ok"]
                for r in spans) == s_c["device_calls"]
+    # the serve CLI's --trace-out waterfalls, one a call kind: computed
+    # after the run, launching nothing (check_waterfall)
+    for kind, w in check_waterfall(traced, tables, "admit").items():
+        traced.tracer.waterfall(kind, w["rows"], w["total"])
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "chaos.jsonl")
         traced.tracer.dump(path)
@@ -2880,6 +3030,8 @@ def phase_admission(engine, tables, ssm_engine, ssm_tables):
     report = render(loaded)
     chrome = to_chrome_trace(loaded)["traceEvents"]
     assert "== FAULTS / RECOVERY ==" in report and chrome
+    assert stats["waterfalls"] == 2, stats
+    assert "== WEIGHT-TRAFFIC WATERFALL" in report
     cpu = twin.run(trace, plan, **chaos_kw)
     s_cpu = cpu.metrics.summary()
     by_kind = {k: s_c["calls_by_kind"].get(k, 0) - s_f["calls_by_kind"].get(
@@ -2917,7 +3069,8 @@ def phase_admission(engine, tables, ssm_engine, ssm_tables):
                   statistics.median(t for _, t in ts))
            for name, ts in (("untraced", ticks_c), ("traced", ticks_t))}
     log(f"[admit] traced run == untraced: streams, device launches, ticks, "
-        f"calls by kind and faults equal; the trace validates ({stats}), "
+        f"calls by kind and faults equal; with one waterfall record a call "
+        f"kind embedded, the trace validates ({stats}), "
         f"renders ({len(report.splitlines())} lines) and converts "
         f"({len(chrome)} Chrome events); host µs a tick (median, under the "
         f"profiler): untraced {med['untraced'][0]:.1f}, traced "
@@ -3408,15 +3561,17 @@ def phase_dense_variants(dev):
                        tables=tables)[0, 0].cpu()
         d, tol = _logit_gap(last, _stepwise_run(engine, tables, prompt)[0])
         assert d <= tol, (arch, d, tol)
-        packs = _nbytes(tables.arrays)
-        unembed = 2 * cfg.d_model * cfg.vocab_size
-        bound_ms = 1e3 * (packs + unembed) / HBM_BYTES_PER_S
+        wf = WATERFALLS[cfg.name]["decode"]
+        packs, unembed, _ = _hand_terms(wf, tables, cfg)
+        bound_ms = 1e3 * wf["total"] / HBM_BYTES_PER_S
         log(f"[dense] {cfg.name} forward(last_only) over request 0's first "
             f"{len(prompt)} prompt tokens vs the engine's stepwise decode of "
             f"them (kernel path, batch 1) max|d|={d:.3e} (tol {tol:.3e} = "
             f"{LOGIT_REL_TOL} x max|ref|); decode call bytes bound "
-            f"{bound_ms:.3f} ms (packs {packs / 1e9:.3f} GB + unembedding "
-            f"{unembed / 1e9:.3f} GB at 3.35 TB/s)")
+            f"{bound_ms:.3f} ms (the decode waterfall's "
+            f"{wf['total'] / 1e9:.4f} GB at 3.35 TB/s: packs read "
+            f"{packs / 1e9:.4f} GB + unembedding {unembed / 1e9:.4f} GB, "
+            f"the hand sum's)")
         del engine, tables, last
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -3597,6 +3752,139 @@ def phase_modes(dev):
             f"{decode_launches} times (rows % 128 != 0: the reference's "
             f"plain math)")
     return counts, tables_by_mode
+
+
+def phase_compression(dev):
+    """Phase 5b: the DB-PIM compression leftovers at tinyllama-1.1b's full
+    width on the card. ``sparsify_params`` over its 154 projection slices
+    (1 x 8 block pruning at cfg's value sparsity, one INT8 scale a slice,
+    FTA), the artifacts on the card, one slice's q, mask, scale and pad
+    byte for byte the host's ``_compress_2d`` of the same slice;
+    ``pim_speedup_estimate`` printed; ``quantize_params_for_serving`` on
+    the card, the same slice's q and per-filter scale byte for byte the
+    host's; the int8 "serve" step (dequantized inside the step) for 8
+    lock-step decode steps at batch 4, its logits bitwise the dense
+    "serve" step's over ``dequant_params_for_serving`` of the same
+    quantized params, and both steps' waterfalls (``op_cost.analyze``)
+    printed. Returns the launches of its counted calls (the 16 steps'
+    row_attention and row_norm), per kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.runtime import op_cost
+    from repro_torch.sparsity import (dequant_params_for_serving,
+                                      pim_speedup_estimate,
+                                      quantize_params_for_serving,
+                                      sparsify_params)
+    from repro_torch.sparsity.sparse_linear import _compress_2d
+    cfg = get_config("tinyllama-1.1b")
+    t0 = time.monotonic()
+    params = init_params(cfg, seed=COMPRESS_SEED, device=dev)
+    comp = sparsify_params(params, cfg)
+    torch.cuda.synchronize()
+    t_sparsify = time.monotonic() - t0
+    key, l = COMPRESS_SLICE
+    node = params
+    for part in key.split("/"):
+        node = node[part]
+    t0 = time.monotonic()
+    q, scale, mask, _, pad = _compress_2d(node[l].float().cpu(),
+                                          cfg.dbpim_value_sparsity, 8)
+    card = comp.tensors[key]
+    assert len(comp.tensors) == 7 and all(
+        t["q"].device.type == dev.type and t["q"].dtype == torch.int8
+        for t in comp.tensors.values())
+    assert torch.equal(card["q"][l].cpu(), q.to(torch.int8))
+    assert torch.equal(card["mask"][l].cpu(), mask.to(torch.int8))
+    assert torch.equal(card["scale"][l:l + 1].cpu().view(torch.int32),
+                       torch.tensor([scale]).view(torch.int32))
+    assert card["pad"] == pad == 0
+    t_host = time.monotonic() - t0
+    t0 = time.monotonic()
+    est = pim_speedup_estimate(comp, cfg)
+    t_est = time.monotonic() - t0
+    rep = comp.report[key]
+    log(f"[compress] {cfg.name} sparsify_params on the card: "
+        f"{len(comp.tensors)} stacked projections, "
+        f"{sum(t['q'].shape[0] for t in comp.tensors.values())} slices, "
+        f"{sum(t['q'].numel() for t in comp.tensors.values()) / 1e9:.3f} G "
+        f"INT8 weights, in {t_sparsify:.2f} s (the draw included); {key} "
+        f"slice {l} (q {tuple(card['q'][l].shape)}): q, mask, scale "
+        f"{scale:.6e} and pad byte for byte the host's in {t_host:.2f} s; "
+        f"layer 0: value sparsity {rep['value_sparsity']:.4f}, bit "
+        f"sparsity {rep['bit_sparsity']:.4f}, phi histogram "
+        f"{rep['phi_hist']}; pim_speedup_estimate (64 tokens, layer-0 "
+        f"sparsity of each projection) speedup {est['speedup']:.4f}, energy "
+        f"savings {est['energy_savings']:.4f}, U_act {est['u_act']:.4f} "
+        f"in {t_est:.2f} s")
+    del comp, node
+    t0 = time.monotonic()
+    qparams = quantize_params_for_serving(params)
+    # one slice of one projection quantized on the host, byte for byte the
+    # card's: q as int8, the per-filter scale through its int32 view
+    path = key.split("/")
+    host = params
+    for part in path:
+        host = host[part]
+    sub = host[l:l + 1].cpu()
+    for part in reversed(path):
+        sub = {part: sub}
+    hq, qcard = quantize_params_for_serving(sub), qparams
+    for part in path:
+        hq, qcard = hq[part], qcard[part]
+    assert torch.equal(qcard["q"][l:l + 1].cpu(), hq["q"])
+    assert torch.equal(qcard["scale"][l:l + 1].cpu().view(torch.int32),
+                       hq["scale"].view(torch.int32))
+    t_qhost = time.monotonic() - t0
+    del params, host, sub, hq
+    deq = dequant_params_for_serving(qparams)
+    int8 = build_step(cfg, "serve", int8_weights=True)
+    dense = build_step(cfg, "serve")
+    gen = torch.Generator().manual_seed(COMPRESS_SEED)
+    B, T = INT8_SERVE_B, INT8_SERVE_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (T, B, 1), generator=gen,
+                         dtype=torch.int32).to(dev)
+    c_int8 = c_dense = init_cache(cfg, B, T, device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    for t in range(T):
+        a, c_int8 = int8(qparams, c_int8, toks[t])
+        b, c_dense = dense(deq, c_dense, toks[t])
+        assert a.shape == (B, 1, cfg.vocab_size) and torch.isfinite(a).all()
+        assert torch.equal(a, b), t
+    torch.cuda.synchronize()
+    counts = read_launches()
+    assert counts == {**{k: 0 for k in counts},
+                      "row_attention": 2 * T * cfg.n_layers,
+                      "row_norm": 2 * T * (2 * cfg.n_layers + 1)}, counts
+    t_steps = time.monotonic() - t0
+    t0 = time.monotonic()
+    cache = init_cache(cfg, B, T, device=dev)
+    wi = op_cost.analyze(int8, qparams, cache, toks[0])
+    wd = op_cost.analyze(dense, deq, cache, toks[0])
+    t_wf = time.monotonic() - t0
+    untagged = wi["weight_bytes_by_path"].get(op_cost.UNTAGGED_DOT, 0)
+    int8_bytes = sum(v.numel() for k, v in _flat(qparams).items()
+                     if k.endswith("/q"))
+    assert untagged == 2 * int8_bytes and wi["weight_bytes"] == \
+        wd["weight_bytes"], (untagged, int8_bytes)
+    log(f"[compress] int8 \"serve\" step, {T} lock-step decode steps at "
+        f"batch {B}: {key} slice {l} quantized on the card (q "
+        f"{tuple(qcard['q'][l].shape)}, scale {tuple(qcard['scale'][l].shape)})"
+        f" byte for byte the host's in {t_qhost:.2f} s; logits (B, 1, V) "
+        f"bitwise the dense \"serve\" step's "
+        f"over the dequantized params; {counts['row_attention']} "
+        f"row_attention and {counts['row_norm']} row_norm launches over "
+        f"the 16 steps, no joint launch (plain matmuls), in {t_steps:.2f} s "
+        f"(quantizing included); waterfalls: int8 step "
+        f"{wi['weight_bytes']:.0f} B, of which the untagged dot rhs "
+        f"{untagged:.0f} (its {int8_bytes} INT8 weights charged at bf16 "
+        f"size, as the reference's walker charges them), dense step "
+        f"{wd['weight_bytes']:.0f} B, in {t_wf:.2f} s")
+    COST_SECONDS.update({"5b sparsify": t_sparsify, "5b host slice": t_host,
+                         "5b estimate": t_est, "5b int8 steps": t_steps,
+                         "5b step waterfalls": t_wf})
+    return counts
 
 
 def phase_dbmu(cfg, dev):
@@ -4499,10 +4787,14 @@ def main() -> int:
                     phase_window_forward(dev)]
     torch.cuda.empty_cache()
     mode_launches, tables_by_mode = phase_modes(dev)
+    torch.cuda.empty_cache()
+    comp_launches = phase_compression(dev)
+    torch.cuda.empty_cache()
     launches = {k: n + ssm_launches[k] + moe_launches[k] + arctic_launches[k]
                 + jamba_launches[k] + whisper_launches[k]
                 + pixtral_launches[k] + dense_launches[k]
                 + admit_launches[k] + dur_launches[k]
+                + comp_launches[k]
                 + sum(f[k] for f in fwd_launches)
                 for k, n in serve_launches.items()}
     launches.update(mode_launches, dbmu_matmul=phase_dbmu(cfg, dev))
@@ -4600,6 +4892,13 @@ def main() -> int:
                                if k != "per_shape"}} for w, u in units]
     assert all(k["launches"] > 0 for k in kernels), \
         [(k["name"], k["launches"]) for k in kernels]
+    assert len(WATERFALLS) == 10, sorted(WATERFALLS)
+    log(f"[cost] the accounting and compression checks: "
+        + ", ".join(f"{part} {secs:.2f} s" for part, secs in
+                    COST_SECONDS.items())
+        + f"; {sum(COST_SECONDS.values()):.2f} s in all; waterfalls of "
+        f"{len(WATERFALLS)} archs; launches they add: phase 5b's "
+        + ", ".join(f"{k} {n}" for k, n in comp_launches.items() if n))
     log(f"[smoke] all phases passed in {time.monotonic() - t_start:.1f} s "
         f"of wall time")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

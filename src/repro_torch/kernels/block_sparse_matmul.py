@@ -32,6 +32,7 @@ import ctypes
 
 import torch
 
+from repro_torch.runtime import op_cost
 from . import build
 
 #: the TPU kernel's tiles (ops.pack_block_sparse packs at BK x BN; the
@@ -100,12 +101,25 @@ def _check(x, w_blocks, idx):
         raise ValueError(f"K={x.shape[1]} is not a multiple of bk={bk}")
 
 
+def _report(x, w_blocks, idx):
+    """The call as ``runtime.op_cost`` charges it: the reference's
+    ``pallas_call(idx, x, w_blocks)``, ``2 * M * NT * MAXB * bk * bn``
+    flops (the stored blocks only)."""
+    M = x.shape[0]
+    NT, MAXB, bk, bn = w_blocks.shape
+    op_cost.kernel(2 * M * NT * MAXB * bk * bn, [idx, x, w_blocks],
+                   [op_cost.Operand((M, NT * bn), x.dtype)])
+    return torch.empty((M, NT * bn), dtype=x.dtype, device=x.device)
+
+
 def block_sparse_matmul(x, w_blocks, idx):
     """x (M, K) @ block-sparse W -> (M, N) in x's dtype, N = NT * bn. CPU
     tensors run the plain version; CUDA tensors launch the kernel on the
     current stream (any M: ragged rows are masked in the kernel) or
     raise."""
     global LAUNCHES
+    if op_cost.recording(x, w_blocks, idx):
+        return _report(x, w_blocks, idx)
     if x.device.type == "cpu":
         return block_sparse_matmul_plain(x, w_blocks, idx)
     if x.device.type != "cuda":

@@ -48,6 +48,7 @@ import ctypes
 import torch
 
 from repro_torch.core import dyadic
+from repro_torch.runtime import op_cost
 from . import build
 
 INPUT_BITS = 8
@@ -174,6 +175,22 @@ def _check(x, packed):
                          f"overflow")
 
 
+def _report(x, packed):
+    """The call as ``runtime.op_cost`` charges it: the reference's
+    ``pallas_call(x, w0, w1)`` over the two (K, N) term planes, with no
+    CostEstimate, so the reference walks its body once per grid step: one
+    (BM, K) @ (K, BN) product per term and input bit, ``MAX_TERMS *
+    INPUT_BITS * 2 * M * K * N`` flops in all. Its integer activation
+    counts as a weight operand there, and here."""
+    M, K = x.shape
+    N = packed.shape[1]
+    plane = op_cost.Operand((K, N), packed.dtype, packed)
+    op_cost.kernel(MAX_TERMS * INPUT_BITS * 2 * M * K * N,
+                   [x, plane, plane],
+                   [op_cost.Operand((M, N), torch.int32)])
+    return torch.empty((M, N), dtype=torch.int32, device=x.device)
+
+
 def dbmu_matmul(x_int8, packed):
     """x (M, K) int32; packed (K, N, 2) uint8 -> (M, N) int32, the integer
     matmul of x' = sign(x) * (|x| mod 256) (x itself for |x| <= 255) with
@@ -181,6 +198,8 @@ def dbmu_matmul(x_int8, packed):
     launch the kernel on the current stream (any M, K <= MAX_K, any N) or
     raise. Both give the same integers for every x."""
     global LAUNCHES
+    if op_cost.recording(x_int8, packed):
+        return _report(x_int8, packed)
     if x_int8.device.type == "cpu":
         return dbmu_matmul_plain(x_int8, packed)
     if x_int8.device.type != "cuda":

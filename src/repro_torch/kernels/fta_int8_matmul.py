@@ -32,6 +32,7 @@ import ctypes
 
 import torch
 
+from repro_torch.runtime import op_cost
 from . import build
 
 #: the TPU kernel's tiles; the per-layer hook packs the "bit" kind when
@@ -88,11 +89,25 @@ def _check(x, w_q, scales, out_dtype):
                          f"entries")
 
 
+def _report(x, w_q, scales, out_dtype):
+    """The call as ``runtime.op_cost`` charges it: the reference's
+    ``pallas_call(x, w_q, scales)``, ``2 * M * K * N`` flops, the scales a
+    (1, N) operand."""
+    M, K = x.shape
+    N = w_q.shape[1]
+    op_cost.kernel(2 * M * K * N,
+                   [x, w_q, op_cost.Operand((1, N), scales.dtype, scales)],
+                   [op_cost.Operand((M, N), out_dtype)])
+    return torch.empty((M, N), dtype=out_dtype, device=x.device)
+
+
 def fta_int8_matmul(x, w_q, scales, out_dtype=torch.bfloat16):
     """x (M, K) @ (w_q (K, N) int8 * scales (1, N)) -> (M, N) in
     ``out_dtype``. CPU tensors run the plain version; CUDA tensors launch
     the kernel on the current stream (any M, K and N) or raise."""
     global LAUNCHES
+    if op_cost.recording(x, w_q, scales):
+        return _report(x, w_q, scales, out_dtype)
     if x.device.type == "cpu":
         return fta_int8_matmul_plain(x, w_q, scales, out_dtype)
     if x.device.type != "cuda":

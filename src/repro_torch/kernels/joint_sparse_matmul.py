@@ -34,6 +34,7 @@ import ctypes
 
 import torch
 
+from repro_torch.runtime import op_cost
 from . import build
 
 #: kernel launches so far in this process (the wrapper's CUDA branch only)
@@ -107,6 +108,25 @@ def _check(x, w_blocks, idx, scales, out_dtype):
                          f"(ops.joint_dense pads K to k_pad)")
 
 
+def _report(x, w_blocks, idx, scales, out_dtype):
+    """The call as ``runtime.op_cost`` charges it: the reference's
+    ``pallas_call(idx, x, w_blocks, scales)``, whose CostEstimate counts
+    ``2 * M * NT * MAXB * bk * bn`` flops with M padded to the TPU row tile
+    (``ops.pick_row_tile``: 8 rows in f32, 16 in bf16, then 128). This
+    kernel masks ragged rows and pads nothing; the charge is the
+    reference's, so both packages count the same work."""
+    from .ops import pick_row_tile
+    M, K = x.shape
+    NT, MAXB, bk, bn = w_blocks.shape
+    bm = pick_row_tile(M, x.dtype)
+    Mp = -(-M // bm) * bm
+    op_cost.kernel(2 * Mp * NT * MAXB * bk * bn,
+                   [idx, op_cost.Operand((Mp, K), x.dtype, x), w_blocks,
+                    scales],
+                   [op_cost.Operand((Mp, NT * bn), out_dtype)])
+    return torch.empty((M, NT * bn), dtype=out_dtype, device=x.device)
+
+
 def joint_sparse_matmul(x, w_blocks, idx, scales, out_dtype=None):
     """x (M, K) @ joint-packed W -> (M, N), N = NT * bn; ``out_dtype``
     defaults to x.dtype. CPU tensors run the plain version; CUDA tensors
@@ -114,6 +134,8 @@ def joint_sparse_matmul(x, w_blocks, idx, scales, out_dtype=None):
     in the kernel) or raise."""
     global LAUNCHES
     out_dtype = x.dtype if out_dtype is None else out_dtype
+    if op_cost.recording(x, w_blocks, idx, scales):
+        return _report(x, w_blocks, idx, scales, out_dtype)
     if x.device.type == "cpu":
         return joint_sparse_matmul_plain(x, w_blocks, idx, scales, out_dtype)
     if x.device.type != "cuda":

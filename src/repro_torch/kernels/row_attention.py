@@ -46,6 +46,7 @@ import ctypes
 
 import torch
 
+from repro_torch.runtime import op_cost
 from . import build
 
 #: kernel launches so far in this process (the wrapper's CUDA branch only)
@@ -176,6 +177,22 @@ def _check(q, k, v, qpos, window: int = 0):
                         f"{q.dtype}")
 
 
+def _report(q, k):
+    """The call as ``runtime.op_cost`` charges it: what the reference's
+    ``_sdpa`` charges for the same call, its two einsums over the whole key
+    span A with the KV heads repeated to Hq (``2 * B * Hq * Sq * A * hd``
+    dot flops each, their operands and results in q's dtype), and the
+    mask and softmax as elementwise flops. No weight bytes."""
+    B, Sq, Hq, hd = q.shape
+    A = k.shape[1]
+    logits = B * Hq * Sq * A
+    op_cost.charge_ops(
+        dot_flops=4 * logits * hd, flops=5 * logits,
+        nbytes=q.dtype.itemsize * (2 * B * Sq * Hq * hd + 2 * B * A * Hq * hd
+                                   + 2 * logits))
+    return torch.empty_like(q)
+
+
 def row_attention(q, k, v, qpos, window: int = 0):
     """Masked GQA attention, (B, Sq, Hq, hd) in q's dtype: each query
     attends to the keys in (qpos - window, qpos] (window 0: [0, qpos]).
@@ -183,6 +200,8 @@ def row_attention(q, k, v, qpos, window: int = 0):
     the current stream or raise."""
     global LAUNCHES
     window = int(window)
+    if op_cost.recording(q, k, v, qpos):
+        return _report(q, k)
     if q.device.type == "cpu":
         return row_attention_plain(q, k, v, qpos, window)
     if q.device.type != "cuda":

@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from repro_torch.runtime import op_cost
 from . import build
 
 #: kernel launches so far in this process (the wrapper's CUDA branch only)
@@ -88,11 +89,28 @@ def _check(x, D):
                          f"chunks of 8 hold a row")
 
 
+def _report(x, layer: bool, plus_one: bool):
+    """The call as ``runtime.op_cost`` charges it: the reference's norm ops
+    are elementwise and reductions, flops only (RMSNorm: square, scale and
+    weight per element, mean, eps and rsqrt per row; LayerNorm: centre,
+    square, scale, weight and bias per element, two means, eps and rsqrt
+    per row), no bytes and no weight bytes."""
+    D = x.shape[-1]
+    n = x.numel()
+    rows = n // D if D else 0
+    flops = (5 * n + 6 * rows if layer
+             else 3 * n + 4 * rows + (D if plus_one else 0))
+    op_cost.charge_ops(flops=flops)
+    return torch.empty_like(x)
+
+
 def row_norm(x, scale, bias=None, eps: float = 1e-6, plus_one: bool = False):
     """The norm of ``row_norm_plain`` over x's last axis. CPU tensors run
     the plain version; CUDA tensors launch the kernel on the current
     stream or raise."""
     global LAUNCHES
+    if op_cost.recording(x, scale, bias):
+        return _report(x, bias is not None, plus_one)
     if x.device.type == "cpu":
         return row_norm_plain(x, scale, bias, eps, plus_one)
     if x.device.type != "cuda":

@@ -4,9 +4,8 @@
     PYTHONPATH=src python -m repro_torch.launch.report trace.jsonl \
         --chrome trace_chrome.json   # open in ui.perfetto.dev
 
-Port of ``repro.launch.report``: the same sections from the same records.
-The port's traces carry no waterfall records yet, so that section is
-left out of their reports.
+Port of ``repro.launch.report``: the same sections from the same records,
+the port's serve CLI embedding one waterfall record per call kind.
 
 Sections (each reads one record type of the obs.trace taxonomy):
 

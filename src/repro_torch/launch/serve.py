@@ -357,6 +357,9 @@ def main(argv=None):
               f"{torch.cuda.max_memory_allocated(engine.device) / 2**30:.2f}"
               f" GiB")
     if engine.tracer is not None:
+        from repro_torch.obs import engine_waterfall
+        for kind, wf in engine_waterfall(engine).items():
+            engine.tracer.waterfall(kind, wf["rows"], wf["total"])
         engine.tracer.dump(args.trace_out)
         print(f"[serve] trace: {len(engine.tracer.records)} records -> "
               f"{args.trace_out} (render: python -m "

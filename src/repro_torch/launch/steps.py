@@ -15,11 +15,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import (decode_chunk_, decode_step_, prefill,
-                                reset_slots_)
+from repro_torch.models import (decode_chunk_, decode_step, decode_step_,
+                                prefill, reset_slots_)
 from repro_torch.models.config import ModelConfig
 
-SERVE_CALL_KINDS = ("decode", "prefill_chunk", "reset")
+SERVE_CALL_KINDS = ("serve", "decode", "prefill_chunk", "reset")
 
 #: Call-kind tag suffix for recovery traffic: a quarantined slot's replay
 #: re-prefills through the one compiled prefill step, and the engine
@@ -32,10 +32,22 @@ REPLAY_TAG = "+replay"
 RESTORE_TAG = "+restore"
 
 
-def build_step(cfg: ModelConfig, call_kind: str, *, stacked_tables=None):
-    """One serving step, updating the cache where it lies (the counterpart
-    of the reference's donated cache). ``call_kind``:
+def build_step(cfg: ModelConfig, call_kind: str, *, stacked_tables=None,
+               int8_weights: bool = False):
+    """One serving step. ``call_kind``:
 
+      * "serve" — the plain lock-step (B, 1) decode step, ``(params, cache,
+        token)`` through the functional ``models.decode_step``: every slot
+        at one position, a new cache returned. Tag "decode".
+        ``int8_weights=True`` takes the params of
+        ``sparsity.quantize_params_for_serving`` (projections INT8 with a
+        per-filter scale) and dequantizes them to bf16 inside the step
+        (``dequant_params_for_serving``); the projections then run as
+        plain matmuls, as the reference computes them outside any kernel.
+        Not with ``stacked_tables`` (the tables carry their own payload).
+        It takes no page table, so a paged cache is refused (ValueError,
+        from ``models.decode_step``): the lock-step step stays
+        contiguous.
       * "decode" — the engine's slot decode step, ``(params, cache, token,
         active)`` through ``models.decode_step_``: every slot computes, and
         only the active ones write their k/v rows and advance. Tag
@@ -51,13 +63,15 @@ def build_step(cfg: ModelConfig, call_kind: str, *, stacked_tables=None):
         zero the masked slots' cache slices and positions before
         admission. Tag "reset".
 
-    Each returns ``(logits, cache)`` ("reset": the cache), the cache being
-    the one passed in; bitwise what the functional ``decode_step`` +
-    ``merge_slots``, ``decode_chunk`` and ``reset_slots`` return.
+    The engine's steps update the cache where it lies (the counterpart of
+    the reference's donated cache). Each returns ``(logits, cache)``
+    ("reset": the cache), the cache being the one passed in; bitwise what
+    the functional ``decode_step`` + ``merge_slots``, ``decode_chunk`` and
+    ``reset_slots`` return.
 
     A paged cache (pools "pk" / "pv") takes one more trailing operand in
-    each step, the page table ``ptab`` (n_slots, max_pages) int32: a
-    per-call input like the tokens, so the compiled step copies it into
+    each engine step, the page table ``ptab`` (n_slots, max_pages) int32:
+    a per-call input like the tokens, so the compiled step copies it into
     its static buffer and keeps one signature.
 
     stacked_tables (sparsity.sparse_linear.build_stacked_tables) route every
@@ -65,7 +79,22 @@ def build_step(cfg: ModelConfig, call_kind: str, *, stacked_tables=None):
     if call_kind not in SERVE_CALL_KINDS:
         raise ValueError(f"call_kind {call_kind!r} not in "
                          f"{SERVE_CALL_KINDS}")
-    if call_kind == "decode":
+    if int8_weights and stacked_tables is not None:
+        raise ValueError("int8_weights and stacked_tables are mutually "
+                         "exclusive serving formats")
+    if int8_weights and call_kind != "serve":
+        raise ValueError("int8_weights is a 'serve' step format")
+    if call_kind == "serve":
+        @torch.no_grad()
+        def step_fn(params, cache, token):
+            if int8_weights:
+                from repro_torch.sparsity.sparse_linear import \
+                    dequant_params_for_serving
+                params = dequant_params_for_serving(params)
+            return decode_step(params, cache, token, cfg,
+                               tables=stacked_tables)
+        step_fn.call_kind = "decode"
+    elif call_kind == "decode":
         @torch.no_grad()
         def step_fn(params, cache, token, active, ptab=None):
             return decode_step_(params, cache, token, active, cfg,

@@ -58,8 +58,8 @@ import torch
 
 from ..kernels import row_attention
 from .config import ModelConfig
-from .layers import (_normal, apply_rope, dtype_of, rms_head_norm,
-                     rope_frequencies)
+from .layers import (_normal, apply_rope, dtype_of, plain_mm,
+                     rms_head_norm, rope_frequencies)
 
 
 def init_attention(cfg: ModelConfig, gen, device, lead=()):
@@ -163,7 +163,7 @@ def attention(p, x, cfg: ModelConfig, positions, causal: bool = True,
     CPU a long sequence (S >= CHUNKED_ATTN_THRESHOLD, S % 2048 == 0) takes
     ``_chunked_sdpa``, as the reference does. ``causal=False`` (the
     whisper encoder): every query attends to all S keys."""
-    mm = dense_fn or (lambda w, v, name: v @ w)
+    mm = dense_fn or plain_mm
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, positions, cfg, mm)
     if not causal:
@@ -187,7 +187,7 @@ def cross_attention(p, x, enc_out, cfg: ModelConfig, dense_fn=None):
     at every call (B x Se rows each), as in the reference; no RoPE, no
     qk-norm. Hook names carry the "xattn/" prefix, so a block's self- and
     cross-attention projections are distinct table entries."""
-    mm = dense_fn or (lambda w, v, name: v @ w)
+    mm = dense_fn or plain_mm
     B, S, _ = x.shape
     q = _split_heads(mm(p["wq"], x, "xattn/wq"), cfg.n_heads, cfg.hd)
     k = _split_heads(mm(p["wk"], enc_out, "xattn/wk"), cfg.n_kv_heads,
@@ -303,7 +303,7 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
     the gathered view. ``write_mask`` (B,) drops the writes of the slots it
     leaves out, functionally (the reference's in-step drop); ``active``
     does the same in place."""
-    mm = dense_fn or (lambda w, v, name: v @ w)
+    mm = dense_fn or plain_mm
     B = x.shape[0]
     posv = _per_slot_pos(pos, B, x.device)                         # (B,)
     q, k, v = _project_qkv(p, x, posv[:, None], cfg, mm)
@@ -363,7 +363,7 @@ def prefill_attention(p, x, cache_k, cache_v, pos, n_valid,
     if cfg.window:
         raise ValueError("chunked prefill does not support sliding-window "
                          "ring caches; use stepwise (full-forward) prefill")
-    mm = dense_fn or (lambda w, v, name: v @ w)
+    mm = dense_fn or plain_mm
     B, C, _ = x.shape
     A = (cache_k.shape[1] if ptab is None
          else ptab.shape[1] * cache_k.shape[1])

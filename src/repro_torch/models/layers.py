@@ -100,11 +100,30 @@ def make_matmul(cfg: ModelConfig, tables=None):
     return kernel_dense_fn(tables)
 
 
+def promote(*ts):
+    """``ts`` cast to their common dtype, the type promotion a jnp product
+    applies to mixed operands (a no-op when they agree): the lock-step
+    int8 "serve" step (``launch.steps``) dequantizes its projections to
+    bf16 whatever cfg.dtype, and an f32 activation then meets a bf16
+    weight."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t.to(dt) for t in ts]
+
+
+def plain_mm(w, v, name=None):
+    """The plain projection ``v @ w`` of the dense_fn(w, x, name) hooks, in
+    the promoted dtype."""
+    v, w = promote(v, w)
+    return v @ w
+
+
 def apply_mlp(p, x, cfg: ModelConfig, dense_fn=None):
     """Gated MLP (swiglu or geglu) or the plain gelu MLP (whisper:
     gelu(x @ w_up) @ w_down, tanh approximation). dense_fn(w, x, name) lets
     the joint-sparse path intercept matmuls."""
-    mm = dense_fn or (lambda w, v, name: v @ w)
+    mm = dense_fn or plain_mm
     if cfg.mlp_type == "gelu":
         h = F.gelu(mm(p["w_up"], x, "w_up"), approximate="tanh")
         return mm(p["w_down"], h, "w_down")

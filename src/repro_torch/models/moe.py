@@ -39,8 +39,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.runtime import op_cost
 from .config import ModelConfig
-from .layers import _normal, apply_mlp, dtype_of, init_mlp
+from .layers import _normal, apply_mlp, dtype_of, init_mlp, promote
 
 
 def _expert_stack(gen, lead, E, d_in, d_out, scale, dt, device, name,
@@ -104,9 +105,11 @@ def _route(xg, router, k: int):
     """Top-k routing of grouped tokens xg (G, Tg, D): (probs (G, Tg, E),
     gate values renormalized over the k choices, gate indices (G, Tg,
     k)). The f32 router logits are one (Tg, D) @ (D, E) product per
-    group, so a chunk's per-position groups run decode's product."""
-    logits = torch.stack([xg[g].float().contiguous() @ router
-                          for g in range(xg.shape[0])])
+    group, so a chunk's per-position groups run decode's product (charged
+    as the reference's one product: ``op_cost.one_product``)."""
+    with op_cost.one_product():
+        logits = torch.stack([xg[g].float().contiguous() @ router
+                              for g in range(xg.shape[0])])
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = torch.topk(probs, k, dim=-1, sorted=True)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
@@ -201,7 +204,7 @@ def _expert_ffn_grouped(p, xin, cfg: ModelConfig, expert_fn=None):
     def mm(name, v):
         if expert_fn is not None:
             return expert_fn(p[name], v, f"moe/{name}")
-        return torch.einsum("...eck,ekf->...ecf", v, p[name])
+        return torch.einsum("...eck,ekf->...ecf", *promote(v, p[name]))
     if cfg.mlp_type == "gelu":
         return mm("w_down", F.gelu(mm("w_up", xin), approximate="tanh"))
     gate = mm("w_gate", xin)

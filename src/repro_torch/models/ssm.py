@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import _normal, dtype_of, rms_head_norm
+from .layers import _normal, dtype_of, plain_mm, rms_head_norm
 
 #: Equivalence contract of the parallel-form prefill: max |logit delta|
 #: against the sequential decode recurrence over a full prompt, keyed by
@@ -141,7 +141,7 @@ def apply_ssm(p, x, cfg: ModelConfig, dense_fn=None):
     sequence, the causal conv, then chunks of Q = min(cfg.ssm_chunk, L)
     tokens through ``_ssd_chunk`` carrying the (B, nh, P, N) float32
     state from zero, the D skip and the gated norm."""
-    mm = dense_fn or (lambda w, v, name: v @ w)
+    mm = dense_fn or plain_mm
     Bsz, L, _ = x.shape
     d_in, nh, N, P = ssm_dims(cfg)
     Q = min(cfg.ssm_chunk, L)
@@ -181,7 +181,7 @@ def decode_ssm(p, x, conv_state, ssm_state, cfg: ModelConfig,
     active (B,) bool writes the new conv window and state into conv_state
     and ssm_state in place, for the active slots only (the others keep
     their bits), and returns them; None leaves them as they are."""
-    mm = dense_fn or (lambda w, v, name: v @ w)
+    mm = dense_fn or plain_mm
     Bsz = x.shape[0]
     d_in, nh, N, P = ssm_dims(cfg)
     z, xbc, dt_raw = _split_proj(mm(p["in_proj"], x[:, 0], "in_proj"), cfg)
@@ -252,7 +252,7 @@ def prefill_ssm_parallel(p, x, conv_state, ssm_state, n_valid,
     slot's n_valid, so ragged tails and idle slots leave their caches
     untouched. Tolerance-equal to sequential decode
     (``PARALLEL_PREFILL_ATOL``), not bitwise."""
-    mm = dense_fn or (lambda w, v, name: v @ w)
+    mm = dense_fn or plain_mm
     Bsz, C, _ = x.shape
     d_in, nh, N, P = ssm_dims(cfg)
 

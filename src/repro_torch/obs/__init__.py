@@ -1,7 +1,7 @@
 """Observability of the port: two-clock tracing of the serving engine and
 its Chrome-trace export, log-bucketed latency histograms, the
-recompilation sentinel, and kernel launches counted from the device's own
-records.
+recompilation sentinel, kernel launches counted from the device's own
+records, and the per-call-kind weight-traffic waterfall.
 
 The tracer is PASSIVE instrumentation: with it on, the engine issues the
 same device calls and kernel launches, and gives the same outputs, as
@@ -14,3 +14,5 @@ from .launches import (device_launches, encoder_per_call,  # noqa: F401
 from .sentinel import RecompileError, RecompileSentinel  # noqa: F401
 from .trace import (EVENT_NAMES, SPAN_NAMES, TRACE_VERSION,  # noqa: F401
                     TraceError, Tracer, load, validate)
+from .waterfall import (engine_waterfall, serving_cost_by_kind,  # noqa: F401
+                        table_const_weights)

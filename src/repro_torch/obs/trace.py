@@ -27,9 +27,9 @@ Record taxonomy (one JSON object per line in the JSONL dump):
   interval    slot, rid, admit_tick, release_tick — one closed
               SlotInterval from the engine's slot audit log
   waterfall   kind, total, rows {param path -> weight bytes} — the
-              per-call-kind traffic attribution (the reference's
-              obs.waterfall; the port emits none yet, and validates and
-              renders those of a reference trace)
+              per-call-kind traffic attribution (obs.waterfall), one
+              record per call kind, embedded by the serve CLI before it
+              dumps a --trace-out trace
   ==========  =========================================================
 
 Span records are appended at BEGIN time (their ``dur_us`` is filled in
@@ -126,6 +126,14 @@ class Tracer:
                              "admit_tick": int(admit_tick),
                              "release_tick": (None if release_tick is None
                                               else int(release_tick))})
+
+    def waterfall(self, kind: str, rows: Dict[str, float], total: float):
+        """Per-call-kind weight-traffic attribution (obs.waterfall): rows
+        map parameter paths to modeled weight bytes per call."""
+        self.records.append({"type": "waterfall", "kind": kind,
+                             "total": float(total),
+                             "rows": {k: float(v)
+                                      for k, v in rows.items()}})
 
     # -- export ------------------------------------------------------------
     def dump(self, path: str):

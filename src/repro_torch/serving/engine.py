@@ -263,6 +263,7 @@ class ServeEngine:
         self.max_replays = max_replays
         self.tracer = tracer
         self.params = params
+        self.stacked_tables = stacked_tables
         # -- the paged cache: n_pages defaults to the full static capacity
         # (no oversubscription); fewer pages make page pressure preempt
         self.paged = bool(paged)

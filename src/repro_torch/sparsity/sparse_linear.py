@@ -1,8 +1,21 @@
-"""DB-PIM sparsity on the model's projections: per-layer kernel tables
-and stacked serving tables.
+"""DB-PIM sparsity on the model's projections: compression artifacts, the
+cost model's view of them, per-layer kernel tables, stacked serving
+tables and the in-step INT8 serving format.
 
-Port of the kernel-mode half of ``repro.sparsity.sparse_linear``:
+Port of ``repro.sparsity.sparse_linear``:
 
+  * ``sparsify_params`` compresses every eligible projection (``ELIGIBLE``:
+    attention q/k/v/o, MLP gate/up/down, MoE experts and arctic's dense
+    residual MLP, SSM in/out) with the paper's pipeline, 1 x alpha block
+    pruning then FTA on one INT8 scale per matrix, a stacked (L, K, N)
+    leaf slice by slice; ``dequant_tree`` rebuilds the FTA-compliant float
+    weights so the same model code runs the compressed model; and
+    ``pim_speedup_estimate`` maps the projections onto the DB-PIM cost
+    model (``core.pim_model``). Artifacts are tensors on the params'
+    device; the cost model reads numpy copies of one slice each;
+  * ``quantize_params_for_serving`` / ``dequant_params_for_serving``: the
+    lock-step "serve" step's format (``launch.steps``), projections INT8
+    with one scale per filter, dequantized inside the step;
   * per layer: ``pack_projection`` / ``build_kernel_tables`` compile named
     2D projections for one kernel mode, and ``kernel_dense_fn`` is the
     ``dense_fn(w, x, name)`` hook that serves them through the value
@@ -17,7 +30,8 @@ Port of the kernel-mode half of ``repro.sparsity.sparse_linear``:
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import re
+from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -32,6 +46,168 @@ from repro_torch.models.segments import (decoder_layout,
 #: (fta_int8_matmul), "joint" fuses both in one kernel
 #: (joint_sparse_matmul), the paper's headline configuration.
 KERNEL_MODES = ("dense", "value", "bit", "joint")
+
+ELIGIBLE = re.compile(
+    r"(attn|xattn)/(wq|wk|wv|wo)$|mlp/w_(gate|up|down)$|"
+    r"moe/w_(gate|up|down)$|moe/dense_mlp/w_(gate|up|down)$|"
+    r"ssm/(in_proj|out_proj)$")
+
+
+# ---------------------------------------------------------------------------
+# Compression artifacts and the DB-PIM cost model's view of them
+# ---------------------------------------------------------------------------
+
+@dataclass
+class DBPIMCompressed:
+    """Compressed weight artifacts + per-tensor sparsity metadata."""
+    tensors: Dict[str, dict] = field(default_factory=dict)
+    report: Dict[str, dict] = field(default_factory=dict)
+
+
+def _key(path) -> str:
+    """'blocks/attn/wq' from a key path (a tuple of dict keys)."""
+    return "/".join(str(k) for k in path)
+
+
+def _flatten_with_path(tree, path=()):
+    """(key path, leaf) of a nested dict in the JAX package's flattening
+    order: dict keys sorted, depth first."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flatten_with_path(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _on_device(value: float, like):
+    """``value`` as a 0-dim tensor on ``like``'s device and dtype. Dividing
+    a CUDA tensor by a Python number multiplies by its reciprocal, which
+    can miss the correctly rounded quotient by an ulp; by a device tensor
+    it divides, as the host does."""
+    return like.new_tensor(value)
+
+
+def _compress_2d(w2, value_sparsity: float, alpha: int):
+    """One (K, N) float32 matrix: N padded with zeros to a multiple of
+    alpha, 1 x alpha block pruning (``core.pruning``), ONE INT8 scale for
+    the whole matrix (max|w| / 127), round half to even, then FTA under
+    the mask. Returns (q_fta int32, scale float, mask int32, phi_th int32,
+    pad), on w2's device; float32 throughout, as the reference's numpy."""
+    from repro_torch.core import fta, pruning
+    K, N = w2.shape
+    pad = (-N) % alpha
+    if pad:
+        w2 = torch.nn.functional.pad(w2, (0, pad))
+    mask = pruning.block_prune_mask(w2, value_sparsity, alpha)
+    amax = w2.abs().max() + 1e-12
+    scale = amax / _on_device(127.0, amax)
+    q = torch.clamp(torch.round(w2 / scale), -127, 127).to(torch.int32)
+    q_fta, phi = fta.fta_quantize(q, mask)
+    return q_fta, float(scale), mask, phi, pad
+
+
+def sparsify_params(params, cfg: ModelConfig,
+                    value_sparsity: Optional[float] = None,
+                    alpha: int = 8) -> DBPIMCompressed:
+    """Compress every ``ELIGIBLE`` projection of ``params`` slice by slice
+    (``_compress_2d``; a stacked (L, K, N) or (L, E, K, N) leaf is L or L *
+    E matrices) at ``value_sparsity`` (default cfg.dbpim_value_sparsity).
+    ``tensors[key]``: "q" int8 and "mask" int8 (the leaf's shape, N padded
+    to alpha), "scale" float32 (one per slice), "pad", "orig_shape",
+    "dtype". ``report[key]``: the first slice's value and bit sparsity,
+    phi histogram, and the INT8 and original byte counts. Routers, norms
+    and embeddings stay dense."""
+    from repro_torch.core import fta
+    from repro_torch.core.pim_model import sparsity_from_export
+    vs = cfg.dbpim_value_sparsity if value_sparsity is None else value_sparsity
+    out = DBPIMCompressed()
+    for path, leaf in _flatten_with_path(params):
+        key = _key(path)
+        if not ELIGIBLE.search(key) or leaf.ndim < 2:
+            continue
+        arr = leaf.float()
+        lead = tuple(arr.shape[:-2])
+        arr2 = arr.reshape((-1,) + tuple(arr.shape[-2:]))
+        qs, masks, phis, scales = [], [], [], []
+        pad = 0
+        for l in range(arr2.shape[0]):
+            q, scale, mask, phi, pad = _compress_2d(arr2[l], vs, alpha)
+            qs.append(q)
+            masks.append(mask)
+            phis.append(phi)
+            scales.append(scale)
+        q_all = torch.stack(qs).reshape(lead + tuple(qs[0].shape))
+        mask_all = torch.stack(masks).reshape(lead + tuple(masks[0].shape))
+        out.tensors[key] = {
+            "q": q_all.to(torch.int8),
+            "scale": torch.tensor(scales, dtype=torch.float32,
+                                  device=leaf.device),
+            "mask": mask_all.to(torch.int8), "pad": pad,
+            "orig_shape": tuple(arr.shape), "dtype": _dtype_name(leaf.dtype),
+        }
+        q0, m0 = qs[0].cpu().numpy(), masks[0].cpu().numpy()
+        sp = sparsity_from_export(q0 * m0, m0, phis[0].cpu().numpy())
+        out.report[key] = {
+            "value_sparsity": sp.value_sparsity,
+            "bit_sparsity": fta.achieved_bit_sparsity(qs[0], masks[0]),
+            "phi_hist": sp.phi_hist,
+            "int8_bytes": int(q_all.numel()),
+            "orig_bytes": int(arr.numel() * (2 if leaf.dtype == torch.bfloat16
+                                             else 4)),
+        }
+    return out
+
+
+def dequant_tree(params, comp: DBPIMCompressed):
+    """``params`` with every compressed leaf replaced by its FTA-compliant
+    reconstruction q * scale (float32, padding cut, cast to the leaf's
+    dtype)."""
+    def visit(path, leaf):
+        t = comp.tensors.get(path)
+        if t is None:
+            return leaf
+        q = t["q"].reshape((-1,) + tuple(t["q"].shape[-2:])).float()
+        w = q * t["scale"].reshape(-1, 1, 1)
+        if t["pad"]:
+            w = w[:, :, :-t["pad"]]
+        return w.reshape(t["orig_shape"]).to(leaf.dtype)
+    return _map_with_path(visit, params)
+
+
+def pim_speedup_estimate(comp: DBPIMCompressed, cfg: ModelConfig,
+                         tokens: int = 64):
+    """Map the compressed projections onto the DB-PIM cost model: speedup,
+    energy savings and U_act of running this LM's projections (``tokens``
+    rows each) on the paper's chip against its dense digital-PIM baseline.
+    Each projection's sparsity is read from its first slice (layer 0), as
+    in the reference."""
+    from repro_torch.core import fta
+    from repro_torch.core.pim_model import (LayerGEMM,
+                                            evaluate_dense_baseline,
+                                            evaluate_model,
+                                            sparsity_from_export)
+    layers, sps = [], {}
+    for key, t in comp.tensors.items():
+        q2 = t["q"].reshape((-1,) + tuple(t["q"].shape[-2:]))
+        mask2 = t["mask"].reshape((-1,) + tuple(t["mask"].shape[-2:]))
+        K, N = q2.shape[-2:]
+        layers.append(LayerGEMM(key, M=tokens, K=K, N=N, kind="fc"))
+        q0, m0 = q2[0].to(torch.int32), mask2[0].to(torch.int32)
+        phi = fta.compute_thresholds(q0, m0)
+        sps[key] = sparsity_from_export(q0.cpu().numpy(), m0.cpu().numpy(),
+                                        phi.cpu().numpy())
+    ours = evaluate_model(layers, sps, use_input_bit=False)
+    dense = evaluate_dense_baseline(layers)
+    return {
+        "speedup": dense.cycles / ours.cycles,
+        "energy_savings": 1 - ours.energy_pj / dense.energy_pj,
+        "u_act": ours.u_act,
+        "n_projections": len(layers),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -402,3 +578,34 @@ def reconstruct_stacked_params(params, tables: SegmentedKernelTables, cfg):
         dense = recon.get(path)
         return leaf if dense is None else dense.to(leaf.dtype)
     return _map_with_path(visit, params)
+
+
+# ---------------------------------------------------------------------------
+# In-step INT8 weight serving: projections stored INT8 with a per-filter
+# scale, dequantized inside the lock-step "serve" step (launch.steps).
+# ---------------------------------------------------------------------------
+
+def quantize_params_for_serving(params):
+    """Eligible projection leaves -> {"q": int8, "scale": float32 (..., 1,
+    N)}, one symmetric scale per filter (max|w| over K / 127 + 1e-12,
+    round half to even); every other leaf as it is."""
+    def visit(path, leaf):
+        if not ELIGIBLE.search(path) or leaf.ndim < 2:
+            return leaf
+        wf = leaf.float()
+        amax = wf.abs().amax(dim=-2, keepdim=True)
+        scale = amax / _on_device(127.0, amax) + 1e-12
+        q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+        return {"q": q, "scale": scale}
+    return _map_with_path(visit, params)
+
+
+def dequant_params_for_serving(qparams, dtype=torch.bfloat16):
+    """Inverse of ``quantize_params_for_serving``: every {"q", "scale"}
+    node -> (q * scale) in float32, cast to ``dtype``."""
+    if isinstance(qparams, dict):
+        if set(qparams) == {"q", "scale"}:
+            return (qparams["q"].float() * qparams["scale"]).to(dtype)
+        return {k: dequant_params_for_serving(v, dtype)
+                for k, v in qparams.items()}
+    return qparams

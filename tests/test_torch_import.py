@@ -44,7 +44,8 @@ SLICE_MODULES = {
     "repro_torch.obs.chrome", "repro_torch.launch.report",
     "repro_torch.runtime.fault", "repro_torch.checkpoint.checkpoint",
     "repro_torch.serving.journal", "repro_torch.serving.snapshot",
-    "repro_torch.serving.paging"}
+    "repro_torch.serving.paging", "repro_torch.runtime.op_cost",
+    "repro_torch.obs.waterfall"}
 
 
 def test_port_and_chip_smoke_import_no_jax():

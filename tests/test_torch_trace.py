@@ -27,7 +27,8 @@ from repro.serving.metrics import MetricsRecorder as RefRecorder
 from repro_torch.configs import get_config
 from repro_torch.launch.report import main as report_main
 from repro_torch.launch.report import render
-from repro_torch.obs import Tracer, load, to_chrome_trace, validate
+from repro_torch.obs import (Tracer, engine_waterfall, load,
+                             to_chrome_trace, validate)
 from repro_torch.obs.trace import TraceError
 from repro_torch.serving import (FaultPlan, MetricsRecorder, ServeEngine,
                                  WorkloadSpec, make_trace)
@@ -149,16 +150,15 @@ def test_tracing_is_passive(chaos, served):
 
 def test_render_and_chrome_equal_the_reference(chaos, tmp_path):
     tracer = copy.copy(chaos[2])
-    # the port emits no waterfall yet: one record as the reference's tracer
-    # writes it, so that section renders too
-    tracer.records = tracer.records + [{
-        "type": "waterfall", "kind": "decode", "total": 8.0,
-        "rows": {"layers/attn/wq": 3.0, "embed": 5.0}}]
+    tracer.records = list(tracer.records)
+    # the engine's waterfalls, as the serve CLI embeds them
+    for kind, wf in engine_waterfall(chaos[0][0]).items():
+        tracer.waterfall(kind, wf["rows"], wf["total"])
     path = tmp_path / "trace.jsonl"
     tracer.dump(str(path))
     records = load(str(path))
     assert validate(records) == validate(tracer.records)
-    assert validate(records)["waterfalls"] == 1
+    assert validate(records)["waterfalls"] == 2
     out = render(records)
     assert out == ref_render(records)
     for section in ("TIMELINE", "SLOTS", "QUEUE DEPTH", "WATERFALL",
@@ -269,7 +269,9 @@ def test_serve_cli_writes_a_trace_the_report_renders(tmp_path, capsys):
                          capture_output=True, text=True, env=env, cwd=ROOT,
                          timeout=120)
     assert res.returncode == 0, res.stderr
-    for section in ("TIMELINE", "SLOTS", "QUEUE DEPTH", "FAULTS"):
+    for section in ("TIMELINE", "SLOTS", "QUEUE DEPTH",
+                    "WEIGHT-TRAFFIC WATERFALL", "FAULTS"):
         assert f"== {section}" in res.stdout
-    assert "WATERFALL" not in res.stdout
-    assert res.stdout.startswith(ref_render(load(str(path))))
+    records = load(str(path))
+    assert validate(records)["waterfalls"] == 2
+    assert res.stdout.startswith(ref_render(records))
