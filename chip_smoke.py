@@ -17,7 +17,7 @@ kind, which validate counts and the report renders.
 
 Phases, each printed on its own lines (each line after the seconds since
 the run started), run in the order 1, 2, 3, 4, 4b, 4g, 4h, 4c, 4d, 4e, 4f,
-5, 5b, 6, 7, 8; any failure raises and exits non-zero (no phase catches
+5, 5b, 6, 7, 8, 9; any failure raises and exits non-zero (no phase catches
 its own failure; phase 4g catches the one EngineStuckError it provokes):
 
   1. build  — nvcc builds the six kernels (joint_sparse_matmul,
@@ -385,6 +385,36 @@ its own failure; phase 4g catches the one EngineStuckError it provokes):
               4) with torch.matmul on the dense shapes beside it, and
               row_attention at one gemma decode call (28 launches, batch
               4, 512-slot cache, hd 256, group 1) with SDPA beside it.
+  9. train  — the training path at tinyllama-1.1b's full width ([train]
+              lines, ~60 s). (a) The three backward kernels against
+              autograd of their plain versions: row_norm's (RMSNorm,
+              LayerNorm, (1 + w) RMSNorm at d = 2048 and 4096 over 1,024
+              rows, bf16 and f32; dx within 1e-5 of its peak or one bf16
+              ulp, dscale and dbias within 1e-5) and row_attention's two
+              (causal self-attention at B 8 x S 128 and B 1 x S 2048, 32
+              / 4 heads of 64, and a window of 128 at S 512; bf16 and f32;
+              dq, dk, dv within 1e-5 of their peaks or 2^-6 in bf16), each
+              bitwise equal across two launches. (b) One step at the train
+              CLI's defaults (batch 8, seq 128), bf16 and a float32 copy:
+              every gradient leaf of the kernel path (45 + 22 forward and
+              45 + 22 + 22 backward launches) against the plain path's
+              (no launch) from the same params and batch, within 1e-3
+              (f32) or 1e-1 (bf16) of each leaf's peak. (c) 20 steps of
+              repro_torch.launch.train: finite, falling losses; 900 / 440
+              / 440 backward launches and no call of a plain version;
+              step p50, tokens/s and peak memory with the card's name and
+              power limit. (d) 20 steps at 2 layers straight, against 10
+              steps with a checkpoint (--ckpt-dir) and a second run that
+              resumes there: equal within rtol 1e-5. (e) 4 steps each of
+              --int8-opt (INT8 moments on the card), --grad-compression
+              and --dbpim-every 2: finite losses. (f) hybrid's three
+              stages on one full-width layer's seven projections, card ==
+              host byte for byte. Then the backward kernels' times per
+              launch and per training step (45 / 22 / 22 launches),
+              kernel (b) as the whole backward less kernel (a), beside
+              their bounds, the plain versions and the backward of
+              F.rms_norm and of F.scaled_dot_product_attention (is_causal,
+              GQA: dq, dk and dv in one call).
 
 The launch counts of the JSON record come from the main paths: phases 4,
 4g, 4h, 4c, 4d, 4e and 4f for the joint, row_attention and row_norm kernels
@@ -394,7 +424,8 @@ mixtral's, arctic's, jamba's, whisper's, pixtral's, qwen3's, gemma's and
 stablelm's, of whisper's encoder and of pixtral's patch forward and
 prefill step, and the wrappers' counts of the eager forward calls,
 added), phase 5 for block-sparse and FTA/INT8,
-phase 6 for DBMU, each counted from zero just before the path runs. The wall time of the run is printed before
+phase 6 for DBMU, phase 9's 20 training steps for the three backward
+kernels, each counted from zero just before the path runs. The wall time of the run is printed before
 the card's line. The line before
 the last holds the kernels' JSON record, the one before it the card's
 name and power limit; the last line is the device record. Exits
@@ -4694,6 +4725,491 @@ def phase_times(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs,
     return out
 
 
+#: phase 9 (train): the train CLI's defaults at tinyllama-1.1b's full width
+TRAIN_ARGS = ["--arch", "tinyllama-1.1b", "--batch", "8", "--seq", "128",
+              "--log-every", "5"]
+TRAIN_STEPS = 20
+#: the resume check's depth (full width: 219 M params, a save of bf16
+#: params and float32 moments ~2 GiB)
+TRAIN_RESUME_LAYERS = 2
+TRAIN_RESUME_AT = 10
+#: steps of each variant (--int8-opt, --grad-compression, --dbpim-every 2)
+TRAIN_VARIANT_STEPS = 4
+#: full-width gradients, kernel path against plain path, relative to each
+#: leaf's peak: in float32 the two differ only in the row kernels' sum
+#: orders; in bf16 each rounds at its own places (the kernels' fp32 logits
+#: and probabilities, the plain version's bf16 einsums) in 22 layers,
+#: forward and back, so bf16 is a sanity bound and float32 the check
+TRAIN_GRAD_F32_TOL = 1e-3
+TRAIN_GRAD_BF16_TOL = 1e-1
+#: the backward kernels' checks: norm rows, widths (tinyllama's d and the
+#: gated norm's), attention layouts (B, S, Hq, Hkv, hd, window)
+NORM_BWD_ROWS = 1024
+NORM_BWD_WIDTHS = (2048, 4096)
+ATTN_BWD_CASES = ((8, 128, 32, 4, 64, 0), (1, 2048, 32, 4, 64, 0),
+                  (2, 512, 32, 4, 64, 128))
+#: the kernels' entries of the JSON line this phase adds
+BWD_KERNELS = ("row_norm_bwd", "row_attention_bwd_dq",
+               "row_attention_bwd_dkv")
+
+
+def _bwd_counters():
+    """name -> (module, counter attribute) of the three backward kernels."""
+    from repro_torch.kernels import row_attention as rak
+    from repro_torch.kernels import row_norm as rnk
+    return {"row_norm_bwd": (rnk, "BWD_LAUNCHES"),
+            "row_attention_bwd_dq": (rak, "DQ_LAUNCHES"),
+            "row_attention_bwd_dkv": (rak, "DKV_LAUNCHES")}
+
+
+def read_bwd_launches():
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _bwd_counters().items()}
+
+
+def reset_bwd_launches():
+    for mod, attr in _bwd_counters().values():
+        setattr(mod, attr, 0)
+
+
+@contextlib.contextmanager
+def _plain_calls():
+    """Counts the calls of the row kernels' plain versions (forward and
+    backward) while it is open: {name: calls}."""
+    from repro_torch.kernels import row_attention as rak
+    from repro_torch.kernels import row_norm as rnk
+    calls = {}
+    swaps = [(rnk, "row_norm_plain"), (rnk, "row_norm_backward_plain"),
+             (rak, "row_attention_plain"),
+             (rak, "row_attention_backward_plain")]
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr in swaps]
+    for mod, attr, fn in saved:
+        calls[attr] = 0
+
+        def counted(*a, _fn=fn, _attr=attr, **kw):
+            calls[_attr] += 1
+            return _fn(*a, **kw)
+        setattr(mod, attr, counted)
+    try:
+        yield calls
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def _gap(got, want):
+    """max |got - want| over max |want| (0 for an all-zero want)."""
+    peak = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    return err / peak if peak else err, err
+
+
+def _check_norm_backward(dev, gen):
+    """row_norm's backward kernels against autograd of the plain version:
+    RMSNorm, LayerNorm and (1 + w) RMSNorm at d = 2048 and 4096 over 1,024
+    rows, bf16 and f32; dx within 1e-5 of its peak (f32) or one bf16 ulp
+    of it, dscale and dbias (float32 sums) within 1e-5 of theirs; a second
+    launch gives the same bits. Returns the largest absolute error."""
+    from repro_torch.kernels import row_norm as rnk
+    worst = 0.0
+    for D in NORM_BWD_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((NORM_BWD_ROWS, D), generator=gen).to(dtype).to(dev)
+            dy = torch.randn((NORM_BWD_ROWS, D), generator=gen).to(dtype).to(dev)
+            scale = (1 + 0.1 * torch.randn((D,), generator=gen)).to(dev)
+            bias = (0.1 * torch.randn((D,), generator=gen)).to(dev)
+            for kind, b, plus_one in (("rms", None, False),
+                                      ("layernorm", bias, False),
+                                      ("plus_one", None, True)):
+                got = rnk.row_norm_backward(dy, x, scale, b,
+                                            plus_one=plus_one)
+                again = rnk.row_norm_backward(dy, x, scale, b,
+                                              plus_one=plus_one)
+                want = rnk.row_norm_backward_plain(dy, x, scale, b,
+                                                   plus_one=plus_one)
+                torch.cuda.synchronize()
+                gaps = []
+                for i, (g, a, w) in enumerate(zip(got, again, want)):
+                    if w is None:
+                        assert g is None
+                        continue
+                    assert torch.equal(g, a), (kind, D, dtype, i)
+                    rel, err = _gap(g, w)
+                    peak = w.float().abs().max().item()
+                    tol = (_bf16_ulp(peak) / peak
+                           if i == 0 and dtype == torch.bfloat16 else 1e-5)
+                    assert rel <= tol, (kind, D, dtype, i, rel, tol)
+                    worst = max(worst, err)
+                    gaps.append(rel)
+                log(f"[train] row_norm backward {kind} d={D} "
+                    f"{str(dtype)[6:]}: dx, dscale"
+                    f"{', dbias' if b is not None else ''} within "
+                    + ", ".join(f"{g:.2e}" for g in gaps)
+                    + " of their peaks; bitwise repeatable")
+    return worst
+
+
+def _attn_bwd_inputs(case, dtype, dev, gen):
+    B, S, Hq, Hkv, hd, window = case
+    q, dout = (torch.randn((B, S, Hq, hd), generator=gen).to(dtype).to(dev)
+               for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, hd), generator=gen).to(dtype).to(dev)
+            for _ in range(2))
+    qpos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    return q, k, v, qpos, dout, window
+
+
+def _check_attention_backward(dev, gen):
+    """row_attention's two backward kernels against autograd of the plain
+    version on causal self-attention (query i at position i over the
+    sequence's own keys): tinyllama's training layout (B 8, S 128, 32 / 4
+    heads of 64), one long sequence (B 1, S 2048) and a window of 128 at
+    S 512; bf16 and f32; dq, dk, dv within 1e-5 of each peak (f32) or
+    2^-6 of it (bf16: the plain version rounds its logits, probabilities
+    and their gradients to bf16); a second launch gives the same bits.
+    Returns the largest absolute errors of (a) (dq) and (b) (dk, dv)."""
+    from repro_torch.kernels import row_attention as rak
+    worst = [0.0, 0.0]
+    for case in ATTN_BWD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, qpos, dout, window = _attn_bwd_inputs(case, dtype, dev,
+                                                           gen)
+            out = rak.row_attention(q, k, v, qpos, window)
+            got = rak.row_attention_backward(dout, q, k, v, qpos, out, window)
+            again = rak.row_attention_backward(dout, q, k, v, qpos, out,
+                                               window)
+            want = rak.row_attention_backward_plain(dout, q, k, v, qpos,
+                                                    window)
+            torch.cuda.synchronize()
+            tol = ATTN_REL_TOL if dtype == torch.bfloat16 else 1e-5
+            gaps = []
+            for i, (g, a, w) in enumerate(zip(got, again, want)):
+                assert torch.equal(g, a), (case, dtype, i)
+                rel, err = _gap(g, w)
+                assert rel <= tol, (case, dtype, "qkv"[i], rel, tol)
+                worst[min(i, 1)] = max(worst[min(i, 1)], err)
+                gaps.append(rel)
+            log(f"[train] row_attention backward B={case[0]} S={case[1]} "
+                f"heads {case[2]}/{case[3]} hd={case[4]} window={case[5]} "
+                f"{str(dtype)[6:]}: dq, dk, dv within "
+                + ", ".join(f"{g:.2e}" for g in gaps)
+                + f" of their peaks (tol {tol:.2e}); bitwise repeatable")
+            del q, k, v, dout, out, got, again, want
+    return worst
+
+
+def _full_width_grads(cfg, params, batch, plain):
+    """(loss, {leaf: gradient}) of one loss_fn call and its backward on
+    trainable copies of ``params``, through the kernels or (``plain``)
+    their plain versions."""
+    from repro_torch.launch.steps import trainable
+    from repro_torch.models import loss_fn
+    tp = trainable(params)
+    with plain_versions() if plain else contextlib.nullcontext():
+        loss = loss_fn(tp, batch, cfg)
+        loss.backward()
+    torch.cuda.synchronize()
+    return float(loss.detach()), {k: t.grad for k, t in _flat(tp).items()}
+
+
+def _check_full_width_step(dev):
+    """(b): one step at the CLI's defaults (batch 8, seq 128) of
+    full-width tinyllama-1.1b, bf16 and a float32 copy: every gradient leaf
+    of the kernel path (45 row_norm and 22 row_attention launches forward,
+    45 + 22 + 22 backward) against the plain path's (no launch), from the
+    same params and batch; every floating leaf gets a gradient."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.steps import _batch_on
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import tree_map
+    cfg = get_config("tinyllama-1.1b")
+    batch = _batch_on(SyntheticLMDataset(cfg, 8, 128, seed=0).batch_at(0),
+                      dev)
+    params = init_params(cfg, seed=0, device=dev)
+    per_step = {"row_norm": 2 * cfg.n_layers + 1,
+                "row_attention": cfg.n_layers}
+    for name, tol, p in (("bf16", TRAIN_GRAD_BF16_TOL, params),
+                         ("f32", TRAIN_GRAD_F32_TOL,
+                          tree_map(lambda t: t.float(), params))):
+        reset_launches()
+        reset_bwd_launches()
+        loss_k, grads_k = _full_width_grads(cfg, p, batch, plain=False)
+        counts = {**read_launches(), **read_bwd_launches()}
+        want = {"row_norm": per_step["row_norm"],
+                "row_attention": per_step["row_attention"],
+                "row_norm_bwd": per_step["row_norm"],
+                "row_attention_bwd_dq": per_step["row_attention"],
+                "row_attention_bwd_dkv": per_step["row_attention"]}
+        assert {k: counts[k] for k in want} == want, counts
+        assert counts["joint_sparse_matmul"] == 0
+        reset_launches()
+        reset_bwd_launches()
+        loss_p, grads_p = _full_width_grads(cfg, p, batch, plain=True)
+        assert not any({**read_launches(), **read_bwd_launches()}.values())
+        assert set(grads_k) == set(grads_p)
+        worst_leaf, worst = None, 0.0
+        for key, g in grads_k.items():
+            w = grads_p[key]
+            assert g is not None and w is not None, key
+            rel, _ = _gap(g, w)
+            if rel >= worst:
+                worst_leaf, worst = key, rel
+            assert rel <= tol, (name, key, rel, tol)
+        log(f"[train] (b) full-width step {name}: loss kernel {loss_k:.6f} "
+            f"plain {loss_p:.6f}; all {len(grads_k)} gradient leaves within "
+            f"{worst:.2e} of their peaks (largest {worst_leaf}; tol {tol}); "
+            f"launches a step {want}")
+        del grads_k, grads_p
+        torch.cuda.empty_cache()
+    del params
+
+
+def _train_run(argv):
+    from repro_torch.launch import train
+    return train.run(train.build_parser().parse_args(argv))
+
+
+def _check_hybrid(dev):
+    """(f): the Fig. 4 pipeline on one full-width layer's seven
+    projections (layer 0 of a seeded bf16 draw): prune_tree, three
+    qat_steps, export_tree and sparsity_report on the card and on the
+    host; masks, q, phi_th, scales, packed terms and the report equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import hybrid
+    from repro_torch.models import init_params
+    cfg = get_config("tinyllama-1.1b").scaled(n_layers=1)
+    blocks = init_params(cfg, seed=1, device=dev)["blocks"]
+    ws = {f"{a}/{n}": blocks[a][n][0] for a, names in
+          (("attn", ("wq", "wk", "wv", "wo")),
+           ("mlp", ("w_gate", "w_up", "w_down"))) for n in names}
+    hcfg = hybrid.HybridConfig()
+    out = {}
+    for where, w in (("card", ws), ("host", {k: v.cpu() for k, v in
+                                              ws.items()})):
+        masks = hybrid.prune_tree(w, hcfg)
+        st = {}
+        for _ in range(3):
+            _, st, _ = hybrid.qat_step(w, masks, st, hcfg)
+        ex = hybrid.export_tree(w, masks, st, hcfg)
+        out[where] = (masks, ex, hybrid.sparsity_report(ex))
+    (cm, cx, crep), (hm, hx, hrep) = out["card"], out["host"]
+    for k in ws:
+        assert torch.equal(cm[k].cpu(), hm[k]), k
+        ce, he = cx[k]["export"], hx[k]["export"]
+        for name in ("q", "phi_th", "mask"):
+            assert torch.equal(getattr(ce, name).cpu(), getattr(he, name)), k
+        assert torch.equal(ce.scale.cpu().view(torch.int32),
+                           he.scale.view(torch.int32)), k
+        assert torch.equal(cx[k]["packed_terms"].cpu(), hx[k]["packed_terms"])
+    assert crep == hrep
+    log(f"[train] (f) hybrid on one full-width layer's 7 projections: card "
+        f"== host (masks, q, phi_th, scales, packed terms, report); "
+        f"compound sparsity "
+        + ", ".join(f"{k} {r['compound_sparsity']:.4f}"
+                    for k, r in crep.items()))
+
+
+def phase_train(dev):
+    """Phase 9: the training path at tinyllama-1.1b's full width. (a) the
+    three backward kernels against their plain versions; (b) one step's
+    gradients, kernel path against plain path; (c) 20 steps through
+    ``launch.train`` (the counted main path: the backward kernels'
+    launches, none of a plain version), step p50, tokens/s and peak
+    memory; (d) resume from the checkpoint at step 10 (2 layers) equal to
+    the uninterrupted run; (e) the INT8 optimizer, gradient compression
+    and the DB-PIM projection in the loop; (f) the hybrid pipeline card ==
+    host. Returns (the train run's launches of the three kernels, their
+    largest errors)."""
+    import tempfile
+
+    import numpy as np
+    t_phase = time.monotonic()
+    gen = torch.Generator().manual_seed(11)
+    worst = {"row_norm_bwd": _check_norm_backward(dev, gen)}
+    worst["row_attention_bwd_dq"], worst["row_attention_bwd_dkv"] = \
+        _check_attention_backward(dev, gen)
+    torch.cuda.empty_cache()
+    _check_full_width_step(dev)
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    reset_bwd_launches()
+    with _plain_calls() as plain:
+        r = _train_run(TRAIN_ARGS + ["--steps", str(TRAIN_STEPS)])
+        torch.cuda.synchronize()
+    launches = read_bwd_launches()
+    fwd = read_launches()
+    assert not any(plain.values()), plain
+    per_step = {"row_norm_bwd": 45, "row_attention_bwd_dq": 22,
+                "row_attention_bwd_dkv": 22}
+    assert launches == {k: TRAIN_STEPS * n for k, n in per_step.items()}, \
+        launches
+    assert fwd["row_norm"] == TRAIN_STEPS * 45 and \
+        fwd["row_attention"] == TRAIN_STEPS * 22, fwd
+    assert all(np.isfinite(r.losses)) and r.losses[-1] < r.losses[0], r.losses
+    p50 = float(np.median(r.step_s[1:]))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(f"[train] (c) {TRAIN_STEPS} steps of launch.train (tinyllama-1.1b, "
+        f"22 layers, bf16, batch 8 x seq 128): loss {r.losses[0]:.4f} -> "
+        f"{r.losses[-1]:.4f}; step p50 {p50 * 1e3:.2f} ms (first "
+        f"{r.step_s[0] * 1e3:.1f} ms), {r.tokens_per_step / p50:.1f} "
+        f"tokens/s, peak {r.peak_bytes / 2 ** 30:.3f} GiB; launches "
+        f"{launches} (and forward row_norm {fwd['row_norm']}, row_attention "
+        f"{fwd['row_attention']}), no plain version called; {smi}")
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.steps import build_train_step
+    step = build_train_step(get_config("tinyllama-1.1b"))
+    batch = SyntheticLMDataset(get_config("tinyllama-1.1b"), 8, 128,
+                               seed=0).batch_at(TRAIN_STEPS)
+    busy = _device_ms(lambda: step(r.params, r.opt_state, batch), iters=2)
+    log(f"[train] (c) a step's device busy time (torch.profiler, 2-step "
+        f"windows): "
+        + ("not measured" if busy is None else
+           f"{busy:.3f} ms of the {p50 * 1e3:.2f} ms p50 wall (unprofiled), "
+           f"idle share {1 - busy / (p50 * 1e3):.3f}"))
+    del r, step
+    torch.cuda.empty_cache()
+
+    base = TRAIN_ARGS + ["--layers", str(TRAIN_RESUME_LAYERS)]
+    full = _train_run(base + ["--steps", str(TRAIN_STEPS)]).losses
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = ["--ckpt-dir", tmp, "--ckpt-every", str(TRAIN_RESUME_AT)]
+        first = _train_run(base + ["--steps", str(TRAIN_RESUME_AT)]
+                           + ck).losses
+        rest = _train_run(base + ["--steps", str(TRAIN_STEPS)] + ck).losses
+        size = sum(f.stat().st_size for f in Path(tmp).rglob("*.npy"))
+    assert len(first) == TRAIN_RESUME_AT and \
+        len(rest) == TRAIN_STEPS - TRAIN_RESUME_AT
+    np.testing.assert_allclose(first + rest, full, rtol=1e-5)
+    gap = max(abs(a - b) / abs(b) for a, b in zip(first + rest, full))
+    log(f"[train] (d) resume at step {TRAIN_RESUME_AT} ({TRAIN_RESUME_LAYERS} "
+        f"layers, full width; {size / 2 ** 30:.3f} GiB of checkpoints on "
+        f"disk): steps {TRAIN_RESUME_AT}-{TRAIN_STEPS - 1} within "
+        f"{gap:.2e} of the uninterrupted run (rtol 1e-5)")
+    torch.cuda.empty_cache()
+
+    for flags in (["--int8-opt"], ["--grad-compression"],
+                  ["--dbpim-every", "2"]):
+        r = _train_run(TRAIN_ARGS + ["--steps", str(TRAIN_VARIANT_STEPS)]
+                       + flags)
+        assert all(np.isfinite(r.losses)), (flags, r.losses)
+        note = ""
+        if flags[0] == "--int8-opt":
+            m = r.opt_state.m["blocks"]["mlp"]["w_up"]
+            v = r.opt_state.v["blocks"]["mlp"]["w_up"]
+            assert m["q"].dtype == torch.int8 and "sqrt" in v and \
+                m["q"].device.type == "cuda"
+            note = f", INT8 moments (w_up: q {tuple(m['q'].shape)})"
+        log(f"[train] (e) {' '.join(flags)}: {TRAIN_VARIANT_STEPS} steps, "
+            f"losses {', '.join(f'{x:.4f}' for x in r.losses)}{note}; peak "
+            f"{r.peak_bytes / 2 ** 30:.3f} GiB")
+        del r
+        torch.cuda.empty_cache()
+    _check_hybrid(dev)
+    log(f"[train] phase 9 took {time.monotonic() - t_phase:.1f} s")
+    return launches, worst
+
+
+def _bwd_times(dev):
+    """The three backward kernels per launch at tinyllama's training
+    shapes, with their plain versions (autograd of the plain forward, so
+    also its forward) and the library yardsticks (the backward of
+    F.rms_norm, and of F.scaled_dot_product_attention with is_causal and
+    GQA, which computes dq, dk and dv in one call), beside their bounds;
+    the work unit is one training step's launches (45 row_norm, 22 of
+    each attention kernel). Kernel (b) alone is the backward (a + b) less
+    kernel (a). Returns {name: the JSON entry's numbers}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import row_attention as rak
+    from repro_torch.kernels import row_norm as rnk
+    gen = torch.Generator().manual_seed(12)
+    R, D = 8 * 128, 2048
+    x = torch.randn((R, D), generator=gen).to(torch.bfloat16).to(dev)
+    dy = torch.randn((R, D), generator=gen).to(torch.bfloat16).to(dev)
+    scale = (1 + 0.1 * torch.randn((D,), generator=gen)).to(dev)
+    xr = x.clone().requires_grad_()
+    wr = scale.to(torch.bfloat16).requires_grad_()
+    lib_out = F.rms_norm(xr, (D,), wr, 1e-6) if hasattr(F, "rms_norm") \
+        else None
+    case = ATTN_BWD_CASES[0]
+    B, S, Hq, Hkv, hd, _ = case
+    q, k, v, qpos, dout, _ = _attn_bwd_inputs(case, torch.bfloat16, dev, gen)
+    out = rak.row_attention(q, k, v, qpos)
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                          enable_gqa=True)
+    douth = dout.transpose(1, 2)
+    live = B * Hq * S * (S + 1) // 2
+    lse_bytes = 2 * B * Hq * S * 4
+    units = {
+        "row_norm_bwd": dict(
+            kernel=lambda: rnk.row_norm_backward(dy, x, scale),
+            plain=lambda: rnk.row_norm_backward_plain(dy, x, scale),
+            library=None if lib_out is None else (
+                lambda: torch.autograd.grad(lib_out, (xr, wr), dy,
+                                            retain_graph=True)),
+            bytes=3 * R * D * 2 + 2 * D * 4, ops=10 * R * D,
+            peak=FP32_FLOPS, repeat=2 * 22 + 1,
+            work="one training step's norms: 45 launches of 1,024 rows x "
+                 "d=2048, bf16"),
+        "row_attention_bwd_dq": dict(
+            kernel=lambda: rak.row_attention_backward(
+                dout, q, k, v, qpos, out, need_kv=False),
+            plain=lambda: rak.row_attention_backward_plain(dout, q, k, v,
+                                                           qpos),
+            library=lambda: torch.autograd.grad(sdpa, (qh, kh, vh), douth,
+                                                retain_graph=True),
+            bytes=4 * q.numel() * 2 + 2 * k.numel() * 2 + lse_bytes,
+            ops=6 * hd * live, peak=BF16_FLOPS, repeat=22,
+            work="one training step's kernel (a): 22 launches, batch 8 x "
+                 "128 causal queries, 32 / 4 heads of 64, bf16"),
+        "row_attention_bwd_dkv": dict(
+            kernel=lambda: rak.row_attention_backward(dout, q, k, v, qpos,
+                                                      out),
+            plain=lambda: rak.row_attention_backward_plain(dout, q, k, v,
+                                                           qpos),
+            library=lambda: torch.autograd.grad(sdpa, (qh, kh, vh), douth,
+                                                retain_graph=True),
+            bytes=2 * q.numel() * 2 + 4 * k.numel() * 2 + lse_bytes,
+            ops=8 * hd * live, peak=BF16_FLOPS, repeat=22,
+            work="one training step's kernel (b): 22 launches, batch 8 x "
+                 "128 causal queries, 32 / 4 heads of 64, bf16 (timed as "
+                 "the whole backward less kernel (a))")}
+    res = {}
+    for name, u in units.items():
+        ms, dev_ms = _time_auto(u["kernel"]), _device_ms(u["kernel"])
+        plain = _time_auto(u["plain"])
+        lib = lib_dev = None
+        if u["library"] is not None:
+            lib, lib_dev = _time_auto(u["library"]), _device_ms(u["library"])
+        if name == "row_attention_bwd_dkv":
+            a = res["row_attention_bwd_dq"]
+            ms -= a["ms_one"]
+            dev_ms = (None if dev_ms is None or a["device_one"] is None
+                      else dev_ms - a["device_one"])
+        bound, by = _bound(u["bytes"], u["ops"], u["peak"])
+        n = u["repeat"]
+        res[name] = dict(
+            ms_one=ms, device_one=dev_ms, ms=n * ms,
+            device_ms=None if dev_ms is None else n * dev_ms,
+            plain_ms=n * plain, library_ms=None if lib is None else n * lib,
+            library_device_ms=None if lib_dev is None else n * lib_dev,
+            bound_ms=n * bound, bound_by=by, work=u["work"])
+        log(f"[times] {name}: kernel {ms * 1e3:.1f} us (device "
+            f"{'not measured' if dev_ms is None else f'{dev_ms * 1e3:.1f} us'}"
+            f"), plain {plain * 1e3:.1f} us, library "
+            f"{'n/a' if lib is None else f'{lib * 1e3:.1f} us'} (device "
+            f"{'n/a' if lib_dev is None else f'{lib_dev * 1e3:.1f} us'}), "
+            f"bound {bound * 1e3:.2f} us ({by}) a launch; x{n} a step: "
+            f"kernel {n * ms:.4f} ms")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4810,6 +5326,9 @@ def main() -> int:
                         (pixtral_cfg, pixtral_packs),
                         (gemma_cfg, gemma_packs))
 
+    train_launches, train_worst = phase_train(dev)
+    bwd_times = _bwd_times(dev)
+
     kernels = []
     for name, replaces, work in (
             ("joint_sparse_matmul", "kernels/joint_sparse_matmul.py:129",
@@ -4890,6 +5409,22 @@ def main() -> int:
             kernels[-1]["units"] = [
                 {"work": w, **{k: v for k, v in times[u].items()
                                if k != "per_shape"}} for w, u in units]
+    for name in BWD_KERNELS:
+        t = bwd_times[name]
+        src = "row_norm" if name.startswith("row_norm") else "row_attention"
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+            "replaces": ("src/repro/models/layers.py:33" if src == "row_norm"
+                         else "src/repro/models/attention.py:48"),
+            "launches": train_launches[name],
+            "max_abs_err": train_worst[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"],
+            "library_device_ms": t["library_device_ms"],
+            "work": t["work"] + " (the gradient XLA takes of the "
+                    "reference's plain jnp; no TPU kernel)"})
     assert all(k["launches"] > 0 for k in kernels), \
         [(k["name"], k["launches"]) for k in kernels]
     assert len(WATERFALLS) == 10, sorted(WATERFALLS)

@@ -1,4 +1,5 @@
-"""Atomic, restart-safe checkpoints of tensor trees."""
+"""Atomic, restart-safe checkpoints of tensor trees, and the training
+loop's async writer."""
 
-from .checkpoint import (latest_step, load_checkpoint,  # noqa: F401
-                         save_checkpoint)
+from .checkpoint import (CheckpointManager, latest_step,  # noqa: F401
+                         load_checkpoint, save_checkpoint)

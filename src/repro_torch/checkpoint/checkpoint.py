@@ -7,9 +7,11 @@ either package reads the other's checkpoints: one directory per step,
 key order) and a ``manifest.json`` with the step, each leaf's key, file,
 logical dtype and shape, the caller's ``extra`` and the time.
 
-A tree is a nested dict / list / tuple of tensors (or numpy arrays); its
-leaves are keyed by their path joined with "/" (``cache/attn/k``), as the
-reference keys a pytree. bfloat16, which numpy cannot hold, is saved as
+A tree is a nested dict / list / tuple / NamedTuple of tensors (or numpy
+arrays); its leaves are keyed by their path joined with "/"
+(``cache/attn/k``; a NamedTuple field as ``.name``, so a training state
+``(params, AdamWState)`` has ``1/.m/embed/tok``), as the reference keys a
+pytree. bfloat16, which numpy cannot hold, is saved as
 the uint16 view of its bits with the logical dtype "bfloat16" in the
 manifest, and loaded back by reinterpreting those bits in torch; numpy
 leaves load as torch tensors on the CPU.
@@ -21,8 +23,11 @@ kill mid-write leaves the previous steps untouched. Stale ``.tmp-*``
 directories of writers that died are swept at the next save and are
 invisible to ``latest_step`` and ``load_checkpoint``.
 
-The reference's ``CheckpointManager`` (a training loop's background
-writer) comes with the training path.
+``CheckpointManager`` is the training loop's writer: ``maybe_save`` copies
+the tree to host memory synchronously (so the loop may go on updating its
+tensors) and writes it on a thread; a write's error surfaces at the next
+``wait`` (or ``maybe_save``); ``restore_or_none`` resumes from the latest
+step.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 import time
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
@@ -37,14 +43,25 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
-    """{"a/b/c": leaf} over nested dicts, lists and tuples (list items by
-    index), the reference's pytree keys."""
+
+def _items(tree):
+    """(key, child) pairs of a tree node, None for a leaf: dict items,
+    NamedTuple fields as ".name" (jax's GetAttrKey), list and tuple items
+    by index."""
     if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, (list, tuple)):
-        items = enumerate(tree)
-    else:
+        return list(tree.items())
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [(f".{f}", getattr(tree, f)) for f in tree._fields]
+    if isinstance(tree, (list, tuple)):
+        return list(enumerate(tree))
+    return None
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
+    """{"a/b/c": leaf} over nested dicts, lists, tuples and NamedTuples,
+    the reference's pytree keys."""
+    items = _items(tree)
+    if items is None:
         return {prefix: tree}
     flat = {}
     for k, v in items:
@@ -125,14 +142,16 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def _rebuild(tree_like, by_key, prefix: str = ""):
+    items = _items(tree_like)
+    if items is None:
+        return by_key[prefix]
+    out = [_rebuild(v, by_key, f"{prefix}/{k}" if prefix else str(k))
+           for k, v in items]
     if isinstance(tree_like, dict):
-        return {k: _rebuild(v, by_key, f"{prefix}/{k}" if prefix else str(k))
-                for k, v in tree_like.items()}
-    if isinstance(tree_like, (list, tuple)):
-        out = [_rebuild(v, by_key, f"{prefix}/{i}" if prefix else str(i))
-               for i, v in enumerate(tree_like)]
-        return type(tree_like)(out)
-    return by_key[prefix]
+        return dict(zip(tree_like, out))
+    if hasattr(tree_like, "_fields"):
+        return type(tree_like)(*out)
+    return type(tree_like)(out)
 
 
 def load_checkpoint(ckpt_dir: str, tree_like,
@@ -158,3 +177,72 @@ def load_checkpoint(ckpt_dir: str, tree_like,
         raise ValueError(f"checkpoint/tree mismatch: "
                          f"{sorted(set(flat_like) ^ set(by_key))}")
     return _rebuild(tree_like, by_key), manifest["step"], manifest["extra"]
+
+
+def _host_copy(tree):
+    """The tree with every tensor leaf copied to host memory (a
+    synchronous device-to-host copy) and every numpy leaf copied."""
+    items = _items(tree)
+    if items is None:
+        if isinstance(tree, torch.Tensor):
+            return tree.detach().to("cpu", copy=True)
+        return np.array(tree)
+    out = [_host_copy(v) for _, v in items]
+    if isinstance(tree, dict):
+        return dict(zip(tree, out))
+    if hasattr(tree, "_fields"):
+        return type(tree)(*out)
+    return type(tree)(out)
+
+
+class CheckpointManager:
+    """Async save and resume for a training loop. ``maybe_save`` snapshots
+    the tree to host memory synchronously (cheap next to a step) and
+    writes it on a worker thread; one write is in flight at a time."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 3, every: int = 100):
+        self.ckpt_dir = ckpt_dir
+        self.keep = keep
+        self.every = every
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def maybe_save(self, step: int, tree, extra: Optional[dict] = None,
+                   blocking: bool = False):
+        """Save ``tree`` as ``step`` if ``step`` is a multiple of
+        ``every``: after the previous write has ended (its error raised
+        here), from a host copy taken now, on a thread (``blocking``:
+        waited for)."""
+        if step % self.every:
+            return
+        self.wait()
+        host_tree = _host_copy(tree)
+
+        def work():
+            try:
+                save_checkpoint(self.ckpt_dir, step, host_tree, extra,
+                                self.keep)
+            except BaseException as e:   # noqa: BLE001 — raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+        if blocking:
+            self.wait()
+
+    def wait(self):
+        """Join the write in flight; raise its error, if it failed."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def restore_or_none(self, tree_like):
+        """(tree of CPU tensors, step, extra) of the latest step, or None
+        when the directory holds none."""
+        try:
+            return load_checkpoint(self.ckpt_dir, tree_like)
+        except FileNotFoundError:
+            return None

@@ -106,6 +106,37 @@
 // f32 keeps exact fp32 on the CUDA cores (TF32 would break the 1e-5
 // contract): one block of four warps per (query, head), lanes over the
 // head dims, the logits in shared memory, orders fixed by hd alone.
+//
+// Backward (the training path's gradient; the reference differentiates
+// its jnp einsums with XLA). Two kernels, fp32 on the CUDA cores for bf16
+// and f32 inputs, with the forward's live-key rule (qpos, window), no
+// float atomics, every sum in an order fixed by the shapes, so two
+// launches on the same inputs give the same bits:
+//
+//   attention_bwd_dq_kernel, one warp per (batch, query, head): D = sum_d
+//     dO * O (the forward's output); the row's max and sum over its live
+//     keys (each lane its keys j = lo + lane + 32 t in order, online, then
+//     an xor butterfly over the lanes), written as lse = max + log(sum);
+//     then per tile of 32 keys (a lane a key) p = exp(l - lse), dp = dO .
+//     v_j, ds = p (dp - D), and dQ = scale * sum_j ds_j k_j with lanes over
+//     the head dims, the tile's keys in order.
+//   attention_bwd_dkv_kernel, one warp per (batch, key, KV head): over the
+//     group's heads in order, the queries in tiles of 32 (a lane a query),
+//     those whose live keys hold this key recompute l and p from the saved
+//     lse, and dV += p_T dO, dK += scale * ds q, lanes over the head dims,
+//     the tile's queries in order (p_T: p rounded to the input dtype, the
+//     reference's probabilities).
+//
+// The logit is the forward's: the fp32 dot rounded to the input dtype,
+// times the scale; each kernel forms it in the same order (d ascending).
+// A row with no live key (its softmax spreads evenly over all A keys and
+// ignores q and k) gives dQ = 0 and adds (1 / A)_T dO to every dV row.
+// Dead keys are not read: a non-finite value in a dead K or V row, which
+// the forward writes as NaN where the reference's 0 * v does, does not
+// reach the gradients (the training path's keys are the sequence's own).
+// Bound: at training shapes the recomputed products (4 a live (query,
+// key) pair and head dim across the two kernels); simple CUDA-core loops,
+// no tensor cores yet.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -1368,6 +1399,251 @@ int launch_f32_stream(const void* q, const void* k, const void* v, const void* q
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+
+// ------------------------------------------------------------- backward ---
+
+constexpr int BWD_WARPS = 4;
+constexpr int BWD_NT = 32 * BWD_WARPS;
+constexpr int BWD_MAX_HD = 256;
+constexpr int BWD_C = BWD_MAX_HD / 32;    // head dims a lane holds, at most
+
+template <typename T>
+struct BwdArgs {
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* out;
+  const T* dout;
+  const int32_t* qpos;
+  T* dq;
+  T* dk;
+  T* dv;
+  float* lse;       // (B, Hq, Sq)
+  float* delta;     // (B, Hq, Sq)
+  long long k_bstride, v_bstride;
+  int B, Sq, Hq, Hkv, A, hd, window;
+  float scale;
+  bool vec;         // 16-byte row loads: hd % 8 == 0 and every row aligned
+};
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+// v rounded to the input dtype (the reference's einsum output, its
+// probabilities cast back)
+__device__ __forceinline__ float round_as(float v, const float*) { return v; }
+__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ void bwd_load8(float (&x)[8], const __nv_bfloat16* p) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void bwd_load8(float (&x)[8], const float* p) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  const float4 w = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+  x[4] = w.x; x[5] = w.y; x[6] = w.z; x[7] = w.w;
+}
+
+// sum_d s[d] * row[d], d ascending (s in shared memory, row in memory)
+template <typename T>
+__device__ __forceinline__ float dot_row(const float* s, const T* row, int hd, bool vec) {
+  float acc = 0.f;
+  if (vec) {
+    for (int d = 0; d < hd; d += 8) {
+      float x[8];
+      bwd_load8(x, row + d);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc = fmaf(s[d + i], x[i], acc);
+    }
+  } else {
+    for (int d = 0; d < hd; ++d) acc = fmaf(s[d], to_float(row[d]), acc);
+  }
+  return acc;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_NT) attention_bwd_dq_kernel(const BwdArgs<T> a) {
+  __shared__ float sm[BWD_WARPS][2][BWD_MAX_HD];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * BWD_WARPS + warp;
+  if (row >= static_cast<long long>(a.B) * a.Sq * a.Hq) return;
+  const int hd = a.hd;
+  const int h = static_cast<int>(row % a.Hq);
+  const long long bi = row / a.Hq;                       // b * Sq + i
+  const int b = static_cast<int>(bi / a.Sq), i = static_cast<int>(bi % a.Sq);
+  const int g = h / (a.Hq / a.Hkv);
+  float* sq = sm[warp][0];
+  float* sdo = sm[warp][1];
+  const size_t qo = static_cast<size_t>(row) * hd;
+  float dsum = 0.f;
+  for (int d = lane; d < hd; d += 32) {
+    const float qd = to_float(a.q[qo + d]), dod = to_float(a.dout[qo + d]);
+    sq[d] = qd;
+    sdo[d] = dod;
+    dsum = fmaf(dod, to_float(a.out[qo + d]), dsum);
+  }
+  dsum = warp_sum(dsum);
+  __syncwarp();
+  int lo, n;
+  live_keys(a.qpos[bi], a.A, a.window, lo, n);
+  const size_t lr = (static_cast<size_t>(b) * a.Hq + h) * a.Sq + i;
+  const long long kst = static_cast<long long>(a.Hkv) * hd;
+  const T* kb = a.k + b * a.k_bstride + static_cast<long long>(g) * hd;
+  const T* vb = a.v + b * a.v_bstride + static_cast<long long>(g) * hd;
+  float acc[BWD_C];
+#pragma unroll
+  for (int c = 0; c < BWD_C; ++c) acc[c] = 0.f;
+  float lse = 0.f;
+  if (lo >= 0) {                     // lo < 0: no live key, dQ = 0
+    float m = -INFINITY, s = 0.f;
+    for (int j = lo + lane; j < n; j += 32) {
+      const float l = __fmul_rn(round_as(dot_row(sq, kb + j * kst, hd, a.vec), a.q), a.scale);
+      if (l > m) {
+        s = s * expf(m - l) + 1.f;
+        m = l;
+      } else {
+        s += expf(l - m);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
+      const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
+      const float mn = fmaxf(m, m2);
+      s = (s == 0.f ? 0.f : s * expf(m - mn)) + (s2 == 0.f ? 0.f : s2 * expf(m2 - mn));
+      m = mn;
+    }
+    lse = m + logf(s);
+    for (int j0 = lo; j0 < n; j0 += 32) {
+      const int j = j0 + lane;
+      float ds = 0.f;
+      if (j < n) {
+        const float l = __fmul_rn(round_as(dot_row(sq, kb + j * kst, hd, a.vec), a.q), a.scale);
+        const float p = expf(l - lse);
+        ds = p * (dot_row(sdo, vb + j * kst, hd, a.vec) - dsum);
+      }
+      const int cnt = min(32, n - j0);
+      for (int t = 0; t < cnt; ++t) {
+        const float dst = __shfl_sync(0xffffffffu, ds, t);
+        const T* kr = kb + (j0 + t) * kst;
+#pragma unroll
+        for (int c = 0; c < BWD_C; ++c) {
+          const int d = lane + 32 * c;
+          if (d < hd) acc[c] = fmaf(dst, to_float(kr[d]), acc[c]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < BWD_C; ++c) {
+    const int d = lane + 32 * c;
+    if (d < hd) store_as(a.dq + qo + d, acc[c] * a.scale);
+  }
+  if (lane == 0) {
+    a.lse[lr] = lse;
+    a.delta[lr] = dsum;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_NT) attention_bwd_dkv_kernel(const BwdArgs<T> a) {
+  __shared__ float sm[BWD_WARPS][2][BWD_MAX_HD];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * BWD_WARPS + warp;
+  if (row >= static_cast<long long>(a.B) * a.A * a.Hkv) return;
+  const int hd = a.hd;
+  const int g = static_cast<int>(row % a.Hkv);
+  const long long bj = row / a.Hkv;                      // b * A + j
+  const int b = static_cast<int>(bj / a.A), j = static_cast<int>(bj % a.A);
+  const int G = a.Hq / a.Hkv;
+  float* sk = sm[warp][0];
+  float* sv = sm[warp][1];
+  const long long ko = (static_cast<long long>(j) * a.Hkv + g) * hd;
+  for (int d = lane; d < hd; d += 32) {
+    sk[d] = to_float(a.k[b * a.k_bstride + ko + d]);
+    sv[d] = to_float(a.v[b * a.v_bstride + ko + d]);
+  }
+  __syncwarp();
+  float dk[BWD_C], dv[BWD_C];
+#pragma unroll
+  for (int c = 0; c < BWD_C; ++c) dk[c] = dv[c] = 0.f;
+  const float even = round_as(1.f / static_cast<float>(a.A), a.q);
+  for (int hh = 0; hh < G; ++hh) {
+    const int h = g * G + hh;
+    for (int i0 = 0; i0 < a.Sq; i0 += 32) {
+      const int i = i0 + lane;
+      float p = 0.f, ds = 0.f;
+      bool take = false;
+      if (i < a.Sq) {
+        int lo, n;
+        live_keys(a.qpos[static_cast<size_t>(b) * a.Sq + i], a.A, a.window, lo, n);
+        if (lo < 0) {                // no live key: the even softmax
+          p = even;
+          take = true;
+        } else if (j >= lo && j < n) {
+          const size_t qo = ((static_cast<size_t>(b) * a.Sq + i) * a.Hq + h) * hd;
+          const size_t lr = (static_cast<size_t>(b) * a.Hq + h) * a.Sq + i;
+          const float l = __fmul_rn(round_as(dot_row(sk, a.q + qo, hd, a.vec), a.q), a.scale);
+          const float pf = expf(l - a.lse[lr]);
+          ds = pf * (dot_row(sv, a.dout + qo, hd, a.vec) - a.delta[lr]);
+          p = round_as(pf, a.q);
+          take = true;
+        }
+      }
+      const unsigned live = __ballot_sync(0xffffffffu, take);
+      if (live == 0u) continue;
+      for (int t = 0; t < 32; ++t) {
+        if (!((live >> t) & 1u)) continue;
+        const float pt = __shfl_sync(0xffffffffu, p, t);
+        const float dst = __shfl_sync(0xffffffffu, ds, t);
+        const size_t qo = ((static_cast<size_t>(b) * a.Sq + i0 + t) * a.Hq + h) * hd;
+#pragma unroll
+        for (int c = 0; c < BWD_C; ++c) {
+          const int d = lane + 32 * c;
+          if (d < hd) {
+            dv[c] = fmaf(pt, to_float(a.dout[qo + d]), dv[c]);
+            dk[c] = fmaf(dst, to_float(a.q[qo + d]), dk[c]);
+          }
+        }
+      }
+    }
+  }
+  const size_t o = static_cast<size_t>(row) * hd;
+#pragma unroll
+  for (int c = 0; c < BWD_C; ++c) {
+    const int d = lane + 32 * c;
+    if (d < hd) {
+      store_as(a.dk + o + d, dk[c] * a.scale);
+      store_as(a.dv + o + d, dv[c]);
+    }
+  }
+}
+
+template <typename T>
+int launch_bwd(const BwdArgs<T>& a, bool dkv, cudaStream_t stream) {
+  const long long rows = dkv ? static_cast<long long>(a.B) * a.A * a.Hkv
+                             : static_cast<long long>(a.B) * a.Sq * a.Hq;
+  const long long blocks = (rows + BWD_WARPS - 1) / BWD_WARPS;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (dkv)
+    attention_bwd_dkv_kernel<T><<<static_cast<unsigned>(blocks), BWD_NT, 0, stream>>>(a);
+  else
+    attention_bwd_dq_kernel<T><<<static_cast<unsigned>(blocks), BWD_NT, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C entry point, loaded with ctypes. q, k, v and out share `dtype`;
@@ -1448,4 +1724,87 @@ extern "C" int row_attention_launch(const void* q, const void* k, const void* v,
     case 128: return p.stream ? launch_stream<128>(a, B, p, s) : launch_tc<128>(a, B, p, s);
     default: return p.stream ? launch_stream<256>(a, B, p, s) : launch_tc<256>(a, B, p, s);
   }
+}
+
+namespace {
+
+template <typename T>
+int bwd_entry(const void* q, const void* k, const void* v, const void* qpos, const void* out,
+              const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta, int B,
+              int Sq, int Hq, int Hkv, int A, int hd, int window, long long k_bstride,
+              long long v_bstride, float scale, bool dkv, cudaStream_t stream) {
+  BwdArgs<T> a;
+  a.q = static_cast<const T*>(q);
+  a.k = static_cast<const T*>(k);
+  a.v = static_cast<const T*>(v);
+  a.out = static_cast<const T*>(out);
+  a.dout = static_cast<const T*>(dout);
+  a.qpos = static_cast<const int32_t*>(qpos);
+  a.dq = static_cast<T*>(dq);
+  a.dk = static_cast<T*>(dk);
+  a.dv = static_cast<T*>(dv);
+  a.lse = static_cast<float*>(lse);
+  a.delta = static_cast<float*>(delta);
+  a.k_bstride = k_bstride;
+  a.v_bstride = v_bstride;
+  a.B = B;
+  a.Sq = Sq;
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  a.A = A;
+  a.hd = hd;
+  a.window = window;
+  a.scale = scale;
+  a.vec = hd % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) &&
+          k_bstride % 8 == 0 && v_bstride % 8 == 0;
+  return launch_bwd<T>(a, dkv, stream);
+}
+
+int bwd_dispatch(const void* q, const void* k, const void* v, const void* qpos, const void* out,
+                 const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta, int B,
+                 int Sq, int Hq, int Hkv, int A, int hd, int window, long long k_bstride,
+                 long long v_bstride, float scale, int dtype, bool dkv, void* stream) {
+  if (B <= 0 || Sq <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || A <= 0 || hd <= 0 ||
+      hd > BWD_MAX_HD || window < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == F32)
+    return bwd_entry<float>(q, k, v, qpos, out, dout, dq, dk, dv, lse, delta, B, Sq, Hq, Hkv, A,
+                            hd, window, k_bstride, v_bstride, scale, dkv, s);
+  if (dtype == BF16)
+    return bwd_entry<__nv_bfloat16>(q, k, v, qpos, out, dout, dq, dk, dv, lse, delta, B, Sq, Hq,
+                                    Hkv, A, hd, window, k_bstride, v_bstride, scale, dkv, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// Backward kernel (a), loaded with ctypes: dq (q's layout and dtype) and
+// the rows' lse and delta (B, Hq, Sq) float32 from q, the cache k / v (the
+// forward's layout and batch strides), qpos, the forward's out and dout
+// (q's layout). Returns cudaGetLastError() (cudaErrorInvalidValue for
+// shapes it does not take).
+extern "C" int row_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
+                                           const void* qpos, const void* out, const void* dout,
+                                           void* dq, void* lse, void* delta, int B, int Sq,
+                                           int Hq, int Hkv, int A, int hd, int window,
+                                           long long k_bstride, long long v_bstride,
+                                           float scale, int dtype, void* stream) {
+  return bwd_dispatch(q, k, v, qpos, out, dout, dq, nullptr, nullptr,
+                      lse, delta, B, Sq, Hq, Hkv, A, hd, window, k_bstride, v_bstride, scale,
+                      dtype, false, stream);
+}
+
+// Backward kernel (b): dk, dv (B, A, Hkv, hd) contiguous, in the cache's
+// dtype, from q, k, v, qpos, dout and kernel (a)'s lse and delta; launch
+// it after (a) on the same stream.
+extern "C" int row_attention_bwd_dkv_launch(const void* q, const void* k, const void* v,
+                                            const void* qpos, const void* dout, const void* lse,
+                                            const void* delta, void* dk, void* dv, int B, int Sq,
+                                            int Hq, int Hkv, int A, int hd, int window,
+                                            long long k_bstride, long long v_bstride,
+                                            float scale, int dtype, void* stream) {
+  return bwd_dispatch(q, k, v, qpos, nullptr, dout, nullptr, dk, dv, const_cast<void*>(lse),
+                      const_cast<void*>(delta), B, Sq, Hq, Hkv, A, hd, window, k_bstride,
+                      v_bstride, scale, dtype, true, stream);
 }

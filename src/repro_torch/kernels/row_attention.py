@@ -15,10 +15,11 @@ the whole shape, so the plain version does not keep it on the card.
                              window are dead too (0: no lower bound), the
                              reference's ``kpos > qpos - window``
 
-Three things live here:
+What lives here:
 
-  * ``row_attention`` — the wrapper. A CPU tensor takes the plain version;
-    a CUDA tensor launches the hand-written kernel
+  * ``row_attention`` — the wrapper. A CPU tensor takes the plain version,
+    which autograd differentiates; a CUDA tensor launches the hand-written
+    kernel
     (``csrc/row_attention.cu``, built by ``nvcc`` for sm_90a on first use,
     loaded with ctypes) or raises. There is no fallback. bf16 runs both
     products on the tensor cores (``mma.sync``): a block is one 16-row tile
@@ -29,15 +30,28 @@ Three things live here:
     cores. A cache whose logits do not fit a block's shared memory takes a
     streaming path that recomputes them in each pass, with the same sums
     in the same orders. Every launch-shape choice depends on (A, hd,
-    Hq / Hkv, dtype) only, never on Sq, B or the positions.
+    Hq / Hkv, dtype) only, never on Sq, B or the positions. When autograd
+    records (grad mode on and q, k or v requiring grad), the CUDA call
+    runs through ``RowAttention``, a ``torch.autograd.Function`` whose
+    backward is ``row_attention_backward``.
+  * ``row_attention_backward`` — the two backward kernels, fp32 sums for
+    bf16 and f32 inputs, no float atomics, the forward's live-key rule:
+    (a) per (batch, query, head) the row's logsumexp, D = dO . O and dQ;
+    (b) per (batch, key, KV head) dK and dV over the live queries and the
+    group's heads in a fixed order. Any cache length (they keep no
+    logits), head dims up to 256; the same bits from run to run.
   * ``row_attention_plain`` — the reference's math in plain PyTorch: KV
     heads repeated, einsum logits in the activations' dtype, -1e30 mask,
-    fp32 softmax cast back, einsum with v.
-  * ``LAUNCHES`` — the number of kernel launches so far, raised by one at
-    each launch and nowhere else. A launch recorded into a CUDA graph
-    runs at the graph's replays, which the host does not see: its capture
-    counts nothing, and the launches inside replays are read from the
-    device's own records (torch.profiler) by ``SYMBOLS``.
+    fp32 softmax cast back, einsum with v; and
+    ``row_attention_backward_plain`` — its autograd gradient, the backward
+    kernels' plain version (tests and ``chip_smoke.py`` compare with it;
+    the card's training path never takes it).
+  * ``LAUNCHES``, ``DQ_LAUNCHES`` and ``DKV_LAUNCHES`` — the forward's and
+    the two backward kernels' launches so far, each raised by one at its
+    launch and nowhere else. A launch recorded into a CUDA graph runs at
+    the graph's replays, which the host does not see: its capture counts
+    nothing, and the launches inside replays are read from the device's
+    own records (torch.profiler) by ``SYMBOLS``.
 """
 
 from __future__ import annotations
@@ -51,10 +65,16 @@ from . import build
 
 #: kernel launches so far in this process (the wrapper's CUDA branch only)
 LAUNCHES = 0
+#: backward launches so far: kernel (a), dQ, and kernel (b), dK and dV
+DQ_LAUNCHES = 0
+DKV_LAUNCHES = 0
 
-#: the CUDA kernel symbols a launch runs, as the profiler names them
+#: the CUDA kernel symbols the launches run, as the profiler names them:
+#: the forward's four, then the backward's (a) and (b), which only a
+#: training step launches
 SYMBOLS = ("attention_tc_kernel", "attention_stream_kernel",
-           "attention_f32_kernel", "attention_f32_stream_kernel")
+           "attention_f32_kernel", "attention_f32_stream_kernel",
+           "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
@@ -81,6 +101,15 @@ def row_attention_plain(q, k, v, qpos, window: int = 0):
     return out.transpose(1, 2)
 
 
+def row_attention_backward_plain(dout, q, k, v, qpos, window: int = 0):
+    """(dq, dk, dv) of ``row_attention_plain`` for the output gradient
+    ``dout``, by autograd: the backward kernels' plain version."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = row_attention_plain(*leaves, qpos, window)
+        return torch.autograd.grad(out, leaves, dout)
+
+
 def _library():
     global _LIB
     if _LIB is None:
@@ -90,6 +119,13 @@ def _library():
                        + [ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_int,
                                                     ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        for name in ("row_attention_bwd_dq_launch",
+                     "row_attention_bwd_dkv_launch"):
+            fn = getattr(lib, name)
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                           + [ctypes.c_longlong] * 2
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -193,19 +229,10 @@ def _report(q, k):
     return torch.empty_like(q)
 
 
-def row_attention(q, k, v, qpos, window: int = 0):
-    """Masked GQA attention, (B, Sq, Hq, hd) in q's dtype: each query
-    attends to the keys in (qpos - window, qpos] (window 0: [0, qpos]).
-    CPU tensors run the plain version; CUDA tensors launch the kernel on
-    the current stream or raise."""
+def _launch(q, k, v, qpos, window: int):
+    """The forward kernel on CUDA tensors: (out, (q, k, v, qpos) as the
+    kernel read them)."""
     global LAUNCHES
-    window = int(window)
-    if op_cost.recording(q, k, v, qpos):
-        return _report(q, k)
-    if q.device.type == "cpu":
-        return row_attention_plain(q, k, v, qpos, window)
-    if q.device.type != "cuda":
-        raise ValueError(f"row_attention runs on cuda or cpu, not {q.device}")
     _check(q, k, v, qpos, window)
     B, Sq, Hq, hd = q.shape
     A, Hkv = k.shape[1], k.shape[2]
@@ -214,7 +241,7 @@ def row_attention(q, k, v, qpos, window: int = 0):
     qpos = qpos.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     if out.numel() == 0:
-        return out
+        return out, (q, k, v, qpos)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -228,4 +255,103 @@ def row_attention(q, k, v, qpos, window: int = 0):
                            f"hd={hd}, window={window})")
     if not torch.cuda.is_current_stream_capturing():
         LAUNCHES += 1
-    return out
+    return out, (q, k, v, qpos)
+
+
+def row_attention_backward(dout, q, k, v, qpos, out, window: int = 0,
+                           need_kv: bool = True):
+    """(dq, dk, dv) of the attention for the output gradient ``dout``, on
+    CUDA tensors, given the forward's output ``out``: kernel (a) (dQ and
+    each row's logsumexp and D = dO . O), then kernel (b) (dK, dV; with
+    ``need_kv`` False it is not launched and dk, dv are None), on the
+    current stream, or raises. Gradients in the inputs' dtype, dk and dv
+    contiguous (B, A, Hkv, hd)."""
+    global DQ_LAUNCHES, DKV_LAUNCHES
+    window = int(window)
+    if q.device.type != "cuda":
+        raise ValueError(f"row_attention_backward runs on cuda, not "
+                         f"{q.device}")
+    _check(q, k, v, qpos, window)
+    if dout.shape != q.shape or out.shape != q.shape or \
+            dout.dtype != q.dtype or out.dtype != q.dtype:
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} and out "
+                         f"{tuple(out.shape)} {out.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    B, Sq, Hq, hd = q.shape
+    A, Hkv = k.shape[1], k.shape[2]
+    q, out, dout = q.contiguous(), out.contiguous(), dout.contiguous()
+    k, v = _cache_view(k), _cache_view(v)
+    qpos = qpos.to(torch.int32).contiguous()
+    dq = torch.empty_like(q)
+    dk = torch.empty((B, A, Hkv, hd), dtype=k.dtype, device=k.device) \
+        if need_kv else None
+    dv = torch.empty_like(dk) if need_kv else None
+    if q.numel() == 0:
+        if need_kv:
+            dk.zero_()
+            dv.zero_()
+        return dq, dk, dv
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    lib = _library()
+    dims = (B, Sq, Hq, Hkv, A, hd, window, k.stride(0), v.stride(0),
+            hd ** -0.5, _DTYPE_CODE[q.dtype])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.row_attention_bwd_dq_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), dq.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *dims, stream)
+        if rc == 0:
+            DQ_LAUNCHES += 1
+            if need_kv:
+                rc = lib.row_attention_bwd_dkv_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
+                    dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), *dims, stream)
+                if rc == 0:
+                    DKV_LAUNCHES += 1
+    if rc != 0:
+        raise RuntimeError(f"row_attention backward launch failed: CUDA error "
+                           f"{rc} (B={B}, Sq={Sq}, Hq={Hq}, Hkv={Hkv}, A={A}, "
+                           f"hd={hd}, window={window})")
+    return dq, dk, dv
+
+
+class RowAttention(torch.autograd.Function):
+    """The attention on CUDA tensors with the backward kernels as its
+    gradient: q, k and v get gradients, qpos none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, window):
+        out, (qc, kc, vc, pc) = _launch(q, k, v, qpos, window)
+        ctx.save_for_backward(qc, kc, vc, pc, out)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, qpos, out = ctx.saved_tensors
+        need_kv = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        dq, dk, dv = row_attention_backward(dout, q, k, v, qpos, out,
+                                            ctx.window, need_kv)
+        return dq, dk, dv, None, None
+
+
+def row_attention(q, k, v, qpos, window: int = 0):
+    """Masked GQA attention, (B, Sq, Hq, hd) in q's dtype: each query
+    attends to the keys in (qpos - window, qpos] (window 0: [0, qpos]).
+    CPU tensors run the plain version (autograd differentiates it); CUDA
+    tensors launch the kernel on the current stream or raise, through
+    ``RowAttention`` when autograd records the call."""
+    window = int(window)
+    if op_cost.recording(q, k, v, qpos):
+        return _report(q, k)
+    if q.device.type == "cpu":
+        return row_attention_plain(q, k, v, qpos, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"row_attention runs on cuda or cpu, not {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return RowAttention.apply(q, k, v, qpos, window)
+    return _launch(q, k, v, qpos, window)[0]

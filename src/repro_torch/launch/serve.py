@@ -210,6 +210,7 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+@torch.no_grad()
 def encode_frames(params, cfg, batch: int, seed: int, device):
     """The encoder's output for one batch of stub frames (one row per
     engine slot, ``inputs.stub_frames``: the reference serve CLI's frames)

@@ -1,11 +1,13 @@
-"""Fixed-shape serving steps, tagged with their call kind, their compiled
-form, and the full-forward prefill step.
+"""The train step, fixed-shape serving steps tagged with their call kind,
+their compiled form, and the full-forward prefill step.
 
-Port of the serving half of ``repro.launch.steps`` (``build_step``,
+Port of ``repro.launch.steps`` (``build_train_step``, ``build_step``,
 ``build_prefill_step``) and of the engine's ``jax.jit(...,
-donate_argnums=...)``. ``build_step`` returns a
-plain callable; its ``call_kind`` tag is what the engine meters device
-calls and latencies under, and the recompile sentinel keys its budget on.
+donate_argnums=...)``. The train step runs eagerly on one device; the
+reference's sharding builders (in/out specs for a mesh) are not ported.
+``build_step`` returns a plain callable; its ``call_kind`` tag is what
+the engine meters device calls and latencies under, and the recompile
+sentinel keys its budget on.
 ``compile_step`` compiles one: on the card each input signature is
 captured once as a CUDA graph and replayed from then on, so a call costs
 one graph launch instead of a Python walk over ~1,200 kernel launches.
@@ -16,8 +18,80 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import (decode_chunk_, decode_step, decode_step_,
-                                prefill, reset_slots_)
+                                loss_fn, prefill, reset_slots_)
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim import (AdamWState, adamw_update,
+                               cosine_with_warmup)
+from repro_torch.optim.adamw import tree_leaves, tree_map
+
+def trainable(params):
+    """``params`` with every floating leaf requiring grad (a leaf of the
+    autograd graph), the others as they are."""
+    return tree_map(lambda t: t.detach().requires_grad_()
+                    if t.is_floating_point() else t, params)
+
+
+def _batch_on(batch, device):
+    """The batch's arrays (numpy or tensors) as tensors on ``device``, in
+    their own dtypes."""
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def build_train_step(cfg: ModelConfig, *, microbatches: int = 1,
+                     grad_compression: bool = False):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    loss)``, the reference's step on one device, eagerly: the gradients of
+    ``models.loss_fn`` by autograd (on the card through the row kernels'
+    backward kernels), with ``microbatches`` > 1 the batch split in that
+    many equal row blocks, their gradients summed in float32 and divided
+    (as is the loss); ``runtime.compression.compress_tree`` on them with
+    ``grad_compression``; then ``adamw_update`` at
+    ``cosine_with_warmup(opt_state.step)``. ``params`` are the trainable
+    tree (``trainable``); the new params are too; the loss a detached
+    float32 scalar. A leaf the loss does not reach gets a zero gradient,
+    as ``jax.grad`` gives it."""
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+
+    def grads_of(params, batch):
+        leaves = tree_leaves(params)
+        loss = loss_fn(params, batch, cfg)
+        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+        gs = [torch.zeros_like(p) if g is None else g
+              for p, g in zip(leaves, gs)]
+        it = iter(gs)
+        return loss.detach(), tree_map(lambda _: next(it), params)
+
+    def train_step(params, opt_state: AdamWState, batch):
+        dev = tree_leaves(params)[0].device
+        batch = _batch_on(batch, dev)
+        if microbatches > 1:
+            B = next(iter(batch.values())).shape[0]
+            if B % microbatches:
+                raise ValueError(f"batch {B} does not split into "
+                                 f"{microbatches} microbatches")
+            mb = B // microbatches
+            loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+            grad_sum = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=dev), params)
+            for i in range(microbatches):
+                part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                loss, g = grads_of(params, part)
+                loss_sum = loss_sum + loss
+                grad_sum = tree_map(torch.add, grad_sum, g)
+            loss = loss_sum / microbatches
+            grads = tree_map(lambda g: g / microbatches, grad_sum)
+        else:
+            loss, grads = grads_of(params, batch)
+        if grad_compression:
+            from repro_torch.runtime.compression import compress_tree
+            grads = compress_tree(grads)
+        lr = cosine_with_warmup(opt_state.step)
+        new_params, new_state = adamw_update(params, grads, opt_state, lr=lr)
+        return trainable(new_params), new_state, loss
+
+    return train_step
+
 
 SERVE_CALL_KINDS = ("serve", "decode", "prefill_chunk", "reset")
 

@@ -282,6 +282,7 @@ def _chunk(params, cache, tokens, n_valid, cfg, tables, inplace, ptab=None):
     return logits_from_hidden(params["embed"], x_last, cfg), new_cache
 
 
+@torch.no_grad()
 def prefill(params, tokens, cfg: ModelConfig, frames=None, tables=None):
     """Last-position logits (B, 1, V) of the full forward over a prompt
     batch, the reference's ``prefill``: an enc-dec config encodes

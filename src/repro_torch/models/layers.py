@@ -159,3 +159,17 @@ def logits_from_hidden(p, x, cfg: ModelConfig):
     if cfg.tie_embeddings:
         return x @ p["tok"].T
     return x @ p["out"]
+
+
+def cross_entropy(logits, labels):
+    """Mean token cross-entropy; labels < 0 are masked (the divisor is the
+    count of the others, at least 1). float32 logsumexp less the gold
+    logit: the reference contracts the logits with a one-hot (a gather
+    would all-gather vocab-sharded logits on its mesh); on one card the
+    gold logit is a gather, the same value in float32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)

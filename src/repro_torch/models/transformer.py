@@ -14,7 +14,17 @@ parameter-stacked with a leading layer axis, as in the JAX package;
 layer where JAX scans. Params come from a ``torch.Generator`` on the
 device, with the JAX package's shapes and scales (its numbers differ: the
 tests feed JAX-initialised params through ``repro_torch.weights``
-instead). The training loss (``loss_fn``) is not ported yet.
+instead).
+
+``forward``, ``encode`` and ``loss_fn`` are differentiable: autograd
+records them when grad mode is on and a param requires grad (the train
+step), through the row kernels' own backward kernels on the card. The
+serving callers (``decode.prefill``, the serve CLI's encoder call, the
+steps of ``launch.steps``, the engine's ``tick``) run them under
+``torch.no_grad()``. The
+reference's ``cfg.remat`` (recompute each layer in the backward) is not
+taken: it trades memory for time and changes no number, and one card
+holds the activations of the configs trained here.
 """
 
 from __future__ import annotations
@@ -28,9 +38,9 @@ from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
-from .layers import (_normal, apply_mlp, apply_norm, dtype_of, embed_tokens,
-                     init_embeddings, init_mlp, init_norm,
-                     logits_from_hidden)
+from .layers import (_normal, apply_mlp, apply_norm, cross_entropy, dtype_of,
+                     embed_tokens, init_embeddings, init_mlp, init_norm,
+                     logits_from_hidden, plain_mm)
 from .segments import Segment, decoder_layout, encoder_layout
 
 #: the frontends of the configs: none, whisper's stub frames (the encoder's
@@ -139,7 +149,6 @@ def _sinusoidal(S: int, d: int, dtype, device=None):
     return _sinusoidal_at(torch.arange(S, device=device)[None], d)[0].to(dtype)
 
 
-@torch.no_grad()
 def encode(params, frames, cfg: ModelConfig):
     """The whisper encoder over stub frame embeddings (B, Se, D): sinusoidal
     positions, then per layer norm, non-causal attention, norm and the
@@ -159,15 +168,15 @@ def encode(params, frames, cfg: ModelConfig):
     return apply_norm(params["enc_final_norm"], x, cfg)
 
 
-@torch.no_grad()
 def forward(params, tokens, cfg: ModelConfig, frontend_embeds=None,
             enc_out=None, last_only: bool = False, tables=None):
     """Full-sequence forward to logits: the reference's ``forward``.
 
     tokens (B, S) int. frontend_embeds: pixtral's patch embeddings (B,
-    n_patches, D), projected by ``patch_proj`` (a plain matmul, as in the
-    reference) and prepended to the token stream; logits come for the
-    token positions only. enc_out: the whisper encoder's output (B, Se,
+    n_patches, D), projected by ``patch_proj`` (a plain matmul in the
+    promoted dtype, as in the reference) and prepended to the token
+    stream; logits come for the token positions only. enc_out: the
+    whisper encoder's output (B, Se,
     D) for cross-attention. last_only: unembed the last position only
     (prefill). tables (sparsity.sparse_linear.SegmentedKernelTables):
     every packed projection of every layer runs on the joint kernel, each
@@ -181,7 +190,7 @@ def forward(params, tokens, cfg: ModelConfig, frontend_embeds=None,
     x = embed_tokens(params["embed"], tokens, cfg)
     n_front = 0
     if cfg.frontend == "vision_stub" and frontend_embeds is not None:
-        fe = torch.matmul(frontend_embeds, params["patch_proj"])
+        fe = plain_mm(params["patch_proj"], frontend_embeds)
         x = torch.cat([fe.to(x.dtype), x], dim=1)
         n_front = frontend_embeds.shape[1]
     if cfg.rope_pct == 0:
@@ -209,6 +218,20 @@ def forward(params, tokens, cfg: ModelConfig, frontend_embeds=None,
     if last_only:
         x = x[:, -1:]
     return logits_from_hidden(params["embed"], x, cfg)
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Mean token cross-entropy of the forward over ``batch["tokens"]``
+    against ``batch["labels"]`` (labels < 0 masked), with
+    ``batch["frontend"]`` (pixtral's patch embeddings) prepended and
+    ``batch["frames"]`` encoded first for an enc-dec config: the
+    reference's ``loss_fn``. Plain matmuls (no tables), as the reference
+    trains. Tensors on the params' device."""
+    enc_out = (encode(params, batch["frames"], cfg) if cfg.is_encdec
+               else None)
+    logits = forward(params, batch["tokens"], cfg,
+                     frontend_embeds=batch.get("frontend"), enc_out=enc_out)
+    return cross_entropy(logits, batch["labels"])
 
 
 def _block_tail(seg: Segment, p, h, cfg: ModelConfig, mm=None,

@@ -1,5 +1,6 @@
-"""Runtime harness of the port: the straggler monitor the serving engine
-times its ticks with (``runtime.fault``), and the op-level cost
-accounting of a step's call (``runtime.op_cost``)."""
+"""Runtime harness of the port: the straggler monitor, elastic plan and
+resilient loop (``runtime.fault``), gradient compression
+(``runtime.compression``), and the op-level cost accounting of a step's
+call (``runtime.op_cost``)."""
 
-from .fault import StragglerMonitor  # noqa: F401
+from .fault import ElasticMeshPlan, StragglerMonitor, run_resilient  # noqa: F401

@@ -554,6 +554,7 @@ class ServeEngine:
 
     # ------------------------------------------------------------- one tick
 
+    @torch.no_grad()
     def tick(self):
         t0 = time.monotonic()
         tick = self.tick_count

@@ -23,11 +23,13 @@ FLOAT32_KEYS = frozenset({"scale", "bias", "q_norm", "k_norm", "router",
 
 def _leaf_to_torch(a, device, dtype):
     a = np.asarray(a)
+    # ascontiguousarray makes a 0-d array 1-d: reshape keeps a scalar leaf
+    a = np.ascontiguousarray(a).reshape(a.shape)
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        t = torch.from_numpy(a.view(np.int16).copy())
         t = t.view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+        t = torch.from_numpy(a.copy())
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)

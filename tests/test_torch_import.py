@@ -29,8 +29,8 @@ assert not leaked, leaked
 
 #: modules of the per-layer kernel-mode and DB-PIM pipeline slice, the
 #: row-stable kernels, the compiled steps, the SSM and the MoE families,
-#: fault injection and tracing, durability and paging; the probe imports
-#: every module of the package, these among them
+#: fault injection and tracing, durability and paging, the training path;
+#: the probe imports every module of the package, these among them
 SLICE_MODULES = {
     "repro_torch.core.dyadic", "repro_torch.core.pim_model",
     "repro_torch.core.pruning", "repro_torch.core.qat",
@@ -45,7 +45,10 @@ SLICE_MODULES = {
     "repro_torch.runtime.fault", "repro_torch.checkpoint.checkpoint",
     "repro_torch.serving.journal", "repro_torch.serving.snapshot",
     "repro_torch.serving.paging", "repro_torch.runtime.op_cost",
-    "repro_torch.obs.waterfall"}
+    "repro_torch.obs.waterfall", "repro_torch.optim.adamw",
+    "repro_torch.optim.schedule", "repro_torch.data.pipeline",
+    "repro_torch.runtime.compression", "repro_torch.launch.train",
+    "repro_torch.core.hybrid"}
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -66,7 +69,7 @@ def test_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch import quickstart
     from repro_torch.models import init_cache, init_params
     from repro_torch.serving import ServeEngine
@@ -86,6 +89,8 @@ def test_entry_points_raise_without_a_card():
                  lambda: params_from_numpy({"w": torch.zeros(2).numpy()}),
                  lambda: serve.main(["--arch", "tinyllama-1.1b",
                                      "--reduced"]),
+                 lambda: train.main(["--arch", "tinyllama-1.1b",
+                                     "--reduced", "--steps", "1"]),
                  lambda: quickstart.main([])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

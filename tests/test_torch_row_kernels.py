@@ -373,3 +373,200 @@ def test_row_norm_kernel_shapes_and_row_stability(cuda, D, kind, dtype):
     assert odd.data_ptr() % 16 != 0
     assert torch.equal(rnk.row_norm(odd, scale, b, plus_one=plus_one),
                        rnk.row_norm(odd_ref, scale, b, plus_one=plus_one))
+
+
+# ------------------------------------------------------------- backward --
+
+@pytest.mark.parametrize("kind", sorted(_NORMS))
+def test_row_norm_plain_gradient_matches_jax(kind):
+    """The backward kernels' plain version (autograd of row_norm_plain)
+    against jax.grad of the reference's ``apply_norm``: dx, dscale and
+    dbias in float32."""
+    jax = pytest.importorskip("jax")
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.models.layers import apply_norm
+
+    class Cfg:
+        norm_type = "layernorm" if _NORMS[kind]["layernorm"] else "rmsnorm"
+        norm_plus_one = _NORMS[kind]["plus_one"]
+
+    rng = np.random.default_rng(10 + len(kind))
+    x = rng.normal(0, 2, (3, 5, 96)).astype(np.float32)
+    g = rng.normal(0, 1, x.shape).astype(np.float32)
+    p = {"scale": rng.normal(0, 1, (96,)).astype(np.float32)}
+    if Cfg.norm_type == "layernorm":
+        p["bias"] = rng.normal(0, 1, (96,)).astype(np.float32)
+    want = jax.grad(lambda p, x: jnp.sum(apply_norm(p, x, Cfg) * g),
+                    argnums=(0, 1))(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x))
+    t = {k: torch.from_numpy(v) for k, v in p.items()}
+    dx, dscale, dbias = rnk.row_norm_backward_plain(
+        torch.from_numpy(g), torch.from_numpy(x), t["scale"], t.get("bias"),
+        plus_one=Cfg.norm_plus_one)
+    pairs = [(dx, want[1]), (dscale, want[0]["scale"])]
+    if "bias" in p:
+        pairs.append((dbias, want[0]["bias"]))
+    else:
+        assert dbias is None
+    for got, ref in pairs:
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=F32_RTOL * float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("window", [0, 3])
+def test_row_attention_plain_gradient_matches_jax(window):
+    """Autograd of row_attention_plain against jax.grad of the reference's
+    ``_sdpa`` with its causal (and window) mask, GQA group 4, f32: dq, dk
+    and dv."""
+    jax = pytest.importorskip("jax")
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.models.attention import _repeat_kv, _sdpa
+    q, k, v, qpos = _attn_inputs(20 + window, Sq=6, Hq=8, Hkv=2, hd=16)
+    g = np.random.default_rng(window).normal(0, 1, q.shape).astype(np.float32)
+    A, rep = k.shape[1], 4
+    kpos = np.arange(A)[None, None, :]
+    live = kpos <= qpos[:, :, None]
+    if window:
+        live &= kpos > qpos[:, :, None] - window
+    mask = jnp.asarray(live[:, None])
+
+    def jloss(q, k, v):
+        out = _sdpa(q, _repeat_kv(k, rep), _repeat_kv(v, rep), mask,
+                    jnp.float32)
+        return jnp.sum(out * g)
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(a)
+                                                for a in (q, k, v)))
+    got = rak.row_attention_backward_plain(
+        torch.from_numpy(g), *(torch.from_numpy(a) for a in (q, k, v)),
+        torch.from_numpy(qpos), window)
+    for t, ref in zip(got, want):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(t.numpy(), ref, rtol=0,
+                                   atol=F32_RTOL * float(np.abs(ref).max()))
+
+
+def test_cpu_tensors_differentiate_the_plain_versions():
+    """On the CPU the wrappers return the plain versions' tensors, which
+    autograd differentiates (no Function, no launch); the backward kernels'
+    wrappers refuse CPU tensors."""
+    launches = (rak.LAUNCHES, rak.DQ_LAUNCHES, rak.DKV_LAUNCHES,
+                rnk.LAUNCHES, rnk.BWD_LAUNCHES)
+    q, k, v, qpos = (torch.from_numpy(a) for a in _attn_inputs(3))
+    q.requires_grad_()
+    out = rak.row_attention(q, k, v, qpos)
+    out.sum().backward()
+    assert q.grad is not None
+    x = torch.randn(4, 32, requires_grad=True)
+    scale = torch.ones(32, requires_grad=True)
+    rnk.row_norm(x, scale).sum().backward()
+    assert scale.grad is not None
+    assert (rak.LAUNCHES, rak.DQ_LAUNCHES, rak.DKV_LAUNCHES, rnk.LAUNCHES,
+            rnk.BWD_LAUNCHES) == launches
+    with pytest.raises(ValueError):
+        rnk.row_norm_backward(x.detach(), x.detach(), scale.detach())
+    with pytest.raises(ValueError):
+        rak.row_attention_backward(out.detach(), q.detach(), k, v, qpos,
+                                   out.detach())
+
+
+def _dt_tol(ref, dtype, bf16_rtol):
+    peak = ref.float().abs().max().item()
+    return (bf16_rtol(peak) if dtype == "bfloat16" else F32_RTOL * peak)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", sorted(_NORMS))
+@pytest.mark.parametrize("D", [128, 2048, 2050, 4096])
+def test_row_norm_backward_kernel_matches_plain(cuda, D, kind, dtype):
+    """dx within 1e-5 of the peak (f32) or one bf16 ulp, dscale and dbias
+    (float32 sums over 1,024 rows) within 1e-5 of their peaks; two launches
+    give the same bits; through autograd the Function launches it once."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(D + len(kind))
+    x = torch.randn((1024, D), generator=gen).to(tdt).to(cuda)
+    dy = torch.randn((1024, D), generator=gen).to(tdt).to(cuda)
+    scale = torch.randn((D,), generator=gen).to(cuda)
+    bias = (torch.randn((D,), generator=gen).to(cuda)
+            if _NORMS[kind]["layernorm"] else None)
+    plus_one = _NORMS[kind]["plus_one"]
+    before = rnk.BWD_LAUNCHES
+    got = rnk.row_norm_backward(dy, x, scale, bias, plus_one=plus_one)
+    again = rnk.row_norm_backward(dy, x, scale, bias, plus_one=plus_one)
+    torch.cuda.synchronize()
+    assert rnk.BWD_LAUNCHES == before + 2
+    want = rnk.row_norm_backward_plain(dy, x, scale, bias, plus_one=plus_one)
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        if w is None:
+            assert g is None and a is None
+            continue
+        assert torch.equal(g, a) and g.dtype == w.dtype
+        tol = (_dt_tol(w, dtype, _bf16_ulp) if i == 0
+               else F32_RTOL * w.abs().max().item())
+        assert (g.float() - w.float()).abs().max().item() <= tol, i
+    xs = x.clone().requires_grad_()
+    ss = scale.clone().requires_grad_()
+    rnk.row_norm(xs, ss, bias, plus_one=plus_one).backward(dy)
+    assert rnk.BWD_LAUNCHES == before + 3
+    assert torch.equal(xs.grad, got[0]) and torch.equal(ss.grad, got[1])
+
+
+_BWD_CASES = {
+    # tinyllama's training layout: causal over the sequence's own keys
+    "causal-gqa8": dict(B=2, S=96, Hq=32, Hkv=4, hd=64, window=0),
+    "window": dict(B=2, S=96, Hq=8, Hkv=2, hd=128, window=17),
+    "mha-hd256": dict(B=1, S=40, Hq=4, Hkv=4, hd=256, window=0),
+    "hd16-group7": dict(B=1, S=33, Hq=14, Hkv=2, hd=16, window=0)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(_BWD_CASES))
+def test_row_attention_backward_kernels_match_plain(cuda, case, dtype):
+    """dq, dk, dv of the two backward kernels against the plain version's
+    autograd gradients (f32 within 1e-5 of each peak, bf16 within
+    2^-6 of it: the plain version rounds its logits, probabilities and
+    their gradients to bf16), on causal self-attention (query i at
+    position i over the same keys) and with a window; the same bits from
+    two launches; through autograd the Function launches each once."""
+    c = _BWD_CASES[case]
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(len(case))
+    B, S = c["B"], c["S"]
+    q, k, v, dout = (torch.randn((B, S, h, c["hd"]), generator=gen).to(tdt)
+                     .to(cuda) for h in (c["Hq"], c["Hkv"], c["Hkv"],
+                                         c["Hq"]))
+    qpos = torch.arange(S, dtype=torch.int32, device=cuda).expand(B, S)
+    out = rak.row_attention(q, k, v, qpos, c["window"])
+    before = (rak.DQ_LAUNCHES, rak.DKV_LAUNCHES)
+    got = rak.row_attention_backward(dout, q, k, v, qpos, out, c["window"])
+    again = rak.row_attention_backward(dout, q, k, v, qpos, out, c["window"])
+    torch.cuda.synchronize()
+    assert (rak.DQ_LAUNCHES, rak.DKV_LAUNCHES) == (before[0] + 2,
+                                                  before[1] + 2)
+    want = rak.row_attention_backward_plain(dout, q, k, v, qpos, c["window"])
+    for name, g, a, w in zip("qkv", got, again, want):
+        assert torch.equal(g, a), name
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        tol = _dt_tol(w, dtype, lambda p: ATTN_BF16_RTOL * p)
+        assert (g.float() - w.float()).abs().max().item() <= tol, name
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    rak.row_attention(*leaves, qpos, c["window"]).backward(dout)
+    assert (rak.DQ_LAUNCHES, rak.DKV_LAUNCHES) == (before[0] + 3,
+                                                  before[1] + 3)
+    for leaf, g in zip(leaves, got):
+        assert torch.equal(leaf.grad, g)
+
+
+def test_row_attention_backward_dead_rows_and_decode_positions(cuda):
+    """Queries at arbitrary positions against a longer cache, three of
+    them with no live key (qpos < 0: the even softmax, no gradient to q):
+    the kernels against the plain version's gradients in f32."""
+    q, k, v, qpos = _long_attn_inputs(64, 4, 300, torch.float32, cuda, Sq=40)
+    dout = torch.randn_like(q)
+    out = rak.row_attention(q, k, v, qpos)
+    got = rak.row_attention_backward(dout, q, k, v, qpos, out)
+    want = rak.row_attention_backward_plain(dout, q, k, v, qpos)
+    for g, w in zip(got, want):
+        tol = F32_RTOL * w.abs().max().item()
+        assert (g - w).abs().max().item() <= tol
+    assert torch.equal(got[0][0, :2], torch.zeros_like(got[0][0, :2]))
