@@ -108,35 +108,79 @@
 // head dims, the logits in shared memory, orders fixed by hd alone.
 //
 // Backward (the training path's gradient; the reference differentiates
-// its jnp einsums with XLA). Two kernels, fp32 on the CUDA cores for bf16
-// and f32 inputs, with the forward's live-key rule (qpos, window), no
-// float atomics, every sum in an order fixed by the shapes, so two
-// launches on the same inputs give the same bits:
+// its jnp einsums with XLA). Two kernels with the forward's live-key rule
+// (qpos, window), no float atomics, every sum in an order fixed by the
+// shapes and key positions, so two launches on the same inputs give the
+// same bits. The logit is the forward's: l = bf16(q . k) * scale. A row
+// with no live key (its softmax spreads evenly over all A keys and ignores
+// q and k) gives dQ = 0 and adds (1 / A)_T dO to every dV row.
 //
-//   attention_bwd_dq_kernel, one warp per (batch, query, head): D = sum_d
-//     dO * O (the forward's output); the row's max and sum over its live
-//     keys (each lane its keys j = lo + lane + 32 t in order, online, then
-//     an xor butterfly over the lanes), written as lse = max + log(sum);
-//     then per tile of 32 keys (a lane a key) p = exp(l - lse), dp = dO .
-//     v_j, ds = p (dp - D), and dQ = scale * sum_j ds_j k_j with lanes over
-//     the head dims, the tile's keys in order.
+// bf16: tensor cores (mma.sync m16n8k16, fp32 accumulators), tiles laid
+// out as the forward's: 16 rows of (query, head) pairs of one KV head's
+// group, flat index s * G + g, so each K/V tile serves the whole group.
+//   attention_bwd_dq_tc_kernel (a), a block per 16-row tile, four warps
+//     splitting every 64-key tile (16 keys each), K (pass 1) and K and V
+//     (pass 2) tiles through a two-stage cp.async ring, Q and dO as A
+//     fragments (registers up to hd 128, shared memory at 256). D = dO . O
+//     per row (lanes over the head dims, then an xor butterfly). Pass 1:
+//     S = Q K^T, l, the row's max and exp-sum over its live keys, each
+//     thread online over its keys tile by tile, then the quad, then the
+//     warps in order: lse = max + log(sum). Pass 2: S and dP = dO V^T again,
+//     p = exp(l - lse), dS = p (dP - D), selected to exactly 0 at a dead key,
+//     then bf16(dS * scale) (the reference rounds its logit gradient to
+//     bf16 before its dq einsum) as an A fragment and dQ += dS K with K
+//     read by ldmatrix.trans; the warps' dQ added in warp order.
+//   attention_bwd_dkv_tc_kernel (b), a block per 16 keys of one (batch, KV
+//     head) (and one half of the head dims at hd 256, so that a warp's dK
+//     and dV accumulators stay 2 x 16 x 128 fp32), K and V tiles in shared
+//     memory, and W warps (8 up to hd 128, 4 at 256: their stages must fit).
+//     Warp w walks the row tiles w, w + W, ... in order that hold a row whose
+//     live keys meet the block's (or a row with none: the even softmax
+//     reaches every key); a skipped tile adds exact zeros. Each warp stages
+//     its tiles' Q, dO, lse, D and positions through a two-stage cp.async
+//     ring of its own. S^T = K Q^T and dP^T = V dO^T come out of the
+//     accumulators already in A-fragment layout (the FlashAttention-2
+//     trick): P^T = bf16(exp(l - lse)) (the reference's probabilities),
+//     dS^T = bf16(p (dP - D) * scale), both selected to 0 at a dead pair,
+//     then dV += P^T dO and dK += dS^T Q with dO and Q read transposed. The
+//     warps' partial dK and dV are added in shared memory in warp order.
+//   Every launch shape comes from (A, hd, Hq / Hkv) alone.
+// f32: exact fp32 on the CUDA cores (TF32 would break the 1e-5 contract),
+// as the forward keeps its own f32 kernels:
+//   attention_bwd_dq_kernel, one warp per (batch, query, head): D, the row's
+//     max and sum over its live keys (each lane its keys in order, online,
+//     then an xor butterfly), then per tile of 32 keys (a lane a key) p,
+//     dp = dO . v_j, ds = p (dp - D) and dQ = scale * sum_j ds_j k_j with
+//     lanes over the head dims, the tile's keys in order.
 //   attention_bwd_dkv_kernel, one warp per (batch, key, KV head): over the
 //     group's heads in order, the queries in tiles of 32 (a lane a query),
 //     those whose live keys hold this key recompute l and p from the saved
-//     lse, and dV += p_T dO, dK += scale * ds q, lanes over the head dims,
-//     the tile's queries in order (p_T: p rounded to the input dtype, the
-//     reference's probabilities).
+//     lse, and dV += p dO, dK += scale * ds q, lanes over the head dims.
 //
-// The logit is the forward's: the fp32 dot rounded to the input dtype,
-// times the scale; each kernel forms it in the same order (d ascending).
-// A row with no live key (its softmax spreads evenly over all A keys and
-// ignores q and k) gives dQ = 0 and adds (1 / A)_T dO to every dV row.
-// Dead keys are not read: a non-finite value in a dead K or V row, which
-// the forward writes as NaN where the reference's 0 * v does, does not
-// reach the gradients (the training path's keys are the sequence's own).
-// Bound: at training shapes the recomputed products (4 a live (query,
-// key) pair and head dim across the two kernels); simple CUDA-core loops,
-// no tensor cores yet.
+// Dead keys and non-finite values. The reference's own autograd gives NaN
+// in every row's dq column d for a non-finite k[j, d] at any key, and in
+// dk / dv through 0 * NaN as well. The f32 kernels do not read dead keys:
+// nothing of a dead K or V row reaches the gradients. The bf16 kernels
+// multiply whole tiles that mix live and dead keys, and select the dead
+// pairs' p and dS to exact zeros, so:
+//   * a non-finite value in a dead V row reaches nothing;
+//   * a non-finite k[j, d] at a dead key j makes column d of dQ NaN in
+//     every row of each 16-row block of kernel (a) whose key tiles hold j
+//     (the 64-key tiles from the one holding the block's lowest live key
+//     through the one holding its highest), as 0 * k[j, d] in dS K;
+//   * dK and dV of a key that is dead for every row are exact zeros (plus
+//     the even softmax's (1 / A)_T dO in dV for rows with no live key);
+//   * every other gradient value is bitwise what it is without them.
+// The training path's keys are the sequence's own.
+//
+// Bound, at tinyllama's training shape (B 8, S 128, 32 / 4 heads of 64,
+// bf16): bytes, each input read once and each output written once, 5.4 us
+// a launch of (a) (q, out, dout, dq, k, v, lse and D) and 3.2 us of (b)
+// (q, dout, k, v, dk, dv, lse and D) at 3.35 TB/s; operations, 6 hd and
+// 8 hd per live (query, key) pair as chip_smoke.py's times phase counts
+// them: 0.82 and 1.09 us at 989 TFLOP/s. So both are bound by bytes; what they
+// pay for beyond it is latency (a few tiles a block, loads, barriers) and
+// the tiles' dead halves on the causal diagonal.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -254,17 +298,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// Rows [row0, row0 + BK) of a (A, row_stride) bf16 array into a stage
-// (row stride LD), columns [0, hd); rows past A are zeros. 16-byte
-// cp.async when every row is 16-byte aligned, else element by element:
-// the stage holds the same values either way.
-template <int LD>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+// Rows [row0, row0 + R) of a (A, row_stride) bf16 array into shared rows
+// of stride LD, columns [0, hd), by NTH threads; rows past A are zeros.
+// 16-byte cp.async when every row is 16-byte aligned, else element by
+// element: the rows hold the same values either way. No commit.
+template <int LD, int R, int NTH>
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                           long long row_stride, int row0, int A, int hd,
                                           bool vec, int tid) {
   if (vec) {
     const int chunks = hd / 8;
-    for (int e = tid; e < BK * chunks; e += NT) {
+    for (int e = tid; e < R * chunks; e += NTH) {
       const int r = e / chunks, c = (e - r * chunks) * 8;
       __nv_bfloat16* d = dst + r * LD + c;
       if (row0 + r < A)
@@ -273,11 +317,19 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat1
         *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
     }
   } else {
-    for (int e = tid; e < BK * hd; e += NT) {
+    for (int e = tid; e < R * hd; e += NTH) {
       const int r = e / hd, c = e - r * hd;
       dst[r * LD + c] = row0 + r < A ? src[(row0 + r) * row_stride + c] : __float2bfloat16(0.f);
     }
   }
+}
+
+// A stage of BK rows by the block's NT threads, committed as one group
+template <int LD>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          long long row_stride, int row0, int A, int hd,
+                                          bool vec, int tid) {
+  copy_rows<LD, BK, NT>(dst, src, row_stride, row0, A, hd, vec, tid);
   tc::cp_async_commit();
 }
 
@@ -1426,29 +1478,11 @@ struct BwdArgs {
   bool vec;         // 16-byte row loads: hd % 8 == 0 and every row aligned
 };
 
+// The f32 kernels' element helpers (bf16 takes the tensor-core kernels)
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-// v rounded to the input dtype (the reference's einsum output, its
-// probabilities cast back)
 __device__ __forceinline__ float round_as(float v, const float*) { return v; }
-__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
-__device__ __forceinline__ void bwd_load8(float (&x)[8], const __nv_bfloat16* p) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
 __device__ __forceinline__ void bwd_load8(float (&x)[8], const float* p) {
   const float4 u = *reinterpret_cast<const float4*>(p);
   const float4 w = *reinterpret_cast<const float4*>(p + 4);
@@ -1644,6 +1678,633 @@ int launch_bwd(const BwdArgs<T>& a, bool dkv, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bf16 backward: tensor cores -------------------------------------------
+
+constexpr int DKV_KEYS = ROWS;            // (b): keys per block, one MMA tile
+
+// (b)'s warps, each walking its own row tiles: eight where their stages
+// fit two blocks (hd <= 64) or one (hd 128) on an SM, else four
+__host__ __device__ constexpr int dkv_warps(int hdp) { return hdp <= 128 ? 8 : 4; }
+
+// (b) splits the head dims of dK and dV over this many blocks: at hd 256 a
+// warp's two accumulators would be 2 x 16 x 256 fp32
+__host__ __device__ constexpr int dkv_halves(int hdp) { return hdp == 256 ? 2 : 1; }
+
+// (a)'s shared memory: Q and dO (ROWS x (hdp + 8) bf16 each), two stages of
+// a K and a V tile (BK rows each), whose room holds the warps' partial dQ
+// at the end, then the row stats (live keys, lo, D, lse, the warps' max
+// and sum)
+__host__ __device__ __forceinline__ int dq_ring_bytes(int hdp) {
+  const int ring = 2 * 2 * BK * (hdp + 8) * 2, outs = WARPS * ROWS * hdp * 4;
+  return ring > outs ? ring : outs;
+}
+__host__ __device__ __forceinline__ int dq_smem(int hdp) {
+  return 2 * ROWS * (hdp + 8) * 2 + dq_ring_bytes(hdp) + (4 + 2 * WARPS) * ROWS * 4;
+}
+
+// (b)'s: the block's K and V tiles (DKV_KEYS x (hdp + 8) bf16 each), then
+// per warp two stages of a row tile (its Q and dO, then the rows' lse, D
+// and positions), whose room holds the warps' partial dK and dV at the end
+__host__ __device__ __forceinline__ int dkv_stage_bytes(int hdp) {
+  return 2 * ROWS * (hdp + 8) * 2 + 3 * ROWS * 4;
+}
+__host__ __device__ __forceinline__ int dkv_smem(int hdp) {
+  const int stages = dkv_warps(hdp) * 2 * dkv_stage_bytes(hdp);
+  const int outs = 2 * dkv_warps(hdp) * DKV_KEYS * (hdp / dkv_halves(hdp)) * 4;
+  return 2 * DKV_KEYS * (hdp + 8) * 2 + (stages > outs ? stages : outs);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(tc::smem_addr(dst)), "l"(src));
+}
+
+// Columns [c, c + 8) of a row (zeros past `cols` and for a row that is not
+// `real`): one 16-byte cp.async when the row is aligned and whole
+__device__ __forceinline__ void bwd_chunk(__nv_bfloat16* dst, const __nv_bfloat16* src, bool real,
+                                          int cols, bool vec) {
+  if (real && vec && cols >= 8) {
+    tc::cp_async16(dst, src);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) dst[i] = real && i < cols ? src[i] : __float2bfloat16(0.f);
+}
+
+// s (16 x 16 fp32, two n8 tiles) = X Y^T over the padded head dim: X's 16
+// rows as A fragments, from shared memory (xs) or registers (xf); Y's 16
+// rows at ys
+template <int KS, int LD>
+__device__ __forceinline__ void xyt(float (&s)[2][4], const __nv_bfloat16* xs,
+                                    const __nv_bfloat16* ys, int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t af[4], bf[4];
+    ldsm_x4(af, xs + (((lane >> 3) & 1) * 8 + (lane & 7)) * LD + kk * 16 + (lane >> 4) * 8);
+    ldsm_x4(bf, ys + ((lane >> 4) * 8 + (lane & 7)) * LD + kk * 16 + ((lane >> 3) & 1) * 8);
+    mma_bf16(s[0], af, bf[0], bf[1]);
+    mma_bf16(s[1], af, bf[2], bf[3]);
+  }
+}
+template <int KS, int LD>
+__device__ __forceinline__ void xyt(float (&s)[2][4], const uint32_t (&xf)[KS][4],
+                                    const __nv_bfloat16* ys, int lane) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t bf[4];
+    ldsm_x4(bf, ys + ((lane >> 4) * 8 + (lane & 7)) * LD + kk * 16 + ((lane >> 3) & 1) * 8);
+    mma_bf16(s[0], xf[kk], bf[0], bf[1]);
+    mma_bf16(s[1], xf[kk], bf[2], bf[3]);
+  }
+}
+
+// o (16 x 8 NO fp32) += P (16 x 16, an A fragment) Y, Y's 16 rows at ys
+// (columns [0, 8 NO)) read transposed
+template <int NO, int LD>
+__device__ __forceinline__ void pxy(float (&o)[NO][4], const uint32_t (&pa)[4],
+                                    const __nv_bfloat16* ys, int lane) {
+#pragma unroll
+  for (int np = 0; np < NO / 2; ++np) {
+    uint32_t bf[4];
+    tc::ldmatrix_x4_trans(bf, ys + (((lane >> 3) & 1) * 8 + (lane & 7)) * LD + np * 16 +
+                                  (lane >> 4) * 8);
+    mma_bf16(o[2 * np], pa, bf[0], bf[1]);
+    mma_bf16(o[2 * np + 1], pa, bf[2], bf[3]);
+  }
+}
+
+// (m, e): an exp-sum e relative to its max m, merged with another
+__device__ __forceinline__ void merge_exp_sum(float& m, float& e, float m2, float e2) {
+  const float mn = fmaxf(m, m2);
+  if (mn == -INFINITY) return;
+  e = (e == 0.f ? 0.f : e * expf(m - mn)) + (e2 == 0.f ? 0.f : e2 * expf(m2 - mn));
+  m = mn;
+}
+
+// (m, e) over four more logits l (-inf: a dead key), added in order
+__device__ __forceinline__ void online_exp_sum(float& m, float& e, const float (&l)[4]) {
+  const float mn = fmaxf(fmaxf(m, fmaxf(l[0], l[1])), fmaxf(l[2], l[3]));
+  if (mn == -INFINITY) return;
+  e = e == 0.f ? 0.f : e * expf(m - mn);
+#pragma unroll
+  for (int x = 0; x < 4; ++x) e += expf(__fsub_rn(l[x], mn));
+  m = mn;
+}
+
+// Flat row f = s * G + g of a KV head's group: returns the query s, sets g
+// (a 32-bit division wherever f fits one)
+__device__ __forceinline__ int tile_row(long long f, int G, int& g) {
+  const int s = f <= 0x7fffffffLL ? static_cast<int>(f) / G : static_cast<int>(f / G);
+  g = static_cast<int>(f - static_cast<long long>(s) * G);
+  return s;
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1)
+    attention_bwd_dq_tc_kernel(const BwdArgs<__nv_bfloat16> a) {
+  constexpr int LD = HDP + 8;             // padded rows: conflict-free ldmatrix
+  constexpr int KS = HDP / 16;            // MMA steps over the head dim
+  constexpr int NO = HDP / 8;             // n8 tiles of dQ
+  constexpr int STAGE = BK * LD;          // bf16 elements of a K or V tile
+  constexpr bool FREG = HDP <= 128;       // Q and dO fragments held in registers
+  constexpr int NF = FREG ? KS : 1;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* dos = qs + ROWS * LD;
+  __nv_bfloat16* ring = dos + ROWS * LD;  // two stages of a K and a V tile
+  float4* ocomb = reinterpret_cast<float4*>(ring);  // after pass 2: the warps' dQ
+  int* rown = reinterpret_cast<int*>(reinterpret_cast<uint8_t*>(ring) + dq_ring_bytes(HDP));
+  int* rlo = rown + ROWS;
+  float* rd = reinterpret_cast<float*>(rlo + ROWS);             // D = dO . O
+  float* rlse = rd + ROWS;
+  float* wmax = rlse + ROWS;                                    // WARPS x ROWS
+  float* wsum = wmax + WARPS * ROWS;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, cq = lane & 3;
+  const int G = a.Hq / a.Hkv, Sq = a.Sq, A = a.A, hd = a.hd;
+  const int row_blocks = static_cast<int>((static_cast<long long>(Sq) * G + ROWS - 1) / ROWS);
+  const int rb = blockIdx.x % row_blocks, hk = blockIdx.x / row_blocks, b = blockIdx.y;
+  const long long f0 = static_cast<long long>(rb) * ROWS;
+  // element offset of the row of query s, head g of the group (q's layout)
+  auto row_at = [&](int s, int g) {
+    return ((static_cast<size_t>(b) * Sq + s) * a.Hq + hk * G + g) * hd;
+  };
+
+  // each row's live keys [rlo, rown); none (rown = 0) for rows past the
+  // call's and rows whose keys are all masked (their dQ is 0)
+  if (tid < ROWS) {
+    int g;
+    const int s = tile_row(f0 + tid, G, g);
+    int n = 0, lo = 0;
+    if (s < Sq) {
+      live_keys(a.qpos[static_cast<size_t>(b) * Sq + s], A, a.window, lo, n);
+      if (lo < 0) lo = n = 0;
+    }
+    rown[tid] = n;
+    rlo[tid] = lo;
+  }
+  // the stages' columns past hd stay zero (loads write [0, hd) only)
+  if (hd < HDP)
+    for (int e = tid; e < 4 * BK * (HDP - hd); e += NT) {
+      const int r = e / (HDP - hd);
+      ring[r * LD + hd + (e - r * (HDP - hd))] = __float2bfloat16(0.f);
+    }
+  __syncthreads();
+
+  int bn = 0, blo = A;                    // live keys of the block's rows
+  for (int r = 0; r < ROWS; ++r)
+    if (rown[r] > 0) {
+      bn = max(bn, rown[r]);
+      blo = min(blo, rlo[r]);
+    }
+  // key tiles [first, first + nt) hold a live key of the block
+  const int first = min(blo, bn) / BK, nt = max(0, (bn + BK - 1) / BK - first);
+  const int r0 = gq, r1 = gq + 8;
+  const int n0 = rown[r0], n1 = rown[r1], lo0 = rlo[r0], lo1 = rlo[r1];
+  const int kw = warp * KW;               // the warp's keys in every tile
+
+  const long long kv_stride = static_cast<long long>(a.Hkv) * hd;
+  const __nv_bfloat16* kb = a.k + b * a.k_bstride + static_cast<size_t>(hk) * hd;
+  const __nv_bfloat16* vb = a.v + b * a.v_bstride + static_cast<size_t>(hk) * hd;
+  // pass 1 streams the K tiles, pass 2 the K and V tiles, through two
+  // stages: stream tile u sits in stage u & 1, and u + 2 loads once u is done
+  auto fetch = [&](int u) {
+    if (u >= 2 * nt) return;
+    __nv_bfloat16* st = ring + (u & 1) * 2 * STAGE;
+    const int t = first + (u < nt ? u : u - nt);
+    copy_rows<LD, BK, NT>(st, kb, kv_stride, t * BK, A, hd, a.vec, tid);
+    if (u >= nt) copy_rows<LD, BK, NT>(st + STAGE, vb, kv_stride, t * BK, A, hd, a.vec, tid);
+    tc::cp_async_commit();
+  };
+  auto wait = [&](int u) {
+    if (u + 1 < 2 * nt)
+      tc::cp_async_wait<1>();
+    else
+      tc::cp_async_wait<0>();
+    __syncthreads();
+  };
+  if (nt > 0) {
+    // the block's Q and dO rows (zeros past hd and past the call's rows)
+    // arrive with the first K tile
+    for (int e = tid; e < ROWS * (HDP / 8); e += NT) {
+      const int r = e / (HDP / 8), c = (e - r * (HDP / 8)) * 8;
+      int g;
+      const int s = tile_row(f0 + r, G, g);
+      const size_t o = s < Sq ? row_at(s, g) + c : 0;
+      bwd_chunk(qs + r * LD + c, a.q + o, s < Sq, hd - c, a.vec);
+      bwd_chunk(dos + r * LD + c, a.dout + o, s < Sq, hd - c, a.vec);
+    }
+    fetch(0);
+    fetch(1);
+  }
+  // D = dO . O of rows warp, warp + WARPS, ...: each lane its head dims in
+  // order, then the xor butterfly
+#pragma unroll
+  for (int i = 0; i < ROWS / WARPS; ++i) {
+    const int r = warp + i * WARPS;
+    int g;
+    const int s = tile_row(f0 + r, G, g);
+    float acc = 0.f;
+    if (s < Sq) {
+      const size_t o = row_at(s, g);
+#pragma unroll
+      for (int c = 0; c < (HDP + 31) / 32; ++c) {
+        const int d = lane + 32 * c;
+        if (d < hd)
+          acc = fmaf(__bfloat162float(a.dout[o + d]), __bfloat162float(a.out[o + d]), acc);
+      }
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) rd[r] = acc;
+  }
+
+  // ---- pass 1: l = bf16(q.k) * scale over the warp's keys of every tile;
+  // each thread's max and exp-sum of rows r0 and r1 over its live keys,
+  // tile by tile
+  uint32_t qa[NF][4], da[NF][4];
+  float m0 = -INFINITY, m1 = -INFINITY, e0 = 0.f, e1 = 0.f;
+  for (int i = 0; i < nt; ++i) {
+    wait(i);
+    if (FREG && i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < NF; ++kk) {
+        const int at = (((lane >> 3) & 1) * 8 + (lane & 7)) * LD + kk * 16 + (lane >> 4) * 8;
+        ldsm_x4(qa[kk], qs + at);
+        ldsm_x4(da[kk], dos + at);
+      }
+    }
+    const __nv_bfloat16* kt = ring + (i & 1) * 2 * STAGE + kw * LD;
+    float s[2][4];
+    if constexpr (FREG)
+      xyt<KS, LD>(s, qa, kt, lane);
+    else
+      xyt<KS, LD>(s, qs, kt, lane);
+    const int key = (first + i) * BK + kw + 2 * cq;
+    float l0[4], l1[4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float2 a0 = logits(s[j][0], s[j][1], false, a.scale);
+      const float2 a1 = logits(s[j][2], s[j][3], false, a.scale);
+      const int k = key + 8 * j;
+      l0[2 * j] = is_live(k, lo0, n0) ? a0.x : -INFINITY;
+      l0[2 * j + 1] = is_live(k + 1, lo0, n0) ? a0.y : -INFINITY;
+      l1[2 * j] = is_live(k, lo1, n1) ? a1.x : -INFINITY;
+      l1[2 * j + 1] = is_live(k + 1, lo1, n1) ? a1.y : -INFINITY;
+    }
+    online_exp_sum(m0, e0, l0);
+    online_exp_sum(m1, e1, l1);
+    __syncthreads();                      // the stage is free to refill
+    fetch(i + 2);
+  }
+  // the quad, then the warps in order
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    const float mx0 = __shfl_xor_sync(0xffffffffu, m0, off);
+    const float ex0 = __shfl_xor_sync(0xffffffffu, e0, off);
+    const float mx1 = __shfl_xor_sync(0xffffffffu, m1, off);
+    const float ex1 = __shfl_xor_sync(0xffffffffu, e1, off);
+    merge_exp_sum(m0, e0, mx0, ex0);
+    merge_exp_sum(m1, e1, mx1, ex1);
+  }
+  if (cq == 0) {
+    wmax[warp * ROWS + r0] = m0;
+    wsum[warp * ROWS + r0] = e0;
+    wmax[warp * ROWS + r1] = m1;
+    wsum[warp * ROWS + r1] = e1;
+  }
+  __syncthreads();
+  if (tid < ROWS) {
+    float m = wmax[tid], e = wsum[tid];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) merge_exp_sum(m, e, wmax[w * ROWS + tid], wsum[w * ROWS + tid]);
+    const float lse = rown[tid] > 0 ? m + logf(e) : 0.f;
+    rlse[tid] = lse;
+    int g;
+    const int s = tile_row(f0 + tid, G, g);
+    if (s < Sq) {
+      const size_t lr = (static_cast<size_t>(b) * a.Hq + hk * G + g) * Sq + s;
+      a.lse[lr] = lse;
+      a.delta[lr] = rd[tid];
+    }
+  }
+  __syncthreads();
+
+  // ---- pass 2: S and dP = dO V^T again; dS = p (dP - D), exactly 0 at a
+  // dead key; dQ += bf16(dS * scale) K over the warp's keys of every tile
+  const float L0 = rlse[r0], L1 = rlse[r1], D0 = rd[r0], D1 = rd[r1];
+  float dq[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+  for (int i = 0; i < nt; ++i) {
+    wait(nt + i);
+    const __nv_bfloat16* kt = ring + ((nt + i) & 1) * 2 * STAGE + kw * LD;
+    const __nv_bfloat16* vt = kt + STAGE;
+    float s[2][4], dp[2][4];
+    if constexpr (FREG) {
+      xyt<KS, LD>(s, qa, kt, lane);
+      xyt<KS, LD>(dp, da, vt, lane);
+    } else {
+      xyt<KS, LD>(s, qs, kt, lane);
+      xyt<KS, LD>(dp, dos, vt, lane);
+    }
+    const int key = (first + i) * BK + kw + 2 * cq;
+    float ds[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float2 a0 = logits(s[j][0], s[j][1], false, a.scale);
+      const float2 a1 = logits(s[j][2], s[j][3], false, a.scale);
+      const float l[4] = {a0.x, a0.y, a1.x, a1.y};
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const bool top = x < 2;
+        const int k = key + 8 * j + (x & 1);
+        const float p = expf(__fsub_rn(l[x], top ? L0 : L1));
+        const float g = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[j][x], top ? D0 : D1)), a.scale);
+        ds[j][x] = is_live(k, top ? lo0 : lo1, top ? n0 : n1) ? g : 0.f;
+      }
+    }
+    const uint32_t pa[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
+                            pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
+    pxy<NO, LD>(dq, pa, kt, lane);
+    __syncthreads();                      // the stage is free to refill
+    fetch(nt + i + 2);
+  }
+
+  // ---- dQ: the warps' partials added in warp order (the stages are dead:
+  // their room holds them)
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+    ocomb[(warp * NO + j) * 32 + lane] = make_float4(dq[j][0], dq[j][1], dq[j][2], dq[j][3]);
+  __syncthreads();
+  // element f = j * 32 + l: lane l's n8 tile j, rows l / 4 and l / 4 + 8,
+  // columns 8 j + 2 (l % 4), +1
+  for (int f = tid; f < NO * 32; f += NT) {
+    float4 t = ocomb[f];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) {
+      const float4 u = ocomb[w * NO * 32 + f];
+      t.x += u.x;
+      t.y += u.y;
+      t.z += u.z;
+      t.w += u.w;
+    }
+    const int j = f >> 5, l = f & 31, col = 8 * j + 2 * (l & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int g;
+      const int s = tile_row(f0 + (l >> 2) + 8 * h, G, g);
+      if (s >= Sq || col >= hd) continue;
+      tc::store2(a.dq, row_at(s, g) + col, col + 1 < hd && (hd & 1) == 0, col + 1 < hd,
+                 h ? t.z : t.x, h ? t.w : t.y);
+    }
+  }
+}
+
+template <int HDP, int NH>
+__global__ void __launch_bounds__(32 * dkv_warps(HDP), HDP <= 64 ? 2 : 1)
+    attention_bwd_dkv_tc_kernel(const BwdArgs<__nv_bfloat16> a) {
+  constexpr int WARPS = dkv_warps(HDP), NT = 32 * WARPS;
+  constexpr int LD = HDP + 8;             // padded rows: conflict-free ldmatrix
+  constexpr int KS = HDP / 16;            // MMA steps over the head dim
+  constexpr int OC = HDP / NH;            // the block's columns of dK and dV
+  constexpr int NO = OC / 8;              // their n8 tiles
+  constexpr int TILE = ROWS * LD;         // bf16 elements of a 16-row tile
+  const int stage_bytes = dkv_stage_bytes(HDP);
+  extern __shared__ __align__(16) uint8_t smem[];
+  __nv_bfloat16* kts = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* vts = kts + TILE;
+  uint8_t* stages = smem + 2 * TILE * 2;  // warp w's stage i at (2 w + i) * stage_bytes
+  float4* comb = reinterpret_cast<float4*>(stages);  // at the end: [dV, dK][warp][NO][32]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, cq = lane & 3;
+  const int G = a.Hq / a.Hkv, Sq = a.Sq, A = a.A, hd = a.hd;
+  const int KT = (A + DKV_KEYS - 1) / DKV_KEYS;
+  const int hk = blockIdx.x / (KT * NH), rest = blockIdx.x - hk * (KT * NH);
+  const int kt = rest / NH, c0 = (rest - kt * NH) * OC, b = blockIdx.y;
+  const int j0 = kt * DKV_KEYS, j1 = min(A, j0 + DKV_KEYS);
+  const int RT = static_cast<int>((static_cast<long long>(Sq) * G + ROWS - 1) / ROWS);
+  const int* qp = a.qpos + static_cast<size_t>(b) * Sq;
+
+  // every tile's columns past hd stay zero (loads write [0, hd) only)
+  if (hd < HDP)
+    for (int e = tid; e < (2 + 4 * WARPS) * ROWS * (HDP - hd); e += NT) {
+      const int r = e / (HDP - hd), t = r / ROWS;
+      __nv_bfloat16* base =
+          t < 2 ? kts + t * TILE
+                : reinterpret_cast<__nv_bfloat16*>(stages + ((t - 2) >> 1) * stage_bytes) +
+                      ((t - 2) & 1) * TILE;
+      base[(r - t * ROWS) * LD + hd + (e - r * (HDP - hd))] = __float2bfloat16(0.f);
+    }
+  __syncthreads();
+  const long long kv_stride = static_cast<long long>(a.Hkv) * hd;
+  copy_rows<LD, DKV_KEYS, NT>(kts, a.k + b * a.k_bstride + static_cast<size_t>(hk) * hd,
+                              kv_stride, j0, A, hd, a.vec, tid);
+  copy_rows<LD, DKV_KEYS, NT>(vts, a.v + b * a.v_bstride + static_cast<size_t>(hk) * hd,
+                              kv_stride, j0, A, hd, a.vec, tid);
+  tc::cp_async_commit();
+
+  // whether row tile rt holds a row whose live keys meet [j0, j1), or a row
+  // with none (the even softmax reaches every key)
+  auto needed = [&](int rt) {
+    const long long f = static_cast<long long>(rt) * ROWS;
+    const int s0 = static_cast<int>(f / G);
+    const int s1 = static_cast<int>(min(static_cast<long long>(Sq) - 1, (f + ROWS - 1) / G));
+    bool need = false;
+    for (int s = s0; s <= s1; ++s) {
+      int lo, n;
+      live_keys(qp[s], A, a.window, lo, n);
+      need |= lo < 0 || (lo < j1 && n > j0);
+    }
+    return need;
+  };
+  // the warp's needed row tiles among warp, warp + WARPS, ..., in order;
+  // each lane tests one of the next 32
+  int base = warp - 32 * WARPS;
+  unsigned cand = 0u;
+  auto next = [&]() {
+    while (!cand) {
+      base += 32 * WARPS;
+      if (base >= RT) return RT;
+      const int rt = base + lane * WARPS;
+      cand = __ballot_sync(0xffffffffu, rt < RT && needed(rt));
+    }
+    const int bit = __ffs(cand) - 1;
+    cand &= cand - 1;
+    return base + bit * WARPS;
+  };
+  // row tile rt into the warp's stage i: the Q tile, the dO tile, then the
+  // rows' lse, D and positions
+  auto fetch = [&](int rt, int i) {
+    uint8_t* sb = stages + (2 * warp + i) * stage_bytes;
+    __nv_bfloat16* qd = reinterpret_cast<__nv_bfloat16*>(sb);
+    float* sl = reinterpret_cast<float*>(sb + 2 * TILE * 2);
+    const long long f = static_cast<long long>(rt) * ROWS;
+    const int CH = (hd + 7) / 8;
+    for (int e = lane; e < ROWS * CH; e += 32) {
+      const int r = e / CH, c = (e - r * CH) * 8;
+      int g;
+      const int s = tile_row(f + r, G, g);
+      const size_t o =
+          s < Sq ? ((static_cast<size_t>(b) * Sq + s) * a.Hq + hk * G + g) * hd + c : 0;
+      bwd_chunk(qd + r * LD + c, a.q + o, s < Sq, hd - c, a.vec);
+      bwd_chunk(qd + TILE + r * LD + c, a.dout + o, s < Sq, hd - c, a.vec);
+    }
+    if (lane < ROWS) {
+      int g;
+      const int s = tile_row(f + lane, G, g);
+      if (s < Sq) {
+        const size_t lr = (static_cast<size_t>(b) * a.Hq + hk * G + g) * Sq + s;
+        cp_async4(sl + lane, a.lse + lr);
+        cp_async4(sl + ROWS + lane, a.delta + lr);
+        cp_async4(sl + 2 * ROWS + lane, qp + s);
+      } else {
+        sl[lane] = sl[ROWS + lane] = 0.f;
+        reinterpret_cast<int*>(sl)[2 * ROWS + lane] = 0;
+      }
+    }
+    tc::cp_async_commit();
+  };
+
+  const float even = __bfloat162float(__float2bfloat16_rn(1.f / static_cast<float>(A)));
+  const int ja = j0 + gq, jb = ja + 8;    // the thread's keys (accumulator rows)
+  float dv[NO][4], dk[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
+  // the warp's i-th row tile loads into stage i & 1: cur is computed while
+  // nxt arrives
+  int cur = next();
+  if (cur < RT) fetch(cur, 0);
+  int nxt = cur < RT ? next() : RT;
+  if (nxt < RT) fetch(nxt, 1);
+  tc::cp_async_wait<0>();                 // the K and V tiles, the first two row tiles
+  __syncthreads();
+  for (int i = 0; cur < RT; ++i) {
+    if (i > 0) {
+      if (nxt < RT)
+        tc::cp_async_wait<1>();
+      else
+        tc::cp_async_wait<0>();
+      __syncwarp();
+    }
+    const uint8_t* sb = stages + (2 * warp + (i & 1)) * stage_bytes;
+    const __nv_bfloat16* qt = reinterpret_cast<const __nv_bfloat16*>(sb);
+    const __nv_bfloat16* dt = qt + TILE;
+    const float* sl = reinterpret_cast<const float*>(sb + 2 * TILE * 2);
+    const int* sp = reinterpret_cast<const int*>(sl + 2 * ROWS);
+    // S^T = K Q^T and dP^T = V dO^T: accumulator row = key, column = row
+    float st[2][4], dpt[2][4];
+    xyt<KS, LD>(st, kts, qt, lane);
+    xyt<KS, LD>(dpt, vts, dt, lane);
+    float p[2][4], ds[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float2 la = logits(st[j][0], st[j][1], false, a.scale);
+      const float2 lb = logits(st[j][2], st[j][3], false, a.scale);
+      const float l[4] = {la.x, la.y, lb.x, lb.y};
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int r = 8 * j + 2 * cq + c;
+        int g, lo = 0, n = 0;
+        if (tile_row(static_cast<long long>(cur) * ROWS + r, G, g) < Sq)
+          live_keys(sp[r], A, a.window, lo, n);
+        const float lse = sl[r], d = sl[ROWS + r];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int x = 2 * h + c;
+          const bool live = lo >= 0 && is_live(h ? jb : ja, lo, n);
+          const float pf = expf(__fsub_rn(l[x], lse));
+          const float gs = __fmul_rn(__fmul_rn(pf, __fsub_rn(dpt[j][x], d)), a.scale);
+          p[j][x] = lo < 0 ? even : live ? pf : 0.f;
+          ds[j][x] = live ? gs : 0.f;
+        }
+      }
+    }
+    const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                            pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+    const uint32_t sa[4] = {pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
+                            pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3])};
+    pxy<NO, LD>(dv, pa, dt + c0, lane);
+    pxy<NO, LD>(dk, sa, qt + c0, lane);
+    __syncwarp();                         // the stage is free to refill
+    cur = nxt;
+    nxt = cur < RT ? next() : RT;
+    if (nxt < RT) fetch(nxt, i & 1);
+  }
+
+  // ---- the warps' partial dV and dK added in warp order
+  __syncthreads();                        // every warp is done with its stages
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    comb[(warp * NO + j) * 32 + lane] = make_float4(dv[j][0], dv[j][1], dv[j][2], dv[j][3]);
+    comb[((WARPS + warp) * NO + j) * 32 + lane] =
+        make_float4(dk[j][0], dk[j][1], dk[j][2], dk[j][3]);
+  }
+  __syncthreads();
+  for (int f = tid; f < 2 * NO * 32; f += NT) {
+    const int m = f / (NO * 32), e = f - m * NO * 32;
+    float4 t = comb[m * WARPS * NO * 32 + e];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) {
+      const float4 u = comb[(m * WARPS + w) * NO * 32 + e];
+      t.x += u.x;
+      t.y += u.y;
+      t.z += u.z;
+      t.w += u.w;
+    }
+    const int j = e >> 5, l = e & 31, col = c0 + 8 * j + 2 * (l & 3);
+    __nv_bfloat16* out = m ? a.dk : a.dv;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = j0 + (l >> 2) + 8 * h;
+      if (key >= A || col >= hd) continue;
+      tc::store2(out, ((static_cast<size_t>(b) * A + key) * a.Hkv + hk) * hd + col,
+                 col + 1 < hd && (hd & 1) == 0, col + 1 < hd, h ? t.z : t.x, h ? t.w : t.y);
+    }
+  }
+}
+
+template <int HDP>
+int launch_bwd_tc(const BwdArgs<__nv_bfloat16>& a, bool dkv, cudaStream_t stream) {
+  if (dkv) {
+    constexpr int NH = dkv_halves(HDP);
+    const long long blocks =
+        static_cast<long long>((a.A + DKV_KEYS - 1) / DKV_KEYS) * NH * a.Hkv;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t e = tc::allow_smem<attention_bwd_dkv_tc_kernel<HDP, NH>>(SMEM_MAX);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attention_bwd_dkv_tc_kernel<HDP, NH>
+        <<<dim3(static_cast<unsigned>(blocks), a.B), 32 * dkv_warps(HDP), dkv_smem(HDP),
+           stream>>>(a);
+  } else {
+    const long long blocks =
+        (static_cast<long long>(a.Sq) * (a.Hq / a.Hkv) + ROWS - 1) / ROWS * a.Hkv;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t e = tc::allow_smem<attention_bwd_dq_tc_kernel<HDP>>(SMEM_MAX);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attention_bwd_dq_tc_kernel<HDP>
+        <<<dim3(static_cast<unsigned>(blocks), a.B), NT, dq_smem(HDP), stream>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 takes the tensor-core kernels, at the head dim padded as the forward's
+int launch_bwd(const BwdArgs<__nv_bfloat16>& a, bool dkv, cudaStream_t stream) {
+  if (a.B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  switch (pad_hd(a.hd)) {
+    case 16: return launch_bwd_tc<16>(a, dkv, stream);
+    case 32: return launch_bwd_tc<32>(a, dkv, stream);
+    case 64: return launch_bwd_tc<64>(a, dkv, stream);
+    case 128: return launch_bwd_tc<128>(a, dkv, stream);
+    default: return launch_bwd_tc<256>(a, dkv, stream);
+  }
+}
+
 }  // namespace
 
 // C entry point, loaded with ctypes. q, k, v and out share `dtype`;
@@ -1757,7 +2418,7 @@ int bwd_entry(const void* q, const void* k, const void* v, const void* qpos, con
   a.scale = scale;
   a.vec = hd % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) &&
           k_bstride % 8 == 0 && v_bstride % 8 == 0;
-  return launch_bwd<T>(a, dkv, stream);
+  return launch_bwd(a, dkv, stream);     // bf16: the tensor-core overload
 }
 
 int bwd_dispatch(const void* q, const void* k, const void* v, const void* qpos, const void* out,

@@ -34,12 +34,16 @@ What lives here:
     records (grad mode on and q, k or v requiring grad), the CUDA call
     runs through ``RowAttention``, a ``torch.autograd.Function`` whose
     backward is ``row_attention_backward``.
-  * ``row_attention_backward`` — the two backward kernels, fp32 sums for
-    bf16 and f32 inputs, no float atomics, the forward's live-key rule:
-    (a) per (batch, query, head) the row's logsumexp, D = dO . O and dQ;
-    (b) per (batch, key, KV head) dK and dV over the live queries and the
-    group's heads in a fixed order. Any cache length (they keep no
-    logits), head dims up to 256; the same bits from run to run.
+  * ``row_attention_backward`` — the two backward kernels, no float
+    atomics, the forward's live-key rule, the same bits from run to run:
+    (a) per 16-row tile of (query, head) pairs, laid out as the forward's,
+    the rows' logsumexp, D = dO . O and dQ; (b) per 16 keys of a (batch,
+    KV head) dK and dV over the row tiles and the group's heads in a fixed
+    order. bf16 runs every product on the tensor cores (``mma.sync``): K
+    and V tiles (a), Q and dO tiles (b) staged in shared memory through
+    ``cp.async`` rings, fp32 accumulators, the warps' partials added in
+    warp order; f32 keeps exact fp32 on the CUDA cores. Any cache length
+    (they keep no logits), head dims up to 256 (``bwd_plan``).
   * ``row_attention_plain`` — the reference's math in plain PyTorch: KV
     heads repeated, einsum logits in the activations' dtype, -1e30 mask,
     fp32 softmax cast back, einsum with v; and
@@ -70,10 +74,11 @@ DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
 
 #: the CUDA kernel symbols the launches run, as the profiler names them:
-#: the forward's four, then the backward's (a) and (b), which only a
-#: training step launches
+#: the forward's four, then the backward's (a) and (b), bf16 and f32, which
+#: only a training step launches
 SYMBOLS = ("attention_tc_kernel", "attention_stream_kernel",
            "attention_f32_kernel", "attention_f32_stream_kernel",
+           "attention_bwd_dq_tc_kernel", "attention_bwd_dkv_tc_kernel",
            "attention_bwd_dq_kernel", "attention_bwd_dkv_kernel")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -144,7 +149,7 @@ _SMEM_MAX = 232448
 def _plan_bytes(A: int, hd: int, dtype, stream: bool) -> int:
     if dtype == torch.float32:
         return 4 * ((128 if stream else A) + 4 * hd) + 16
-    hdp = next(p for p in (16, 32, 64, 128, 256) if hd <= p)
+    hdp = _pad_hd(hd)
     tiles = -(-A // 64)
     splits = 1                          # at least 8 key tiles per rank
     while 2 * splits <= 8 and 16 * splits <= tiles:
@@ -173,6 +178,28 @@ def smem_bytes(A: int, hd: int, dtype) -> int:
     stages, f32 A fp32 logits; streaming, bf16 keeps Q, the park and four
     K/V stages, f32 one chunk of 128 logits."""
     return _plan_bytes(A, hd, dtype, streams(A, hd, dtype))
+
+
+def _pad_hd(hd: int) -> int:
+    return next(p for p in (16, 32, 64, 128, 256) if hd <= p)
+
+
+def bwd_plan(hd: int) -> dict:
+    """The bf16 backward kernels' launch shape at head dim hd, from hd alone
+    (``dq_smem``, ``dkv_warps`` and ``dkv_smem`` in
+    ``csrc/row_attention.cu``): (a) a block of four warps per 16 rows,
+    64-key tiles; (b) a block per 16 keys and, at hd 256, per half of the
+    head dims (``halves``), of 8 warps (4 at hd 256); each kernel's shared
+    memory per block in bytes."""
+    hdp = _pad_hd(hd)
+    ld, halves, warps = hdp + 8, 2 if hdp == 256 else 1, 8 if hdp <= 128 else 4
+    dq = 2 * 16 * ld * 2 + max(2 * 2 * 64 * ld * 2, 4 * 16 * hdp * 4) + \
+        (4 + 2 * 4) * 16 * 4
+    stage = 2 * 16 * ld * 2 + 3 * 16 * 4
+    dkv = 2 * 16 * ld * 2 + max(warps * 2 * stage,
+                                2 * warps * 16 * (hdp // halves) * 4)
+    return dict(hdp=hdp, rows=16, dq_keys=64, dkv_keys=16, halves=halves,
+                dkv_warps=warps, dq_smem=dq, dkv_smem=dkv)
 
 
 def _check_window(window):

@@ -155,6 +155,21 @@ def test_row_attention_rejects_shapes_the_kernel_does_not_take():
         rak._check(q, k, k, pos)
 
 
+@pytest.mark.parametrize("hd", [16, 24, 32, 64, 100, 128, 136, 256])
+def test_row_attention_backward_plan(hd):
+    """The bf16 backward kernels' launch shape comes from hd alone: each
+    block's shared memory fits the H100's 227 KB, and at hd 256 kernel (b)
+    splits the head dims in halves, so that a warp's dK and dV accumulators
+    stay 2 x 16 x 128 fp32 (the register trap of a whole 256-wide row)."""
+    p = rak.bwd_plan(hd)
+    assert p["hdp"] >= hd and p["hdp"] in (16, 32, 64, 128, 256)
+    assert max(p["dq_smem"], p["dkv_smem"]) <= rak._SMEM_MAX
+    assert p["halves"] == (2 if hd > 128 else 1)
+    assert 2 * p["dkv_keys"] * p["hdp"] // p["halves"] <= 2 * 16 * 128
+    assert (p["rows"], p["dq_keys"], p["dkv_keys"]) == (16, 64, 16)
+    assert p["dkv_warps"] == (8 if hd <= 128 else 4)
+
+
 @pytest.mark.parametrize("A,hd,dtype,streams", [
     (512, 64, "bfloat16", False), (2048, 64, "bfloat16", False),
     (2048, 256, "bfloat16", False), (4096, 128, "bfloat16", False),
@@ -516,7 +531,10 @@ _BWD_CASES = {
     "causal-gqa8": dict(B=2, S=96, Hq=32, Hkv=4, hd=64, window=0),
     "window": dict(B=2, S=96, Hq=8, Hkv=2, hd=128, window=17),
     "mha-hd256": dict(B=1, S=40, Hq=4, Hkv=4, hd=256, window=0),
-    "hd16-group7": dict(B=1, S=33, Hq=14, Hkv=2, hd=16, window=0)}
+    "hd16-group7": dict(B=1, S=33, Hq=14, Hkv=2, hd=16, window=0),
+    # S a multiple of no key or row tile, a window crossing tile edges
+    "ragged-window": dict(B=2, S=200, Hq=8, Hkv=2, hd=64, window=37),
+    "g1-hd128": dict(B=1, S=72, Hq=4, Hkv=4, hd=128, window=0)}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -570,3 +588,73 @@ def test_row_attention_backward_dead_rows_and_decode_positions(cuda):
         tol = F32_RTOL * w.abs().max().item()
         assert (g - w).abs().max().item() <= tol
     assert torch.equal(got[0][0, :2], torch.zeros_like(got[0][0, :2]))
+
+
+def test_row_attention_backward_dead_rows_and_decode_positions_bf16(cuda):
+    """The bf16 twin: queries at arbitrary positions against a longer cache,
+    three with no live key, whose even softmax kernel (b) adds to every dV
+    row on the tensor cores: within 2^-6 of each peak of the plain
+    version's gradients, bitwise repeatable, dQ of those rows exactly 0."""
+    q, k, v, qpos = _long_attn_inputs(64, 4, 300, torch.bfloat16, cuda,
+                                      Sq=40)
+    dout = torch.randn_like(q)
+    out = rak.row_attention(q, k, v, qpos)
+    got = rak.row_attention_backward(dout, q, k, v, qpos, out)
+    again = rak.row_attention_backward(dout, q, k, v, qpos, out)
+    want = rak.row_attention_backward_plain(dout, q, k, v, qpos)
+    torch.cuda.synchronize()
+    for name, g, a, w in zip("qkv", got, again, want):
+        assert torch.equal(g, a), name
+        tol = ATTN_BF16_RTOL * w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= tol, name
+    assert torch.equal(got[0][0, :2], torch.zeros_like(got[0][0, :2]))
+
+
+def test_row_attention_backward_dead_key_nonfinite_bf16(cuda):
+    """What the source header promises of non-finite values in dead keys on
+    the bf16 path: an Inf in a dead K row makes its column of dQ NaN in
+    exactly the rows of the 16-row blocks of kernel (a) whose 64-key tiles
+    hold that key; a NaN in a dead V row reaches nothing; dK and dV of keys
+    dead for every row are exact zeros; every other value is bitwise the
+    clean call's. Causal queries 0..199 with a window of 37 against 300
+    keys, so keys 200.. are dead for every row."""
+    B, Sq, Hq, Hkv, hd, A, window = 2, 200, 8, 2, 64, 300, 37
+    G, plan = Hq // Hkv, rak.bwd_plan(hd)
+    gen = torch.Generator().manual_seed(5)
+    q, dout = (torch.randn((B, Sq, Hq, hd), generator=gen)
+               .to(torch.bfloat16).to(cuda) for _ in range(2))
+    k, v = (torch.randn((B, A, Hkv, hd), generator=gen).to(torch.bfloat16)
+            .to(cuda) for _ in range(2))
+    qpos = torch.arange(Sq, dtype=torch.int32, device=cuda).expand(B, Sq)
+    out = rak.row_attention(q, k, v, qpos, window)
+    clean = rak.row_attention_backward(dout, q, k, v, qpos, out, window)
+    b, hk, kd, vd = 1, 0, 7, 3
+    # 203 in a tile blocks multiply, 280 in one none does
+    kp, vp = k.clone(), v.clone()
+    for j in (203, 280):
+        kp[b, j, hk, kd] = float("inf")
+        vp[b, j, hk, vd] = float("nan")
+    vp[b, 205, hk, vd + 1] = float("nan")
+    got = rak.row_attention_backward(dout, q, kp, vp, qpos, out, window)
+    torch.cuda.synchronize()
+    nan_rows = torch.zeros((B, Sq, Hq), dtype=torch.bool)
+    R, T = plan["rows"], plan["dq_keys"]
+    for rb in range(-(-Sq * G // R)):
+        qs = sorted({f // G for f in range(rb * R, rb * R + R)
+                     if f // G < Sq})
+        lo = min(max(0, s - window + 1) for s in qs)
+        hi = max(min(s, A - 1) for s in qs)
+        if lo // T <= 203 // T <= hi // T:
+            for f in range(rb * R, rb * R + R):
+                if f // G < Sq:
+                    nan_rows[b, f // G, hk * G + f % G] = True
+    assert nan_rows.any() and not nan_rows.all()
+    want_nan = torch.zeros((B, Sq, Hq, hd), dtype=torch.bool)
+    want_nan[..., kd] = nan_rows
+    dq = got[0].cpu()
+    assert torch.equal(dq.isnan(), want_nan)
+    assert torch.equal(dq[~want_nan], clean[0].cpu()[~want_nan])
+    for g, c in zip(got[1:], clean[1:]):
+        assert torch.equal(g, c)
+        for j in (203, 205, 280):
+            assert not g[b, j].any()

@@ -35,11 +35,19 @@ seed):
     the inputs of ``chip_smoke.py``'s times phase.
   * row_norm (bf16 RMSNorm, d = 2048): 4, 256 and 4096 rows, each counted
     45 times (2 per layer and the final norm).
+  * row_attention_bwd_dq and row_attention_bwd_dkv, the backward kernels
+    (a) and (b) (entry points ``row_attention_bwd_dq_launch`` and
+    ``row_attention_bwd_dkv_launch`` in ``row_attention.cu``): tinyllama's
+    training shape (B 8 x S 128 causal, 32 / 4 heads of 64, bf16, 22
+    launches: a step's layers) and ``chip_smoke.py``'s long phase-9 case
+    (B 1 x S 2048) in bf16 and f32, 22 launches each. Kernel (b) is given
+    the rows' lse and D from their plain version, the same for both trees.
 
 Each version's outputs are first held against the plain version (DBMU bit
 for bit; bf16 out within one bf16 ulp of the peak, attention within 2^-6
 of it, f32 out within 1e-5 of it); a version that disagrees fails the
-run. ``--kernels`` picks some of the kernels. Then, in the turns other,
+run, and so do f32 backward outputs that are not bitwise the same in both
+trees. ``--kernels`` picks some of the kernels. Then, in the turns other,
 this, this, other, each shape is timed with CUDA events over back-to-back
 launches, in device time from torch.profiler's device-side records (the
 clocks of ``chip_smoke.py``'s times phase), and in host µs per launch: the
@@ -69,9 +77,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
-from chip_smoke import (ATTN_REL_TOL, LONG_B, LONG_C,  # noqa: E402
-                        PIXTRAL_BATCH, PIXTRAL_TOKENS, STREAM_A_BF16,
-                        STREAM_C, _device_ms, _encoder_attention_inputs,
+from chip_smoke import (ATTN_BWD_CASES, ATTN_REL_TOL,  # noqa: E402
+                        LONG_B, LONG_C, PIXTRAL_BATCH, PIXTRAL_TOKENS,
+                        STREAM_A_BF16, STREAM_C, _attn_bwd_inputs,
+                        _device_ms, _encoder_attention_inputs,
                         _host_us, _long_attention_inputs,
                         _serve_attention_inputs, _stream_attention_inputs,
                         _time, _window_inputs)
@@ -119,7 +128,12 @@ UNITS = [
      torch.bfloat16),
     ("row_norm", "4096 rows", LONG_B * LONG_C, [("rms", 0, 2048)],
      2 * N_LAYERS + 1, torch.bfloat16),
-]
+] + [(name, label, None, [(what, 0, 0)], N_LAYERS, dt)
+     for name in ("row_attention_bwd_dq", "row_attention_bwd_dkv")
+     for label, what, dt in (
+         ("training step, B 8 x S 128", "train", torch.bfloat16),
+         ("long sequence, B 1 x S 2048", "long", torch.bfloat16),
+         ("long sequence, B 1 x S 2048, f32", "long", torch.float32))]
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 #: the arguments of each C entry point before the stream
@@ -128,7 +142,12 @@ SIGNATURE = {"dbmu_matmul": [_P] * 3 + [_I] * 3,
              "joint_sparse_matmul": [_P] * 5 + [_I] * 9,
              "block_sparse_matmul": [_P] * 4 + [_I] * 7,
              "row_attention": [_P] * 5 + [_I] * 7 + [_L, _L, _F, _I],
-             "row_norm": [_P] * 4 + [_I, _I, _F, _I, _I]}
+             "row_norm": [_P] * 4 + [_I, _I, _F, _I, _I],
+             "row_attention_bwd_dq": [_P] * 9 + [_I] * 7 + [_L, _L, _F, _I],
+             "row_attention_bwd_dkv": [_P] * 9 + [_I] * 7 + [_L, _L, _F, _I]}
+#: the source of each entry point, where it is not ``<kernel>.cu``
+SOURCE = {"row_attention_bwd_dq": "row_attention",
+          "row_attention_bwd_dkv": "row_attention"}
 ORDER = ("other", "this", "this", "other")
 ITERS = 20
 #: host-time windows per shape; the fastest counts (chip_smoke._host_us)
@@ -137,26 +156,28 @@ VS = 0.6
 
 
 def _build(trees, names):
-    """{(label, name): loaded library}: one nvcc per (tree, kernel), all
+    """{(label, name): loaded library}: one nvcc per (tree, source), all
     started together."""
     from repro_torch.kernels import build
     out_dir = ROOT / "build" / "kernel_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for label, tree in trees.items():
-        for name in names:
-            src = tree / "src" / "repro_torch" / "kernels" / "csrc" / f"{name}.cu"
-            lib = out_dir / f"{label}-{name}.so"
+        for src_name in dict.fromkeys(SOURCE.get(n, n) for n in names):
+            src = (tree / "src" / "repro_torch" / "kernels" / "csrc"
+                   / f"{src_name}.cu")
+            lib = out_dir / f"{label}-{src_name}.so"
             cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)]
-            procs[(label, name)] = (lib, subprocess.Popen(
+            procs[(label, src_name)] = (lib, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    libs = {}
+    loaded = {}
     for key, (lib, proc) in procs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {key}:\n{err}")
-        libs[key] = ctypes.CDLL(str(lib))
-    return libs
+        loaded[key] = ctypes.CDLL(str(lib))
+    return {(label, n): loaded[(label, SOURCE.get(n, n))] for label in trees
+            for n in names}
 
 
 def _entry(lib, name):
@@ -224,6 +245,41 @@ def _row_case(name, what, M, dev, gen):
                 wrapper=lambda: rak.row_attention(q, k, v, pos, window))
 
 
+def _bwd_case(name, what, dtype, dev, gen):
+    """One launch of a backward unit, as ``_case``: kernel (a) writes dq,
+    lse and D; kernel (b) reads the rows' lse and D (here from their plain
+    version) and writes dk and dv. Both trees' f32 outputs must agree bit
+    for bit."""
+    from repro_torch.kernels import row_attention as rak
+    case = ATTN_BWD_CASES[0 if what == "train" else 1]
+    B, S, Hq, Hkv, hd, _ = case
+    q, k, v, qpos, dout, window = _attn_bwd_inputs(case, dtype, dev, gen)
+    qpos = qpos.contiguous()            # the entry points read (B, Sq) rows
+    out = rak.row_attention(q, k, v, qpos, window)
+    want = rak.row_attention_backward_plain(dout, q, k, v, qpos, window)
+    ints = (B, S, Hq, Hkv, S, hd, window, k.stride(0), v.stride(0),
+            hd ** -0.5, 0 if dtype == torch.float32 else 1)
+    if name == "row_attention_bwd_dq":
+        lse = torch.empty((B, Hq, S), dtype=torch.float32, device=dev)
+        dq = torch.empty_like(q)
+        return dict(ptrs=(q, k, v, qpos, out, dout, dq, lse,
+                          torch.empty_like(lse)),
+                    ints=ints, ys=[dq], wants=[want[0]], tol=ATTN_REL_TOL,
+                    bitwise_f32=True, wrapper=None)
+    rep = Hq // Hkv
+    kr, vr = (torch.repeat_interleave(t, rep, dim=2) for t in (k, v))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, kr).float() * hd ** -0.5
+    live = torch.arange(S, device=dev)[None, :] <= qpos[0][:, None]
+    lse = torch.logsumexp(torch.where(live, logits, -float("inf")), -1)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    del kr, vr, logits
+    return dict(ptrs=(q, k, v, qpos, dout, lse.contiguous(),
+                      delta.contiguous(), dk, dv),
+                ints=ints, ys=[dk, dv], wants=[want[1], want[2]],
+                tol=ATTN_REL_TOL, bitwise_f32=True, wrapper=None)
+
+
 def _case(name, K, N, M, xdt, dev, gen):
     """One launch of a unit: inputs, output, the launch arguments after the
     pointers, the plain version's output and the wrapper call (or None)."""
@@ -285,21 +341,25 @@ def _launcher(fn, case):
 
 
 def _check(name, version, label, case, run):
+    """Runs the version once and holds its outputs against the plain
+    version's; returns copies of them."""
     run()
     torch.cuda.synchronize()
-    got, want = case["y"], case["want"]
-    if name == "dbmu_matmul":
-        ok = torch.equal(got, want)
-    else:
-        peak = want.float().abs().max().item()
-        err = (got.float() - want.float()).abs().max().item()
-        tol = 1e-5 * peak if got.dtype == torch.float32 else \
-            case["tol"] * peak if "tol" in case else \
-            2.0 ** (math.floor(math.log2(peak)) - 7)
-        ok = err <= tol
-    if not ok:
-        raise AssertionError(f"{version} {name} {label} disagrees with the "
-                             f"plain version")
+    for got, want in zip(case.get("ys", [case.get("y")]),
+                         case.get("wants", [case.get("want")])):
+        if name == "dbmu_matmul":
+            ok = torch.equal(got, want)
+        else:
+            peak = want.float().abs().max().item()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = 1e-5 * peak if got.dtype == torch.float32 else \
+                case["tol"] * peak if "tol" in case else \
+                2.0 ** (math.floor(math.log2(peak)) - 7)
+            ok = err <= tol
+        if not ok:
+            raise AssertionError(f"{version} {name} {label} disagrees with "
+                                 f"the plain version")
+    return [y.clone() for y in case.get("ys", [case.get("y")])]
 
 
 def _us(ms):
@@ -353,16 +413,23 @@ def main(argv=None) -> int:
     try:
         for name, label, M, shapes, repeat, xdt in units:
             gen = torch.Generator().manual_seed(11)
-            cases = [dict(_row_case(name, s, M, dev, gen)
+            cases = [dict(_bwd_case(name, s, xdt, dev, gen)
+                          if name in SOURCE
+                          else _row_case(name, s, M, dev, gen)
                           if name in ("row_attention", "row_norm")
                           else _case(name, K, N, M, xdt, dev, gen),
                           label=s, K=K, N=N) for s, K, N in shapes]
             fns = {v: _entry(libs[(v, name)], name) for v in trees}
             runs = {v: [(c, _launcher(fns[v], c)) for c in cases]
                     for v in trees}
-            for v in trees:
-                for c, run in runs[v]:
-                    _check(name, v, f"{label} {c['label']}", c, run)
+            outs = {v: [_check(name, v, f"{label} {c['label']}", c, run)
+                        for c, run in runs[v]] for v in trees}
+            for i, c in enumerate(cases):
+                if c.get("bitwise_f32") and xdt == torch.float32 and not all(
+                        torch.equal(a, b) for a, b in zip(outs["this"][i],
+                                                          outs["other"][i])):
+                    raise AssertionError(f"{name} {label}: f32 outputs differ "
+                                         f"between the trees")
             turns = []
             for v in ORDER:
                 rows = _time_turn(name, runs[v], libs[(v, name)], wrappers)
