@@ -19,10 +19,19 @@ What lives here:
     requiring grad), the CUDA call runs through ``RowNorm``, a
     ``torch.autograd.Function`` whose backward is ``row_norm_backward``.
   * ``row_norm_backward`` — the backward kernels: dx per row in fp32 (cast
-    to x's dtype), and dscale (dbias) summed over rows without float
-    atomics, from per-slot partials added in a fixed order by a second
-    kernel, so the gradients come out bitwise the same from run to run.
-    Rows up to ``BWD_MAX_D``; a longer one raises.
+    to x's dtype), with ``tpr`` threads a row from D alone (``bwd_plan``:
+    at most 4 chunks of 8 a thread; shuffles inside a warp, and a named
+    barrier of the row's own warps past it), one pass giving all of a
+    row's sums at once, so a row's dx does not depend on R; a block of 256
+    threads holds 256 / tpr rows, so that 1,024 rows of 2,048 are all in
+    flight at once. dscale (dbias) are summed over rows without float
+    atomics: each block adds its rows' sums in a fixed order into one
+    partial row, and a second kernel adds the blocks' partials over many
+    warps in fixed runs, combined in warp order, so the gradients come out
+    bitwise the same from run to run. The two kernels write every element
+    of dx, dscale and dbias: nothing is zero-filled. Bound: bytes, x and
+    dy read once and dx written once (3.76 µs a launch at 1,024 x 2,048
+    bf16, 3.35 TB/s). Rows up to ``BWD_MAX_D``; a longer one raises.
   * ``row_norm_plain`` — the reference's math in plain PyTorch, and
     ``row_norm_backward_plain`` — its autograd gradient, the backward
     kernels' plain version (tests and ``chip_smoke.py`` compare with it;
@@ -60,6 +69,9 @@ SYMBOLS = ("row_norm_kernel", "row_norm_bwd_kernel",
 MAX_D = 32768
 #: the longest row the backward takes (256 threads x 4 chunks of 8)
 BWD_MAX_D = 8192
+#: the backward's blocks: threads, chunks a thread at most, the grid's cap
+#: (2 blocks on each of the H100's 132 SMs) (``row_norm.cu``)
+BWD_BLOCK, BWD_CPT, BWD_MAX_BLOCKS = 256, 4, 264
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
@@ -95,6 +107,28 @@ def row_norm_backward_plain(dy, x, scale, bias=None, eps: float = 1e-6,
                              plus_one)
         grads = torch.autograd.grad(out, leaves, dy)
     return grads[0], grads[1], grads[2] if bias is not None else None
+
+
+def bwd_plan(R: int, D: int) -> dict:
+    """The backward's launch shape for R rows of D, as ``row_norm.cu``'s
+    ``bwd_layout`` picks it: threads a row (``tpr``, the least power of
+    two holding the row at ``BWD_CPT`` chunks of 8 a thread) and chunks a
+    thread (``cpt``) from D alone; rows a block (``rpb``); the row
+    kernel's blocks (``blocks``, capped at ``BWD_MAX_BLOCKS``), which are
+    also the partial rows of each parameter sum (``row_norm_bwd_slots``);
+    and the row kernel's shared memory (``smem``: rpb rows of D rounded
+    up to whole chunks, floats: the scale, then the row groups' sums).
+    None past ``BWD_MAX_D``."""
+    chunks = -(-D // 8)
+    tpr = 1
+    while tpr * BWD_CPT < chunks:
+        tpr *= 2
+    if tpr > BWD_BLOCK:
+        return None
+    rpb = BWD_BLOCK // tpr
+    return dict(tpr=tpr, cpt=-(-chunks // tpr), rpb=rpb,
+                blocks=min(-(-R // rpb), BWD_MAX_BLOCKS),
+                smem=rpb * chunks * 8 * 4)
 
 
 def _library():
@@ -200,11 +234,13 @@ def row_norm_backward(dy, x, scale, bias=None, eps: float = 1e-6,
     layer = bias is not None
     x, dy = x.contiguous(), dy.contiguous()
     dx = torch.empty_like(x)
-    dscale = torch.zeros(D, dtype=torch.float32, device=x.device)
-    dbias = torch.zeros_like(dscale) if layer else None
     R = x.numel() // D if D else 0
     if R == 0:
-        return dx, dscale, dbias
+        dscale = torch.zeros(D, dtype=torch.float32, device=x.device)
+        return dx, dscale, torch.zeros_like(dscale) if layer else None
+    # the kernels write every element: no fill launch
+    dscale = torch.empty(D, dtype=torch.float32, device=x.device)
+    dbias = torch.empty_like(dscale) if layer else None
     lib = _library()
     slots = lib.row_norm_bwd_slots(R, D)
     partial = torch.empty(((2 if layer else 1) * slots, D),

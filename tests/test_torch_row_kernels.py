@@ -191,6 +191,31 @@ def test_row_attention_smem_plan(A, hd, dtype, streams):
     assert rak.smem_bytes(A, hd, tdt) <= rak._SMEM_MAX
 
 
+@pytest.mark.parametrize("D", [1, 7, 128, 256, 1000, 2048, 2050, 3000,
+                               4096, 5632, 8192])
+@pytest.mark.parametrize("R", [1, 4, 1000, 1024, 4096, 100000])
+def test_row_norm_backward_plan(R, D):
+    """The norm backward's launch shape: threads a row and chunks a thread
+    from D alone (a power of two holding the row at most 4 chunks of 8 a
+    thread, 64 threads at tinyllama's 2,048), whole row groups a block,
+    the block's shared memory (the scale, then the row groups' sums) at
+    most 32 KB, under the 48 KB default, and the blocks (the partial rows)
+    capped at 264 and, below the cap, every row in flight at once."""
+    p = rnk.bwd_plan(R, D)
+    tpr = p["tpr"]
+    assert tpr & (tpr - 1) == 0 and 1 <= p["cpt"] <= rnk.BWD_CPT
+    assert tpr * p["cpt"] * 8 >= D > (tpr // 2) * rnk.BWD_CPT * 8 or \
+        tpr == 1
+    assert p["rpb"] * tpr == rnk.BWD_BLOCK
+    assert 4 * D <= p["smem"] <= 32 * 1024
+    assert p["blocks"] == min(-(-R // p["rpb"]), rnk.BWD_MAX_BLOCKS)
+    assert {k: rnk.bwd_plan(7, D)[k] for k in ("tpr", "cpt", "rpb")} == \
+        {k: p[k] for k in ("tpr", "cpt", "rpb")}
+    if D == 2048:
+        assert (tpr, p["cpt"], p["blocks"]) == (64, 4, min(-(-R // 4), 264))
+    assert rnk.bwd_plan(R, rnk.BWD_MAX_D + 1) is None
+
+
 def test_row_norm_rejects_rows_past_its_limit():
     x = torch.zeros((1, rnk.MAX_D + 8), device="meta")
     with pytest.raises(ValueError, match="row length"):
@@ -492,15 +517,18 @@ def _dt_tol(ref, dtype, bf16_rtol):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", sorted(_NORMS))
-@pytest.mark.parametrize("D", [128, 2048, 2050, 4096])
-def test_row_norm_backward_kernel_matches_plain(cuda, D, kind, dtype):
+@pytest.mark.parametrize("D", [128, 2048, 2050, 3000, 4096, 8192])
+@pytest.mark.parametrize("R", [1, 1000, 1024])
+def test_row_norm_backward_kernel_matches_plain(cuda, R, D, kind, dtype):
     """dx within 1e-5 of the peak (f32) or one bf16 ulp, dscale and dbias
-    (float32 sums over 1,024 rows) within 1e-5 of their peaks; two launches
-    give the same bits; through autograd the Function launches it once."""
+    (float32 sums over R rows) within 1e-5 of their peaks, at rows that
+    fill the grid's blocks or not (1 and 1,000 rows) and widths up to the
+    limit; two launches give the same bits; through autograd the Function
+    launches it once."""
     tdt = getattr(torch, dtype)
-    gen = torch.Generator().manual_seed(D + len(kind))
-    x = torch.randn((1024, D), generator=gen).to(tdt).to(cuda)
-    dy = torch.randn((1024, D), generator=gen).to(tdt).to(cuda)
+    gen = torch.Generator().manual_seed(D + len(kind) + R)
+    x = torch.randn((R, D), generator=gen).to(tdt).to(cuda)
+    dy = torch.randn((R, D), generator=gen).to(tdt).to(cuda)
     scale = torch.randn((D,), generator=gen).to(cuda)
     bias = (torch.randn((D,), generator=gen).to(cuda)
             if _NORMS[kind]["layernorm"] else None)
@@ -524,6 +552,46 @@ def test_row_norm_backward_kernel_matches_plain(cuda, D, kind, dtype):
     rnk.row_norm(xs, ss, bias, plus_one=plus_one).backward(dy)
     assert rnk.BWD_LAUNCHES == before + 3
     assert torch.equal(xs.grad, got[0]) and torch.equal(ss.grad, got[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", sorted(_NORMS))
+@pytest.mark.parametrize("D", [128, 2048, 3000, 8192])
+def test_row_norm_backward_dx_bitwise_independent_of_rows(cuda, D, kind,
+                                                          dtype):
+    """A row's dx is the same bits in a 4-row call and a 1,024-row call
+    (the row sums' order comes from D alone), while the parameter sums of
+    the two calls differ only as their rows do."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(3 * D + len(kind))
+    x = torch.randn((1024, D), generator=gen).to(tdt).to(cuda)
+    dy = torch.randn((1024, D), generator=gen).to(tdt).to(cuda)
+    scale = torch.randn((D,), generator=gen).to(cuda)
+    bias = (torch.randn((D,), generator=gen).to(cuda)
+            if _NORMS[kind]["layernorm"] else None)
+    plus_one = _NORMS[kind]["plus_one"]
+    full = rnk.row_norm_backward(dy, x, scale, bias, plus_one=plus_one)
+    four = rnk.row_norm_backward(dy[:4], x[:4], scale, bias,
+                                 plus_one=plus_one)
+    torch.cuda.synchronize()
+    assert torch.equal(four[0], full[0][:4])
+    want = rnk.row_norm_backward_plain(dy[:4], x[:4], scale, bias,
+                                       plus_one=plus_one)
+    for g, w in zip(four[1:], want[1:]):
+        if w is not None:
+            tol = F32_RTOL * w.abs().max().item()
+            assert (g - w).abs().max().item() <= tol
+
+
+def test_row_norm_backward_slots_follow_the_plan(cuda):
+    """The C library's partial rows (``row_norm_bwd_slots``) are the
+    blocks of ``bwd_plan``, and 0 past the backward's limit."""
+    lib = rnk._library()
+    for D in (1, 8, 128, 2048, 2050, 3000, 4096, 5632, 8192):
+        for R in (1, 3, 64, 1000, 1024, 4096, 100000):
+            assert lib.row_norm_bwd_slots(R, D) == \
+                rnk.bwd_plan(R, D)["blocks"], (R, D)
+    assert lib.row_norm_bwd_slots(1024, rnk.BWD_MAX_D + 1) == 0
 
 
 _BWD_CASES = {

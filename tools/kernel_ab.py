@@ -35,6 +35,12 @@ seed):
     the inputs of ``chip_smoke.py``'s times phase.
   * row_norm (bf16 RMSNorm, d = 2048): 4, 256 and 4096 rows, each counted
     45 times (2 per layer and the final norm).
+  * row_norm_bwd, the norm backward (entry point ``row_norm_bwd_launch``
+    in ``row_norm.cu``, each tree's ``partial`` sized by its own
+    ``row_norm_bwd_slots``): 1,024 rows (tinyllama's training batch, 8 x
+    128) of RMSNorm at d = 2048 and 4096 (the gated norm's width) and of
+    LayerNorm at d = 2048 in bf16, and of RMSNorm at d = 2048 in f32, each
+    counted 45 times (a training step's norms).
   * row_attention_bwd_dq and row_attention_bwd_dkv, the backward kernels
     (a) and (b) (entry points ``row_attention_bwd_dq_launch`` and
     ``row_attention_bwd_dkv_launch`` in ``row_attention.cu``): tinyllama's
@@ -46,9 +52,11 @@ seed):
 Each version's outputs are first held against the plain version (DBMU bit
 for bit; bf16 out within one bf16 ulp of the peak, attention within 2^-6
 of it, f32 out within 1e-5 of it); a version that disagrees fails the
-run, and so do f32 backward outputs that are not bitwise the same in both
-trees. ``--kernels`` picks some of the kernels. Then, in the turns other,
-this, this, other, each shape is timed with CUDA events over back-to-back
+run, and so do f32 attention backward outputs that are not bitwise the
+same in both trees (the norm backward's parameter sums may change their
+order between trees). ``--kernels`` picks some of the kernels. Then, in
+the turns other, this, this, other, each shape is timed with CUDA events
+over back-to-back
 launches, in device time from torch.profiler's device-side records (the
 clocks of ``chip_smoke.py``'s times phase), and in host µs per launch: the
 time to issue back-to-back calls, before the device has finished them (the
@@ -128,6 +136,12 @@ UNITS = [
      torch.bfloat16),
     ("row_norm", "4096 rows", LONG_B * LONG_C, [("rms", 0, 2048)],
      2 * N_LAYERS + 1, torch.bfloat16),
+] + [("row_norm_bwd", label, 1024, [(kind, 0, D)], 2 * N_LAYERS + 1, dt)
+     for label, kind, D, dt in (
+         ("RMSNorm, d=2048", "rms", 2048, torch.bfloat16),
+         ("RMSNorm, d=4096", "rms", 4096, torch.bfloat16),
+         ("LayerNorm, d=2048", "layernorm", 2048, torch.bfloat16),
+         ("RMSNorm, d=2048, f32", "rms", 2048, torch.float32))
 ] + [(name, label, None, [(what, 0, 0)], N_LAYERS, dt)
      for name in ("row_attention_bwd_dq", "row_attention_bwd_dkv")
      for label, what, dt in (
@@ -143,10 +157,12 @@ SIGNATURE = {"dbmu_matmul": [_P] * 3 + [_I] * 3,
              "block_sparse_matmul": [_P] * 4 + [_I] * 7,
              "row_attention": [_P] * 5 + [_I] * 7 + [_L, _L, _F, _I],
              "row_norm": [_P] * 4 + [_I, _I, _F, _I, _I],
+             "row_norm_bwd": [_P] * 3 + [_I] + [_P] * 4 + [_I, _I, _F, _I, _I],
              "row_attention_bwd_dq": [_P] * 9 + [_I] * 7 + [_L, _L, _F, _I],
              "row_attention_bwd_dkv": [_P] * 9 + [_I] * 7 + [_L, _L, _F, _I]}
 #: the source of each entry point, where it is not ``<kernel>.cu``
-SOURCE = {"row_attention_bwd_dq": "row_attention",
+SOURCE = {"row_norm_bwd": "row_norm",
+          "row_attention_bwd_dq": "row_attention",
           "row_attention_bwd_dkv": "row_attention"}
 ORDER = ("other", "this", "this", "other")
 ITERS = 20
@@ -195,7 +211,7 @@ def _wrappers():
     from repro_torch.kernels import row_attention as rak
     from repro_torch.kernels import row_norm as rnk
     return {"joint_sparse_matmul": jsm, "block_sparse_matmul": bsk,
-            "row_attention": rak, "row_norm": rnk}
+            "row_attention": rak, "row_norm": rnk, "row_norm_bwd": rnk}
 
 
 def _row_case(name, what, M, dev, gen):
@@ -243,6 +259,33 @@ def _row_case(name, what, M, dev, gen):
                 y=y, want=rak.row_attention_plain(q, k, v, pos, window),
                 tol=ATTN_REL_TOL,
                 wrapper=lambda: rak.row_attention(q, k, v, pos, window))
+
+
+def _norm_bwd_case(kind, D, dtype, dev, gen, R):
+    """One launch of a norm backward unit, as ``_case``: dx, dscale (and
+    dbias) from x, dy and the scale. ``ptrs`` takes the tree's library,
+    whose ``row_norm_bwd_slots`` sizes that tree's ``partial``."""
+    from repro_torch.kernels import row_norm as rnk
+    x, dy = (torch.randn((R, D), generator=gen).to(dtype).to(dev)
+             for _ in range(2))
+    scale = (1 + 0.1 * torch.randn((D,), generator=gen)).to(dev)
+    bias = ((0.1 * torch.randn((D,), generator=gen)).to(dev)
+            if kind == "layernorm" else None)
+    dx = torch.empty_like(x)
+    dscale = torch.empty((D,), dtype=torch.float32, device=dev)
+    dbias = None if bias is None else torch.empty_like(dscale)
+    layer = int(bias is not None)
+
+    def ptrs(lib):
+        rows = (1 + layer) * lib.row_norm_bwd_slots(R, D)
+        partial = torch.empty((rows, D), dtype=torch.float32, device=dev)
+        return (x, dy, scale, layer, dx, partial, dscale, dbias)
+    want = rnk.row_norm_backward_plain(dy, x, scale, bias)
+    ys = [dx, dscale] + ([] if dbias is None else [dbias])
+    return dict(ptrs=ptrs, ints=(R, D, 1e-6, 0, 0 if dtype == torch.float32
+                                 else 1),
+                ys=ys, wants=[w for w in want if w is not None],
+                wrapper=lambda: rnk.row_norm_backward(dy, x, scale, bias))
 
 
 def _bwd_case(name, what, dtype, dev, gen):
@@ -329,11 +372,12 @@ def _case(name, K, N, M, xdt, dev, gen):
                 wrapper=lambda: bsk.block_sparse_matmul(x, wb, idx))
 
 
-def _launcher(fn, case):
-    args = [None if t is None else t.data_ptr() for t in case["ptrs"]] + \
-        list(case["ints"])
+def _launcher(fn, case, lib):
+    ptrs = case["ptrs"](lib) if callable(case["ptrs"]) else case["ptrs"]
+    args = [t if isinstance(t, int) else None if t is None else t.data_ptr()
+            for t in ptrs] + list(case["ints"])
 
-    def run():
+    def run(_ptrs=ptrs):                 # holds this version's scratch
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"launch failed: CUDA error {rc}")
@@ -413,15 +457,17 @@ def main(argv=None) -> int:
     try:
         for name, label, M, shapes, repeat, xdt in units:
             gen = torch.Generator().manual_seed(11)
-            cases = [dict(_bwd_case(name, s, xdt, dev, gen)
+            cases = [dict(_norm_bwd_case(s, N, xdt, dev, gen, M)
+                          if name == "row_norm_bwd"
+                          else _bwd_case(name, s, xdt, dev, gen)
                           if name in SOURCE
                           else _row_case(name, s, M, dev, gen)
                           if name in ("row_attention", "row_norm")
                           else _case(name, K, N, M, xdt, dev, gen),
                           label=s, K=K, N=N) for s, K, N in shapes]
             fns = {v: _entry(libs[(v, name)], name) for v in trees}
-            runs = {v: [(c, _launcher(fns[v], c)) for c in cases]
-                    for v in trees}
+            runs = {v: [(c, _launcher(fns[v], c, libs[(v, name)]))
+                        for c in cases] for v in trees}
             outs = {v: [_check(name, v, f"{label} {c['label']}", c, run)
                         for c, run in runs[v]] for v in trees}
             for i, c in enumerate(cases):
