@@ -17,7 +17,7 @@ kind, which validate counts and the report renders.
 
 Phases, each printed on its own lines (each line after the seconds since
 the run started), run in the order 1, 2, 3, 4, 4b, 4g, 4h, 4c, 4d, 4e, 4f,
-5, 5b, 6, 7, 8, 9; any failure raises and exits non-zero (no phase catches
+5, 5b, 6, 6b, 7, 8, 9; any failure raises and exits non-zero (no phase catches
 its own failure; phase 4g catches the one EngineStuckError it provokes):
 
   1. build  — nvcc builds the six kernels (joint_sparse_matmul,
@@ -234,7 +234,8 @@ its own failure; phase 4g catches the one EngineStuckError it provokes):
               path's top-2 choices replayed into it (each side's own
               rounding flips near-tied choices); with its own routing,
               and parallel chunks vs stepwise decode, measured in bf16 and
-              held in a float32 copy at full depth (kernel vs plain
+              held in a float32 copy of its first 8 layers, every
+              segment kind (cut from 32 for the run's time; kernel vs plain
               first-token logits within 1e-3 x max|ref|; parallel chunks
               within the reference's PARALLEL_PREFILL_ATOL["float32"]
               relative bounds); a profiled decode and prefill window beside the
@@ -319,6 +320,22 @@ its own failure; phase 4g catches the one EngineStuckError it provokes):
               for every projection shape: masks and packs byte-identical to
               the CPU's, dbmu_matmul at M=256 exactly equal to the integer
               matmul oracle; then repro_torch.quickstart on the card.
+  6b. paper — the paper side ([paper] lines). model_metadata (the
+              synthetic INT8 weights of core/workload_gen drawn on the
+              host, block pruning and FTA on the card) of each of the five
+              CIFAR-100 CNNs of configs/paper_cnns at value sparsity 0.6,
+              and of VGG19 unpruned, equal to the host's field for field;
+              the cost model's joint speedup and energy saving over the
+              dense baseline, and Fig. 11's (no input bit skip), VGG19's
+              in the bands tests/test_pim_model.py holds the reference
+              to. The joint kernel at the six joint_bench_shapes(128)
+              layer shapes (w and the tile mask drawn with numpy as
+              benchmarks/kernel_bench.py draws them): the card's pack ==
+              the host's byte for byte, one counted ops.joint_dense call a
+              shape (6 launches), the kernel with bf16 and f32 x within
+              phase 3's tolerances of its plain version, the stored bytes
+              over the dense bf16 bytes; the six launches timed in one
+              profiler window beside torch.matmul on the dense weights.
   7. profile — for the functional steps (a new cache per call), the
               engine's in-place steps run eagerly, and the compiled
               engine, wall time, device
@@ -409,7 +426,14 @@ its own failure; phase 4g catches the one EngineStuckError it provokes):
               --int8-opt (INT8 moments on the card), --grad-compression
               and --dbpim-every 2: finite losses. (f) hybrid's three
               stages on one full-width layer's seven projections, card ==
-              host byte for byte. Then the backward kernels' times per
+              host byte for byte. (g) mamba2-1.3b and stablelm-1.6b at full
+              width and depth, mixtral-8x7b at full width and 2 layers
+              (--int8-opt): (b)'s gradient check (an MoE layer's top-k
+              choices replayed from the plain path), then 4 steps of
+              launch.train: finite losses, 4 x (97 / 0 / 0), (49 / 24 /
+              24) and (5 / 2 / 2) backward launches, forward likewise, no
+              plain version called; step p50, tokens/s, peak memory. Then
+              the backward kernels' times per
               launch and per training step (45 / 22 / 22 launches),
               kernel (b) as the whole backward less kernel (a), beside
               their bounds, the plain versions and the backward of
@@ -424,8 +448,10 @@ mixtral's, arctic's, jamba's, whisper's, pixtral's, qwen3's, gemma's and
 stablelm's, of whisper's encoder and of pixtral's patch forward and
 prefill step, and the wrappers' counts of the eager forward calls,
 added), phase 5 for block-sparse and FTA/INT8,
-phase 6 for DBMU, phase 9's 20 training steps for the three backward
-kernels, each counted from zero just before the path runs. The wall time of the run is printed before
+phase 6b's six paper-shape calls for the joint kernel too, phase 6 for
+DBMU, phase 9's 20 training steps and (g)'s three 4-step runs for the
+three backward kernels, each counted from zero just before the path
+runs. The wall time of the run is printed before
 the card's line. The line before
 the last holds the kernels' JSON record, the one before it the card's
 name and power limit; the last line is the device record. Exits
@@ -556,9 +582,13 @@ WHISPER_SERVE_ARGS = (["--arch", "whisper-base"] + SERVE_ARGS[2:6]
 #: 16 (the last ragged)
 JAMBA_PROMPT, JAMBA_CHUNK = 40, 16
 #: jamba's first-token logits in float32, kernel path vs plain path: fp32
-#: sums in other orders (1e-5 of a projection's peak) carried through 32
-#: layers
+#: sums in other orders (1e-5 of a projection's peak) carried through the
+#: layers (set for all 32)
 JAMBA_F32_REL = 1e-3
+#: the float32 copy's depth, cut for the run's time: the first 8 of 32
+#: layers hold every segment kind (7 SSM, the attention layer at index 4,
+#: 4 MoE and 4 dense MLP); its build takes a quarter of the full depth's
+JAMBA_F32_LAYERS = 8
 #: the joint kernel's rows per launch at whisper's shapes: a decode step,
 #: an expert-sized launch, a chunk of one slot, a chunk call, and the
 #: cross-attention's k/v over 4 slots x 1,500 encoder rows
@@ -791,6 +821,31 @@ def phase_pack(cfg, dev, have=None):
     return packs
 
 
+def _joint_vs_plain(x, p, what, tag="kernel"):
+    """The joint kernel on x against pack ``p``, in x's dtype and with
+    fp32 accumulators out, against its plain version: the f32 output
+    within 1e-5 * max|ref|, x's dtype within that or one bf16 ulp of the
+    peak. Returns (the kernel's output in x's dtype, its max abs error)."""
+    from repro_torch.kernels import joint_sparse_matmul as jsm
+    y = jsm.joint_sparse_matmul(x, p.w_blocks, p.idx, p.scales)
+    acc = jsm.joint_sparse_matmul(x, p.w_blocks, p.idx, p.scales,
+                                  out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    ref = jsm.joint_sparse_matmul_plain(x, p.w_blocks, p.idx, p.scales)
+    ref_acc = jsm.joint_sparse_matmul_plain(x, p.w_blocks, p.idx, p.scales,
+                                            torch.float32)
+    peak = ref_acc.abs().max().item()
+    err_acc = (acc - ref_acc).abs().max().item()
+    err = (y.float() - ref.float()).abs().max().item()
+    tol = F32_TOL * peak if x.dtype == torch.float32 else _bf16_ulp(peak)
+    M, dt = x.shape[0], str(x.dtype)[6:]
+    assert err_acc <= F32_TOL * peak, (what, dt, M, err_acc)
+    assert err <= tol, (what, dt, M, err, tol)
+    log(f"[{tag}] {what} {dt} M={M}: max|d|={err:.3e} (tol {tol:.3e}), acc "
+        f"max|d|={err_acc:.3e} (tol {F32_TOL * peak:.3e})")
+    return y, err
+
+
 def phase_kernel(cfg, packs, dev, ms=(4, 256), have=()):
     """Kernel vs plain at every path shape (but those of ``have``, checked
     for another model), at each row count of ``ms``; returns the max abs
@@ -805,31 +860,14 @@ def phase_kernel(cfg, packs, dev, ms=(4, 256), have=()):
         for dt in (torch.bfloat16, torch.float32):
             x256 = torch.randn((max(ms), K), generator=gen).to(dt).to(dev)
             for M in ms:
-                x = x256[:M].contiguous()
-                y = jsm.joint_sparse_matmul(x, p.w_blocks, p.idx, p.scales)
-                acc = jsm.joint_sparse_matmul(x, p.w_blocks, p.idx, p.scales,
-                                              out_dtype=torch.float32)
-                torch.cuda.synchronize()
-                ref = jsm.joint_sparse_matmul_plain(x, p.w_blocks, p.idx,
-                                                    p.scales)
-                ref_acc = jsm.joint_sparse_matmul_plain(
-                    x, p.w_blocks, p.idx, p.scales, torch.float32)
-                peak = ref_acc.abs().max().item()
-                err_acc = (acc - ref_acc).abs().max().item()
-                err = (y.float() - ref.float()).abs().max().item()
-                tol = F32_TOL * peak if dt == torch.float32 \
-                    else _bf16_ulp(peak)
-                assert err_acc <= F32_TOL * peak, (name, dt, M, err_acc)
-                assert err <= tol, (name, dt, M, err, tol)
+                y, err = _joint_vs_plain(x256[:M].contiguous(), p,
+                                         f"{name} {K}x{N}")
                 if dt == torch.bfloat16:
                     worst_bf16 = max(worst_bf16, err)
                 if M == ms[0]:
                     head = y
                 else:
                     assert torch.equal(head, y[:ms[0]]), (name, dt, "rows")
-                log(f"[kernel] {name} {K}x{N} {str(dt)[6:]} M={M}: "
-                    f"max|d|={err:.3e} (tol {tol:.3e}), acc "
-                    f"max|d|={err_acc:.3e} (tol {F32_TOL * peak:.3e})")
             log(f"[kernel] {name} {str(dt)[6:]}: rows of M={ms[0]} bitwise "
                 f"equal rows of M=" + "/".join(map(str, ms[1:])))
     # the value-only layout (bf16 payload, unit scales) through the same
@@ -2345,7 +2383,8 @@ def phase_jamba(dev):
     top-2 choices replayed into it (``_routing``): each side's own rounding
     flips near-tied choices. The kernel path against the plain path with
     its own routing, and the parallel chunks against stepwise decode, are
-    held in a float32 copy at full depth (``_jamba_f32``, see there).
+    held in a float32 copy of its first JAMBA_F32_LAYERS layers
+    (``_jamba_f32``, see there).
     Returns the device launches."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -2471,7 +2510,8 @@ def phase_jamba(dev):
 
 
 def _jamba_f32(args, cfg, short, prompt, dev):
-    """jamba in float32 at full width and depth (built slice by slice;
+    """jamba in float32 at full width and JAMBA_F32_LAYERS deep (built
+    slice by slice;
     int8 packs as in bf16, f32 activations through the joint kernel's fp32
     path): the first-token logits of the 2 short requests, kernel path vs
     plain path, within JAMBA_F32_REL x max|ref|; parallel chunks vs
@@ -2484,7 +2524,7 @@ def _jamba_f32(args, cfg, short, prompt, dev):
     disagrees with itself (chunk vs stepwise) by ~6 % of the logits'
     peak."""
     from repro_torch.models import ssm
-    c32 = cfg.scaled(dtype="float32")
+    c32 = cfg.scaled(dtype="float32", n_layers=JAMBA_F32_LAYERS)
     e, _, t = _moe_build(args, c32, dev, tag="seg")
     worst = 0.0
     for r in short:
@@ -3968,6 +4008,172 @@ def phase_dbmu(cfg, dev):
     return counts["dbmu_matmul"]
 
 
+#: phase 6b (paper): the CNNs' value sparsity and the layer kinds the
+#: cost model accelerates; Fig. 11's bands of VGG19 (speedup and energy
+#: saving over the dense baseline, joint mode without the input bit skip,
+#: unpruned and at 0.6), which tests/test_pim_model.py holds the reference
+#: to; the joint kernel at the paper's layer shapes: the draws of
+#: benchmarks/kernel_bench.py's joint cases (seed, tile sparsity) and the
+#: rows (joint_bench_shapes' cap on M)
+PAPER_VS = 0.6
+PAPER_ACCEL = ("std", "pw", "fc")
+VGG19_FIG11_BANDS = {0.0: ((4.5, 6.5), (0.65, 0.80)),
+                     0.6: ((7.0, 9.5), (0.80, 0.93))}
+PAPER_PACK_SEED, PAPER_PACK_SPARSITY, PAPER_M = 7, 0.5, 128
+JOINT_PAPER_UNIT = "joint_sparse_matmul paper shapes"
+
+
+def _np_tile_mask(rng, K, N, sparsity, tile=128):
+    """The reference's ``ops.random_tile_mask`` on a numpy generator, as
+    the kernel benchmark draws it: whole (tile x tile) survivors (at least
+    one), cropped to (K, N), int32."""
+    import numpy as np
+    kt, nt = -(-K // tile), -(-N // tile)
+    alive = rng.random((kt, nt)) >= sparsity
+    if not alive.any():
+        alive[0, 0] = True
+    return np.repeat(np.repeat(alive, tile, 0), tile, 1)[:K, :N].astype(
+        np.int32)
+
+
+def _paper_metadata(dev):
+    """(a): model_metadata of each of the five CNNs (their accelerated
+    layers, seed 0) on the card equal to the host's field for field, at
+    PAPER_VS and, for VGG19, unpruned; the cost model's joint mode and
+    Fig. 11's setting against the dense baseline; VGG19 in its bands."""
+    import dataclasses
+
+    from repro_torch.configs.paper_cnns import CNN_MODELS, MODE_FLAGS
+    from repro_torch.core import pim_model as pm
+    from repro_torch.core.workload_gen import model_metadata
+    fig11 = dict(MODE_FLAGS["joint"], use_input_bit=False)
+    cases = [(m, PAPER_VS) for m in CNN_MODELS] + [("vgg19", 0.0)]
+    for model, vs in cases:
+        layers = [l for l in CNN_MODELS[model]() if l.kind in PAPER_ACCEL]
+        t0 = time.monotonic()
+        card = model_metadata(layers, vs, model, seed=0, device=dev)
+        t_card = time.monotonic() - t0
+        t0 = time.monotonic()
+        host = model_metadata(layers, vs, model, seed=0, device="cpu")
+        t_host = time.monotonic() - t0
+        assert list(card) == list(host), model
+        for name in host:
+            assert dataclasses.astuple(card[name]) == \
+                dataclasses.astuple(host[name]), (model, vs, name)
+        dense = pm.evaluate_dense_baseline(layers)
+        gains = {}
+        for what, flags in (("joint", MODE_FLAGS["joint"]),
+                            ("fig11", fig11)):
+            rep = pm.evaluate_model(layers, card, **flags)
+            gains[what] = (dense.cycles / rep.cycles,
+                           1 - rep.energy_pj / dense.energy_pj)
+        log(f"[paper] {model} at value sparsity {vs}: metadata of "
+            f"{len(card)} layers on the card == the host's field for field "
+            f"(card {t_card:.2f} s, host {t_host:.2f} s); over the dense "
+            f"baseline: joint speedup {gains['joint'][0]:.3f}x, energy "
+            f"saving {gains['joint'][1]:.2%}; Fig. 11's setting (no input "
+            f"bit skip) {gains['fig11'][0]:.3f}x, {gains['fig11'][1]:.2%}")
+        if model == "vgg19":
+            (sp_lo, sp_hi), (es_lo, es_hi) = VGG19_FIG11_BANDS[vs]
+            sp, es = gains["fig11"]
+            assert sp_lo < sp < sp_hi and es_lo < es < es_hi, (vs, sp, es)
+            log(f"[paper] vgg19 at {vs}: Fig. 11 speedup {sp:.3f}x in "
+                f"({sp_lo}, {sp_hi}), energy saving {es:.4f} in ({es_lo}, "
+                f"{es_hi})")
+
+
+def phase_paper(dev):
+    """Phase 6b: the paper side on the card. (a) ``_paper_metadata``. (b)
+    The joint kernel at the six ``joint_bench_shapes(128)`` layer shapes,
+    w and the tile mask drawn with numpy as the kernel benchmark draws
+    them: the pack made on the card == the host's byte for byte; one
+    counted ``ops.joint_dense`` call a shape on bf16 x (6 launches, the
+    path's); then the kernel with bf16 and f32 x against its plain
+    version (phase 3's tolerances) and the stored bytes over the dense
+    bf16 bytes; the six launches timed together, one whole profiler
+    window, beside the plain versions, torch.matmul on the dense bf16
+    weights and the bytes bound. Returns (the counted launches, the worst
+    bf16 error, the unit's times for the JSON line)."""
+    import numpy as np
+
+    from repro_torch.configs.paper_cnns import joint_bench_shapes
+    from repro_torch.kernels import joint_sparse_matmul as jsm
+    from repro_torch.kernels import ops
+    t_phase = time.monotonic()
+    _paper_metadata(dev)
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(PAPER_PACK_SEED)
+    cases = []
+    for name, M, K, N in joint_bench_shapes(max_m=PAPER_M):
+        w = torch.from_numpy(rng.laplace(0, 0.02, (K, N)).astype(np.float32))
+        mask = torch.from_numpy(_np_tile_mask(rng, K, N, PAPER_PACK_SPARSITY))
+        x = torch.from_numpy(rng.normal(0, 1, (M, K)).astype(np.float32))
+        p = ops.pack_joint_sparse(w.to(dev), mask.to(dev))
+        host = ops.pack_joint_sparse(w, mask)
+        for field in ("w_blocks", "idx", "scales", "nblocks"):
+            a, b = getattr(p, field).cpu(), getattr(host, field)
+            assert a.dtype == b.dtype and torch.equal(a, b), (name, field)
+        assert (p.k, p.n, p.k_pad) == (host.k, host.n, host.k_pad)
+        x = x.to(dev)
+        cases.append((name, K, N, p, x, x.to(bf16), w.to(bf16).to(dev)))
+    torch.cuda.synchronize()
+    reset_launches()
+    ys = [ops.joint_dense(xb, p) for _, _, _, p, _, xb, _ in cases]
+    torch.cuda.synchronize()
+    counts = read_launches()
+    assert counts["joint_sparse_matmul"] == len(cases) == 6, counts
+    assert not any(n for k, n in counts.items()
+                   if k != "joint_sparse_matmul"), counts
+    worst = 0.0
+    for (name, K, N, p, x, xb, _), y in zip(cases, ys):
+        got, err = _joint_vs_plain(xb, p, f"{name} {K}x{N}", "paper")
+        assert torch.equal(got, y), name
+        worst = max(worst, err)
+        _joint_vs_plain(x, p, f"{name} {K}x{N}", "paper")
+        log(f"[paper] {name} {K}x{N}: card pack == host pack byte for byte; "
+            f"MAXB {p.w_blocks.shape[1]} of {K // 128} K tiles; stored "
+            f"{ops.joint_storage_bytes(p)} bytes = "
+            f"{ops.joint_storage_bytes(p) / (2 * K * N):.4f} of the dense "
+            f"bf16 {2 * K * N}")
+    xs = [(xb, p, w) for _, _, _, p, _, xb, w in cases]
+
+    def kernel_all():
+        for x, p, _ in xs:
+            jsm.joint_sparse_matmul(x, p.w_blocks, p.idx, p.scales)
+
+    def plain_all():
+        for x, p, _ in xs:
+            jsm.joint_sparse_matmul_plain(x, p.w_blocks, p.idx, p.scales)
+
+    def library_all():
+        for x, _, w in xs:
+            torch.matmul(x, w)
+
+    nbytes = sum(x.numel() * 2 + p.w_blocks.numel() + p.idx.numel() * 4
+                 + p.scales.numel() * 4 + x.shape[0] * p.n * 2
+                 for x, p, _ in xs)
+    n_ops = sum(2 * x.shape[0] * p.w_blocks.numel() for x, p, _ in xs)
+    bound, by = _bound(nbytes, n_ops, BF16_FLOPS)
+    t = dict(ms=_time_auto(kernel_all),
+             device_ms=_device_ms(kernel_all, launches=len(xs)),
+             plain_ms=_time_auto(plain_all), library_ms=_time_auto(library_all),
+             library_device_ms=_device_ms(library_all, launches=0),
+             host_us=_host_us(kernel_all) / len(xs), bytes=nbytes,
+             ops=n_ops, bound_ms=bound, bound_by=by)
+
+    def ms_(v):
+        return "not measured" if v is None else f"{v:.4f} ms"
+    log(f"[times] {JOINT_PAPER_UNIT}, {len(xs)} launches (one a shape, "
+        f"M={PAPER_M}, bf16 x, one profiler window): kernel {ms_(t['ms'])} "
+        f"(device {ms_(t['device_ms'])}), plain {ms_(t['plain_ms'])}, "
+        f"torch.matmul on the dense bf16 weights {ms_(t['library_ms'])} "
+        f"(device {ms_(t['library_device_ms'])}), bound {bound:.4f} ms "
+        f"({by}, {nbytes / 1e6:.1f} MB); host {t['host_us']:.1f} us per "
+        f"launch")
+    log(f"[paper] phase 6b took {time.monotonic() - t_phase:.1f} s")
+    return counts["joint_sparse_matmul"], worst, t
+
+
 def _profile_window(window, n_calls, launches, setup=None):
     """(wall ms, busy ms, device ops, joint ms, device-side records, peak
     GiB, resident GiB) per call of ``window``: wall time, peak device
@@ -4748,6 +4954,23 @@ NORM_BWD_ROWS = 1024
 NORM_BWD_WIDTHS = (2048, 4096)
 ATTN_BWD_CASES = ((8, 128, 32, 4, 64, 0), (1, 2048, 32, 4, 64, 0),
                   (2, 512, 32, 4, 64, 128))
+#: (g) the other families, each at full width: arch -> (--layers, the
+#: train CLI's extra flags, launches a step of row_norm and row_attention,
+#: forward and backward alike). From the code: a decoder layer runs one
+#: norm before its mixer and one before its MLP (models/transformer.py),
+#: an SSM layer its pre-norm and the gated norm of models/ssm.py, and the
+#: final norm adds one: 2 L + 1 row_norm launches (mamba2 97 at 48 layers,
+#: its gated norms at d = 4096; stablelm 49, LayerNorms with a bias);
+#: each attention layer one row_attention launch (models/attention.py)
+#: and one of each backward kernel (stablelm: hd 64, group 1, partial
+#: RoPE; mixtral: hd 128, group 4, the window of 4,096 past seq 128).
+#: mixtral at 2 layers holds 3.16 B params (1.41 B of experts a layer), so
+#: it trains with the INT8 optimizer state
+TRAIN_FAMILIES = {
+    "mamba2-1.3b": (None, [], {"row_norm": 97, "row_attention": 0}),
+    "stablelm-1.6b": (None, [], {"row_norm": 49, "row_attention": 24}),
+    "mixtral-8x7b": (2, ["--int8-opt"], {"row_norm": 5, "row_attention": 2}),
+}
 #: the kernels' entries of the JSON line this phase adds
 BWD_KERNELS = ("row_norm_bwd", "row_attention_bwd_dq",
                "row_attention_bwd_dkv")
@@ -4912,29 +5135,41 @@ def _full_width_grads(cfg, params, batch, plain):
     return float(loss.detach()), {k: t.grad for k, t in _flat(tp).items()}
 
 
-def _check_full_width_step(dev):
+def _check_full_width_step(dev, arch="tinyllama-1.1b", layers=None,
+                           per_step=None):
     """(b): one step at the CLI's defaults (batch 8, seq 128) of
-    full-width tinyllama-1.1b, bf16 and a float32 copy: every gradient leaf
-    of the kernel path (45 row_norm and 22 row_attention launches forward,
-    45 + 22 + 22 backward) against the plain path's (no launch), from the
-    same params and batch; every floating leaf gets a gradient."""
+    ``arch`` at full width (``layers`` deep, default its depth), bf16 and
+    a float32 copy: every gradient leaf of the kernel path (``per_step``
+    launches of row_norm and row_attention forward, as many of row_norm's
+    backward and of each attention backward kernel; tinyllama-1.1b's: 45
+    and 22) against the plain path's (no launch), from the same params and
+    batch; every floating leaf gets a gradient."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.launch.steps import _batch_on
     from repro_torch.models import init_params
     from repro_torch.optim.adamw import tree_map
-    cfg = get_config("tinyllama-1.1b")
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.scaled(n_layers=layers)
     batch = _batch_on(SyntheticLMDataset(cfg, 8, 128, seed=0).batch_at(0),
                       dev)
     params = init_params(cfg, seed=0, device=dev)
-    per_step = {"row_norm": 2 * cfg.n_layers + 1,
-                "row_attention": cfg.n_layers}
+    per_step = per_step or {"row_norm": 2 * cfg.n_layers + 1,
+                            "row_attention": cfg.n_layers}
     for name, tol, p in (("bf16", TRAIN_GRAD_BF16_TOL, params),
                          ("f32", TRAIN_GRAD_F32_TOL,
                           tree_map(lambda t: t.float(), params))):
         reset_launches()
         reset_bwd_launches()
-        loss_k, grads_k = _full_width_grads(cfg, p, batch, plain=False)
+        with _routing() as plain_routes:
+            loss_p, grads_p = _full_width_grads(cfg, p, batch, plain=True)
+        assert not any({**read_launches(), **read_bwd_launches()}.values())
+        # an MoE layer's top-k choices replayed from the plain path: each
+        # side's own rounding flips near-tied choices, and a flipped token
+        # moves its whole contribution to another expert's gradient
+        with _routing(plain_routes["idx"]) as routes:
+            loss_k, grads_k = _full_width_grads(cfg, p, batch, plain=False)
         counts = {**read_launches(), **read_bwd_launches()}
         want = {"row_norm": per_step["row_norm"],
                 "row_attention": per_step["row_attention"],
@@ -4943,10 +5178,6 @@ def _check_full_width_step(dev):
                 "row_attention_bwd_dkv": per_step["row_attention"]}
         assert {k: counts[k] for k in want} == want, counts
         assert counts["joint_sparse_matmul"] == 0
-        reset_launches()
-        reset_bwd_launches()
-        loss_p, grads_p = _full_width_grads(cfg, p, batch, plain=True)
-        assert not any({**read_launches(), **read_bwd_launches()}.values())
         assert set(grads_k) == set(grads_p)
         worst_leaf, worst = None, 0.0
         for key, g in grads_k.items():
@@ -4956,10 +5187,14 @@ def _check_full_width_step(dev):
             if rel >= worst:
                 worst_leaf, worst = key, rel
             assert rel <= tol, (name, key, rel, tol)
-        log(f"[train] (b) full-width step {name}: loss kernel {loss_k:.6f} "
+        log(f"[train] (b) {arch} ({cfg.n_layers} layers) full-width step "
+            f"{name}: loss kernel {loss_k:.6f} "
             f"plain {loss_p:.6f}; all {len(grads_k)} gradient leaves within "
             f"{worst:.2e} of their peaks (largest {worst_leaf}; tol {tol}); "
-            f"launches a step {want}")
+            f"launches a step {want}" + (
+                f"; {len(routes['idx'])} routing calls replayed from the "
+                f"plain path, {routes['flips']} tokens' own choices differed"
+                if routes["idx"] else ""))
         del grads_k, grads_p
         torch.cuda.empty_cache()
     del params
@@ -4968,6 +5203,66 @@ def _check_full_width_step(dev):
 def _train_run(argv):
     from repro_torch.launch import train
     return train.run(train.build_parser().parse_args(argv))
+
+
+def _smi():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def _train_families(dev):
+    """(g): each of TRAIN_FAMILIES at full width: one step's gradients,
+    kernel path against plain path (``_check_full_width_step``), then
+    TRAIN_VARIANT_STEPS steps of launch.train at the CLI's defaults
+    (batch 8, seq 128; the counted main path): finite losses, the
+    backward kernels launched steps x the counts a step, forward likewise,
+    no joint launch and no plain version called; step p50, tokens/s and
+    peak memory. Returns the backward kernels' launches of the runs,
+    added."""
+    import numpy as np
+    total = dict.fromkeys(BWD_KERNELS, 0)
+    for arch, (layers, flags, per_step) in TRAIN_FAMILIES.items():
+        t0 = time.monotonic()
+        _check_full_width_step(dev, arch, layers, per_step)
+        torch.cuda.empty_cache()
+        depth = [] if layers is None else ["--layers", str(layers)]
+        n = TRAIN_VARIANT_STEPS
+        reset_launches()
+        reset_bwd_launches()
+        with _plain_calls() as plain:
+            r = _train_run(["--arch", arch, "--batch", "8", "--seq", "128",
+                            "--log-every", "5", "--steps", str(n)]
+                           + depth + flags)
+            torch.cuda.synchronize()
+        launches, fwd = read_bwd_launches(), read_launches()
+        assert not any(plain.values()), (arch, plain)
+        want = {"row_norm_bwd": n * per_step["row_norm"],
+                "row_attention_bwd_dq": n * per_step["row_attention"],
+                "row_attention_bwd_dkv": n * per_step["row_attention"]}
+        assert launches == want, (arch, launches, want)
+        assert fwd["row_norm"] == n * per_step["row_norm"] and \
+            fwd["row_attention"] == n * per_step["row_attention"] and \
+            fwd["joint_sparse_matmul"] == 0, (arch, fwd)
+        assert len(r.losses) == n and all(np.isfinite(r.losses)), \
+            (arch, r.losses)
+        p50 = float(np.median(r.step_s[1:]))
+        n_params = sum(t.numel() for t in _flat(r.params).values())
+        log(f"[train] (g) {n} steps of launch.train ({arch}, "
+            f"{layers or 'all'} layers, {n_params / 1e9:.3f} B params, bf16, "
+            f"batch 8 x seq 128{', ' + ' '.join(flags) if flags else ''}): "
+            f"losses {', '.join(f'{x:.4f}' for x in r.losses)}; step p50 "
+            f"{p50 * 1e3:.2f} ms (first {r.step_s[0] * 1e3:.1f} ms), "
+            f"{r.tokens_per_step / p50:.1f} tokens/s, peak "
+            f"{r.peak_bytes / 2 ** 30:.3f} GiB; backward launches {launches} "
+            f"(forward row_norm {fwd['row_norm']}, row_attention "
+            f"{fwd['row_attention']}), no plain version called; "
+            f"{time.monotonic() - t0:.1f} s in all; {_smi()}")
+        for k in total:
+            total[k] += launches[k]
+        del r
+        torch.cuda.empty_cache()
+    return total
 
 
 def _check_hybrid(dev):
@@ -5019,8 +5314,8 @@ def phase_train(dev):
     memory; (d) resume from the checkpoint at step 10 (2 layers) equal to
     the uninterrupted run; (e) the INT8 optimizer, gradient compression
     and the DB-PIM projection in the loop; (f) the hybrid pipeline card ==
-    host. Returns (the train run's launches of the three kernels, their
-    largest errors)."""
+    host; (g) ``_train_families``. Returns (the launches of the three
+    kernels in (c)'s and (g)'s runs, their largest errors)."""
     import tempfile
 
     import numpy as np
@@ -5049,9 +5344,7 @@ def phase_train(dev):
         fwd["row_attention"] == TRAIN_STEPS * 22, fwd
     assert all(np.isfinite(r.losses)) and r.losses[-1] < r.losses[0], r.losses
     p50 = float(np.median(r.step_s[1:]))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = _smi()
     log(f"[train] (c) {TRAIN_STEPS} steps of launch.train (tinyllama-1.1b, "
         f"22 layers, bf16, batch 8 x seq 128): loss {r.losses[0]:.4f} -> "
         f"{r.losses[-1]:.4f}; step p50 {p50 * 1e3:.2f} ms (first "
@@ -5110,6 +5403,9 @@ def phase_train(dev):
         del r
         torch.cuda.empty_cache()
     _check_hybrid(dev)
+    torch.cuda.empty_cache()
+    for k, n in _train_families(dev).items():
+        launches[k] += n
     log(f"[train] phase 9 took {time.monotonic() - t_phase:.1f} s")
     return launches, worst
 
@@ -5343,6 +5639,11 @@ def main() -> int:
                 + sum(f[k] for f in fwd_launches)
                 for k, n in serve_launches.items()}
     launches.update(mode_launches, dbmu_matmul=phase_dbmu(cfg, dev))
+    paper_launches, paper_worst, paper_times = phase_paper(dev)
+    launches["joint_sparse_matmul"] += paper_launches
+    worst["joint_sparse_matmul"] = max(worst["joint_sparse_matmul"],
+                                       paper_worst)
+    torch.cuda.empty_cache()
     phase_profile_long(engine, tables, phase_profile(
         [("functional", FunctionalSteps(eager, tables)), ("eager", eager),
          ("compiled", engine), ("mamba2 eager", ssm_eager),
@@ -5354,6 +5655,7 @@ def main() -> int:
                         (jamba_cfg, jamba_packs, whisper_cfg, whisper_packs),
                         (pixtral_cfg, pixtral_packs),
                         (gemma_cfg, gemma_packs))
+    times[JOINT_PAPER_UNIT] = paper_times
 
     train_launches, train_worst = phase_train(dev)
     bwd_times = _bwd_times(dev)
@@ -5411,7 +5713,11 @@ def main() -> int:
             ("one pixtral-12b decode step: 40 layers x 7 projections, M=4, "
              "bf16", JOINT_PIXTRAL_DECODE_UNIT),
             ("one gemma-7b decode step: 28 layers x 7 projections, M=4, "
-             "bf16", JOINT_GEMMA_DECODE_UNIT)],
+             "bf16", JOINT_GEMMA_DECODE_UNIT),
+            ("the paper's six layer shapes (joint_bench_shapes(128): "
+             "alexnet.c3, vgg19.conv9, resnet18.s3b0c1, mobilenetv2.head, "
+             "efficientnetb0.head, alexnet.fc1), one launch each, M=128, "
+             "bf16, tile sparsity 0.5", JOINT_PAPER_UNIT)],
             "row_attention": [
                 ("one long-context prefill-chunk call: 22 launches, batch 16 "
                  "x 256 queries, 2048-slot cache, bf16", ATTN_LONG_UNIT),
@@ -5465,10 +5771,7 @@ def main() -> int:
         + ", ".join(f"{k} {n}" for k, n in comp_launches.items() if n))
     log(f"[smoke] all phases passed in {time.monotonic() - t_start:.1f} s "
         f"of wall time")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi, flush=True)
+    print(_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -113,10 +113,17 @@ def _ssd_chunk(state, xq, bq, cq, dtq, A):
     Q = dtq.shape[1]
     cum = torch.cumsum(dtq * A, dim=1)                     # (B,Q,H)
     # intra-chunk: y_i += sum_{j<=i} exp(cum_i - cum_j) dt_j (c_i.b_j) x_j
-    seg = cum[:, :, None, :] - cum[:, None, :, :]          # (B,Q,Q,H)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                 device=dtq.device))
-    decay = torch.where(tri[None, :, :, None], torch.exp(seg), 0.0)
+    # the pairs past the diagonal are masked before the exp, not after:
+    # there cum_i - cum_j > 0 overflows exp once a chunk's decay passes
+    # ~88 (full-width mamba2 at seq 128), and the gradient of where(tri,
+    # exp(seg), 0) is then 0 * inf = NaN. exp(-inf) is the same 0, so the
+    # forward is bitwise the reference's
+    seg = torch.where(tri[None, :, :, None],
+                      cum[:, :, None, :] - cum[:, None, :, :],
+                      -torch.inf)                          # (B,Q,Q,H)
+    decay = torch.exp(seg)
     cf, bf = cq.float(), bq.float()
     cb = torch.einsum("bqn,bkn->bqk", cf, bf)              # (B,Q,Q)
     w = cb[:, :, :, None] * decay * dtq[:, None, :, :]     # (B,Q,Q,H)

@@ -2,6 +2,7 @@
 points refuse to run on the CPU unless the caller asks for it."""
 
 import pathlib
+import runpy
 import subprocess
 import sys
 
@@ -20,6 +21,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 runpy.run_path(sys.argv[1], run_name="chip_smoke_import_probe")
+for path in sys.argv[2:]:
+    runpy.run_path(path, run_name="example_import_probe")
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "repro"
                 or m.startswith("repro."))
@@ -29,8 +32,9 @@ assert not leaked, leaked
 
 #: modules of the per-layer kernel-mode and DB-PIM pipeline slice, the
 #: row-stable kernels, the compiled steps, the SSM and the MoE families,
-#: fault injection and tracing, durability and paging, the training path;
-#: the probe imports every module of the package, these among them
+#: fault injection and tracing, durability and paging, the training path,
+#: the paper side; the probe imports every module of the package, these
+#: among them
 SLICE_MODULES = {
     "repro_torch.core.dyadic", "repro_torch.core.pim_model",
     "repro_torch.core.pruning", "repro_torch.core.qat",
@@ -48,13 +52,19 @@ SLICE_MODULES = {
     "repro_torch.obs.waterfall", "repro_torch.optim.adamw",
     "repro_torch.optim.schedule", "repro_torch.data.pipeline",
     "repro_torch.runtime.compression", "repro_torch.launch.train",
-    "repro_torch.core.hybrid"}
+    "repro_torch.core.hybrid", "repro_torch.configs.paper_cnns",
+    "repro_torch.core.workload_gen"}
+
+#: the port's example scripts (examples/<name>.py), imported by the probe
+EXAMPLES = ("torch_serve_lm", "torch_train_lm", "torch_dbpim_compress_lm")
 
 
 def test_port_and_chip_smoke_import_no_jax():
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
     res = subprocess.run([sys.executable, "-c", _PROBE,
-                          str(ROOT / "chip_smoke.py")],
+                          str(ROOT / "chip_smoke.py"),
+                          *(str(ROOT / "examples" / f"{name}.py")
+                            for name in EXAMPLES)],
                          capture_output=True, text=True, env=env, cwd=ROOT,
                          timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -91,7 +101,11 @@ def test_entry_points_raise_without_a_card():
                                      "--reduced"]),
                  lambda: train.main(["--arch", "tinyllama-1.1b",
                                      "--reduced", "--steps", "1"]),
-                 lambda: quickstart.main([])):
+                 lambda: quickstart.main([]),
+                 *(lambda name=name: runpy.run_path(
+                     str(ROOT / "examples" / f"{name}.py"),
+                     run_name="example_probe")["main"]([])
+                   for name in EXAMPLES)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     params = init_params(cfg, device="cpu")

@@ -1,5 +1,5 @@
 """The port's training path against the JAX package on the CPU: loss_fn and
-every gradient leaf (reduced tinyllama, gemma, mamba2 in float32),
+every gradient leaf (all ten reduced archs in float32),
 cross_entropy with masked labels, cosine_with_warmup, adamw_update with
 float32 and INT8 moments, build_train_step's loss curve (microbatches,
 gradient compression) against the reference's value_and_grad + adamw
@@ -28,6 +28,7 @@ from repro.configs import get_config as jax_get_config
 from repro.data import SyntheticLMDataset as JaxDataset
 from repro.models import init_params as jax_init_params
 from repro.models import loss_fn as jax_loss_fn
+from repro.models import ssm as jax_ssm
 from repro.models.layers import cross_entropy as jax_cross_entropy
 from repro.optim import adamw_init as jax_adamw_init
 from repro.optim import adamw_update as jax_adamw_update
@@ -40,7 +41,7 @@ from repro_torch.configs import get_config
 from repro_torch.data import SyntheticLMDataset, make_pipeline
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.steps import build_train_step, trainable
-from repro_torch.models import forward, loss_fn, prefill
+from repro_torch.models import forward, loss_fn, prefill, ssm
 from repro_torch.models.layers import cross_entropy
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
                                cosine_with_warmup)
@@ -94,11 +95,18 @@ def _ulps(a, b):
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma-7b",
-                                  "mamba2-1.3b"])
+                                  "mamba2-1.3b", "mixtral-8x7b",
+                                  "arctic-480b", "jamba-v0.1-52b",
+                                  "whisper-base", "qwen3-8b",
+                                  "stablelm-1.6b", "pixtral-12b"])
 def test_loss_and_every_gradient_match_jax(arch):
-    """tinyllama (RMSNorm, SwiGLU, GQA), gemma ((1 + w) norms, GeGLU, a
-    scaled tied embedding) and mamba2 (the SSD, the gated norm): the loss
-    and every leaf's gradient of the port's autograd against
+    """All ten reduced archs: tinyllama (RMSNorm, SwiGLU, GQA), gemma
+    ((1 + w) norms, GeGLU, a scaled tied embedding), mamba2 (the SSD, the
+    gated norm), mixtral (MoE dispatch, a window), arctic (the dense
+    residual MLP beside the experts), jamba (attention, SSM and MoE
+    segments), whisper (the encoder and cross-attention), qwen3 (qk-norm),
+    stablelm (LayerNorm, partial RoPE) and pixtral (the patch frontend):
+    the loss and every leaf's gradient of the port's autograd against
     jax.value_and_grad of the reference's loss_fn; every floating leaf
     gets a gradient."""
     jcfg, cfg = _cfgs(arch)
@@ -118,6 +126,68 @@ def test_loss_and_every_gradient_match_jax(arch):
         tol = GRAD_RTOL * float(np.abs(ref).max())
         np.testing.assert_allclose(t.grad.numpy(), ref, rtol=0, atol=tol,
                                    err_msg=key)
+
+
+def _ssd_recurrence(state, xq, bq, cq, dtq, A):
+    """The SSD chunk as its per-token recurrence (decode's form):
+    s_t = s_(t-1) exp(dt_t A) + dt_t x_t b_t^T, y_t = s_t c_t."""
+    ys = []
+    for t in range(dtq.shape[1]):
+        dt = dtq[:, t]                                        # (B, H)
+        state = (state * torch.exp(dt * A)[:, :, None, None]
+                 + torch.einsum("bh,bhp,bn->bhpn", dt, xq[:, t], bq[:, t]))
+        ys.append(torch.einsum("bhpn,bn->bhp", state, cq[:, t]))
+    return state, torch.stack(ys, dim=1)
+
+
+def test_ssd_chunk_gradient_is_finite_past_exp_overflow():
+    """A chunk whose decay passes ~88 (full-width mamba2 trains at seq 128
+    in one chunk): exp(cum_i - cum_j) overflows above the diagonal. The
+    reference's where(tri, exp(seg), 0) has a NaN gradient there (0 *
+    inf); the port masks before the exp. Its forward equals the
+    reference's, its gradient is finite and equals autograd of the
+    per-token recurrence in float64 within 1e-4 of each leaf's peak."""
+    rng = np.random.default_rng(9)
+    B, Q, H, P, N = 2, 64, 3, 4, 5
+    arrs = {"state": rng.standard_normal((B, H, P, N)),
+            "xq": rng.standard_normal((B, Q, H, P)),
+            "bq": rng.standard_normal((B, Q, N)),
+            "cq": rng.standard_normal((B, Q, N)),
+            "dtq": 1.5 + rng.random((B, Q, H)),
+            "A": -np.exp(rng.standard_normal(H) * 0.1)}
+    arrs = {k: v.astype(np.float32) for k, v in arrs.items()}
+    cum = np.cumsum(arrs["dtq"] * arrs["A"], axis=1)
+    assert cum[:, 0].max() - cum[:, -1].min() > 89.0     # exp overflows
+    gy = rng.standard_normal((B, Q, H, P)).astype(np.float32)
+    gs = rng.standard_normal((B, H, P, N)).astype(np.float32)
+    names = ("state", "xq", "bq", "cq", "dtq", "A")
+
+    def jax_obj(*a):
+        st, y = jax_ssm._ssd_chunk(*a)
+        return jnp.sum(y * gy) + jnp.sum(st * gs)
+    jref = jax_ssm._ssd_chunk(*(jnp.asarray(arrs[k]) for k in names))
+    jgrads = jax.grad(jax_obj, argnums=tuple(range(6)))(
+        *(jnp.asarray(arrs[k]) for k in names))
+    assert not all(np.isfinite(np.asarray(g)).all() for g in jgrads)
+
+    leaves = {k: torch.from_numpy(arrs[k]).requires_grad_() for k in names}
+    st, y = ssm._ssd_chunk(*(leaves[k] for k in names))
+    for got, want in zip((st, y), jref):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+    (torch.sum(y * torch.from_numpy(gy))
+     + torch.sum(st * torch.from_numpy(gs))).backward()
+    wide = {k: torch.from_numpy(arrs[k]).double().requires_grad_()
+            for k in names}
+    st64, y64 = _ssd_recurrence(*(wide[k] for k in names))
+    (torch.sum(y64 * torch.from_numpy(gy).double())
+     + torch.sum(st64 * torch.from_numpy(gs).double())).backward()
+    for k in names:
+        got, want = leaves[k].grad.numpy(), wide[k].grad.numpy()
+        assert np.isfinite(got).all(), k
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max(), err_msg=k)
 
 
 def test_cross_entropy_matches_jax():
