@@ -136,6 +136,19 @@ its own failure; phase 4g catches the one EngineStuckError it provokes):
               phase_ssm_exact for the tolerances), the first layer's conv
               window bitwise; an exact-mode engine (2
               requests, chunks of 8) compiled == eager bitwise.
+  4m. mesh  — the mesh and sharding layer ([mesh] lines): phase 4's
+              8 requests served again through ServeEngine(mesh=
+              make_test_mesh()), the one-card (1, 1) mesh whose step
+              shardings are reckoned at the engine's shapes and checked:
+              the greedy streams bitwise phase 4's and the device launches
+              of the compiled run (torch.profiler's records) equal to
+              phase 4's; the count of spec leaves that name "model" or
+              "data" printed; then launch.dryrun.run_cell for
+              tinyllama-1.1b x {decode_32k, prefill_32k} x the (16, 16)
+              pod mesh on meta tensors, device memory allocated the same
+              before and after, each record's FLOPs, weight bytes,
+              per-device argument GB and launch.roofline row printed
+              beside the card's name and power limit.
   4g. admit — admission, SLO shedding and fault containment through the
               compiled engine, on phase 4's full-width tinyllama-1.1b
               params and tables (batch 4, max-len 512, chunks of 64; 12
@@ -441,7 +454,7 @@ its own failure; phase 4g catches the one EngineStuckError it provokes):
               GQA: dq, dk and dv in one call).
 
 The launch counts of the JSON record come from the main paths: phases 4,
-4g, 4h, 4c, 4d, 4e and 4f for the joint, row_attention and row_norm kernels
+4m, 4g, 4h, 4c, 4d, 4e and 4f for the joint, row_attention and row_norm kernels
 (the device's records of the compiled serve runs, tinyllama's (phase 4g's
 four counted runs and phase 4h's three among them), mamba2's,
 mixtral's, arctic's, jamba's, whisper's, pixtral's, qwen3's, gemma's and
@@ -1455,6 +1468,92 @@ def phase_serve(dev, serve_args=SERVE_ARGS,
         check_chunk_equals_stepwise(engine, tables, list(trace[0].prompt),
                                     tag=tag)
     return launches, engine, eager, tables
+
+
+#: the dry-run cells phase 4m reckons on meta tensors
+MESH_DRYRUN_CELLS = (("tinyllama-1.1b", "decode_32k"),
+                     ("tinyllama-1.1b", "prefill_32k"))
+
+
+def phase_mesh(dev, served, tables):
+    """Phase 4m: phase 4's trace through an engine on an explicit one-card
+    mesh (streams bitwise phase 4's ``served`` engine's, the same device
+    launches), then the dry run's cells on meta tensors with device
+    memory unchanged. Returns the device launches of the meshed run."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.launch import dryrun, roofline, serve
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import build_slot_decode_step
+    from repro_torch.runtime import sharding as shr
+    from repro_torch.serving import ServeEngine
+    t0 = time.monotonic()
+    args = serve.build_parser().parse_args(SERVE_ARGS)
+    cfg = served.cfg
+    trace = serve.trace_from_args(args, cfg.vocab_size)
+    mesh = make_test_mesh()
+    assert mesh.device == torch.device("cuda", torch.cuda.current_device())
+
+    def fresh():
+        return ServeEngine(cfg, served.params, mesh=mesh, n_slots=args.batch,
+                           max_len=args.max_len,
+                           prefill_chunk=args.prefill_chunk,
+                           stacked_tables=tables, device=dev)
+    engine, outputs, device, counts, _ = _counted_run(fresh(), trace, fresh)
+    assert outputs == served.outputs, "streams under the explicit mesh"
+    per_call = obs.per_call(cfg)
+    calls = engine.metrics.summary()["device_calls"]
+    assert device == {name: per_call.get(name, 0) * calls
+                      for name in device}, (device, calls)
+    assert counts == {name: 2 * per_call.get(name, 0) for name in counts}, \
+        counts
+    assert engine.mesh is mesh and engine.prefill_kind == "prefill_chunk_exact"
+    _, shard_fn = build_slot_decode_step(cfg, mesh, stacked_tables=tables)
+    specs = shard_fn(engine.params, engine.cache,
+                     torch.zeros((args.batch, 1), dtype=torch.int32,
+                                 device=dev),
+                     torch.zeros((args.batch,), dtype=torch.bool, device=dev))
+    leaves = [spec for tree in specs
+              for _, spec in shr.tree_leaves_with_path(tree)]
+    named = sum(1 for spec in leaves
+                if any(a in ("model", "data") for e in spec if e is not None
+                       for a in (e if isinstance(e, tuple) else (e,))))
+    log(f"[mesh] {cfg.name} through ServeEngine(mesh=make_test_mesh()) "
+        f"{mesh.shape} on {mesh.device}: {len(outputs)} greedy streams "
+        f"bitwise phase 4's; device launches "
+        + ", ".join(f"{k} {device[k]}" for k in per_call)
+        + f" == phase 4's per call x {calls} calls; {named} of "
+        f"{len(leaves)} spec leaves of the decode step name model or data "
+        f"(axes of size 1: no operand moves); "
+        f"{time.monotonic() - t0:.1f} s")
+    smi = _smi()
+    for arch, shape in MESH_DRYRUN_CELLS:
+        t1 = time.monotonic()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            rec = dryrun.run_cell(arch, shape, "single", out_dir=Path(tmp),
+                                  verbose=False)
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated(dev)
+        assert rec["status"] == "ok", rec.get("error")
+        assert rec["collectives"] is None, rec["collectives"]
+        assert before == after, (arch, shape, before, after)
+        jc = rec["jaxpr_cost"]
+        assert jc["weight_bytes"] > 0 and jc["dot_flops"] > 0, jc
+        row = roofline.format_table([roofline.analyze_record(rec)],
+                                    "single").splitlines()[-1]
+        log(f"[mesh] dry run {arch} x {shape} x single {rec['mesh_shape']} "
+            f"on meta: dot FLOPs {jc['dot_flops']:.4e}, flops "
+            f"{jc['flops']:.4e}, weight bytes {jc['weight_bytes']:.4e}, "
+            f"argument bytes a device "
+            f"{rec['memory_analysis']['argument_size_in_bytes'] / 1e9:.3f} "
+            f"GB; device memory allocated {before} B before and after; "
+            f"{time.monotonic() - t1:.1f} s")
+        log(f"[mesh] roofline ({smi}): {row.strip()}")
+    log(f"[mesh] phase 4m in {time.monotonic() - t0:.1f} s")
+    return device
 
 
 class OpTrace:
@@ -5604,6 +5703,7 @@ def main() -> int:
     # dropped device records of a counted run (arctic's, then
     # tinyllama's); the serve phases' engines stay resident for phase 7
     serve_launches, engine, eager, tables = phase_serve(dev)
+    mesh_launches = phase_mesh(dev, eager, tables)
     ssm_launches, ssm_engine, ssm_eager, ssm_tables = phase_serve(
         dev, SSM_SERVE_ARGS, "prefill_parallel")
     phase_ssm_exact(ssm_engine, ssm_tables)
@@ -5631,7 +5731,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     comp_launches = phase_compression(dev)
     torch.cuda.empty_cache()
-    launches = {k: n + ssm_launches[k] + moe_launches[k] + arctic_launches[k]
+    launches = {k: n + mesh_launches[k] + ssm_launches[k] + moe_launches[k]
+                + arctic_launches[k]
                 + jamba_launches[k] + whisper_launches[k]
                 + pixtral_launches[k] + dense_launches[k]
                 + admit_launches[k] + dur_launches[k]

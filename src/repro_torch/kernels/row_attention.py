@@ -256,6 +256,34 @@ def _report(q, k):
     return torch.empty_like(q)
 
 
+class _Recorded(torch.autograd.Function):
+    """The attention as ``runtime.op_cost`` charges it when autograd
+    records the call (the train step's walk): the forward ``_report``, and
+    a backward that charges what the reference's gradient of ``_sdpa``
+    charges, its four gradient einsums (``8 * B * Hq * Sq * A * hd`` dot
+    flops, twice the forward's operand and result bytes) and the softmax's
+    gradient as elementwise flops, and returns empty gradients of q, k and
+    v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.like = (q, k, v)
+        return _report(q, k)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.like
+        B, Sq, Hq, hd = q.shape
+        A = k.shape[1]
+        logits = B * Hq * Sq * A
+        op_cost.charge_ops(
+            dot_flops=8 * logits * hd, flops=10 * logits,
+            nbytes=2 * q.dtype.itemsize * (2 * B * Sq * Hq * hd
+                                           + 2 * B * A * Hq * hd
+                                           + 2 * logits))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 def _launch(q, k, v, qpos, window: int):
     """The forward kernel on CUDA tensors: (out, (q, k, v, qpos) as the
     kernel read them)."""
@@ -373,6 +401,9 @@ def row_attention(q, k, v, qpos, window: int = 0):
     ``RowAttention`` when autograd records the call."""
     window = int(window)
     if op_cost.recording(q, k, v, qpos):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _Recorded.apply(q, k, v)
         return _report(q, k)
     if q.device.type == "cpu":
         return row_attention_plain(q, k, v, qpos, window)

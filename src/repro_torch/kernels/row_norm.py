@@ -183,6 +183,32 @@ def _report(x, layer: bool, plus_one: bool):
     return torch.empty_like(x)
 
 
+class _Recorded(torch.autograd.Function):
+    """The norm as ``runtime.op_cost`` charges it when autograd records the
+    call (the train step's walk): the forward ``_report``, and a backward
+    that charges the reference's gradient of the norm (elementwise ops
+    and reductions, about 9 flops an element for RMSNorm and 14 for
+    LayerNorm, and a few a row and a column; flops only) and returns
+    empty gradients of each input's shape and dtype."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, plus_one):
+        ctx.layer = bias is not None
+        ctx.like = (x, scale, bias)
+        return _report(x, ctx.layer, plus_one)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, bias = ctx.like
+        D = x.shape[-1]
+        n = x.numel()
+        rows = n // D if D else 0
+        op_cost.charge_ops(flops=(14 * n + 6 * rows + 4 * D if ctx.layer
+                                  else 9 * n + 4 * rows + 3 * D))
+        return (torch.empty_like(x), torch.empty_like(scale),
+                None if bias is None else torch.empty_like(bias), None)
+
+
 def _launch(x, scale, bias, eps: float, plus_one: bool):
     """The forward kernel on CUDA tensors: (out, the contiguous x, the
     float32 scale and bias it read)."""
@@ -290,6 +316,9 @@ def row_norm(x, scale, bias=None, eps: float = 1e-6, plus_one: bool = False):
     the kernel on the current stream or raise, through ``RowNorm`` when
     autograd records the call."""
     if op_cost.recording(x, scale, bias):
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (x, scale, bias)):
+            return _Recorded.apply(x, scale, bias, plus_one)
         return _report(x, bias is not None, plus_one)
     if x.device.type == "cpu":
         return row_norm_plain(x, scale, bias, eps, plus_one)

@@ -1,16 +1,27 @@
 """The train step, fixed-shape serving steps tagged with their call kind,
-their compiled form, and the full-forward prefill step.
+their compiled form, the full-forward prefill step, and the shardings of
+each step on a mesh.
 
-Port of ``repro.launch.steps`` (``build_train_step``, ``build_step``,
-``build_prefill_step``) and of the engine's ``jax.jit(...,
-donate_argnums=...)``. The train step runs eagerly on one device; the
-reference's sharding builders (in/out specs for a mesh) are not ported.
-``build_step`` returns a plain callable; its ``call_kind`` tag is what
-the engine meters device calls and latencies under, and the recompile
-sentinel keys its budget on.
-``compile_step`` compiles one: on the card each input signature is
-captured once as a CUDA graph and replayed from then on, so a call costs
-one graph launch instead of a Python walk over ~1,200 kernel launches.
+Port of ``repro.launch.steps``. ``build_step(cfg, call_kind, ...)`` gives
+a serving step; its ``call_kind`` tag is what the engine meters device
+calls and latencies under, and the recompile sentinel keys its budget
+on. The mesh-bound builders (``build_serve_step``,
+``build_slot_decode_step``, ``build_prefill_chunk_step``) take ``(cfg,
+mesh, ...)`` and return ``(step_fn, shardings_fn)`` as the reference's
+do: ``step_fn`` is ``build_step``'s step, and ``shardings_fn`` gives the
+reference's spec tuple for a call's operands (``runtime.sharding``), the
+paged variants' page table replicated. ``build_train_step`` and
+``build_prefill_step`` return their steps alone; their shardings come from
+``train_shardings`` and ``prefill_shardings`` beside them. Specs are
+reckoned the same on the pod meshes (the dry run) and on the one-card
+mesh the port runs on, where every spec names axes of size 1 and no
+operand moves: a step given a mesh runs on that mesh's one device or
+raises. The train step runs eagerly.
+
+``compile_step`` compiles a serving step: on the card each input
+signature is captured once as a CUDA graph and replayed from then on, so
+a call costs one graph launch instead of a Python walk over ~1,200 kernel
+launches.
 """
 
 from __future__ import annotations
@@ -23,6 +34,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.optim import (AdamWState, adamw_update,
                                cosine_with_warmup)
 from repro_torch.optim.adamw import tree_leaves, tree_map
+from repro_torch.runtime import sharding as shr
+from repro_torch.runtime.sharding import P
+
 
 def trainable(params):
     """``params`` with every floating leaf requiring grad (a leaf of the
@@ -37,8 +51,22 @@ def _batch_on(batch, device):
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+def check_on_device(mesh, tree, what: str):
+    """Raise unless the tensors of ``tree`` lie on ``mesh``'s one device
+    (RuntimeError for a mesh of more than one device). A pod mesh's step
+    is only reckoned, on meta tensors (the dry run): those pass."""
+    leaves = [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    if not mesh.devices and all(t.device.type == "meta" for t in leaves):
+        return
+    dev = mesh.device
+    off = sorted({str(t.device) for t in leaves if t.device != dev})
+    if off:
+        raise ValueError(f"{what} on {', '.join(off)}, not on the mesh's "
+                         f"device {dev}")
+
+
 def build_train_step(cfg: ModelConfig, *, microbatches: int = 1,
-                     grad_compression: bool = False):
+                     grad_compression: bool = False, mesh=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     loss)``, the reference's step on one device, eagerly: the gradients of
     ``models.loss_fn`` by autograd (on the card through the row kernels'
@@ -49,20 +77,25 @@ def build_train_step(cfg: ModelConfig, *, microbatches: int = 1,
     ``cosine_with_warmup(opt_state.step)``. ``params`` are the trainable
     tree (``trainable``); the new params are too; the loss a detached
     float32 scalar. A leaf the loss does not reach gets a zero gradient,
-    as ``jax.grad`` gives it."""
+    as ``jax.grad`` gives it. The gradients are taken with grad mode on
+    whatever the caller's mode. With ``mesh`` the params must lie on its
+    one device (``train_shardings(mesh)`` gives their specs)."""
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
 
     def grads_of(params, batch):
         leaves = tree_leaves(params)
-        loss = loss_fn(params, batch, cfg)
-        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with torch.enable_grad():
+            loss = loss_fn(params, batch, cfg)
+            gs = torch.autograd.grad(loss, leaves, allow_unused=True)
         gs = [torch.zeros_like(p) if g is None else g
               for p, g in zip(leaves, gs)]
         it = iter(gs)
         return loss.detach(), tree_map(lambda _: next(it), params)
 
     def train_step(params, opt_state: AdamWState, batch):
+        if mesh is not None:
+            check_on_device(mesh, params, "params")
         dev = tree_leaves(params)[0].device
         batch = _batch_on(batch, dev)
         if microbatches > 1:
@@ -91,6 +124,49 @@ def build_train_step(cfg: ModelConfig, *, microbatches: int = 1,
         return trainable(new_params), new_state, loss
 
     return train_step
+
+
+def train_shardings(mesh):
+    """``shardings(params, opt_state, batch) -> (pspec, ospec, bspec)``,
+    the reference's train-step specs on ``mesh``: FSDP params only when a
+    TP-sharded replica would strain the device (``_needs_fsdp``), ZeRO-1
+    moments either way (``_moment_specs``), the batch over the DP axes."""
+    def shardings(params, opt_state, batch):
+        pspec = shr.param_specs(params, mesh, fsdp=_needs_fsdp(params, mesh))
+        mv_spec = _moment_specs(params, pspec, opt_state.m, mesh)
+        ospec = AdamWState(step=P(), m=mv_spec, v=mv_spec)
+        bspec = shr.batch_specs(batch, mesh)
+        return pspec, ospec, bspec
+    return shardings
+
+
+def _param_bytes(params) -> int:
+    return sum(t.numel() * t.dtype.itemsize for t in tree_leaves(params)
+               if isinstance(t, torch.Tensor))
+
+
+def _needs_fsdp(params, mesh, budget_bytes: float = 4e9) -> bool:
+    """FSDP only when a TP-sharded replica exceeds ``budget_bytes``: for
+    small models the per-layer weight gathers cost more than the one DP
+    gradient reduction they displace."""
+    return (_param_bytes(params) / mesh.shape.get("model", 1)) > budget_bytes
+
+
+def _moment_specs(params, pspecs, moments, mesh):
+    """ZeRO-1 moment sharding. fp32 moments mirror the param spec extended
+    over the DP axes; int8 block-quantized moments ({q, scale}) shard their
+    block dim over DP."""
+    dpa = shr.dp_axes(mesh)
+    dpa = dpa if len(dpa) > 1 else (dpa[0] if dpa else None)
+    dpn = shr.axis_size(mesh, dpa)
+
+    def one(p, spec, m):
+        if isinstance(m, dict):            # int8 {q, scale}
+            blk_spec = P(dpa) if m["q"].shape[0] % dpn == 0 else P()
+            return {"q": blk_spec, "scale": blk_spec}
+        return shr.zero1_spec(spec, tuple(p.shape), mesh)
+
+    return tree_map(one, params, pspecs, moments)
 
 
 SERVE_CALL_KINDS = ("serve", "decode", "prefill_chunk", "reset")
@@ -193,7 +269,68 @@ def build_step(cfg: ModelConfig, call_kind: str, *, stacked_tables=None,
     return step_fn
 
 
-def build_prefill_step(cfg: ModelConfig, stacked_tables=None):
+def _serving_param_specs(params, mesh):
+    """Serving keeps weights resident (TP-sharded, replicated over DP):
+    FSDP would gather the full model again every decoded token. Only
+    models whose TP shard exceeds 12 GB (arctic-class) keep FSDP and pay
+    the gathers."""
+    tp = mesh.shape.get("model", 1)
+    fsdp = (_param_bytes(params) / tp) > 12e9
+    return shr.param_specs(params, mesh, fsdp=fsdp)
+
+
+def _serving_shardings(cfg: ModelConfig, mesh, names):
+    """``shardings(params, cache, *inputs)`` of a serving step whose
+    per-call inputs are named ``names``: (param specs, cache specs, one
+    batch spec per input), and ``P()`` for a trailing page table (tiny
+    int32, replicated: sharding it would only add a gather before every
+    pool lookup)."""
+    def shardings(params, cache, *inputs):
+        if len(inputs) not in (len(names), len(names) + 1):
+            raise TypeError(f"shardings take {names} and an optional page "
+                            f"table, got {len(inputs)} inputs")
+        pspec = _serving_param_specs(params, mesh)
+        cspec = shr.cache_specs(cache, cfg, mesh)
+        bspec = shr.batch_specs(dict(zip(names, inputs)), mesh)
+        out = (pspec, cspec) + tuple(bspec[k] for k in names)
+        return out + (P(),) * (len(inputs) - len(names))
+    return shardings
+
+
+def build_serve_step(cfg: ModelConfig, mesh, int8_weights: bool = False,
+                     stacked_tables=None):
+    """``(step_fn, shardings_fn)``: ``build_step(cfg, "serve", ...)`` and
+    its specs ``(params, cache, token)``."""
+    return (build_step(cfg, "serve", stacked_tables=stacked_tables,
+                       int8_weights=int8_weights),
+            _serving_shardings(cfg, mesh, ("token",)))
+
+
+def build_slot_decode_step(cfg: ModelConfig, mesh, stacked_tables=None):
+    """``(step_fn, shardings_fn)``: ``build_step(cfg, "decode", ...)`` and
+    its specs ``(params, cache, token, active[, ptab])``."""
+    return (build_step(cfg, "decode", stacked_tables=stacked_tables),
+            _serving_shardings(cfg, mesh, ("token", "active")))
+
+
+def build_prefill_chunk_step(cfg: ModelConfig, mesh, stacked_tables=None):
+    """``(step_fn, shardings_fn)``: ``build_step(cfg, "prefill_chunk",
+    ...)`` and its specs ``(params, cache, tokens, n_valid[, ptab])``."""
+    return (build_step(cfg, "prefill_chunk", stacked_tables=stacked_tables),
+            _serving_shardings(cfg, mesh, ("tokens", "n_valid")))
+
+
+def prefill_shardings(mesh):
+    """``shardings(params, batch) -> (pspec, bspec)``, the reference's
+    prefill-step specs on ``mesh``."""
+    def shardings(params, batch):
+        return (shr.param_specs(params, mesh,
+                                fsdp=_needs_fsdp(params, mesh)),
+                shr.batch_specs(batch, mesh))
+    return shardings
+
+
+def build_prefill_step(cfg: ModelConfig, stacked_tables=None, mesh=None):
     """``prefill_step(params, batch)``: the last-position logits (B, 1, V)
     of the full forward over ``batch["tokens"]`` (``models.prefill``),
     with ``batch.get("frames")`` encoded first (whisper), as
@@ -201,11 +338,13 @@ def build_prefill_step(cfg: ModelConfig, stacked_tables=None):
     reference's step: it does not pass ``batch["frontend"]`` (pixtral's
     patch embeddings) on; ``models.forward(frontend_embeds=...)`` takes
     them. Eager; tagged "prefill". stacked_tables route every projection
-    of every layer through the joint kernel. (The reference's
-    ``build_prefill_step`` also returns its shardings; one card has
-    none.)"""
+    of every layer through the joint kernel. With ``mesh`` the params must
+    lie on its one device; ``prefill_shardings(mesh)`` gives the specs the
+    reference's ``build_prefill_step`` returns beside its step."""
     @torch.no_grad()
     def prefill_step(params, batch):
+        if mesh is not None:
+            check_on_device(mesh, params, "params")
         return prefill(params, batch["tokens"], cfg,
                        frames=batch.get("frames"), tables=stacked_tables)
     prefill_step.call_kind = "prefill"

@@ -13,9 +13,11 @@ FTA grid every N steps (``sparsity.sparsify_params`` + ``dequant_tree``,
 Fig. 4 stage 2 in the loop). One device, eagerly: on the card (the
 default) the norms and attention run forward and backward in the port's
 row kernels, the projections as plain matmuls, as the reference trains;
-``--device cpu`` runs the plain versions. The reference's
-``--production-mesh`` (a pod's mesh) has no counterpart here; ``--layers``
-cuts the depth at full width. ``main`` returns the losses; ``run`` the
+``--device cpu`` runs the plain versions. The run enters the one-card
+mesh (``launch.mesh.make_test_mesh``); ``--production-mesh`` asks for the
+reference's pod mesh (16, 16) instead, which is refused with an error
+naming the 256 devices it needs and the count present, as the reference
+refuses it on one device. ``--layers`` cuts the depth at full width. ``main`` returns the losses; ``run`` the
 whole ``TrainRun`` (the final params and optimizer state, each step's
 wall time, the device's peak memory).
 """
@@ -33,6 +35,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data import SyntheticLMDataset, make_pipeline
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
 from repro_torch.launch.steps import build_train_step, trainable
 from repro_torch.models import init_params
 from repro_torch.optim import AdamWState, adamw_init
@@ -57,6 +60,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "2): train the compressed model in the loop")
     ap.add_argument("--dbpim-value-sparsity", type=float, default=0.0)
     ap.add_argument("--grad-compression", action="store_true")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the reference's (16, 16) pod mesh: refused, as "
+                         "the port runs on one card")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=None,
@@ -86,8 +92,15 @@ def run(args) -> TrainRun:
     if args.layers is not None:
         cfg = cfg.scaled(n_layers=args.layers)
     dev = resolve_device(args.device)
-    print(f"[train] {cfg.name}: device={dev} layers={cfg.n_layers} "
-          f"dtype={cfg.dtype}")
+    mesh = (make_production_mesh() if args.production_mesh
+            else make_test_mesh(dev))
+    print(f"[train] {cfg.name}: mesh={mesh.shape} device={dev} "
+          f"layers={cfg.n_layers} dtype={cfg.dtype}")
+    with mesh:
+        return _train(args, cfg, dev, mesh)
+
+
+def _train(args, cfg, dev, mesh) -> TrainRun:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -97,7 +110,8 @@ def run(args) -> TrainRun:
     print(f"[train] params: {n_params / 1e6:.1f}M")
 
     step_fn = build_train_step(cfg, microbatches=args.microbatches,
-                               grad_compression=args.grad_compression)
+                               grad_compression=args.grad_compression,
+                               mesh=mesh)
     ds = SyntheticLMDataset(cfg, args.batch, args.seq, seed=args.seed)
 
     start_step = 0

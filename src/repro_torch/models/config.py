@@ -92,6 +92,12 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic support: SSM, hybrid, or sliding-window attention
+        (the dry run's long_500k cells)."""
+        return self.family in ("ssm", "hybrid") or self.window > 0
+
     def serving_capabilities(self):
         """What the serving stack supports for this config, derived from
         the segment layout (models.segments.ServingCapabilities): segment
@@ -102,6 +108,24 @@ class ModelConfig:
 
     def scaled(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input-shape cell of the dry run."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+    microbatches: int = 1
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 def param_count(cfg: ModelConfig) -> int:

@@ -1,11 +1,12 @@
-"""Concrete random inputs: a training batch (with whisper's stub frames or
-pixtral's stub patch embeddings), a decode token, and the serve CLI's
-stub frames.
+"""Input specs for the dry run, and concrete random inputs: a training
+batch (with whisper's stub frames or pixtral's stub patch embeddings), a
+decode token, and the serve CLI's stub frames.
 
-Port of the concrete half of ``repro.models.inputs``: the same numpy
-``default_rng(seed)`` draws in the same order, so both packages get the
-same tokens and frames for a seed. (The reference's ``ShapeDtypeStruct``
-specs are dry-run stand-ins; the port has no dry run yet.)
+Port of ``repro.models.inputs``. The specs are meta tensors
+(``device="meta"``): the shapes and dtypes of the reference's
+``jax.ShapeDtypeStruct`` stand-ins, with nothing allocated. The concrete
+inputs take the same numpy ``default_rng(seed)`` draws in the same order,
+so both packages get the same tokens and frames for a seed.
 """
 
 from __future__ import annotations
@@ -18,6 +19,30 @@ import torch
 from repro_torch.device import resolve_device
 from .config import ModelConfig
 from .layers import dtype_of
+
+
+def train_batch_spec(cfg: ModelConfig, batch: int,
+                     seq: int) -> Dict[str, torch.Tensor]:
+    """{"tokens", "labels"} (batch, seq) int32, and "frames" (batch,
+    encoder_seq, d) for enc-dec configs or "frontend" (batch, n_patches,
+    d) for the vision stub in cfg.dtype: meta tensors, nothing
+    allocated."""
+    meta = dict(device="meta")
+    spec = {"tokens": torch.empty((batch, seq), dtype=torch.int32, **meta),
+            "labels": torch.empty((batch, seq), dtype=torch.int32, **meta)}
+    if cfg.is_encdec:
+        spec["frames"] = torch.empty((batch, cfg.encoder_seq, cfg.d_model),
+                                     dtype=dtype_of(cfg), **meta)
+    if cfg.frontend == "vision_stub":
+        spec["frontend"] = torch.empty((batch, cfg.n_patches, cfg.d_model),
+                                       dtype=dtype_of(cfg), **meta)
+    return spec
+
+
+def decode_token_spec(cfg: ModelConfig, batch: int) -> Dict[str, torch.Tensor]:
+    """{"token": (batch, 1) int32}, a meta tensor."""
+    return {"token": torch.empty((batch, 1), dtype=torch.int32,
+                                 device="meta")}
 
 
 def make_train_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,

@@ -26,7 +26,13 @@ Rules, per op (the counterparts of the reference's ``_walk``):
   * PRODUCTS (mm, bmm, addmm, baddbmm) are charged as ``dot_general``:
     ``2 * prod(out) * K`` flops, operand and result bytes, weight bytes for
     each tagged operand at its convert source's size, else, for a rank-2
-    rhs with no batch, into ``UNTAGGED_DOT``.
+    rhs with no batch, into ``UNTAGGED_DOT``. An operand broadcast over a
+    dim (stride 0: ``torch.matmul`` expands a weight to feed ``bmm``) is
+    charged the bytes it holds, once. A product autograd issues in a
+    backward pass charges nothing to ``UNTAGGED_DOT``: its untagged
+    operands are gradients (a weight's gradient ``x^T @ dy``), which the
+    reference contracts over the batch dims of rank-3 operands and does
+    not charge.
   * DATA MOVEMENT (gathers, scatters, index ops, sort, cumsum) charges
     operand and result bytes. Every op but a convert adds prod(out) flops.
   * KERNELS. The port's hand-written kernels are ctypes calls that no
@@ -125,6 +131,14 @@ def _nbytes(shape, dtype) -> int:
     return _numel(shape) * dtype.itemsize
 
 
+def _held_nbytes(t: torch.Tensor) -> int:
+    """Bytes of the elements ``t`` holds: a broadcast dim (stride 0, as
+    ``torch.matmul`` expands a weight to feed ``bmm``) reads its source
+    once."""
+    return _numel(d for d, s in zip(t.shape, t.stride()) if s != 0) \
+        * t.dtype.itemsize
+
+
 class Operand:
     """A kernel operand the port does not materialise (the reference's
     padded activation, a slice of a packed array): its shape and dtype,
@@ -206,7 +220,7 @@ class _Recorder:
         self.acc["dot_flops"] += f
         self.acc["flops"] += f
         srcs = [self.source(lhs), self.source(rhs)]
-        self.acc["bytes"] += (sum(_nbytes(s.shape, s.dtype) for s in srcs)
+        self.acc["bytes"] += (sum(_held_nbytes(s) for s in srcs)
                               + _nbytes(out.shape, out.dtype))
         charged = [False, False]
         for i, v in enumerate((lhs, rhs)):
@@ -217,9 +231,10 @@ class _Recorder:
                     if id(v) in self.seen:
                         continue
                     self.seen.add(id(v))
-                self.charge(_nbytes(srcs[i].shape, srcs[i].dtype), path)
-        if not charged[1] and not batched and srcs[1].ndim == 2:
-            self.charge(_nbytes(srcs[1].shape, srcs[1].dtype), UNTAGGED_DOT)
+                self.charge(_held_nbytes(srcs[i]), path)
+        if (not charged[1] and not batched and srcs[1].ndim == 2
+                and torch._C._current_graph_task_id() < 0):
+            self.charge(_held_nbytes(srcs[1]), UNTAGGED_DOT)
 
     # -- kernels ------------------------------------------------------------
     def kernel(self, flops, operands, results):

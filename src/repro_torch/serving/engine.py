@@ -10,7 +10,8 @@ each request moves through
     QUEUED -> PREFILLING -> DECODING -> DONE
 
 with all scheduling on the host and all math in two fixed-shape steps
-(``launch.steps.build_step``) plus the slot reset:
+(``launch.steps.build_slot_decode_step`` and
+``serving.prefill.build_chunk_step``) plus the slot reset:
 
   * decode step   (B, 1) tokens + (B,) active mask (only active slots
     write the cache: models.decode.decode_step_);
@@ -24,6 +25,14 @@ with all scheduling on the host and all math in two fixed-shape steps
 An enc-dec model (whisper) takes ``enc_out``, the encoder's output with
 one row per slot, into the cache: every step reads it, and it stays with
 its slot whatever request the slot serves (the reference's rule).
+
+The engine runs on a mesh (``mesh``, by default
+``launch.mesh.make_test_mesh(device)``): the one-card (1, 1) mesh, whose
+device must be ``device``. The steps' shardings are reckoned at the
+engine's shapes and checked to fit it (``runtime.sharding``), and every
+operand must lie on its device; nothing moves, as one card holds every
+array whole. A mesh of more than one device, or on another device, is
+refused.
 
 Each step is compiled once (``launch.steps.compile_step``, the
 reference's ``jax.jit`` with the cache donated): on the card one CUDA
@@ -130,7 +139,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import build_step, compile_step
+from repro_torch.launch.mesh import Mesh, concrete_device, make_test_mesh
+from repro_torch.launch.steps import (build_slot_decode_step, build_step,
+                                      compile_step)
 from repro_torch.models import init_cache
 from repro_torch.obs.sentinel import RecompileSentinel
 from repro_torch.obs.trace import Tracer
@@ -140,7 +151,8 @@ from repro_torch.serving.faults import (EngineCrash, FaultPlan, corrupt_cache,
 from repro_torch.serving.journal import Journal
 from repro_torch.serving.metrics import MetricsRecorder
 from repro_torch.serving.paging import PageAllocator
-from repro_torch.serving.prefill import PREFILL_MODES, assemble_chunk
+from repro_torch.serving.prefill import (PREFILL_MODES, assemble_chunk,
+                                         build_chunk_step, check_on_mesh)
 from repro_torch.serving.workload import Request
 
 
@@ -222,7 +234,8 @@ class ServeEngine:
 
     SCHEDULES = ("fifo", "spf")
 
-    def __init__(self, cfg, params, *, n_slots: int = 4, max_len: int = 64,
+    def __init__(self, cfg, params, *, mesh=None, n_slots: int = 4,
+                 max_len: int = 64,
                  prefill_chunk: int = 16, prefill_mode: str = "chunked",
                  schedule: str = "fifo", spf_age_cap: int = 8,
                  stacked_tables=None, enc_out=None,
@@ -250,6 +263,14 @@ class ServeEngine:
         self.prefill_mode = prefill_mode
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_test_mesh(self.device)
+        if not isinstance(self.mesh, Mesh):
+            raise TypeError(f"mesh must be a launch.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        if self.mesh.device != concrete_device(self.device):
+            raise ValueError(f"mesh on {self.mesh.device}, engine on "
+                             f"{self.device}: the mesh's one device must be "
+                             f"the engine's")
         self.n_slots = n_slots
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
@@ -318,15 +339,30 @@ class ServeEngine:
         self.cache = cache
         # the three steps, compiled once each with the params and the cache
         # held where they lie (cuda_graphs=False runs them eagerly on the
-        # card too, counting signatures all the same)
-        def compiled(kind, buffers):
-            return compile_step(build_step(cfg, kind,
-                                           stacked_tables=stacked_tables),
-                                buffer_argnums=buffers, graphs=cuda_graphs)
-        self._decode = compiled("decode", (0, 1))
-        self._prefill = (compiled("prefill_chunk", (0, 1))
-                         if prefill_mode == "chunked" else None)
-        self._reset = compiled("reset", (0,))
+        # card too, counting signatures all the same); the decode and chunk
+        # steps' shardings checked against the mesh at the engine's shapes
+        decode_fn, shard_fn = build_slot_decode_step(
+            cfg, self.mesh, stacked_tables=stacked_tables)
+        inputs = (torch.zeros((n_slots, 1), dtype=torch.int32,
+                              device=self.device),
+                  torch.zeros((n_slots,), dtype=torch.bool,
+                              device=self.device))
+        if self.paged:
+            inputs += (torch.full((n_slots, self.max_pages_per_slot), -1,
+                                  dtype=torch.int32, device=self.device),)
+        check_on_mesh(self.mesh, (params, cache) + inputs,
+                      shard_fn(params, cache, *inputs),
+                      ("params", "cache", "token", "active", "ptab"))
+        self._decode = compile_step(decode_fn, buffer_argnums=(0, 1),
+                                    graphs=cuda_graphs)
+        self._prefill = None
+        if prefill_mode == "chunked":
+            self._prefill = build_chunk_step(
+                cfg, self.mesh, params, cache, n_slots, prefill_chunk,
+                stacked_tables=stacked_tables, paged=self.paged,
+                max_pages=self.max_pages_per_slot, graphs=cuda_graphs)
+        self._reset = compile_step(build_step(cfg, "reset"),
+                                   buffer_argnums=(0,), graphs=cuda_graphs)
         # the chunk math of the prefill step; None in "full" mode, where
         # prompt tokens ride the decode call
         self.prefill_kind = (self._prefill.call_kind
@@ -511,7 +547,7 @@ class ServeEngine:
     @classmethod
     def restore(cls, cfg, params, *, snapshot_dir: str,
                 journal_path: Optional[str] = None,
-                step: Optional[int] = None, stacked_tables=None,
+                step: Optional[int] = None, mesh=None, stacked_tables=None,
                 enc_out=None, fault_plan: Optional[FaultPlan] = None,
                 tracer: Optional[Tracer] = None,
                 recompile_sentinel: bool = True, journal_fsync: bool = True,
@@ -542,7 +578,7 @@ class ServeEngine:
             kw["page_size"] = extra["engine"]["page_size"]
             kw["n_pages"] = extra["engine"]["n_pages"]
         kw.update(overrides)
-        engine = cls(cfg, params, stacked_tables=stacked_tables,
+        engine = cls(cfg, params, mesh=mesh, stacked_tables=stacked_tables,
                      enc_out=enc_out, fault_plan=fault_plan, tracer=tracer,
                      recompile_sentinel=recompile_sentinel, journal=None,
                      snapshot_dir=snapshot_dir, device=device,

@@ -10,6 +10,10 @@ caches:
   * "full": prompt tokens feed the ordinary (B, 1) decode step one at a
     time (P calls to first token), sharing the decode call with in-flight
     decodes. Sliding-window archs (a ring cache) take this one.
+
+``build_chunk_step`` builds the chunked policy's step on a mesh: its
+shardings at the engine's shapes, checked against the mesh, and the
+compiled step.
 """
 
 from __future__ import annotations
@@ -17,6 +21,11 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.launch.steps import (build_prefill_chunk_step,
+                                      check_on_device, compile_step)
+from repro_torch.runtime import sharding as shr
 
 PREFILL_MODES = ("chunked", "full")
 
@@ -40,3 +49,41 @@ def assemble_chunk(prompts: Dict[int, np.ndarray], cursors: Dict[int, int],
         tokens[s, :n] = prompt[cur:cur + n]
         n_valid[s] = n
     return tokens, n_valid
+
+
+def check_on_mesh(mesh, operands, specs, what):
+    """Raise unless every spec of ``specs`` fits ``mesh`` (ValueError) and
+    every tensor of ``operands`` lies on its one device
+    (``launch.steps.check_on_device``)."""
+    for name, tree, spec in zip(what, operands, specs):
+        shr.check_fits(tree, spec, mesh, what=name)
+        check_on_device(mesh, tree, name)
+
+
+def build_chunk_step(cfg, mesh, params, cache, n_slots: int, chunk: int,
+                     stacked_tables=None, paged: bool = False,
+                     max_pages: int = 0, graphs: bool = True):
+    """The fixed-shape chunk prefill step on ``mesh``, compiled
+    (``launch.steps.compile_step``, the params and the cache held where
+    they lie): one signature for (n_slots, chunk), so every request,
+    whatever its prompt length, flows through it (ragged tails via
+    n_valid). Its shardings are reckoned at those shapes and checked to
+    fit the mesh, and every operand must lie on the mesh's device.
+
+    paged=True takes the page-table variant: one extra trailing ``ptab``
+    (n_slots, max_pages) int32 operand, per-call data, so page churn
+    between calls keeps the one signature. The step carries the
+    ``call_kind`` ("prefill_parallel" or "prefill_chunk_exact") and
+    ``arch`` tags of ``build_step``."""
+    step_fn, shard_fn = build_prefill_chunk_step(
+        cfg, mesh, stacked_tables=stacked_tables)
+    dev = mesh.device
+    inputs = (torch.zeros((n_slots, chunk), dtype=torch.int32, device=dev),
+              torch.zeros((n_slots,), dtype=torch.int32, device=dev))
+    if paged:
+        inputs += (torch.full((n_slots, max_pages), -1, dtype=torch.int32,
+                              device=dev),)
+    check_on_mesh(mesh, (params, cache) + inputs,
+                  shard_fn(params, cache, *inputs),
+                  ("params", "cache", "tokens", "n_valid", "ptab"))
+    return compile_step(step_fn, buffer_argnums=(0, 1), graphs=graphs)

@@ -53,7 +53,9 @@ SLICE_MODULES = {
     "repro_torch.optim.schedule", "repro_torch.data.pipeline",
     "repro_torch.runtime.compression", "repro_torch.launch.train",
     "repro_torch.core.hybrid", "repro_torch.configs.paper_cnns",
-    "repro_torch.core.workload_gen"}
+    "repro_torch.core.workload_gen", "repro_torch.launch.mesh",
+    "repro_torch.runtime.sharding", "repro_torch.runtime.act_sharding",
+    "repro_torch.launch.dryrun", "repro_torch.launch.roofline"}
 
 #: the port's example scripts (examples/<name>.py), imported by the probe
 EXAMPLES = ("torch_serve_lm", "torch_train_lm", "torch_dbpim_compress_lm")
@@ -80,6 +82,7 @@ def test_entry_points_raise_without_a_card():
         pytest.skip("a CUDA card is present: the default device is valid")
     from repro_torch.configs import get_config
     from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import make_test_mesh
     from repro_torch import quickstart
     from repro_torch.models import init_cache, init_params
     from repro_torch.serving import ServeEngine
@@ -102,6 +105,7 @@ def test_entry_points_raise_without_a_card():
                  lambda: train.main(["--arch", "tinyllama-1.1b",
                                      "--reduced", "--steps", "1"]),
                  lambda: quickstart.main([]),
+                 lambda: make_test_mesh(),
                  *(lambda name=name: runpy.run_path(
                      str(ROOT / "examples" / f"{name}.py"),
                      run_name="example_probe")["main"]([])
