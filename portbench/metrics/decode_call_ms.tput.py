@@ -1,0 +1,7 @@
+"""Model step: the engine tracer's decode "call" spans started in the
+window, their time summed over their count (ms). A span closes once the
+call's logits are on the host."""
+
+
+def read(run):
+    return run.mean_call_ms("decode")
