@@ -171,9 +171,11 @@ its own failure; phase 4g catches the one EngineStuckError it provokes):
               engine's under the same plan. The
               same plan traced: the same streams and device launches, the
               trace validates, renders and converts to Chrome's format;
-              the tracer's host µs a tick. FaultPlan.none(): the streams
-              and launches of no plan. A NaN-logits fault on slot 0 at
-              tick 10 and a corruption of the reset slot at tick 11: the
+              the tracer's host µs a tick; its reset spans, each call's
+              device_us and the ticks' host µs by phase. FaultPlan.none():
+              the streams and launches of no plan. A NaN-logits fault on
+              slot 0 at tick 10 and a corruption of the reset slot at tick
+              11: the
               streams, the fault and replay counts and the quarantine
               ticks of the CPU engine (whose attention reads every key, as
               the reference's does; row_attention reads the dead keys'
@@ -2997,7 +2999,8 @@ def _fault_audit(plan, records, max_step_retries):
                 if s in occupied:
                     counts["cache_corruption"] += 1
                     poisoned.add(s)
-        elif r.get("type") == "span" and name == "call":
+        elif r.get("type") == "span" and name == "call" and \
+                a["phase"] != "reset":
             call = r
             reps = [e.repeat for e in plan.events
                     if e.kind == "step_exception" and e.tick == r["tick"]
@@ -3084,6 +3087,9 @@ def phase_admission(engine, tables, ssm_engine, ssm_tables):
 
         def interval(self, *a, **kw):
             return self._timed(super().interval, *a, **kw)
+
+        def annotate(self, *a, **kw):
+            return self._timed(super().annotate, *a, **kw)
 
     def build(plan=None, tracer=None, ticks=None, **kw):
         e = ServeEngine(cfg, engine.params, **{**ADMIT_GEOMETRY, **kw},
@@ -3186,7 +3192,9 @@ def phase_admission(engine, tables, ssm_engine, ssm_tables):
         (s_c["faults"], audit)
     assert s_c["device_calls"] == sum(s_c["calls_by_kind"].values())
     spans = [r for r in records if r.get("type") == "span"]
+    # the recorder counts prefill and decode calls, not the slot resets
     assert sum(r["name"] == "call" and r["attrs"]["ok"]
+               and r["attrs"]["phase"] in ("prefill", "decode")
                for r in spans) == s_c["device_calls"]
     # the serve CLI's --trace-out waterfalls, one a call kind: computed
     # after the run, launching nothing (check_waterfall)
@@ -3246,6 +3254,28 @@ def phase_admission(engine, tables, ssm_engine, ssm_tables):
         f"profiler): untraced {med['untraced'][0]:.1f}, traced "
         f"{med['traced'][0]:.1f}, the tracer's own {med['traced'][1]:.1f} "
         f"(mean {1e6 * traced.tracer.spent / s_t['engine_ticks']:.1f})")
+    calls_t = [r for r in loaded
+               if r.get("type") == "span" and r["name"] == "call"]
+    resets = [r for r in calls_t if r["attrs"]["phase"] == "reset"]
+    assert resets and all(0 <= r["attrs"]["enqueued_us"] <= r["dur_us"]
+                          for r in calls_t)
+    phases = {k: statistics.median(r["attrs"][k] for r in loaded
+                                   if r.get("type") == "span"
+                                   and r["name"] == "tick")
+              for k in ("admit_us", "assemble_us", "sample_us")}
+
+    def device_us(phase):
+        got = [r["attrs"]["device_us"] for r in calls_t
+               if r["attrs"]["phase"] == phase and "device_us" in r["attrs"]]
+        return f"{len(got)} {phase} {statistics.median(got):.1f}" if got \
+            else f"0 {phase}"
+    log(f"[admit] traced readings: {len(resets)} reset spans (causes "
+        f"{sorted({r['attrs']['cause'] for r in resets})}), device_us on "
+        f"{sum('device_us' in r['attrs'] for r in calls_t)} of "
+        f"{len(calls_t)} call spans (count, phase, median µs: "
+        + ", ".join(device_us(k) for k in ("reset", "prefill", "decode"))
+        + "); tick host µs by phase (median): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in phases.items()))
     del chaos, traced
 
     # -- the zero plan ----------------------------------------------------

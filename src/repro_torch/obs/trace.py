@@ -23,7 +23,7 @@ Record taxonomy (one JSON object per line in the JSONL dump):
   span        name ("tick" | "call"), tick, ts_us, dur_us, attrs
   event       name (admit | prefill | first_token | quarantine |
               replay | shed | reject | release | fault | retry |
-              crash | snapshot | restore), tick, ts_us, attrs
+              preempt | crash | snapshot | restore), tick, ts_us, attrs
   interval    slot, rid, admit_tick, release_tick — one closed
               SlotInterval from the engine's slot audit log
   waterfall   kind, total, rows {param path -> weight bytes} — the
@@ -32,11 +32,39 @@ Record taxonomy (one JSON object per line in the JSONL dump):
               dumps a --trace-out trace
   ==========  =========================================================
 
+The engine's span attrs. A "tick" span: queue_depth, n_prefilling,
+n_decoding, device_calls (pages_used, pages_total when paged) and the
+tick's host time by phase in µs, outside every call span: admit_us
+(deadline shedding and admission), assemble_us (``assemble_chunk``) and
+sample_us (argmax, finite checks, token and slot bookkeeping after a
+call's logits reach the host). A "call" span: phase ("prefill" |
+"decode" | "reset"), kind, arch, participants, ok, and enqueued_us, the
+µs from the span's start to the return of the step call (inputs copied,
+the step launched); the host waits on the device over the rest of a
+prefill or decode span, which closes once the logits are on the host,
+and a reset span closes at its enqueue point. On the card each call span
+also gets device_us, the CUDA-event time on the stream from before its
+first input copy to after its step, added by ``annotate`` once the
+events have completed. Prefill spans add occupancy, replay, restore,
+rows (slots x chunk) and rows_valid (the prompt tokens the chunk held);
+decode spans occupancy; reset spans cause ("admit" | "quarantine").
+
 Span records are appended at BEGIN time (their ``dur_us`` is filled in
 at end), so the record list is start-ordered and ``validate`` can check
 wall-clock monotonicity by simple iteration. ``begin``/``end`` enforce
 LIFO nesting: a "call" span always closes before its enclosing "tick"
 span, which is what makes the Chrome conversion a pure reformat.
+
+While a torch profiler records (checked at every ``begin``), each span
+also opens a profiler range, closed at its ``end``: "engine.tick", or
+"engine.call.<phase>" for a call span, so a profiler export holds the
+engine's spans and the device's kernels on the profiler's one clock. With
+no profiler recording no range is opened. The range is a function-scope
+one (``torch._C._profiler._RecordFunctionFast``), a host record alone:
+``torch.profiler.record_function``'s user scope is mirrored onto the
+device timeline as a "gpu_user_annotation" record over the range's
+kernels, which a reader of the device's records would count as device
+work (busy time, idle gaps).
 
 The tracer is PASSIVE: it never issues device calls and never touches
 engine decisions, so tracing on vs off is bitwise-output- and
@@ -51,6 +79,8 @@ import json
 import time
 from typing import Dict, List, Optional
 
+import torch
+
 TRACE_VERSION = 1
 
 #: span names the engine emits; anything else fails validation
@@ -60,7 +90,7 @@ SPAN_NAMES = ("tick", "call")
 #: tracer may span a kill + warm restart, and stays valid because the
 #: restored engine resumes at a strictly later tick
 EVENT_NAMES = ("admit", "prefill", "first_token", "quarantine", "replay",
-               "shed", "reject", "release", "fault", "retry",
+               "shed", "reject", "release", "fault", "retry", "preempt",
                "crash", "snapshot", "restore")
 
 
@@ -83,9 +113,13 @@ class Tracer:
             "type": "meta", "version": TRACE_VERSION, "arch": arch,
             **(meta or {})}]
         self._open: List[dict] = []
+        #: the profiler range of each open span (None: no profiler)
+        self._ranges: list = []
+        self._dumped = False
 
     # -- clocks ------------------------------------------------------------
-    def _now_us(self) -> float:
+    def now_us(self) -> float:
+        """µs since the tracer was created: the clock of ``ts_us``."""
         return (time.perf_counter() - self._wall0) * 1e6
 
     # -- spans -------------------------------------------------------------
@@ -93,9 +127,17 @@ class Tracer:
         """Open a span; returns the handle ``end`` takes. The record is
         appended NOW (start-ordered stream); dur_us lands at ``end``."""
         span = {"type": "span", "name": name, "tick": int(tick),
-                "ts_us": self._now_us(), "dur_us": None, "attrs": attrs}
+                "ts_us": self.now_us(), "dur_us": None, "attrs": attrs}
         self.records.append(span)
         self._open.append(span)
+        rng = None
+        if torch.autograd._profiler_enabled():
+            label = f"engine.{name}"
+            if "phase" in attrs:
+                label += f".{attrs['phase']}"
+            rng = torch._C._profiler._RecordFunctionFast(label)
+            rng.__enter__()
+        self._ranges.append(rng)
         return span
 
     def end(self, span: dict, **attrs):
@@ -107,14 +149,28 @@ class Tracer:
                 f"must nest LIFO (open: "
                 f"{[s['name'] for s in self._open]})")
         self._open.pop()
-        span["dur_us"] = self._now_us() - span["ts_us"]
+        rng = self._ranges.pop()
+        if rng is not None:
+            rng.__exit__(None, None, None)
+        span["dur_us"] = self.now_us() - span["ts_us"]
         if attrs:
             span["attrs"].update(attrs)
+
+    def annotate(self, span: dict, **attrs):
+        """Add attrs to a span already closed (a reading that completes
+        later, as a call's device time does); allowed until ``dump``."""
+        if span["dur_us"] is None:
+            raise TraceError(f"annotate of the open span {span['name']!r}: "
+                             f"give its attrs to end")
+        if self._dumped:
+            raise TraceError("annotate after dump: the dumped trace would "
+                             "lack it")
+        span["attrs"].update(attrs)
 
     # -- instants / intervals ---------------------------------------------
     def event(self, name: str, tick: int, **attrs):
         self.records.append({"type": "event", "name": name,
-                             "tick": int(tick), "ts_us": self._now_us(),
+                             "tick": int(tick), "ts_us": self.now_us(),
                              "attrs": attrs})
 
     def interval(self, slot: int, rid: int, admit_tick: int,
@@ -143,6 +199,7 @@ class Tracer:
         with open(path, "w") as f:
             for r in self.records:
                 f.write(json.dumps(r) + "\n")
+        self._dumped = True
 
 
 def load(path: str) -> List[dict]:

@@ -83,9 +83,15 @@ outlier ticks are counted in metrics ("straggler_ticks").
 
 Tracing (``tracer=obs.Tracer()``) is PASSIVE: two-clock spans ("tick"
 per tick, "call" per device call, closed after the host copy of the
-call's logits), slot lifecycle events and the closed slot intervals;
-with it on, the engine issues the same device calls and kernel launches
-as with it off.
+call's logits, and per slot reset a tick issues, closed at its enqueue
+point), slot lifecycle events and the closed slot intervals; with it on,
+the engine issues the same device calls and kernel launches as with it
+off. The spans carry the readings ``obs.trace`` lists: each call's
+enqueue point, a prefill call's valid rows and the tick's host time by
+phase; on the card also each call's device time, from a pair of CUDA
+events (a reused pool) read once the events have completed, at the end
+of a tick, never by a synchronize. With no tracer none of it runs: no
+clock read, no event, no allocation.
 
 Durability (serving.journal, serving.snapshot), passive like the tracer:
 
@@ -223,6 +229,42 @@ class EngineStuckError(RuntimeError):
         self.trace_path = trace_path
 
 
+class _DeviceTimes:
+    """The device time of traced calls: a CUDA event recorded on the
+    current stream before a call's first input copy and one after its step
+    returns, from a pool of reused pairs. ``read`` annotates each call span
+    whose end event has completed with ``device_us`` and returns its pair
+    to the pool; a pair not yet complete waits for a later ``read``."""
+
+    def __init__(self, device):
+        self.device = device
+        self._free: list = []
+        self._pair = None
+        self._pending: list = []          # (span, (start, end))
+
+    def start(self):
+        self._pair = (self._free.pop() if self._free else
+                      (torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True)))
+        self._pair[0].record(torch.cuda.current_stream(self.device))
+
+    def stop(self, span: dict):
+        self._pair[1].record(torch.cuda.current_stream(self.device))
+        self._pending.append((span, self._pair))
+        self._pair = None
+
+    def read(self, tracer: Tracer):
+        waiting = []
+        for span, (start, end) in self._pending:
+            if end.query():
+                tracer.annotate(span,
+                                device_us=1e3 * start.elapsed_time(end))
+                self._free.append((start, end))
+            else:
+                waiting.append((span, (start, end)))
+        self._pending = waiting
+
+
 class ServeEngine:
     """See module docstring. Typical use:
 
@@ -283,6 +325,13 @@ class ServeEngine:
         self.max_step_retries = max_step_retries
         self.max_replays = max_replays
         self.tracer = tracer
+        #: traced calls' device time (the card only), the call spans'
+        #: summed µs and this tick's host µs by phase (tracing only)
+        self._device_times = (_DeviceTimes(self.device)
+                              if tracer is not None
+                              and self.device.type == "cuda" else None)
+        self._call_us = 0.0
+        self._phases: Dict[str, float] = {}
         self.params = params
         self.stacked_tables = stacked_tables
         # -- the paged cache: n_pages defaults to the full static capacity
@@ -599,9 +648,15 @@ class ServeEngine:
         calls = 0
         if self.fault_plan is not None:
             self._inject_cache_faults(tick)
+        if span is not None:
+            self._phases = {"admit_us": 0.0, "assemble_us": 0.0,
+                            "sample_us": 0.0}
+            mark = self._phase_mark()
         if self._has_deadlines:
             self._shed_hopeless_slots(tick)
         self._admit(tick)
+        if span is not None:
+            self._phase_add("admit_us", mark)
         if self.paged:
             # every occupied slot owns the pages this tick's writes land in
             # before the device calls go out; pressure preempts the
@@ -622,8 +677,11 @@ class ServeEngine:
                              n_decoding=n_dec, device_calls=calls,
                              pages_used=pages_used, pages_total=pages_total)
         if span is not None:
+            if self._device_times is not None:
+                self._device_times.read(self.tracer)
             attrs = dict(queue_depth=qd, n_prefilling=n_pre,
-                         n_decoding=n_dec, device_calls=calls)
+                         n_decoding=n_dec, device_calls=calls,
+                         **self._phases)
             if self.paged:
                 attrs.update(pages_used=pages_used, pages_total=pages_total)
             self.tracer.end(span, **attrs)
@@ -760,7 +818,7 @@ class ServeEngine:
             self.slot_log.append(iv)
             self._open_interval[s] = iv
         if mask.any():
-            self.cache = self._reset_call(mask)
+            self.cache = self._reset_call(mask, tick, "admit")
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -778,8 +836,52 @@ class ServeEngine:
     def _paged_args(self):
         return (self._ptab(),) if self.paged else ()
 
-    def _reset_call(self, mask: np.ndarray):
-        return self._reset(self.cache, self._tensor(mask), *self._paged_args())
+    def _reset_call(self, mask: np.ndarray, tick: Optional[int] = None,
+                    cause: Optional[str] = None):
+        """The reset step over the slots in ``mask``. A reset a tick issues
+        names its ``cause`` ("admit" | "quarantine") and is traced as a
+        "call" span of phase "reset", closed at its enqueue point; a
+        restore's (serving.snapshot, outside any tick) is not."""
+        if self.tracer is None or cause is None:
+            return self._reset(self.cache, self._tensor(mask),
+                               *self._paged_args())
+        span = self._begin_call(
+            tick, phase="reset", kind="reset", arch=self.cfg.name,
+            participants=[int(s) for s in np.flatnonzero(mask)], cause=cause)
+        cache = self._reset(self.cache, self._tensor(mask),
+                            *self._paged_args())
+        self._end_call(span, self._enqueued(span), ok=True)
+        return cache
+
+    # ------------------------------------------------------------ tracing
+
+    def _begin_call(self, tick: int, **attrs) -> dict:
+        """Open a "call" span and, on the card, its device clock."""
+        span = self.tracer.begin("call", tick, **attrs)
+        if self._device_times is not None:
+            self._device_times.start()
+        return span
+
+    def _enqueued(self, span: dict) -> float:
+        """The step call returned: stop the call's device clock; the µs
+        since the span began."""
+        if self._device_times is not None:
+            self._device_times.stop(span)
+        return self.tracer.now_us() - span["ts_us"]
+
+    def _end_call(self, span: dict, enqueued_us: float, **attrs):
+        self.tracer.end(span, enqueued_us=enqueued_us, **attrs)
+        self._call_us += span["dur_us"]
+
+    def _phase_mark(self):
+        return self.tracer.now_us(), self._call_us
+
+    def _phase_add(self, phase: str, mark):
+        """Add the host µs since ``mark`` outside call spans to ``phase``
+        of this tick."""
+        t0, c0 = mark
+        self._phases[phase] += (self.tracer.now_us() - t0
+                                - (self._call_us - c0))
 
     def _slot_pages_needed(self, s: int) -> int:
         """Pages slot ``s`` must own before this tick's device calls: a
@@ -853,25 +955,33 @@ class ServeEngine:
                       if slot.state is SlotState.PREFILLING}
         if not prefilling:
             return 0
+        if self.tracer is not None:
+            mark = self._phase_mark()
         cursors = {s: self.slots[s].cursor for s in prefilling}
         tokens, n_valid = assemble_chunk(prefilling, cursors, self.n_slots,
                                          self.prefill_chunk)
         replaying = any(self.slots[s].replay for s in prefilling)
         restoring = any(self.slots[s].restore for s in prefilling)
-        span = (self.tracer.begin(
-                    "call", tick, phase="prefill", kind=self.prefill_kind,
-                    arch=self.cfg.name, participants=sorted(prefilling),
-                    occupancy=len(prefilling) / self.n_slots,
-                    replay=replaying, restore=restoring)
-                if self.tracer is not None else None)
+        span = None
+        if self.tracer is not None:
+            self._phase_add("assemble_us", mark)
+            span = self._begin_call(
+                tick, phase="prefill", kind=self.prefill_kind,
+                arch=self.cfg.name, participants=sorted(prefilling),
+                occupancy=len(prefilling) / self.n_slots,
+                replay=replaying, restore=restoring,
+                rows=self.n_slots * self.prefill_chunk,
+                rows_valid=int(n_valid.sum()))
         c0 = time.monotonic()
         res = self._device_call("prefill", self.prefill_kind, self._prefill,
                                 self.params, self.cache,
                                 self._tensor(tokens), self._tensor(n_valid),
                                 *self._paged_args())
+        if span is not None:
+            enqueued_us = self._enqueued(span)
         if res is None:                   # persistent step failure:
             if span is not None:          # quarantine every participant
-                self.tracer.end(span, ok=False)
+                self._end_call(span, enqueued_us, ok=False)
             for s in prefilling:
                 self._quarantine(s, tick, "step_exception")
             return 0
@@ -879,7 +989,8 @@ class ServeEngine:
         lg = self._host_logits(logits, tick, "prefill")
         dur_s = time.monotonic() - c0
         if span is not None:
-            self.tracer.end(span, ok=True)
+            self._end_call(span, enqueued_us, ok=True)
+            mark = self._phase_mark()
         self.metrics.on_device_call("prefill", kind=self.prefill_kind,
                                     replay=replaying, restore=restoring,
                                     dur_s=dur_s)
@@ -900,6 +1011,8 @@ class ServeEngine:
                 # the chunk holding the last prompt token yields the first
                 # generated token: TTFT lands here
                 self._finish_prefill(s, int(nxt[s]), logits, tick)
+        if span is not None:
+            self._phase_add("sample_us", mark)
         return 1
 
     def _decode_phase(self, tick: int) -> int:
@@ -917,8 +1030,8 @@ class ServeEngine:
                 active[s] = True
         if not active.any():
             return 0
-        span = (self.tracer.begin(
-                    "call", tick, phase="decode", kind="decode",
+        span = (self._begin_call(
+                    tick, phase="decode", kind="decode",
                     arch=self.cfg.name,
                     participants=[s for s in range(self.n_slots)
                                   if active[s]],
@@ -929,9 +1042,11 @@ class ServeEngine:
                                 self.params, self.cache,
                                 self._tensor(tokens), self._tensor(active),
                                 *self._paged_args())
+        if span is not None:
+            enqueued_us = self._enqueued(span)
         if res is None:
             if span is not None:
-                self.tracer.end(span, ok=False)
+                self._end_call(span, enqueued_us, ok=False)
             for s in range(self.n_slots):
                 if active[s]:
                     self._quarantine(s, tick, "step_exception")
@@ -940,7 +1055,8 @@ class ServeEngine:
         lg = self._host_logits(logits, tick, "decode")
         dur_s = time.monotonic() - c0
         if span is not None:
-            self.tracer.end(span, ok=True)
+            self._end_call(span, enqueued_us, ok=True)
+            mark = self._phase_mark()
         self.metrics.on_device_call("decode", kind="decode", dur_s=dur_s)
         nxt = lg.argmax(axis=-1)
         for s, slot in enumerate(self.slots):
@@ -969,6 +1085,8 @@ class ServeEngine:
                                     token=tok)
             if len(self.outputs[slot.rid]) >= slot.gen_len:
                 self._release(s, tick)
+        if span is not None:
+            self._phase_add("sample_us", mark)
         return 1
 
     # ----------------------------------------------- fault containment ----
@@ -1073,7 +1191,7 @@ class ServeEngine:
                               record_len=int(len(record)))
         mask = np.zeros((self.n_slots,), bool)
         mask[s] = True
-        self.cache = self._reset_call(mask)
+        self.cache = self._reset_call(mask, tick, "quarantine")
 
     # ------------------------------------------------------ SLO shedding --
 

@@ -125,8 +125,10 @@ def test_traced_chaos_run_validates_under_both_packages(chaos):
     assert stats == ref_validate(tracer.records)
     spans = [r for r in tracer.records if r.get("type") == "span"]
     assert sum(r["name"] == "tick" for r in spans) == s["engine_ticks"]
-    # one call span a device call, and one a call whose retries ran out
-    ok = [r for r in spans if r["name"] == "call" and r["attrs"]["ok"]]
+    # one call span a device call, and one a call whose retries ran out;
+    # the recorder counts prefill and decode calls, not the slot resets
+    ok = [r for r in spans if r["name"] == "call" and r["attrs"]["ok"]
+          and r["attrs"]["phase"] in ("prefill", "decode")]
     assert len(ok) == s["device_calls"]
     names = {r["name"] for r in tracer.records if r.get("type") == "event"}
     assert {"admit", "fault", "quarantine", "replay",
@@ -169,6 +171,234 @@ def test_render_and_chrome_equal_the_reference(chaos, tmp_path):
     assert report_main([str(path), "--chrome", str(chrome)]) == 0
     assert any(e.get("ph") == "X"
                for e in json.loads(chrome.read_text())["traceEvents"])
+
+
+# ------------------------------------------- the tick from inside --
+
+def _spans(tracer, name, phase=None):
+    return [r for r in tracer.records if r.get("type") == "span"
+            and r["name"] == name
+            and (phase is None or r["attrs"].get("phase") == phase)]
+
+
+def _events(tracer, name):
+    return [r for r in tracer.records
+            if r.get("type") == "event" and r["name"] == name]
+
+
+def test_reset_spans_are_the_admission_ticks_and_the_replays(chaos):
+    tracer = chaos[2]
+    resets = _spans(tracer, "call", "reset")
+    admit_ticks = {r["tick"] for r in _events(tracer, "admit")}
+    replays = _events(tracer, "replay")
+    assert len(resets) == len(admit_ticks) + len(replays)
+    assert sorted(r["tick"] for r in resets
+                  if r["attrs"]["cause"] == "admit") == sorted(admit_ticks)
+    assert sorted((r["tick"], r["attrs"]["participants"]) for r in resets
+                  if r["attrs"]["cause"] == "quarantine") == \
+        sorted((r["tick"], [r["attrs"]["slot"]]) for r in replays)
+    for r in resets:
+        assert r["attrs"]["kind"] == "reset" and r["attrs"]["ok"] is True
+        assert r["attrs"]["arch"] == tracer.records[0]["arch"]
+
+
+def test_reset_spans_lie_inside_their_ticks(chaos):
+    tracer = chaos[2]
+    ticks = {r["tick"]: r for r in _spans(tracer, "tick")}
+    resets = _spans(tracer, "call", "reset")
+    assert resets
+    for r in resets:
+        t = ticks[r["tick"]]
+        assert t["ts_us"] <= r["ts_us"]
+        assert r["ts_us"] + r["dur_us"] <= t["ts_us"] + t["dur_us"]
+    # both packages validate the trace that holds them
+    only = [tracer.records[0]] + [r for r in tracer.records[1:]
+                                  if r.get("type") != "span"
+                                  or r["name"] == "tick" or r in resets]
+    assert validate(only) == ref_validate(only)
+
+
+def test_every_call_span_has_its_enqueue_point(chaos):
+    calls = _spans(chaos[2], "call")
+    assert {r["attrs"]["phase"] for r in calls} == {"reset", "prefill",
+                                                    "decode"}
+    for r in calls:
+        assert 0 <= r["attrs"]["enqueued_us"] <= r["dur_us"]
+        # a reset span closes at its enqueue point
+        if r["attrs"]["phase"] == "reset":
+            assert r["dur_us"] - r["attrs"]["enqueued_us"] < 1e4
+        # no CUDA event on the CPU
+        assert "device_us" not in r["attrs"]
+
+
+def test_prefill_rows_valid_are_the_cursor_advances(chaos):
+    """rows = slots x chunk; rows_valid = what the chunk call's slots
+    advanced their cursors by, read from the "prefill" events (a slot
+    quarantined by the call advances none, so such a call reads more)."""
+    tracer = chaos[2]
+    cursor, advance = {}, {}
+    for r in tracer.records:
+        if r.get("type") != "event":
+            continue
+        s = r["attrs"].get("slot")
+        if r["name"] in ("admit", "replay"):
+            cursor[s] = 0
+        elif r["name"] == "prefill":
+            advance.setdefault(r["tick"], {})[s] = \
+                r["attrs"]["cursor"] - cursor[s]
+            cursor[s] = r["attrs"]["cursor"]
+    exact = 0
+    for r in _spans(tracer, "call", "prefill"):
+        a = r["attrs"]
+        assert a["rows"] == N_SLOTS * CHUNK
+        assert 1 <= a["rows_valid"] <= a["rows"]
+        if not a["ok"]:
+            continue
+        got = advance.get(r["tick"], {})
+        if sorted(got) == a["participants"]:
+            assert a["rows_valid"] == sum(got.values())
+            exact += 1
+        else:
+            assert a["rows_valid"] > sum(got.values())
+    assert exact >= 5
+
+
+def test_tick_phases_fit_in_the_tick(chaos):
+    tracer = chaos[2]
+    calls = {}
+    for r in _spans(tracer, "call"):
+        calls[r["tick"]] = calls.get(r["tick"], 0.0) + r["dur_us"]
+    for t in _spans(tracer, "tick"):
+        a = t["attrs"]
+        phases = [a["admit_us"], a["assemble_us"], a["sample_us"]]
+        assert min(phases) >= 0
+        assert sum(phases) <= t["dur_us"]
+        # outside every call span: with the calls, within the tick
+        assert sum(phases) + calls.get(t["tick"], 0.0) <= t["dur_us"] + 1e-6
+    assert any(t["attrs"]["assemble_us"] > 0
+               for t in _spans(tracer, "tick"))
+
+
+def _profiled(served, tracer):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        engine, out = _run(served, tracer=tracer)
+    return engine, out, [e.name for e in prof.events()]
+
+
+def test_profiler_ranges_hold_the_engine_spans(served):
+    tracer = Tracer()
+    _, out, names = _profiled(served, tracer)
+    assert names.count("engine.tick") == len(_spans(tracer, "tick"))
+    for phase in ("decode", "prefill", "reset"):
+        assert names.count(f"engine.call.{phase}") == \
+            len(_spans(tracer, "call", phase)) > 0
+    # no tracer under the profiler: no engine range, the same streams
+    _, bare, names = _profiled(served, None)
+    assert bare == out
+    assert not [n for n in names if n.startswith("engine.")]
+
+
+def test_no_profiler_opens_no_range(served, monkeypatch):
+    import torch
+    opened = []
+
+    class Counting:
+        def __init__(self, name):
+            opened.append(name)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast",
+                        Counting)
+    tracer = Tracer()
+    _run(served, tracer=tracer)
+    assert _spans(tracer, "tick") and opened == []
+
+
+def test_annotate_adds_to_a_closed_span_until_dump(tmp_path):
+    tr = Tracer()
+    t = tr.begin("tick", 0)
+    c = tr.begin("call", 0, phase="decode")
+    with pytest.raises(TraceError):
+        tr.annotate(c, device_us=1.0)       # still open: give it to end
+    tr.end(c, enqueued_us=1.0)
+    tr.end(t)
+    tr.annotate(c, device_us=2.5)
+    path = tmp_path / "a.jsonl"
+    tr.dump(str(path))
+    assert load(str(path))[2]["attrs"]["device_us"] == 2.5
+    with pytest.raises(TraceError):
+        tr.annotate(c, device_us=3.0)
+    assert validate(tr.records) == ref_validate(tr.records)
+
+
+def test_device_times_read_completed_events_only(monkeypatch):
+    """The card's device clock of a call, with fake events: a pair is read
+    into ``device_us`` once its end event has completed, a pending one at
+    a later read, and read pairs are reused."""
+    import torch
+
+    from repro_torch.serving.engine import _DeviceTimes
+    made = []
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            assert enable_timing
+            self.at, self.done = None, False
+            made.append(self)
+
+        def record(self, stream=None):
+            self.at = len(made) + 0.5 * sum(e.at is not None for e in made)
+
+        def query(self):
+            return self.done
+
+        def elapsed_time(self, end):
+            return end.at - self.at
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: None)
+    tr = Tracer()
+    times = _DeviceTimes(torch.device("cuda"))
+    spans = []
+    for phase in ("reset", "decode"):
+        spans.append(tr.begin("call", 0, phase=phase))
+        times.start()
+        times.stop(spans[-1])
+        tr.end(spans[-1])
+    made[1].done = True                   # the reset's end event
+    times.read(tr)
+    assert spans[0]["attrs"]["device_us"] == 1e3 * (made[1].at - made[0].at)
+    assert "device_us" not in spans[1]["attrs"]
+    made[3].done = True
+    times.read(tr)
+    assert "device_us" in spans[1]["attrs"] and not times._pending
+    times.start()                         # a pair from the pool
+    assert len(made) == 4
+
+
+def test_paged_preempting_run_validates():
+    """A traced tight-pool paged run preempts, and its "preempt" events
+    validate."""
+    from repro_torch.models import init_params
+    cfg = get_config("tinyllama-1.1b", reduced=True).scaled(dtype="float32")
+    tracer = Tracer(arch=cfg.name)
+    engine = ServeEngine(cfg, init_params(cfg, device="cpu"), n_slots=3,
+                         max_len=24, prefill_chunk=4, paged=True,
+                         page_size=4, n_pages=8, tracer=tracer,
+                         device="cpu")
+    engine.run(make_trace(WorkloadSpec(
+        n_requests=10, arrival_rate=1.0, prompt_len=(3, 10),
+        gen_len=(3, 6), dist="uniform", seed=7), cfg.vocab_size))
+    preempts = _events(tracer, "preempt")
+    assert preempts and len(preempts) == \
+        engine.metrics.summary()["n_preemptions"]
+    assert validate(tracer.records)["events"] >= len(preempts)
+    assert "preempt" in render(tracer.records)
 
 
 # -------------------------------------------------------- the recorder --
