@@ -551,6 +551,15 @@ LONG_B, LONG_A, LONG_C = 16, 2048, 256
 #: units (one prefill-chunk call of the long-context cell)
 ATTN_LONG_UNIT = "row_attention long context"
 NORM_LONG_UNIT = "row_norm long context"
+#: the row bound (nq: the queries computed per slot) at the chunk calls'
+#: shapes, as the engine passes its valid tokens: a whole slot, one bound
+#: inside a 16-row tile (odd: 8 query heads a KV head), a slot of one token
+#: and slots with none; and the times phase's units of the bounded calls
+BOUND_NQ = {"chunk": (64, 37, 0, 0),
+            "long": (LONG_C, 123, 1) + (0,) * (LONG_B - 3),
+            "stream": (5, 0)}
+ATTN_BOUND_UNIT = "row_attention bounded chunk"
+ATTN_LONG_BOUND_UNIT = "row_attention bounded long context"
 #: the MoE serve phase: mixtral-8x7b at full width and depth, the same
 #: cell (its sliding window makes the engine prefill stepwise, so the
 #: chunk size is unused)
@@ -1092,6 +1101,12 @@ def phase_kernel_rows(cfg, dev, norm_widths):
             log(f"[kernel] row_attention {what} {tuple(q.shape)} x cache "
                 f"{tuple(a['k'].shape)} {str(dt)[6:]}: max|d|={err:.3e} "
                 f"(tol {tol:.3e})")
+            if what in BOUND_NQ:
+                worst_b = _check_bounded(rak, q, a["k"], a["v"], pos,
+                                         BOUND_NQ[what], y, what)
+                if dt == torch.bfloat16:
+                    worst["row_attention"] = max(worst["row_attention"],
+                                                 worst_b)
             del y, ref
         for what, a, ts in (("chunk", serve, (0, 31, 63)),
                             ("long", long, (0, 127, 255))):
@@ -1128,6 +1143,10 @@ def phase_kernel_rows(cfg, dev, norm_widths):
             f"{tuple(a['k'].shape)} {str(dt)[6:]} (past the resident "
             f"logits' limit): max|d|={err:.3e} (tol {tol:.3e}); queries 0, "
             f"3, 7 bitwise equal to one-query calls")
+        worst_b = _check_bounded(rak, q, a["k"], a["v"], pos,
+                                 BOUND_NQ["stream"], y, "stream")
+        if dt == torch.bfloat16:
+            worst["row_attention"] = max(worst["row_attention"], worst_b)
         del a, y, ref
         for D in norm_widths:
             x4096 = torch.randn((4096, D), generator=gen).to(dt).to(dev)
@@ -1156,6 +1175,32 @@ def phase_kernel_rows(cfg, dev, norm_widths):
             log(f"[kernel] row_norm d={D} {str(dt)[6:]}: rows of R=4 "
                 f"bitwise equal rows of R=256 and R=4096")
     return worst
+
+
+def _check_bounded(rak, q, k, v, pos, nq, y, what):
+    """row_attention with the row bound ``nq`` (a tuple, one per slot)
+    against the plain version with it, at the tolerance of the call without
+    it (``y``): the queries below the bound bitwise ``y``'s, the rest exact
+    zeros. Returns the abs error."""
+    dt = q.dtype
+    nq = torch.tensor(nq, dtype=torch.int32, device=q.device)
+    yb = rak.row_attention(q, k, v, pos, nq=nq)
+    torch.cuda.synchronize()
+    ref = rak.row_attention_plain(q, k, v, pos, nq=nq)
+    peak = ref.float().abs().max().item()
+    err = (yb.float() - ref.float()).abs().max().item()
+    tol = (F32_TOL if dt == torch.float32 else ATTN_REL_TOL) * peak
+    assert torch.isfinite(yb).all() and err <= tol, \
+        ("row_attention bounded", what, dt, err, tol)
+    keep = torch.arange(q.shape[1], device=q.device)[None] < nq[:, None]
+    assert torch.equal(yb[keep], y[keep]), ("bounded rows", what, dt)
+    assert torch.equal(yb[~keep], torch.zeros_like(yb[~keep])), \
+        ("rows past the bound", what, dt)
+    log(f"[kernel] row_attention {what} {tuple(q.shape)} {str(dt)[6:]}, "
+        f"row bound {tuple(nq.tolist())}: max|d|={err:.3e} (tol "
+        f"{tol:.3e}); the rows below it bitwise the call without it, the "
+        f"rest exact zeros")
+    return err
 
 
 @contextlib.contextmanager
@@ -4776,6 +4821,8 @@ def _time_cases(cfg, packs, tables_by_mode, dev, ssm_cfg, ssm_packs,
                                                    "streaming")]
     cases[ATTN_LONG_UNIT] = [c for c in attn if c["name"] == "long context"]
     cases[ATTN_STREAM_UNIT] = [c for c in attn if c["name"] == "streaming"]
+    cases[ATTN_BOUND_UNIT], cases[ATTN_LONG_BOUND_UNIT] = \
+        _bounded_attention_cases(cfg, dev, gen)
     cases["row_norm"] = [c for c in norm if c["K"] != LONG_B * LONG_C]
     cases[NORM_LONG_UNIT] = [c for c in norm if c["K"] == LONG_B * LONG_C]
     for unit, rows in JOINT_SSM_UNITS.items():
@@ -4965,6 +5012,51 @@ def _row_attention_cases(cfg, dev, gen,
             ops=4 * hd * cfg.n_heads * int(live.sum()), peak=BF16_FLOPS,
             repeat=cfg.n_layers))
     return cases
+
+
+def _bounded_attention_cases(cfg, dev, gen):
+    """The prefill-chunk call and the long-context one with the row bound
+    of ``BOUND_NQ``, each repeated over the layers, with SDPA over the
+    slots that hold a valid query beside them (every row of those slots).
+    Bytes: the valid queries and their positions, the bound, every output
+    row (the zeros past the bound are stored too), and the cache rows that
+    some valid query of the slot reaches once; operations: 4 * hd per
+    valid query head and live key."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import row_attention as rak
+    out = []
+    for what, a in (("chunk", _serve_attention_inputs(cfg, dev,
+                                                      torch.bfloat16, gen)),
+                    ("long", _long_attention_inputs(cfg, dev, torch.bfloat16,
+                                                    gen))):
+        k, v = a["k"], a["v"]
+        B, A, Hkv, hd = k.shape
+        q, pos = a[what]
+        Sq, rep = q.shape[1], cfg.n_heads // Hkv
+        nq = torch.tensor(BOUND_NQ[what], dtype=torch.int32, device=dev)
+        keep = torch.arange(Sq, device=dev)[None] < nq[:, None]     # (B, Sq)
+        live = torch.clamp(pos.long(), max=A - 1) + 1
+        reached = int(torch.where(keep, live, 0).max(dim=1).values.sum())
+        sel = torch.nonzero(nq > 0).flatten()
+        kh = torch.repeat_interleave(k[sel], rep, dim=2).transpose(1, 2)
+        vh = torch.repeat_interleave(v[sel], rep, dim=2).transpose(1, 2)
+        qh = q[sel].transpose(1, 2)
+        mask = (torch.arange(A, device=dev)[None, None] <
+                live[sel][:, :, None])[:, None]
+        n_valid = int(keep.sum())
+        out.append([dict(
+            name=f"{what}, row bound", K=tuple(q.shape), N=tuple(k.shape),
+            kernel=lambda q=q, pos=pos, k=k, v=v, nq=nq: rak.row_attention(
+                q, k, v, pos, nq=nq),
+            plain=lambda q=q, pos=pos, k=k, v=v, nq=nq:
+                rak.row_attention_plain(q, k, v, pos, nq=nq),
+            library=lambda qh=qh, mask=mask, kh=kh, vh=vh:
+                F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
+            bytes=(n_valid * cfg.n_heads * hd * 2 + n_valid * 4 + B * 4
+                   + q.numel() * 2 + 2 * reached * Hkv * hd * 2),
+            ops=4 * hd * cfg.n_heads * int(torch.where(keep, live, 0).sum()),
+            peak=BF16_FLOPS, repeat=cfg.n_layers)])
+    return out
 
 
 def _row_norm_cases(cfg, dev, gen, D=None, rows=(4, 256, LONG_B * LONG_C),
@@ -5854,6 +5946,13 @@ def main() -> int:
                  "x 256 queries, 2048-slot cache, bf16", ATTN_LONG_UNIT),
                 ("the streaming path: 22 launches, one slot, 64 queries at "
                  "the end of a 32768-slot cache, bf16", ATTN_STREAM_UNIT),
+                ("one prefill-chunk call with the row bound: 22 launches, "
+                 "batch 4 x 64 queries, 512-slot cache, 64 / 37 / 0 / 0 "
+                 "queries computed, bf16", ATTN_BOUND_UNIT),
+                ("one long-context prefill-chunk call with the row bound: "
+                 "22 launches, batch 16 x 256 queries, 2048-slot cache, "
+                 "256 / 123 / 1 queries computed in 3 slots, none in 13, "
+                 "bf16", ATTN_LONG_BOUND_UNIT),
                 ("one whisper-base encoder call: 6 launches, batch 4 x 1500 "
                  "queries against 1500 keys, non-causal, hd 64, bf16",
                  ATTN_ENCODER_UNIT),

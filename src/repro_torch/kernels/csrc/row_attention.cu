@@ -26,6 +26,28 @@
 // or lo >= n) masks every key, and the softmax then spreads evenly over
 // all A of them, as the reference's does.
 //
+// The row bound. An optional nq (B,) int32, read on the device (so one
+// captured graph serves every value), bounds the queries computed per batch
+// row: query s of row b is computed only if s < nq[b], and the queries at
+// or past it come out as exact zeros (finite, whatever the cache holds). A
+// null nq computes every query. The serving engine's chunk call passes each
+// slot's valid tokens, so its padding rows cost next to nothing:
+//   * bf16: a block whose 16 rows all lie past the bound stores its zeros
+//     and returns before any K/V load, dead-key scan or cluster barrier.
+//     Every rank of a cluster holds the same (row block, KV head, batch
+//     row), so all of them return together, before the first
+//     cluster.sync(), and none waits on a partner that left. In a block
+//     that is partly past the bound those rows join as the rows past the
+//     call's do (no live key), so they add nothing to the block's key range
+//     [first, live), and the stores write zeros for them. Computed tiles:
+//     sum_b ceil(nq[b] G / 16) Hkv.
+//   * f32: a block is one (query, head): past the bound it stores zeros and
+//     returns.
+// The launch shape does not depend on nq, and a query below the bound
+// comes out bitwise what it is without one (the row-stability argument
+// below: it never depended on the other rows of its tile), NaN columns
+// from dead non-finite V values included.
+//
 // Dead keys and non-finite values. The reference multiplies every dead
 // key's v by its zero probability, and 0 * NaN = 0 * Inf = NaN: a
 // non-finite v[j, d] at a dead key j makes column d of the row's output
@@ -271,11 +293,31 @@ struct Args {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   const int32_t* qpos;
+  const int32_t* nq;                      // (B,) queries computed per batch row; null: all
   __nv_bfloat16* out;
   long long k_bstride, v_bstride;
   int Sq, Hq, Hkv, G, A, hd, window, row_blocks, tiles_per_rank, splits, vec;
   float scale;
 };
+
+// The queries of batch row b that are computed: [0, bound)
+__device__ __forceinline__ int row_bound(const int32_t* nq, int b, int Sq) {
+  return nq ? min(Sq, max(0, nq[b])) : Sq;
+}
+
+// A block of 16 rows all at or past the bound: each cluster rank stores its
+// share of the block's zeros (its (query, head) rows below Sq). The caller
+// returns next, before any load or barrier.
+__device__ __forceinline__ void store_zero_rows(const Args& a, int rb, int hk, int b, int rank,
+                                               int tid) {
+  const int hd = a.hd;
+  for (int e = rank * NT + tid; e < ROWS * hd; e += a.splits * NT) {
+    const int r = e / hd, f = rb * ROWS + r, s = f / a.G, g = f - s * a.G;
+    if (s < a.Sq)
+      a.out[((static_cast<size_t>(b) * a.Sq + s) * a.Hq + hk * a.G + g) * hd + (e - r * hd)] =
+          __float2bfloat16(0.f);
+  }
+}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -495,13 +537,18 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_tc_kernel(con
   const int rb = blockIdx.x % a.row_blocks, hk = blockIdx.x / a.row_blocks, b = blockIdx.y;
   const int A = a.A, G = a.G, Sq = a.Sq, hd = a.hd;
   const bool vec = a.vec != 0;
+  const int sb = row_bound(a.nq, b, Sq);  // queries [sb, Sq) are zeros
+  if (rb * ROWS / G >= sb) {              // the same in every rank
+    store_zero_rows(a, rb, hk, b, rank, tid);
+    return;
+  }
 
   // each row's live keys [max(rlo, 0), rown): none for rows past the
-  // call's, all A (rlo = -1) when all are masked
+  // call's or the bound, all A (rlo = -1) when all are masked
   if (tid < ROWS) {
     const int s = (rb * ROWS + tid) / G;
     int n = 0, lo = 0;
-    if (s < Sq) live_keys(a.qpos[b * Sq + s], A, a.window, lo, n);
+    if (s < sb) live_keys(a.qpos[b * Sq + s], A, a.window, lo, n);
     rown[tid] = n;
     rlo[tid] = lo;
   }
@@ -551,20 +598,20 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_tc_kernel(con
     __syncthreads();
   };
   if (ntiles > 0) {
-    // the block's queries (zeros past hd and past the call's rows) arrive
-    // with the first K tile
+    // the block's queries (zeros past hd and past the call's rows or the
+    // bound) arrive with the first K tile
     for (int e = tid; e < ROWS * (HDP / 8); e += NT) {
       const int r = e / (HDP / 8), c = (e - r * (HDP / 8)) * 8;
       const int f = rb * ROWS + r, s = f / G, g = f - s * G;
       __nv_bfloat16* d = qs + r * LD + c;
       const __nv_bfloat16* src =
           a.q + ((static_cast<size_t>(b) * Sq + s) * a.Hq + hk * G + g) * hd + c;
-      if (s < Sq && vec && c + 8 <= hd) {
+      if (s < sb && vec && c + 8 <= hd) {
         tc::cp_async16(d, src);
       } else {
 #pragma unroll
         for (int i = 0; i < 8; ++i)
-          d[i] = s < Sq && c + i < hd ? src[i] : __float2bfloat16(0.f);
+          d[i] = s < sb && c + i < hd ? src[i] : __float2bfloat16(0.f);
       }
     }
     issue(0);
@@ -726,6 +773,7 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_tc_kernel(con
       float x = h ? t.z : t.x, y = h ? t.w : t.y;
       if (nan_column(nanmask, col)) x = NAN;
       if (nan_column(nanmask, col + 1)) y = NAN;
+      if (s >= sb) x = y = 0.f;           // past the bound: not computed
       __nv_bfloat16* dst = a.out + ((static_cast<size_t>(b) * Sq + s) * a.Hq + hk * G + g) * hd;
       if (col + 1 < hd && (hd & 1) == 0) {
         *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(x, y);
@@ -847,13 +895,18 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_stream_kernel
   const int rb = blockIdx.x % a.row_blocks, hk = blockIdx.x / a.row_blocks, b = blockIdx.y;
   const int A = a.A, G = a.G, Sq = a.Sq, hd = a.hd;
   const bool vec = a.vec != 0;
+  const int sb = row_bound(a.nq, b, Sq);  // queries [sb, Sq) are zeros
+  if (rb * ROWS / G >= sb) {              // the same in every rank
+    store_zero_rows(a, rb, hk, b, rank, tid);
+    return;
+  }
 
   // each row's live keys [max(rlo, 0), rown): none for rows past the
-  // call's, all A (rlo = -1) when all are masked
+  // call's or the bound, all A (rlo = -1) when all are masked
   if (tid < ROWS) {
     const int s = (rb * ROWS + tid) / G;
     int n = 0, lo = 0;
-    if (s < Sq) live_keys(a.qpos[b * Sq + s], A, a.window, lo, n);
+    if (s < sb) live_keys(a.qpos[b * Sq + s], A, a.window, lo, n);
     rown[tid] = n;
     rlo[tid] = lo;
   }
@@ -925,20 +978,20 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_stream_kernel
     }
   };
   if (ntiles > 0) {
-    // the block's queries (zeros past hd and past the call's rows) arrive
-    // with the first K tile
+    // the block's queries (zeros past hd and past the call's rows or the
+    // bound) arrive with the first K tile
     for (int e = tid; e < ROWS * (HDP / 8); e += NT) {
       const int r = e / (HDP / 8), c = (e - r * (HDP / 8)) * 8;
       const int f = rb * ROWS + r, s = f / G, g = f - s * G;
       __nv_bfloat16* d = qs + r * LD + c;
       const __nv_bfloat16* src =
           a.q + ((static_cast<size_t>(b) * Sq + s) * a.Hq + hk * G + g) * hd + c;
-      if (s < Sq && vec && c + 8 <= hd) {
+      if (s < sb && vec && c + 8 <= hd) {
         tc::cp_async16(d, src);
       } else {
 #pragma unroll
         for (int i = 0; i < 8; ++i)
-          d[i] = s < Sq && c + i < hd ? src[i] : __float2bfloat16(0.f);
+          d[i] = s < sb && c + i < hd ? src[i] : __float2bfloat16(0.f);
       }
     }
     for (int i = 0; i < NS; ++i) issue(i);
@@ -1091,6 +1144,7 @@ __global__ void __launch_bounds__(NT, HDP <= 64 ? 4 : 1) attention_stream_kernel
       float x = h ? t.z : t.x, y = h ? t.w : t.y;
       if (nan_column(nanmask, col)) x = NAN;
       if (nan_column(nanmask, col + 1)) y = NAN;
+      if (s >= sb) x = y = 0.f;           // past the bound: not computed
       __nv_bfloat16* dst = a.out + ((static_cast<size_t>(b) * Sq + s) * a.Hq + hk * G + g) * hd;
       if (col + 1 < hd && (hd & 1) == 0) {
         *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(x, y);
@@ -1207,6 +1261,15 @@ __device__ __forceinline__ void nonfinite_past(const float* vb, size_t krow, int
   }
 }
 
+// A query at or past its batch row's bound (nq given): its output row is
+// stored as zeros and the block returns, before any load or barrier
+__device__ __forceinline__ bool past_bound(const int32_t* nq, int b, int s, float* orow, int hd,
+                                           int tid) {
+  if (!nq || s < nq[b]) return false;
+  for (int d = tid; d < hd; d += F32_NT) orow[d] = 0.f;
+  return true;
+}
+
 // One block per (query head, query, batch row): logits in shared memory (A
 // floats); warp w takes keys w, w + 4, ...; lane l holds head dims l, l +
 // 32, ... (NDL of them). A logit is lane l's in-order partial dot, then an
@@ -1217,8 +1280,9 @@ template <int NDL>
 __global__ void __launch_bounds__(F32_NT)
 attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const int32_t* __restrict__ qpos,
-                     float* __restrict__ out, int Sq, int Hq, int Hkv, int A, int hd,
-                     int window, long long k_bstride, long long v_bstride, float scale) {
+                     const int32_t* __restrict__ nq, float* __restrict__ out, int Sq, int Hq,
+                     int Hkv, int A, int hd, int window, long long k_bstride,
+                     long long v_bstride, float scale) {
   extern __shared__ float fsmem[];
   __shared__ float red[F32_WARPS];
   float* p = fsmem;                       // A: logits, then probabilities
@@ -1227,6 +1291,8 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int h = blockIdx.x % Hq, s = blockIdx.x / Hq, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int hk = h / (Hq / Hkv);
+  float* orow = out + ((static_cast<size_t>(b) * Sq + s) * Hq + h) * hd;
+  if (past_bound(nq, b, s, orow, hd, tid)) return;
   int lo, n;
   live_keys(qpos[b * Sq + s], A, window, lo, n);
   // keys below lo are masked: their logits are -inf, so they add exact
@@ -1291,7 +1357,6 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (d < hd) part[warp * hd + d] = acc[i];
   }
   __syncthreads();
-  float* orow = out + ((static_cast<size_t>(b) * Sq + s) * Hq + h) * hd;
   for (int d = tid; d < hd; d += F32_NT) {
     float o = part[d];
 #pragma unroll
@@ -1305,9 +1370,9 @@ __host__ size_t f32_smem(int A, int hd) {
 }
 
 template <int NDL>
-int launch_f32(const void* q, const void* k, const void* v, const void* qpos, void* out, int B,
-               int Sq, int Hq, int Hkv, int A, int hd, int window, long long k_bstride,
-               long long v_bstride, float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, const void* qpos, const void* nq,
+               void* out, int B, int Sq, int Hq, int Hkv, int A, int hd, int window,
+               long long k_bstride, long long v_bstride, float scale, cudaStream_t stream) {
   const size_t smem = f32_smem(A, hd);
   if (smem + sizeof(float) * F32_WARPS > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -1317,8 +1382,8 @@ int launch_f32(const void* q, const void* k, const void* v, const void* qpos, vo
   }
   attention_f32_kernel<NDL><<<dim3(Hq * Sq, B), F32_NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const int32_t*>(qpos), static_cast<float*>(out), Sq, Hq, Hkv, A, hd, window,
-      k_bstride, v_bstride, scale);
+      static_cast<const int32_t*>(qpos), static_cast<const int32_t*>(nq),
+      static_cast<float*>(out), Sq, Hq, Hkv, A, hd, window, k_bstride, v_bstride, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1350,9 +1415,9 @@ template <int NDL>
 __global__ void __launch_bounds__(F32_NT)
 attention_f32_stream_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v, const int32_t* __restrict__ qpos,
-                            float* __restrict__ out, int Sq, int Hq, int Hkv, int A, int hd,
-                            int window, long long k_bstride, long long v_bstride,
-                            float scale) {
+                            const int32_t* __restrict__ nq, float* __restrict__ out, int Sq,
+                            int Hq, int Hkv, int A, int hd, int window, long long k_bstride,
+                            long long v_bstride, float scale) {
   extern __shared__ float fsmem[];
   __shared__ float red[F32_WARPS];
   float* p = fsmem;                       // F32_NT: a chunk's logits, then probabilities
@@ -1361,6 +1426,8 @@ attention_f32_stream_kernel(const float* __restrict__ q, const float* __restrict
   const int h = blockIdx.x % Hq, s = blockIdx.x / Hq, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int hk = h / (Hq / Hkv);
+  float* orow = out + ((static_cast<size_t>(b) * Sq + s) * Hq + h) * hd;
+  if (past_bound(nq, b, s, orow, hd, tid)) return;
   int lo, n;
   live_keys(qpos[b * Sq + s], A, window, lo, n);
   // keys below lo are masked (f32_logit gives them -inf), as in the
@@ -1427,7 +1494,6 @@ attention_f32_stream_kernel(const float* __restrict__ q, const float* __restrict
     if (d < hd) part[warp * hd + d] = acc[i];
   }
   __syncthreads();
-  float* orow = out + ((static_cast<size_t>(b) * Sq + s) * Hq + h) * hd;
   for (int d = tid; d < hd; d += F32_NT) {
     float o = part[d];
 #pragma unroll
@@ -1437,15 +1503,15 @@ attention_f32_stream_kernel(const float* __restrict__ q, const float* __restrict
 }
 
 template <int NDL>
-int launch_f32_stream(const void* q, const void* k, const void* v, const void* qpos, void* out,
-                      int B, int Sq, int Hq, int Hkv, int A, int hd, int window,
-                      long long k_bstride, long long v_bstride, float scale,
+int launch_f32_stream(const void* q, const void* k, const void* v, const void* qpos,
+                      const void* nq, void* out, int B, int Sq, int Hq, int Hkv, int A, int hd,
+                      int window, long long k_bstride, long long v_bstride, float scale,
                       cudaStream_t stream) {
   const size_t smem = sizeof(float) * (F32_NT + static_cast<size_t>(F32_WARPS) * hd);
   attention_f32_stream_kernel<NDL><<<dim3(Hq * Sq, B), F32_NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const int32_t*>(qpos), static_cast<float*>(out), Sq, Hq, Hkv, A, hd, window,
-      k_bstride, v_bstride, scale);
+      static_cast<const int32_t*>(qpos), static_cast<const int32_t*>(nq),
+      static_cast<float*>(out), Sq, Hq, Hkv, A, hd, window, k_bstride, v_bstride, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2308,16 +2374,18 @@ int launch_bwd(const BwdArgs<__nv_bfloat16>& a, bool dkv, cudaStream_t stream) {
 }  // namespace
 
 // C entry point, loaded with ctypes. q, k, v and out share `dtype`;
-// `window` > 0 masks the keys at or below qpos - window (0: none).
+// `window` > 0 masks the keys at or below qpos - window (0: none); `nq`,
+// null or (B,) int32, bounds the queries computed per batch row (the rest
+// are zeros).
 // Launches on `stream` and returns a CUDA error code, 0 on success
 // (cudaErrorInvalidValue for shapes or dtypes the kernel does not take:
 // hd > 256, B > 65535, a negative window, more blocks than a grid holds).
 // A cache whose logits do not fit a block's shared memory takes the
 // streaming kernel.
 extern "C" int row_attention_launch(const void* q, const void* k, const void* v, const void* qpos,
-                                    void* out, int B, int Sq, int Hq, int Hkv, int A, int hd,
-                                    int window, long long k_bstride, long long v_bstride,
-                                    float scale, int dtype, void* stream) {
+                                    const void* nq, void* out, int B, int Sq, int Hq, int Hkv,
+                                    int A, int hd, int window, long long k_bstride,
+                                    long long v_bstride, float scale, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || A <= 0 || hd <= 0 || hd > 256 ||
       B > 65535 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2327,28 +2395,28 @@ extern "C" int row_attention_launch(const void* q, const void* k, const void* v,
       return static_cast<int>(cudaErrorInvalidValue);
     if (f32_smem(A, hd) + sizeof(float) * F32_WARPS > SMEM_MAX) {
       if (hd <= 32)
-        return launch_f32_stream<1>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, window, k_bstride,
-                                    v_bstride, scale, s);
+        return launch_f32_stream<1>(q, k, v, qpos, nq, out, B, Sq, Hq, Hkv, A, hd, window,
+                                    k_bstride, v_bstride, scale, s);
       if (hd <= 64)
-        return launch_f32_stream<2>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, window, k_bstride,
-                                    v_bstride, scale, s);
+        return launch_f32_stream<2>(q, k, v, qpos, nq, out, B, Sq, Hq, Hkv, A, hd, window,
+                                    k_bstride, v_bstride, scale, s);
       if (hd <= 128)
-        return launch_f32_stream<4>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, window, k_bstride,
-                                    v_bstride, scale, s);
-      return launch_f32_stream<8>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, window, k_bstride,
-                                  v_bstride, scale, s);
+        return launch_f32_stream<4>(q, k, v, qpos, nq, out, B, Sq, Hq, Hkv, A, hd, window,
+                                    k_bstride, v_bstride, scale, s);
+      return launch_f32_stream<8>(q, k, v, qpos, nq, out, B, Sq, Hq, Hkv, A, hd, window,
+                                  k_bstride, v_bstride, scale, s);
     }
     if (hd <= 32)
-      return launch_f32<1>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, window, k_bstride, v_bstride,
-                           scale, s);
+      return launch_f32<1>(q, k, v, qpos, nq, out, B, Sq, Hq, Hkv, A, hd, window, k_bstride,
+                           v_bstride, scale, s);
     if (hd <= 64)
-      return launch_f32<2>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, window, k_bstride, v_bstride,
-                           scale, s);
+      return launch_f32<2>(q, k, v, qpos, nq, out, B, Sq, Hq, Hkv, A, hd, window, k_bstride,
+                           v_bstride, scale, s);
     if (hd <= 128)
-      return launch_f32<4>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, window, k_bstride, v_bstride,
-                           scale, s);
-    return launch_f32<8>(q, k, v, qpos, out, B, Sq, Hq, Hkv, A, hd, window, k_bstride, v_bstride,
-                         scale, s);
+      return launch_f32<4>(q, k, v, qpos, nq, out, B, Sq, Hq, Hkv, A, hd, window, k_bstride,
+                           v_bstride, scale, s);
+    return launch_f32<8>(q, k, v, qpos, nq, out, B, Sq, Hq, Hkv, A, hd, window, k_bstride,
+                         v_bstride, scale, s);
   }
   if (dtype != BF16) return static_cast<int>(cudaErrorInvalidValue);
   const Plan p = plan(A, hd);
@@ -2362,6 +2430,7 @@ extern "C" int row_attention_launch(const void* q, const void* k, const void* v,
   a.k = static_cast<const __nv_bfloat16*>(k);
   a.v = static_cast<const __nv_bfloat16*>(v);
   a.qpos = static_cast<const int32_t*>(qpos);
+  a.nq = static_cast<const int32_t*>(nq);
   a.out = static_cast<__nv_bfloat16*>(out);
   a.k_bstride = k_bstride;
   a.v_bstride = v_bstride;

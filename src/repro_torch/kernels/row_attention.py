@@ -14,6 +14,20 @@ the whole shape, so the plain version does not keep it on the card.
   window : int >= 0          a sliding window: keys at or below qpos -
                              window are dead too (0: no lower bound), the
                              reference's ``kpos > qpos - window``
+  nq     : (B,) int32, or None
+                             the queries computed per batch row: query s
+                             of row b only if s < nq[b]; the rest come out
+                             as exact zeros (None: every query)
+
+The row bound ``nq`` is read on the device, so one captured CUDA graph
+serves every value. It is for inference calls whose trailing queries are
+padding (the serving engine's chunk call, ``nq`` = each slot's valid
+tokens): a kernel block whose 16 rows all lie past the bound stores its
+zeros and returns before any load, dead-key scan or cluster barrier (every
+rank of a cluster holds the same rows, so all return together), and the
+rows past it in a partly valid block add nothing to the block's key range.
+A query below the bound comes out bitwise what it is without one. A call
+that autograd records takes no bound.
 
 What lives here:
 
@@ -85,8 +99,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
 
 
-def row_attention_plain(q, k, v, qpos, window: int = 0):
-    """(B, Sq, Hq, hd) attention output in q's dtype, in plain PyTorch."""
+def row_attention_plain(q, k, v, qpos, window: int = 0, nq=None):
+    """(B, Sq, Hq, hd) attention output in q's dtype, in plain PyTorch;
+    queries at or past ``nq`` (B,) are zeros."""
     _check_window(window)
     rep = q.shape[2] // k.shape[2]
     if rep > 1:
@@ -103,7 +118,11 @@ def row_attention_plain(q, k, v, qpos, window: int = 0):
     logits = torch.where(mask, logits, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, v.transpose(1, 2))
-    return out.transpose(1, 2)
+    out = out.transpose(1, 2)
+    if nq is None:
+        return out
+    keep = torch.arange(q.shape[1], device=q.device)[None, :] < nq[:, None]
+    return torch.where(keep[:, :, None, None], out, torch.zeros_like(out))
 
 
 def row_attention_backward_plain(dout, q, k, v, qpos, window: int = 0):
@@ -120,7 +139,7 @@ def _library():
     if _LIB is None:
         lib = build.load("row_attention")
         fn = lib.row_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                        + [ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_int,
                                                     ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -208,7 +227,18 @@ def _check_window(window):
                          f"{window}")
 
 
-def _check(q, k, v, qpos, window: int = 0):
+def _check_bound(q, nq):
+    if nq is None:
+        return
+    B = q.shape[0]
+    if tuple(nq.shape) != (B,) or nq.dtype != torch.int32:
+        raise ValueError(f"nq must be ({B},) int32, got {tuple(nq.shape)} "
+                         f"{nq.dtype}")
+    if nq.device != q.device:
+        raise ValueError(f"nq is on {nq.device}, q on {q.device}")
+
+
+def _check(q, k, v, qpos, window: int = 0, nq=None):
     _check_window(window)
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B, Sq, Hq, hd), k and v (B, A, Hkv, hd); "
@@ -230,6 +260,7 @@ def _check(q, k, v, qpos, window: int = 0):
                          f"per block")
     if tuple(qpos.shape) != (B, Sq):
         raise ValueError(f"qpos must be {(B, Sq)}, got {tuple(qpos.shape)}")
+    _check_bound(q, nq)
     for name, t in (("k", k), ("v", v), ("qpos", qpos)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -284,16 +315,17 @@ class _Recorded(torch.autograd.Function):
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
-def _launch(q, k, v, qpos, window: int):
+def _launch(q, k, v, qpos, window: int, nq=None):
     """The forward kernel on CUDA tensors: (out, (q, k, v, qpos) as the
     kernel read them)."""
     global LAUNCHES
-    _check(q, k, v, qpos, window)
+    _check(q, k, v, qpos, window, nq)
     B, Sq, Hq, hd = q.shape
     A, Hkv = k.shape[1], k.shape[2]
     q = q.contiguous()
     k, v = _cache_view(k), _cache_view(v)
     qpos = qpos.to(torch.int32).contiguous()
+    nq = None if nq is None else nq.contiguous()
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out, (q, k, v, qpos)
@@ -302,8 +334,9 @@ def _launch(q, k, v, qpos, window: int):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.row_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
-            out.data_ptr(), B, Sq, Hq, Hkv, A, hd, window, k.stride(0),
-            v.stride(0), hd ** -0.5, _DTYPE_CODE[q.dtype], stream)
+            None if nq is None else nq.data_ptr(), out.data_ptr(), B, Sq, Hq,
+            Hkv, A, hd, window, k.stride(0), v.stride(0), hd ** -0.5,
+            _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"row_attention launch failed: CUDA error {rc} "
                            f"(B={B}, Sq={Sq}, Hq={Hq}, Hkv={Hkv}, A={A}, "
@@ -393,12 +426,14 @@ class RowAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def row_attention(q, k, v, qpos, window: int = 0):
+def row_attention(q, k, v, qpos, window: int = 0, nq=None):
     """Masked GQA attention, (B, Sq, Hq, hd) in q's dtype: each query
-    attends to the keys in (qpos - window, qpos] (window 0: [0, qpos]).
-    CPU tensors run the plain version (autograd differentiates it); CUDA
-    tensors launch the kernel on the current stream or raise, through
-    ``RowAttention`` when autograd records the call."""
+    attends to the keys in (qpos - window, qpos] (window 0: [0, qpos]);
+    with ``nq`` (B,) int32 the queries at or past nq[b] are not computed
+    and come out as zeros. CPU tensors run the plain version (autograd
+    differentiates it); CUDA tensors launch the kernel on the current
+    stream or raise, through ``RowAttention`` when autograd records the
+    call (which takes no bound)."""
     window = int(window)
     if op_cost.recording(q, k, v, qpos):
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -406,10 +441,14 @@ def row_attention(q, k, v, qpos, window: int = 0):
             return _Recorded.apply(q, k, v)
         return _report(q, k)
     if q.device.type == "cpu":
-        return row_attention_plain(q, k, v, qpos, window)
+        _check_bound(q, nq)
+        return row_attention_plain(q, k, v, qpos, window, nq)
     if q.device.type != "cuda":
         raise ValueError(f"row_attention runs on cuda or cpu, not {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if nq is not None:
+            raise ValueError("a row bound is for inference calls: the "
+                             "backward kernels compute every query")
         return RowAttention.apply(q, k, v, qpos, window)
-    return _launch(q, k, v, qpos, window)[0]
+    return _launch(q, k, v, qpos, window, nq)[0]

@@ -83,11 +83,12 @@ def _split_heads(x, n, hd):
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
-def _sdpa(q, k, v, qpos, window: int = 0):
+def _sdpa(q, k, v, qpos, window: int = 0, nq=None):
     """q (B,Sq,Hq,hd), k/v (B,A,Hkv,hd) the cache, qpos (B,Sq) each
     query's position: it attends to cache rows qpos - window < j <= qpos
-    (window 0: 0..qpos)."""
-    return row_attention.row_attention(q, k, v, qpos, window)
+    (window 0: 0..qpos); queries at or past nq (B,) are zeros, not
+    computed."""
+    return row_attention.row_attention(q, k, v, qpos, window, nq)
 
 
 #: the sequence length from which the reference's full-sequence causal
@@ -341,7 +342,7 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig,
 
 def prefill_attention(p, x, cache_k, cache_v, pos, n_valid,
                       cfg: ModelConfig, dense_fn=None, inplace=False,
-                      ptab=None):
+                      ptab=None, bound_rows=False):
     """Chunked cache-filling attention: C prompt tokens in one step.
 
     x (B, C, D); pos (B,) tokens already cached per slot; n_valid (B,) in
@@ -359,7 +360,13 @@ def prefill_attention(p, x, cache_k, cache_v, pos, n_valid,
     PS, Hkv, hd); the valid tokens' rows go through the table, invalid
     tokens' and unallocated pages' to the spare page, and the queries
     attend to the gathered view; bitwise the contiguous chunk when MP * PS
-    is its A."""
+    is its A.
+
+    ``bound_rows`` passes n_valid to the kernel as each slot's query bound:
+    the queries past a slot's valid tokens are not computed and their
+    outputs are zeros, the valid ones bitwise as without it. Only a stack
+    whose later layers never mix rows across slots may ask for it
+    (``decode_chunk``); without it every query is computed."""
     if cfg.window:
         raise ValueError("chunked prefill does not support sliding-window "
                          "ring caches; use stepwise (full-forward) prefill")
@@ -372,12 +379,14 @@ def prefill_attention(p, x, cache_k, cache_v, pos, n_valid,
                                         device=x.device)[None, :]    # (B,C)
     q, k, v = _project_qkv(p, x, qpos, cfg, mm)
     tok_valid = torch.arange(C, device=x.device)[None, :] < n_valid[:, None]
+    nq = n_valid.to(torch.int32) if bound_rows else None
     if ptab is not None:
         wpos = torch.clamp(qpos, max=A - 1).long()
         new_k = _paged_put(cache_k, ptab, wpos, k, tok_valid, inplace)
         new_v = _paged_put(cache_v, ptab, wpos, v, tok_valid, inplace)
         out = _sdpa(q, _paged_view(new_k, ptab, cfg.n_kv_heads, cfg.hd),
-                    _paged_view(new_v, ptab, cfg.n_kv_heads, cfg.hd), qpos)
+                    _paged_view(new_v, ptab, cfg.n_kv_heads, cfg.hd), qpos,
+                    nq=nq)
         return mm(p["wo"], out.reshape(B, C, cfg.q_dim), "wo"), new_k, new_v
     b_idx = torch.arange(B, device=x.device)[:, None].expand(B, C)
     if inplace:
@@ -404,5 +413,5 @@ def prefill_attention(p, x, cache_k, cache_v, pos, n_valid,
         new_k[b_idx, write_rows] = k
         new_v[b_idx, write_rows] = v
         new_k, new_v = new_k[:, :A], new_v[:, :A]
-    out = _sdpa(q, new_k, new_v, qpos)
+    out = _sdpa(q, new_k, new_v, qpos, nq=nq)
     return mm(p["wo"], out.reshape(B, C, cfg.q_dim), "wo"), new_k, new_v

@@ -224,6 +224,15 @@ def decode_chunk(params, cache, tokens, n_valid, cfg: ModelConfig,
     layers group their capacity dispatch by chunk position, so each
     position routes the pool one decode step routes.
 
+    Rows past n_valid. In a stack without MoE layers no row reaches
+    another slot's, so the attention computes only each slot's first
+    n_valid queries (``prefill_attention(bound_rows=True)``): the rows
+    past them are not computed (their attention outputs are zeros), and
+    the logits of a slot with n_valid = 0 are not meant to be read. An MoE
+    stack computes every row: its capacity dispatch groups a chunk
+    position's tokens across slots, so a padded row's value can decide
+    which valid token is dropped.
+
     Requires full causal attention (cfg.window == 0): a sliding-window
     ring overwrites rows within a chunk, which only a sequential walk
     reproduces. A paged cache takes ``ptab`` (B, max_pages): n_valid
@@ -261,13 +270,17 @@ def _chunk(params, cache, tokens, n_valid, cfg, tables, inplace, ptab=None):
 
     ssm_prefill = (ssm_mod.prefill_ssm if cfg.prefill_exact
                    else ssm_mod.prefill_ssm_parallel)
+    # MoE capacity dispatch mixes rows across slots: those stacks compute
+    # every row (the docstring of decode_chunk)
+    bound_rows = all(seg.ffn != "moe" for seg in _check_supported(cfg))
 
     def layer(seg, p, h, a, b, mm):
         hn = apply_norm(p["norm1"], h, cfg)
         if seg.mixer == "attn":
             y, a, b = attn_mod.prefill_attention(p["attn"], hn, a, b, pos,
                                                  n_valid, cfg, dense_fn=mm,
-                                                 inplace=inplace, ptab=ptab)
+                                                 inplace=inplace, ptab=ptab,
+                                                 bound_rows=bound_rows)
         else:
             y, a, b = ssm_prefill(p["ssm"], hn, a, b, n_valid, cfg,
                                   dense_fn=mm, inplace=inplace)

@@ -1,7 +1,10 @@
 """The port's decode path against the JAX package's on reduced fp32
 dense-family models: decode_step with stacked joint tables against JAX
 decode_step with tables (Pallas in interpret mode), decode_chunk against
-JAX stepwise decode, and the port's own chunk == stepwise invariant."""
+JAX stepwise decode, and the port's own chunk == stepwise invariant; the
+chunk's row bound (the attention computes each slot's valid tokens only,
+in stacks without MoE layers), and on a CUDA card that its padding rows
+reach no valid slot."""
 
 import jax
 import jax.numpy as jnp
@@ -17,8 +20,10 @@ from repro.sparsity.sparse_linear import build_stacked_tables as jax_tables
 from repro.sparsity.sparse_linear import \
     reconstruct_stacked_params as jax_reconstruct
 from repro_torch.configs import get_config
-from repro_torch.models import (decode_chunk, decode_step, init_cache,
-                                merge_slots, reset_slots)
+from repro_torch.kernels import row_attention as rak
+from repro_torch.models import (attention, decode_chunk, decode_step,
+                                init_cache, init_params, merge_slots,
+                                reset_slots)
 from repro_torch.sparsity.sparse_linear import (build_stacked_tables,
                                                 reconstruct_stacked_params,
                                                 strip_packed_projections)
@@ -238,3 +243,93 @@ def test_dense_variants_decode_step_match_jax(arch):
                             torch.from_numpy(tok), cfg, tables=t)
     _close(lg, jl, arch)
     _cache_close(cache, jcache)
+
+
+@pytest.mark.parametrize("arch,bounded", [("tinyllama-1.1b", True),
+                                          ("stablelm-1.6b", True),
+                                          ("arctic-480b", False)])
+def test_chunk_bounds_attention_rows_without_moe(monkeypatch, arch,
+                                                 bounded):
+    """decode_chunk hands row_attention each slot's n_valid as its query
+    bound in a dense stack, and no bound in an MoE stack: its capacity
+    dispatch groups a chunk position's tokens across slots, so a padded
+    row's value can decide which valid token is dropped."""
+    cfg = get_config(arch, reduced=True)
+    params = init_params(cfg, seed=0, device="cpu")
+    seen, real = [], rak.row_attention
+
+    def spy(q, k, v, qpos, window=0, nq=None):
+        seen.append(nq)
+        return real(q, k, v, qpos, window, nq)
+
+    monkeypatch.setattr(rak, "row_attention", spy)
+    B, C = 3, 4
+    cache = init_cache(cfg, B, 16, device="cpu")
+    cache["pos"] = torch.tensor([0, 5, 2], dtype=torch.int32)
+    n_valid = torch.tensor([4, 0, 2], dtype=torch.int32)
+    decode_chunk(params, cache, torch.ones((B, C), dtype=torch.int32),
+                 n_valid, cfg)
+    assert len(seen) == cfg.n_layers
+    for nq in seen:
+        assert torch.equal(nq, n_valid) if bounded else nq is None
+
+
+def _slots(tree, idx):
+    """The cache of the slots ``idx``: every k / v leaf's batch axis 1
+    and every (B,) position indexed."""
+    if isinstance(tree, dict):
+        return {key: _slots(val, idx) for key, val in tree.items()}
+    return tree[idx] if tree.ndim == 1 else tree[:, idx]
+
+
+def test_dense_chunk_padding_reaches_no_valid_slot_on_card(monkeypatch):
+    """Two full-width tinyllama-1.1b layers, bf16, joint tables, on the
+    card: a chunk call whose slots 1 and 3 are idle or decoding (n_valid
+    0) gives the prefilling slots' logits and cache rows bitwise as the
+    same call on a batch of the prefilling slots alone (each twice, so
+    every product keeps its row count), leaves the idle slots' caches as
+    they were, and equals the call with the bound off: the prefilling
+    slots' logits and the whole cache bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    cfg = get_config("tinyllama-1.1b", dbpim_mode="joint").scaled(
+        dtype="bfloat16", dbpim_value_sparsity=0.5, n_layers=2)
+    params = init_params(cfg, seed=0, device=dev)
+    tables = build_stacked_tables(params, cfg)
+    params = strip_packed_projections(params, cfg)
+    B, C = 4, 16
+    gen = torch.Generator().manual_seed(0)
+
+    def tokens():
+        return torch.randint(1, cfg.vocab_size, (B, C), generator=gen,
+                             dtype=torch.int32).to(dev)
+
+    cache = init_cache(cfg, B, 64, device=dev)
+    cache["pos"] = torch.zeros((B,), dtype=torch.int32, device=dev)
+    cache["attn"]["pos"] = cache["pos"].clone()
+    _, cache = decode_chunk(params, cache, tokens(),
+                            torch.tensor([16, 9, 3, 12], dtype=torch.int32,
+                                         device=dev), cfg, tables=tables)
+    toks = tokens()
+    n_valid = torch.tensor([11, 0, 16, 0], dtype=torch.int32, device=dev)
+    lg, new = decode_chunk(params, cache, toks, n_valid, cfg, tables=tables)
+    pick = torch.tensor([0, 2, 0, 2], device=dev)
+    lg_s, new_s = decode_chunk(params, _slots(cache, pick), toks[pick],
+                               n_valid[pick], cfg, tables=tables)
+    real = attention.prefill_attention
+    monkeypatch.setattr(attention, "prefill_attention", lambda *a, **kw:
+                        real(*a, **{**kw, "bound_rows": False}))
+    lg_u, new_u = decode_chunk(params, cache, toks, n_valid, cfg,
+                               tables=tables)
+    torch.cuda.synchronize()
+    live, idle = torch.tensor([0, 2]), torch.tensor([1, 3])
+    assert torch.isfinite(lg[live]).all()
+    assert torch.equal(lg_s[:2], lg[live])
+    assert torch.equal(lg_u[live], lg[live])
+    for key in ("k", "v"):
+        assert torch.equal(new_s["attn"][key][:, :2], new["attn"][key][:, live])
+        assert torch.equal(new["attn"][key][:, idle],
+                           cache["attn"][key][:, idle])
+        assert torch.equal(new_u["attn"][key], new["attn"][key])
+    assert torch.equal(new_u["pos"], new["pos"])

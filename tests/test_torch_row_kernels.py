@@ -155,6 +155,48 @@ def test_row_attention_rejects_shapes_the_kernel_does_not_take():
         rak._check(q, k, k, pos)
 
 
+@pytest.mark.parametrize("window", [0, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_row_attention_plain_row_bound(dtype, window):
+    """The plain version with a row bound nq: the queries below it are the
+    unbounded call's bitwise, those at or past it zeros (nq = 0: a whole
+    batch row; nq >= Sq: none); the wrapper's CPU branch is the plain
+    version."""
+    tdt = getattr(torch, dtype)
+    q, k, v, qpos = (torch.from_numpy(a) for a in _attn_inputs(7))
+    q, k, v = (t.to(tdt) for t in (q, k, v))
+    full = rak.row_attention_plain(q, k, v, qpos, window)
+    for bound in ([0, 3], [5, 9], [2, 0]):
+        nq = torch.tensor(bound, dtype=torch.int32)
+        got = rak.row_attention_plain(q, k, v, qpos, window, nq)
+        assert torch.equal(rak.row_attention(q, k, v, qpos, window, nq), got)
+        for b, n in enumerate(bound):
+            assert torch.equal(got[b, :n], full[b, :n]), (bound, b)
+            assert not got[b, n:].any(), (bound, b)
+
+
+def test_row_attention_rejects_a_bound_it_cannot_read():
+    """A row bound must be (B,) int32 on q's device: another shape, dtype
+    or device raises before any launch, and on the CPU path too."""
+    q = torch.zeros((2, 3, 4, 64), dtype=torch.bfloat16, device="meta")
+    k = torch.zeros((2, 8, 2, 64), dtype=torch.bfloat16, device="meta")
+    pos = torch.zeros((2, 3), dtype=torch.int32, device="meta")
+    rak._check(q, k, k, pos, nq=torch.zeros((2,), dtype=torch.int32,
+                                            device="meta"))
+    for nq, what in (((3,), torch.int32, "meta"), "must be"), \
+            (((2, 1), torch.int32, "meta"), "must be"), \
+            (((2,), torch.int64, "meta"), "must be"), \
+            (((2,), torch.int32, "cpu"), "nq is on"):
+        shape, dtype, device = nq
+        with pytest.raises(ValueError, match=what):
+            rak._check(q, k, k, pos, nq=torch.zeros(shape, dtype=dtype,
+                                                    device=device))
+    q, k, v, qpos = (torch.from_numpy(a) for a in _attn_inputs(0))
+    with pytest.raises(ValueError, match="must be"):
+        rak.row_attention(q, k, v, qpos, nq=torch.zeros((2,),
+                                                        dtype=torch.int64))
+
+
 @pytest.mark.parametrize("hd", [16, 24, 32, 64, 100, 128, 136, 256])
 def test_row_attention_backward_plan(hd):
     """The bf16 backward kernels' launch shape comes from hd alone: each
@@ -378,6 +420,61 @@ def test_row_attention_streams_caches_past_the_old_limit(cuda, dtype, hd, A):
     part = rak.row_attention(q[:, 5:12].contiguous(), k, v,
                              qpos[:, 5:12].contiguous())
     assert torch.equal(part, got[:, 5:12])
+
+
+def _bits(t):
+    """t's bits as integers, so that a NaN equals the same NaN."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+#: the row bound on the card: bf16 at hd 64 and 128, groups 1, 4 and 8,
+#: caches of 512, 2,048 and 4,096 keys (one, four and eight cluster
+#: ranks), one that streams; f32 resident and streaming
+_BOUND_CASES = ([("bfloat16", hd, G, A) for hd in (64, 128) for G in (1, 4, 8)
+                 for A in (512, 2048, 4096)]
+                + [("bfloat16", 64, 4, 32768), ("float32", 64, 4, 2048),
+                   ("float32", 64, 1, 65536)])
+
+
+@pytest.mark.parametrize("dtype,hd,G,A", _BOUND_CASES)
+def test_row_attention_row_bound_on_card(cuda, dtype, hd, G, A):
+    """The row bound nq = (0, 5, 32, Sq + 3) over 64-query calls: in each
+    batch row the queries below the bound are bitwise the unbounded
+    call's, those at or past it exact zeros (a whole row at nq = 0; a
+    bound inside a 16-row tile and on a tile's edge); nq >= Sq is the call
+    without a bound. A NaN and an Inf in V rows dead for every query still
+    make their columns NaN in the rows below the bound, bitwise as
+    without it, and the rows past it stay zeros."""
+    tdt = getattr(torch, dtype)
+    assert rak.streams(A, hd, tdt) == (A > 4096)
+    B, Sq, Hkv = 4, 64, 2
+    gen = torch.Generator().manual_seed(hd + G + A)
+    q = torch.randn((B, Sq, G * Hkv, hd), generator=gen).to(tdt).to(cuda)
+    k, v = (torch.randn((B, A, Hkv, hd), generator=gen).to(tdt).to(cuda)
+            for _ in range(2))
+    start = torch.tensor([0, A // 2, A - Sq - 10, 7], dtype=torch.int32)
+    qpos = (start[:, None]
+            + torch.arange(Sq, dtype=torch.int32)[None]).to(cuda)
+    nq = torch.tensor([0, 5, 32, Sq + 3], dtype=torch.int32, device=cuda)
+    vp = v.clone()
+    vp[:, A - 1, 0, 3] = float("nan")
+    vp[:, A - 2, 1, 5] = float("inf")
+    for vv in (v, vp):
+        before = rak.LAUNCHES
+        full = rak.row_attention(q, k, vv, qpos)
+        got = rak.row_attention(q, k, vv, qpos, nq=nq)
+        torch.cuda.synchronize()
+        assert rak.LAUNCHES == before + 2
+        for b, n in enumerate(nq.tolist()):
+            n = min(n, Sq)
+            assert torch.equal(_bits(got[b, :n]), _bits(full[b, :n])), b
+            assert not _bits(got[b, n:]).any(), b
+        assert torch.equal(_bits(rak.row_attention(
+            q, k, vv, qpos, nq=torch.full_like(nq, Sq))), _bits(full))
+    assert torch.isfinite(rak.row_attention(q, k, v, qpos, nq=nq)).all()
+    assert got[1:3, :5, :G, 3].isnan().all()
+    assert got[1:3, :5, G:, 5].isnan().all()
+    assert torch.isfinite(got[1:3, :5, :, 6:]).all()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

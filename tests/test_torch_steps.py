@@ -5,7 +5,8 @@ greedy streams against JAX stepwise decode with one compiled signature
 per step, and, on a CUDA card, each captured CUDA graph's replays
 against the eager in-place step, with the kernel launches inside the
 replays read from the device's own records: for tinyllama and for a
-reduced mamba2 (parallel and exact chunks).
+reduced mamba2 (parallel and exact chunks); the chunk graph reading its
+attention's row bound from n_valid on the device.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -q -m port \
         tests/test_torch_steps.py
@@ -403,6 +404,33 @@ def test_graph_replays_equal_eager_chunk_and_reset_on_card(card_model):
         _assert_trees_equal(cache_g, want[call][1], f"chunk call {call}")
     assert host == [_per_call(cfg, steps)] + [{}] * (len(calls) - 1)
     assert g_chunk._cache_size() == g_reset._cache_size() == 1
+
+
+@pytest.mark.parametrize("card_model", ["tinyllama"], indirect=True)
+def test_graph_reads_the_row_bound_from_n_valid_on_card(card_model):
+    """The chunk's row bound is n_valid read on the device: one captured
+    graph, replayed with two n_valid patterns in turn (idle slots in
+    both), gives every call's logits and the whole cache bitwise as the
+    eager step does."""
+    cfg, params, tables, filled = card_model
+    chunk = build_step(cfg, "prefill_chunk", stacked_tables=tables)
+    gen = torch.Generator().manual_seed(5)
+    calls = [(torch.randint(1, cfg.vocab_size, (B, C), generator=gen,
+                            dtype=torch.int32).cuda(),
+              torch.tensor(n, dtype=torch.int32).cuda())
+             for n in [[4, 0, 2, 0], [0, 3, 0, 1]] * 2]
+    cache_e, want = _clone(filled), []
+    for toks, n_valid in calls:
+        lg, _ = chunk(params, cache_e, toks, n_valid)
+        want.append((lg.clone(), _clone(cache_e)))
+    graph, cache_g = compile_step(chunk, buffer_argnums=(0, 1)), \
+        _clone(filled)
+    for call, (toks, n_valid) in enumerate(calls):
+        lg, _ = graph(params, cache_g, toks, n_valid)
+        torch.cuda.synchronize()
+        assert torch.equal(lg, want[call][0]), call
+        _assert_trees_equal(cache_g, want[call][1], f"chunk call {call}")
+    assert graph._cache_size() == 1
 
 
 def test_failed_capture_raises_on_card(card_model):

@@ -7,8 +7,9 @@ commit unpacked with ``git archive`` into ``build/``, which git ignores).
 For ``dbmu_matmul``, ``fta_int8_matmul``, ``joint_sparse_matmul``,
 ``block_sparse_matmul``, ``row_attention`` and ``row_norm``, both trees'
 ``src/repro_torch/kernels/csrc/<name>.cu`` are compiled by nvcc with the
-port's flags into ``build/kernel_ab/``, all builds at once, and both versions are called through their C entry points,
-which have the same signature in both trees, on the same inputs. The work
+port's flags into ``build/kernel_ab/``, all builds at once, and both
+versions are called through their C entry points, which have the same
+signature in both trees, on the same inputs. The work
 units (tinyllama-1.1b's projections at full width, random weights from a
 seed):
 
@@ -32,7 +33,12 @@ seed):
     forward (2 x 512 causal queries, 40 launches); gemma-7b's decode call
     (hd 256, group 1, 28 launches); and the windowed streaming case
     (mixtral's window of 4,096 at the end of 32,768 keys, 32 launches):
-    the inputs of ``chip_smoke.py``'s times phase.
+    the inputs of ``chip_smoke.py``'s times phase. Then stablelm-1.6b's
+    chunk calls (32 / 32 heads of 64, 4,096-slot cache, 256 queries a
+    slot, 24 launches) with two slots prefilling and the rest decoding or
+    idle at depths up to 3,800, at the chat cell's 32 slots and the
+    long-context cell's 16, each with the valid tokens as the row bound
+    (``nq``).
   * row_norm (bf16 RMSNorm, d = 2048): 4, 256 and 4096 rows, each counted
     45 times (2 per layer and the final norm).
   * row_norm_bwd, the norm backward (entry point ``row_norm_bwd_launch``
@@ -130,6 +136,10 @@ UNITS = [
      torch.bfloat16),
     ("row_attention", "windowed streaming, window 4096", None,
      [("window", 0, 0)], 32, torch.bfloat16),
+    ("row_attention", "chat chunk call, 2 of 32 slots valid", None,
+     [("bound32", 0, 0)], 24, torch.bfloat16),
+    ("row_attention", "long-context chunk call, 2 of 16 slots valid", None,
+     [("bound16", 0, 0)], 24, torch.bfloat16),
     ("row_norm", "4 rows", 4, [("rms", 0, 2048)], 2 * N_LAYERS + 1,
      torch.bfloat16),
     ("row_norm", "256 rows", 256, [("rms", 0, 2048)], 2 * N_LAYERS + 1,
@@ -155,7 +165,7 @@ SIGNATURE = {"dbmu_matmul": [_P] * 3 + [_I] * 3,
              "fta_int8_matmul": [_P] * 4 + [_I] * 5,
              "joint_sparse_matmul": [_P] * 5 + [_I] * 9,
              "block_sparse_matmul": [_P] * 4 + [_I] * 7,
-             "row_attention": [_P] * 5 + [_I] * 7 + [_L, _L, _F, _I],
+             "row_attention": [_P] * 6 + [_I] * 7 + [_L, _L, _F, _I],
              "row_norm": [_P] * 4 + [_I, _I, _F, _I, _I],
              "row_norm_bwd": [_P] * 3 + [_I] + [_P] * 4 + [_I, _I, _F, _I, _I],
              "row_attention_bwd_dq": [_P] * 9 + [_I] * 7 + [_L, _L, _F, _I],
@@ -226,8 +236,10 @@ def _row_case(name, what, M, dev, gen):
         return dict(ptrs=(x, scale, None, y), ints=(M, 2048, 1e-6, 0, 1),
                     y=y, want=rnk.row_norm_plain(x, scale),
                     wrapper=lambda: rnk.row_norm(x, scale))
-    bf16, window = torch.bfloat16, 0
-    if what in ("decode", "chunk", "long", "stream"):
+    bf16, window, nq = torch.bfloat16, 0, None
+    if what in ("bound32", "bound16"):
+        q, k, v, pos, nq = _bound_inputs(int(what[5:]), dev, gen)
+    elif what in ("decode", "chunk", "long", "stream"):
         cfg = get_config("tinyllama-1.1b")
         a = (_long_attention_inputs(cfg, dev, bf16, gen) if what == "long"
              else _stream_attention_inputs(cfg, dev, bf16, gen,
@@ -253,12 +265,31 @@ def _row_case(name, what, M, dev, gen):
         window = cfg.window
     B, Sq, Hq, hd = q.shape
     y = torch.empty_like(q)
-    return dict(ptrs=(q, k, v, pos, y),
+    return dict(ptrs=(q, k, v, pos, nq, y),
                 ints=(B, Sq, Hq, k.shape[2], k.shape[1], hd, window,
                       k.stride(0), v.stride(0), hd ** -0.5, 1),
-                y=y, want=rak.row_attention_plain(q, k, v, pos, window),
+                y=y, want=rak.row_attention_plain(q, k, v, pos, window, nq),
                 tol=ATTN_REL_TOL,
-                wrapper=lambda: rak.row_attention(q, k, v, pos, window))
+                wrapper=lambda: rak.row_attention(q, k, v, pos, window, nq))
+
+
+def _bound_inputs(B, dev, gen, A=4096, C=256):
+    """A chunk call of stablelm-1.6b's attention (32 / 32 heads of 64):
+    slots 0 and 1 prefill 256 tokens at positions 0 and 1,280, the others
+    hold 1 to 3,800 cached tokens and no valid token; the row bound
+    ``nq`` is each slot's valid tokens."""
+    from repro_torch.configs import get_config
+    cfg = get_config("stablelm-1.6b")
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    k, v = (torch.randn((B, A, Hkv, hd), generator=gen).to(torch.bfloat16)
+            .to(dev) for _ in range(2))
+    q = torch.randn((B, C, H, hd), generator=gen).to(torch.bfloat16).to(dev)
+    start = (torch.arange(B, dtype=torch.int32) * 1237) % 3800 + 1
+    start[:2] = torch.tensor([0, 1280], dtype=torch.int32)
+    pos = start[:, None] + torch.arange(C, dtype=torch.int32)[None]
+    nq = torch.zeros((B,), dtype=torch.int32)
+    nq[:2] = C
+    return q, k, v, pos.to(dev), nq.to(dev)
 
 
 def _norm_bwd_case(kind, D, dtype, dev, gen, R):
